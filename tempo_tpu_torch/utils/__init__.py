@@ -1,0 +1,1 @@
+"""Small helpers the port keeps its own copy of."""
