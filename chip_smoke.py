@@ -2,28 +2,36 @@
 """Drive the PyTorch port's backend tag search once on one CUDA card.
 
   python3 chip_smoke.py                  # full size, as a user would call it
-  python3 chip_smoke.py --blocks 8 --traces-per-block 8192   # a quick check
+  python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
+      --hc-blocks 2 --hc-traces-per-block 131072     # a quick check
 
 What it does, in order, failing (exit code != 0, no result line) on any
 error:
 
 1. builds the port's CUDA kernels (tempo_tpu_torch/csrc/*.cu, one nvcc per
    source, started together) for sm_90a;
-2. writes a seeded corpus through the port's write path
-   (ColumnarPages.from_arrays -> write_search_pages, zlib) into a temporary
-   LocalBackend: by default 256 blocks x 65,536 traces = 16.8M traces,
-   1,024 entries per page, 8 tags per trace;
-3. answers six requests through ``TempoDB.search`` on the card (launch
-   counters set to 0 just before, read just after), each once warm and
-   then timed, and prints p50/p95 latency and traces/s per request;
-4. profiles three of the requests (torch.profiler) for the device time
-   per request, and its idle share of the p50 latency;
-5. answers the same requests through a second ``TempoDB`` on the CPU
-   (the kernels' plain versions) and requires identical responses;
-6. on one staged batch of the main path, holds kernel K1 (multi_scan) and
-   K2 (topk) against their plain versions on the card — exact equality —
-   and times kernel, plain version and, for K2, ``torch.topk``;
-7. prints the kernels line, the card's name and power limit, and as the
+2. the tag-search cell: writes a seeded corpus through the port's write
+   path (ColumnarPages.from_arrays -> write_search_pages, zlib) into a
+   temporary LocalBackend, by default 256 blocks x 65,536 traces = 16.8M
+   traces, 1,024 entries per page, 8 tags per trace; answers six requests
+   through ``TempoDB.search`` on the card (launch counters set to 0 just
+   before, read just after), each once warm and then timed; profiles three
+   of them (torch.profiler) for device time and idle share; answers them
+   again through a ``TempoDB`` on the CPU (the kernels' plain versions)
+   and requires identical responses; then holds K1 (multi_scan, range
+   mode) and K2 (topk) against their plain versions on the card and times
+   them;
+3. the high-cardinality cell: 10 blocks x 1,048,576 traces, each trace
+   with the 8 tags and a ``session.id`` unique across the corpus (~1.05M
+   distinct values per block dictionary, so every block stages its
+   dictionary for the device probe at the default 50k threshold); answers
+   four requests through ``TempoDB.search``, one through
+   ``TempoDB.search_block`` and two through ``BackendSearchBlock.search``
+   (the single-block engine), each cold then 10 times warm, with launch
+   counts per request; profiles three; requires the CPU path's responses;
+   then holds K3 (dict_probe), K1 in hit-mask mode and K1s (scan_single)
+   against their plain versions on the card and times them;
+4. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the tempo_tpu package.
@@ -32,7 +40,9 @@ It imports nothing of JAX and nothing of the tempo_tpu package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import concurrent.futures
+import gc
 import json
 import os
 import shutil
@@ -59,6 +69,11 @@ KEYS = {
                "us-west-1", "us-west-2"],
     "service.name": [f"svc-{i:03d}" for i in range(64)],
 }
+SESSION_KEY = "session.id"      # the high-cardinality cell's ninth tag
+POINT_SESSION = 123_456         # the point lookup's session number
+BENCH = {"service.name": "svc-007", "http.status_code": "500"}
+KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
+           "dict_probe")
 
 
 def requests(blocks: int) -> dict:
@@ -66,42 +81,72 @@ def requests(blocks: int) -> dict:
     scans every block (no pruning, no early quit) and runs first, so every
     group is staged before the others."""
     mid = BASE_S + (blocks // 2) * BLOCK_SPAN_S
-    bench = {"service.name": "svc-007", "http.status_code": "500"}
     return {
-        "exhaustive_bench": (dict(bench, **{"x-dbg-exhaustive": ""}),
+        "exhaustive_bench": (dict(BENCH, **{"x-dbg-exhaustive": ""}),
                              {"limit": 20}),
-        "bench_and": (bench, {"limit": 20}),
+        "bench_and": (BENCH, {"limit": 20}),
         "substring": ({"host.name": "host-01"}, {"limit": 20}),
         "duration": ({}, {"min_duration_ms": 59_000,
                           "max_duration_ms": 59_999, "limit": 20}),
         "window": ({}, {"start": mid + 300, "end": mid + 2 * BLOCK_SPAN_S,
                         "limit": 20}),
-        "limit_1000": (bench, {"limit": 1000}),
+        "limit_1000": (BENCH, {"limit": 1000}),
     }
 
 
-def make_block(seed: int, b: int, n: int, E: int):
-    """Block b's columns, from the seed, as the port's ColumnarPages."""
+def hc_requests() -> dict:
+    """The high-cardinality cell's batched requests, in the order they
+    run: the exhaustive one stages every group."""
+    return {
+        "hc_exhaustive_77": ({SESSION_KEY: "77", "x-dbg-exhaustive": ""},
+                             {"limit": 20}),
+        "hc_point": ({SESSION_KEY: f"session-{POINT_SESSION:08d}"},
+                     {"limit": 20}),
+        "hc_prefix": ({SESSION_KEY: f"session-{POINT_SESSION // 10:07d}"},
+                      {"limit": 20}),
+        "hc_77_and_svc": ({SESSION_KEY: "77", "service.name": "svc-007"},
+                          {"limit": 20}),
+    }
+
+
+def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False):
+    """Block b's columns, from the seed, as the port's ColumnarPages. With
+    `sessions`, every trace also carries session.id "session-%08d", unique
+    across blocks of n traces, in a seeded order."""
     import numpy as np
 
     from tempo_tpu_torch.search.columnar import ColumnarPages
 
     rng = np.random.default_rng([seed, b])
-    key_dict = sorted(KEYS)
-    val_dict = sorted({v for vs in KEYS.values() for v in vs})
-    vidx = {v: i for i, v in enumerate(val_dict)}
+    base_vals = sorted({v for vs in KEYS.values() for v in vs})
+    key_dict = sorted(list(KEYS) + ([SESSION_KEY] if sessions else []))
+    # no base value starts with "session-", so the sessions (zero-padded,
+    # numeric order = string order) form one run of the sorted dictionary
+    lo = bisect.bisect_left(base_vals, "session-")
+    n_sess = n if sessions else 0
+    first = b * n
+    val_dict = (base_vals[:lo]
+                + [f"session-{first + k:08d}" for k in range(n_sess)]
+                + base_vals[lo:])
+    vidx = {v: (i if i < lo else i + n_sess)
+            for i, v in enumerate(base_vals)}
     P = -(-n // E)
     C = len(key_dict)
     kv_key = np.broadcast_to(np.arange(C, dtype=np.int32), (P, E, C)).copy()
     kv_val = np.empty((P, E, C), dtype=np.int32)
-    for j, k in enumerate(key_dict):
+    for k in KEYS:
         ids = np.asarray([vidx[v] for v in KEYS[k]], dtype=np.int32)
-        kv_val[:, :, j] = ids[rng.integers(0, len(ids), size=(P, E))]
+        kv_val[:, :, key_dict.index(k)] = ids[
+            rng.integers(0, len(ids), size=(P, E))]
     start = (BASE_S + b * BLOCK_SPAN_S
              + rng.integers(0, BLOCK_SPAN_S, size=(P, E))).astype(np.uint32)
     dur = rng.integers(1, 60_000, size=(P, E)).astype(np.uint32)
     end = (start + dur // 1000).astype(np.uint32)
     valid = (np.arange(P * E) < n).reshape(P, E)
+    if sessions:
+        col = np.full(P * E, -1, dtype=np.int32)
+        col[:n] = lo + rng.permutation(n).astype(np.int32)
+        kv_val[:, :, key_dict.index(SESSION_KEY)] = col.reshape(P, E)
     kv_key[~valid] = -1
     kv_val[~valid] = -1
     start[~valid] = end[~valid] = dur[~valid] = 0
@@ -114,7 +159,12 @@ def make_block(seed: int, b: int, n: int, E: int):
                                      trace_ids)
 
 
-def write_corpus(root: str, blocks: int, n: int, E: int, seed: int) -> int:
+def block_id(b: int) -> str:
+    return f"00000000-0000-4000-8000-{b:012d}"
+
+
+def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
+                 seed: int, sessions: bool = False) -> int:
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.backend.types import BlockMeta
     from tempo_tpu_torch.search.backend_search_block import \
@@ -123,44 +173,106 @@ def write_corpus(root: str, blocks: int, n: int, E: int, seed: int) -> int:
     be = LocalBackend(root)
 
     def one(b):
-        pages = make_block(seed, b, n, E)
-        meta = BlockMeta(tenant_id="smoke",
-                         block_id=f"00000000-0000-4000-8000-{b:012d}",
+        pages = make_block(seed, b, n, E, sessions)
+        meta = BlockMeta(tenant_id=tenant, block_id=block_id(b),
                          start_time=int(pages.header["min_start_s"]),
                          end_time=int(pages.header["max_end_s"]),
                          total_objects=n)
         return write_search_pages(be, meta, pages, "zlib")["compressed_size"]
 
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=os.cpu_count() or 4) as ex:
+    workers = min(os.cpu_count() or 4, 4 if sessions else 32)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
         return sum(ex.map(one, range(blocks)))
 
 
-def run_queries(db, reqs: dict, reps: int) -> dict:
-    """Each request once warm, then `reps` timed runs. Returns per request
-    the response of the warm run and the timings."""
+def counters() -> dict:
+    from tempo_tpu_torch.search.kernels import probe, scan, topk
+
+    return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
+            "scan_single": scan.SINGLE_LAUNCHES, "topk": topk.LAUNCHES,
+            "dict_probe": probe.LAUNCHES}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {k: c.n for k, c in counters().items()}
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+class GcPauses:
+    """Wall time of the interpreter's cyclic garbage collections while
+    active (gc.callbacks), which land inside whichever request allocates
+    at that moment."""
+
+    def __init__(self):
+        self.ms = []
+        self._t0 = None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
+def drive(call, reps: int, sync: bool) -> dict:
+    """One cold call, then `reps` timed warm calls, launch counters set to
+    0 just before and read after the cold call and after the last, and
+    the collector's pauses during the warm calls."""
     import torch
 
+    reset_counts()
+    t0 = time.perf_counter()
+    resp = call().response()
+    if sync:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cold = read_counts()
+    lat = []
+    with GcPauses() as pauses:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = call().response()
+            if sync:
+                torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if again != resp:
+                raise AssertionError("repeated search differs")
+    return {"resp": resp, "first_s": first_s, "lat": sorted(lat),
+            "launches_cold": cold, "launches": read_counts(),
+            "gc_ms": pauses.ms}
+
+
+def run_queries(db, tenant: str, reqs: dict, reps: int) -> dict:
+    """Each request once warm, then `reps` timed runs. Returns per request
+    the response of the warm run, the timings and the dispatches."""
     from tempo_tpu_torch.model.types import SearchRequest
 
     out = {}
     for name, (tags, kw) in reqs.items():
         req = SearchRequest(tags=dict(tags), **kw)
-        t0 = time.perf_counter()
-        resp = db.search("smoke", req).response()
-        first_s = time.perf_counter() - t0
-        dispatches = db.batcher.last_dispatches
-        lat = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            again = db.search("smoke", req).response()
-            if db.device.type == "cuda":
-                torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t0)
-            if again != resp:
-                raise AssertionError(f"{name}: repeated search differs")
-        out[name] = {"resp": resp, "first_s": first_s, "lat": sorted(lat),
-                     "dispatches": dispatches}
+        try:
+            out[name] = drive(lambda: db.search(tenant, req), reps,
+                              db.device.type == "cuda")
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+        out[name]["dispatches"] = db.batcher.last_dispatches
     return out
 
 
@@ -193,7 +305,7 @@ def check_response(name: str, resp, tags: dict, kw: dict, n_total: int):
                              f"{m.inspected_traces} of {n_total}")
 
 
-def device_busy(db, reqs: dict, names, reps: int) -> dict:
+def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
     """Device time per request from torch.profiler (kernels and copies on
     the card, summed) over `reps` warm runs of each named request. A
     profiler that records no device activity gives None ("not
@@ -208,12 +320,12 @@ def device_busy(db, reqs: dict, names, reps: int) -> dict:
     for name in names:
         tags, kw = reqs[name]
         req = SearchRequest(tags=dict(tags), **kw)
-        db.search("smoke", req)
+        db.search(tenant, req)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                db.search("smoke", req)
+                db.search(tenant, req)
             torch.cuda.synchronize()
         by_name = {}
         for e in prof.key_averages():
@@ -228,6 +340,19 @@ def device_busy(db, reqs: dict, names, reps: int) -> dict:
         out[name] = {"device_ms": total if total > 0 else None,
                      "by_kernel_ms": by_name}
     return out
+
+
+def print_busy(busy: dict, lat_report: dict) -> None:
+    for name, b in busy.items():
+        p50 = lat_report[name]["p50_ms"]
+        if b["device_ms"] is None:
+            print(f"device busy {name}: not measured (the profiler "
+                  "recorded no device activity)", flush=True)
+            continue
+        b["idle_share_of_p50"] = max(0.0, 1 - b["device_ms"] / p50)
+        print(f"device busy {name}: {b['device_ms']:.3f} ms per request "
+              f"(profiler) of {p50:.3f} ms p50, idle share "
+              f"{b['idle_share_of_p50']:.2f}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -260,14 +385,18 @@ def sector_bytes(mask, item_bytes: int) -> int:
     return int(m.reshape(-1, per).any(dim=1).sum()) * 32
 
 
-def k1_bytes(args, scores) -> int:
-    """The bytes K1's function must move on these inputs, counted in the
-    sectors this run's data touches: the valid flags and page ids read and
-    the scores and counts written, all; each live entry's key slots; the
-    value slots whose key a term names, for entries still alive at that
-    term, up to the first in range; and for entries that pass the terms,
-    the u32 columns their bounds need (duration and window end only when
-    the bound excludes some value; start always, for the score)."""
+def k1_bytes(args, scores, val_hits=None, block_group=None,
+             single: bool = False) -> int:
+    """The bytes K1's (or, with `single`, K1s's) function must move on
+    these inputs, counted in the sectors this run's data touches: the
+    valid flags (and page ids) read and the scores and counts written,
+    all; the term tables; each live entry's key slots; the value slots
+    whose key a term names, for entries still alive at that term, up to
+    the first that passes; in hit-mask mode the hit-table sectors those
+    slots look up; and for entries that pass the terms, the u32 columns
+    their bounds need (duration and window end only when the bound
+    excludes some value; start always, for the score). `args` are K1's
+    (K1s's are given in K1's form: page_block all 0, tables as row 0)."""
     import torch
 
     (kv_key, kv_val, start, end, dur, valid, page_block, term_keys,
@@ -278,23 +407,47 @@ def k1_bytes(args, scores) -> int:
     live = valid & (pb >= 0)[:, None]
     alive = live.clone()
     need_val = torch.zeros_like(kv_key, dtype=torch.bool)
+    hit_sectors = 0
     if n_terms:
         kk, vv = kv_key.int(), kv_val.int()
         slot = torch.arange(kk.shape[2], device=kk.device)
+        if val_hits is not None:
+            G, Tp, Vm = val_hits.shape
+            bg = block_group.long()[safe]
+            probe_page = (bg >= 0)[:, None, None]
+            g_idx = bg.clamp(min=0)[:, None, None].expand_as(vv)
+            safe_v = vv.clamp(min=0, max=max(0, Vm - 1)).long()
+            touched = torch.zeros(-(-G * Tp * Vm // 32), dtype=torch.bool,
+                                  device=kk.device)
         for t in range(n_terms):
             keym = (kk == term_keys[safe, t][:, None, None]) & alive[..., None]
             inr = torch.zeros_like(keym)
             for r in range(val_ranges.shape[2]):
                 inr |= ((vv >= val_ranges[safe, t, r, 0][:, None, None])
                         & (vv <= val_ranges[safe, t, r, 1][:, None, None]))
+            if val_hits is not None:
+                mh = val_hits[g_idx, t, safe_v] & (vv >= 0)
+                inr = torch.where(probe_page, mh, inr)
             hit = keym & inr
             first = torch.where(hit.any(-1), hit.int().argmax(-1),
                                 kk.shape[2])
-            need_val |= keym & (slot <= first[..., None])
+            need = keym & (slot <= first[..., None])
+            need_val |= need
+            if val_hits is not None:
+                look = need & probe_page & (vv >= 0)
+                flat = (g_idx * Tp + t) * Vm + safe_v
+                touched[flat[look] // 32] = True
             alive &= hit.any(-1)
+        if val_hits is not None:
+            hit_sectors = int(touched.sum()) * 32
     n = valid.numel()
-    total = n + page_block.numel() * 4 + n * 4 + 8   # valid, pages, out
+    total = n + n * 4 + 8                             # valid, scores, counts
+    if not single:
+        total += page_block.numel() * 4
     total += term_keys.numel() * 4 + val_ranges.numel() * 4
+    if block_group is not None and not single:
+        total += block_group.numel() * 4
+    total += hit_sectors
     if n_terms:
         total += sector_bytes(live[..., None].expand_as(kv_key).contiguous(),
                               kv_key.element_size())
@@ -313,9 +466,34 @@ def k1_bytes(args, scores) -> int:
     return total
 
 
+def require_equal(what: str, got: tuple, want: tuple) -> int:
+    """Exact equality of kernel outputs and their plain versions' on the
+    card; returns the largest absolute difference (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what} differs from its plain version")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               bound_bytes, library_ms, shape) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": library_ms, "shape": shape}
+
+
 def kernel_phase(db, reqs: dict, launches: dict) -> list:
-    """K1 and K2 against their plain versions on one staged batch of the
-    main path (the largest), at the main path's shapes; exact equality."""
+    """K1 (range mode) and K2 against their plain versions on one staged
+    batch of the tag-search cell (the largest), at the main path's
+    shapes; exact equality."""
     import torch
 
     from tempo_tpu_torch.model.types import SearchRequest
@@ -329,7 +507,10 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
     tags, kw = reqs["bench_and"]
     req = SearchRequest(tags=dict(tags), **kw)
     mq = compile_multi(list(batch.blocks), req, memo=batch.memo,
-                       cache=db.batcher.engine.compile_cache)
+                       cache=db.batcher.engine.compile_cache,
+                       staged_dicts=batch.staged_dicts)
+    if mq.val_hits is not None:
+        raise AssertionError("the tag-search cell compiled a hit mask")
     tk = torch.from_numpy(mq.term_keys).to(db.device)
     vr = torch.from_numpy(mq.val_ranges).to(db.device)
     bounds = (mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
@@ -338,12 +519,8 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
             d["entry_dur"], d["entry_valid"], d["page_block"], tk, vr,
             mq.n_terms, *bounds)
     scores, counts = scan.multi_scan(*args)
-    p_scores, p_counts = scan.multi_scan_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(counts, p_counts) or not torch.equal(scores, p_scores):
-        raise AssertionError("K1 differs from its plain version: "
-                             f"{counts.tolist()} vs {p_counts.tolist()}")
-    k1_err = int((scores.long() - p_scores.long()).abs().max())
+    k1_err = require_equal("K1", (scores, counts),
+                           scan.multi_scan_plain(*args))
     k2_err = 0
     k = resolve_top_k(128, req.limit)
     # the main path's k, a limit-1000 request's k, a k past the shared-
@@ -352,16 +529,13 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
     for col, kk in ((scores, k), (scores, 1024), (scores, 8192),
                     (short, 4096)):
         s, i = topk.topk(col, kk)
-        ps, pi = topk.topk_plain(col, kk)
-        torch.cuda.synchronize()
-        if not (torch.equal(s, ps) and torch.equal(i, pi)):
-            raise AssertionError(f"K2 (n={col.numel()}, k={kk}) differs "
-                                 "from its plain version")
+        k2_err = max(k2_err, require_equal(
+            f"K2 (n={col.numel()}, k={kk})", (s, i),
+            topk.topk_plain(col, kk)))
         ls, _li = torch.topk(col, min(kk, col.numel()))
         if not torch.equal(torch.sort(ls).values, torch.sort(s).values):
             raise AssertionError(f"K2 (n={col.numel()}, k={kk}) scores "
                                  "differ from torch.topk's")
-        k2_err = max(k2_err, int((s.long() - ps.long()).abs().max()))
 
     n = scores.numel()
     k1_need = k1_bytes(args, scores)
@@ -378,27 +552,368 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
              "match_count": int(counts[0]), "inspected": int(counts[1]),
              "bytes_needed": k1_need}
     return [
-        {"name": "multi_scan", "route": "cuda",
-         "source": "tempo_tpu_torch/csrc/scan.cu",
-         "replaces": "tempo_tpu/search/multiblock.py:855",
-         "launches": launches["multi_scan"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None, "shape": shape},
-        {"name": "topk", "route": "cuda",
-         "source": "tempo_tpu_torch/csrc/topk.cu",
-         "replaces": "tempo_tpu/search/engine.py:295",
-         "launches": launches["topk"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": k2_lib, "shape": {"n": n, "k": k}},
+        kernel_row("multi_scan", "tempo_tpu_torch/csrc/scan.cu",
+                   "tempo_tpu/search/multiblock.py:855", launches, k1_err,
+                   k1_ms, k1_plain, k1_need, None, shape),
+        kernel_row("topk", "tempo_tpu_torch/csrc/topk.cu",
+                   "tempo_tpu/search/engine.py:295", launches, k2_err,
+                   k2_ms, k2_plain, k2_bytes, k2_lib, {"n": n, "k": k}),
     ]
+
+
+def hc_kernel_phase(db, bsb, launches: dict) -> list:
+    """K3, K1 in hit-mask mode and K1s against their plain versions on the
+    high-cardinality cell's staged data, at the main path's shapes: K3 on
+    one staged dictionary with the scattered needle "77", K1 on the
+    largest staged group with the exhaustive request's hit masks, K1s on
+    the single-block path's block with the bench request."""
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search import dict_probe
+    from tempo_tpu_torch.search.kernels import probe, scan
+    from tempo_tpu_torch.search.multiblock import compile_multi
+    from tempo_tpu_torch.search.pipeline import compile_query
+
+    cached = max(db.batcher._cache.values(), key=lambda c: c.batch.n_pages)
+    batch = cached.batch
+    d = batch.device
+
+    # K3
+    dd = next(iter(batch.staged_dicts.values()))
+    needles, lens = dict_probe.needle_tensors([b"77"], db.device)
+    p_args = (dd.buf, dd.off, needles, lens)
+    hits, any_hits = probe.dict_probe(*p_args)
+    k3_err = require_equal("K3", (hits, any_hits),
+                           probe.dict_probe_plain(*p_args))
+    T, V = hits.shape
+    k3_bytes = (dd.buf.numel() + dd.off.numel() * 4 + T * V + T
+                + needles.numel() + lens.numel() * 4)
+    k3_ms = cuda_ms(lambda: probe.dict_probe(*p_args), 50)
+    k3_plain = cuda_ms(lambda: probe.dict_probe_plain(*p_args), 3)
+    k3_shape = {"values": V, "dict_bytes": int(dd.buf.numel()), "T": T,
+                "needle": "77", "hits": int(hits.sum())}
+
+    # K1, hit-mask mode
+    tags, kw = hc_requests()["hc_exhaustive_77"]
+    mq = compile_multi(list(batch.blocks), SearchRequest(tags=dict(tags),
+                                                         **kw),
+                       memo=batch.memo, cache=db.batcher.engine.compile_cache,
+                       staged_dicts=batch.staged_dicts)
+    if mq.val_hits is None:
+        raise AssertionError("the high-cardinality group compiled no hit "
+                             "mask")
+    bg = torch.from_numpy(mq.block_group).to(db.device)
+    args = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"],
+            torch.from_numpy(mq.term_keys).to(db.device),
+            torch.from_numpy(mq.val_ranges).to(db.device), mq.n_terms,
+            mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
+            min(mq.win_end, 0xFFFFFFFF))
+    scores, counts = scan.multi_scan(*args, mq.val_hits, bg)
+    k1h_err = require_equal("K1 hit-mask mode", (scores, counts),
+                            scan.multi_scan_plain(*args, mq.val_hits, bg))
+    k1h_bytes = k1_bytes(args, scores, mq.val_hits, bg)
+    k1h_ms = cuda_ms(lambda: scan.multi_scan(*args, mq.val_hits, bg), 50)
+    k1h_plain = cuda_ms(
+        lambda: scan.multi_scan_plain(*args, mq.val_hits, bg), 3)
+    k1h_shape = {"pages": batch.n_pages, "entries": scores.numel(),
+                 "kv_dtypes": [str(d["kv_key"].dtype),
+                               str(d["kv_val"].dtype)],
+                 "C": int(d["kv_key"].shape[2]), "n_terms": mq.n_terms,
+                 "val_hits": list(mq.val_hits.shape),
+                 "match_count": int(counts[0]), "inspected": int(counts[1]),
+                 "bytes_needed": k1h_bytes}
+
+    # K1s, on the single-block path's block with the bench request
+    sp = bsb.staged()
+    engine = bsb.engine()
+    cq = compile_query(sp.pages.key_dict, sp.pages.val_dict,
+                       SearchRequest(tags=dict(BENCH), limit=20),
+                       cache_on=sp.pages, cache=engine.compile_cache,
+                       staged_dict=sp.staged_dict)
+    if cq.val_hits is None:
+        raise AssertionError("the single block compiled no hit mask")
+    tk, vr = engine._tables(cq)
+    sd = sp.device
+    cols = (sd["kv_key"], sd["kv_val"], sd["entry_start"], sd["entry_end"],
+            sd["entry_dur"], sd["entry_valid"])
+    s_args = (*cols, tk, vr, cq.n_terms, cq.dur_lo,
+              min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
+              min(cq.win_end, 0xFFFFFFFF), cq.val_hits)
+    s_scores, s_counts = scan.scan_single(*s_args)
+    k1s_err = require_equal("K1s", (s_scores, s_counts),
+                            scan.scan_single_plain(*s_args))
+    P = sd["kv_key"].shape[0]
+    as_multi = (*cols, torch.zeros(P, dtype=torch.int32, device=db.device),
+                tk[None], vr[None], *s_args[8:13])
+    k1s_bytes = k1_bytes(as_multi, s_scores, cq.val_hits[None],
+                         torch.zeros(1, dtype=torch.int32, device=db.device),
+                         single=True)
+    k1s_ms = cuda_ms(lambda: scan.scan_single(*s_args), 50)
+    k1s_plain = cuda_ms(lambda: scan.scan_single_plain(*s_args), 3)
+    k1s_shape = {"pages": P, "entries": s_scores.numel(),
+                 "C": int(sd["kv_key"].shape[2]), "n_terms": cq.n_terms,
+                 "val_hits": list(cq.val_hits.shape),
+                 "match_count": int(s_counts[0]),
+                 "inspected": int(s_counts[1]), "bytes_needed": k1s_bytes}
+    return [
+        kernel_row("multi_scan_hits", "tempo_tpu_torch/csrc/scan.cu",
+                   "tempo_tpu/search/multiblock.py:855", launches, k1h_err,
+                   k1h_ms, k1h_plain, k1h_bytes, None, k1h_shape),
+        kernel_row("scan_single", "tempo_tpu_torch/csrc/scan.cu",
+                   "tempo_tpu/search/engine.py:331", launches, k1s_err,
+                   k1s_ms, k1s_plain, k1s_bytes, None, k1s_shape),
+        kernel_row("dict_probe", "tempo_tpu_torch/csrc/probe.cu",
+                   "tempo_tpu/search/dict_probe.py:283", launches, k3_err,
+                   k3_ms, k3_plain, k3_bytes, None, k3_shape),
+    ]
+
+
+def latency_row(r: dict, resp) -> dict:
+    lat = r["lat"]
+    p50 = lat[len(lat) // 2]
+    p95 = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+    m = resp.metrics
+    return {"p50_ms": p50 * 1e3, "p95_ms": p95 * 1e3,
+            "first_ms": r["first_s"] * 1e3,
+            "traces_per_s": m.inspected_traces / p50 if p50 else None,
+            "inspected_traces": m.inspected_traces,
+            "inspected_blocks": m.inspected_blocks,
+            "skipped_blocks": m.skipped_blocks,
+            "results": len(resp.traces),
+            "dispatches": r.get("dispatches"),
+            "launches_cold": r["launches_cold"],
+            "launches": r["launches"],
+            "lat_ms": [x * 1e3 for x in lat],
+            "gc_pauses_ms": r["gc_ms"]}
+
+
+def print_row(name: str, row: dict) -> None:
+    print(f"search {name}: first {row['first_ms']:.2f} ms, p50 "
+          f"{row['p50_ms']:.2f} ms, p95 {row['p95_ms']:.2f} ms, "
+          f"{row['inspected_traces']} traces inspected "
+          f"({row['traces_per_s']:.4g} traces/s), "
+          f"{row['inspected_blocks']} blocks, {row['skipped_blocks']} "
+          f"skipped, {row['results']} results, {row['dispatches']} "
+          f"dispatches, launches cold {json.dumps(row['launches_cold'])}, "
+          f"in all {json.dumps(row['launches'])}; collector pauses in the "
+          f"timed runs {len(row['gc_pauses_ms'])}, longest "
+          f"{max(row['gc_pauses_ms'], default=0):.2f} ms", flush=True)
+
+
+def tag_search_cell(args, work: str, report: dict, dbs: list,
+                    launches: dict) -> list:
+    """The tag-search cell (step 2 of the module docstring). Returns its
+    kernel rows."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+
+    n_total = args.blocks * args.traces_per_block
+    reqs = requests(args.blocks)
+    root = os.path.join(work, "blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, "smoke", args.blocks, args.traces_per_block,
+                          ENTRIES_PER_PAGE, args.seed)
+    report["corpus"] = {"blocks": args.blocks, "traces": n_total,
+                        "compressed_bytes": nbytes,
+                        "write_s": time.perf_counter() - t0}
+    print(f"corpus: {args.blocks} blocks, {n_total} traces, "
+          f"{nbytes / 1e6:.1f} MB zlib, "
+          f"{report['corpus']['write_s']:.1f} s", flush=True)
+
+    cfg = TempoDBConfig(search_max_batch_pages=4096)
+    gpu = TempoDB(LocalBackend(root), cfg, device="cuda")
+    dbs.append(gpu)
+    gpu.poll()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_queries(gpu, "smoke", reqs, args.reps)       # the main path
+    path = {}
+    for r in res.values():
+        add_counts(path, r["launches"])
+    report["launches"] = path
+    report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    report["staged_device_bytes"] = gpu.batcher._cache_total
+    if path["multi_scan"] == 0 or path["topk"] == 0:
+        raise AssertionError(f"main path launched no kernel: {path}")
+    if path["dict_probe"] or path["multi_scan_hits"]:
+        raise AssertionError(f"the tag-search cell probed: {path}")
+    add_counts(launches, path)
+    lat_report = {}
+    for name, r in res.items():
+        tags, kw = reqs[name]
+        check_response(name, r["resp"], tags, kw, n_total)
+        lat_report[name] = latency_row(r, r["resp"])
+        print_row(name, lat_report[name])
+    report["search"] = lat_report
+    print("launches during the searches: " + json.dumps(path), flush=True)
+
+    busy = device_busy(gpu, "smoke", reqs, ("exhaustive_bench", "bench_and",
+                                            "limit_1000"), args.reps)
+    report["device_busy"] = busy
+    print_busy(busy, lat_report)
+
+    t0 = time.perf_counter()
+    cpu = TempoDB(LocalBackend(root), cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    cres = run_queries(cpu, "smoke", reqs, 0)
+    for name in reqs:
+        if cres[name]["resp"] != res[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    report["cpu_check_s"] = time.perf_counter() - t0
+    print(f"cpu check: {len(reqs)} responses identical "
+          f"({report['cpu_check_s']:.1f} s)", flush=True)
+    rows = kernel_phase(gpu, reqs, launches)
+    for db in (gpu, cpu):
+        db.close()
+        dbs.remove(db)
+    return rows
+
+
+def hc_paths(db, bsb_of, n_per: int, reps: int, sync: bool) -> dict:
+    """The high-cardinality cell's requests through the three entry
+    points, in order; the one-block requests go to the block holding the
+    point lookup's session (blocks of `n_per` traces). `bsb_of` gives the
+    single-block path's BackendSearchBlock. Returns name -> drive()
+    result."""
+    from tempo_tpu_torch.model.types import SearchBlockRequest, \
+        SearchRequest
+
+    out = {}
+    for name, (tags, kw) in hc_requests().items():
+        req = SearchRequest(tags=dict(tags), **kw)
+        out[name] = drive(lambda: db.search("hc", req), reps, sync)
+        out[name]["dispatches"] = db.batcher.last_dispatches
+    meta = next(m for m in db.blocklist.metas("hc")
+                if m.block_id == block_id(POINT_SESSION // n_per))
+    point = SearchRequest(tags=dict(hc_requests()["hc_point"][0]), limit=20)
+    job = SearchBlockRequest(
+        search_req=point, tenant_id="hc", block_id=meta.block_id,
+        encoding=meta.encoding, version=meta.version,
+        data_encoding=meta.data_encoding, start_time=meta.start_time,
+        end_time=meta.end_time)
+    out["hc_search_block_point"] = drive(lambda: db.search_block(job), reps,
+                                         sync)
+    out["hc_search_block_point"]["dispatches"] = db.batcher.last_dispatches
+    bsb = bsb_of(meta)
+    for name, req in (("single_point", point),
+                      ("single_bench", SearchRequest(tags=dict(BENCH),
+                                                     limit=20))):
+        out[name] = drive(lambda: bsb.search(req), reps, sync)
+        out[name]["dispatches"] = 1
+    return out
+
+
+def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
+            ) -> list:
+    """The high-cardinality cell (step 3 of the module docstring).
+    Returns its kernel rows."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.search.backend_search_block import \
+        BackendSearchBlock
+
+    n_per = args.hc_traces_per_block
+    n_total = args.hc_blocks * n_per
+    root = os.path.join(work, "hc_blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, "hc", args.hc_blocks, n_per,
+                          ENTRIES_PER_PAGE, args.seed, sessions=True)
+    report["hc_corpus"] = {"blocks": args.hc_blocks, "traces": n_total,
+                           "compressed_bytes": nbytes,
+                           "write_s": time.perf_counter() - t0}
+    print(f"hc corpus: {args.hc_blocks} blocks, {n_total} traces, "
+          f"{nbytes / 1e6:.1f} MB zlib, "
+          f"{report['hc_corpus']['write_s']:.1f} s", flush=True)
+
+    cfg = TempoDBConfig(search_max_batch_pages=4096)
+    be = LocalBackend(root)
+    gpu = TempoDB(be, cfg, device="cuda")
+    dbs.append(gpu)
+    gpu.poll()
+    groups = gpu.batcher.plan(gpu._jobs("hc", gpu.blocklist.epoch()))
+    report["hc_plan"] = [len(g) for g in groups]
+    torch.cuda.reset_peak_memory_stats()
+    bsbs = {}
+
+    def bsb_gpu(meta):
+        bsbs["gpu"] = BackendSearchBlock(be, meta, device="cuda")
+        return bsbs["gpu"]
+
+    res = hc_paths(gpu, bsb_gpu, n_per, args.reps, True)  # the main path
+    path = {}
+    for r in res.values():
+        add_counts(path, r["launches"])
+    report["hc_launches"] = path
+    report["hc_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    report["hc_staged_device_bytes"] = gpu.batcher._cache_total
+    report["hc_staged_dict_bytes"] = gpu.batcher._probe_dict_total
+    for name in hc_requests():
+        cold = res[name]["launches_cold"]
+        if not cold["dict_probe"]:
+            raise AssertionError(f"{name}: cold request launched no K3")
+    for k in ("multi_scan_hits", "scan_single", "topk", "dict_probe"):
+        if not path[k]:
+            raise AssertionError(f"high-cardinality path launched no {k}: "
+                                 f"{path}")
+    if path["multi_scan"]:
+        raise AssertionError(f"a probed block took the range mode: {path}")
+    add_counts(launches, path)
+    lat_report = {}
+    expect = {"hc_point": 1, "hc_prefix": 10, "hc_search_block_point": 1,
+              "single_point": 1}
+    reqs = hc_requests()
+    for name, r in res.items():
+        tags, kw = reqs.get(name, ({}, {"limit": 20}))
+        check_response(name, r["resp"], tags, kw,
+                       n_total if name in reqs else n_per)
+        if name in expect and len(r["resp"].traces) != expect[name]:
+            raise AssertionError(f"{name}: {len(r['resp'].traces)} results, "
+                                 f"want {expect[name]}")
+        lat_report[name] = latency_row(r, r["resp"])
+        print_row(name, lat_report[name])
+    report["hc_search"] = lat_report
+    print("hc plan (blocks per group): " + json.dumps(report["hc_plan"]) +
+          f"; staged {report['hc_staged_device_bytes']} B of which "
+          f"dictionaries {report['hc_staged_dict_bytes']} B; launches: "
+          + json.dumps(path), flush=True)
+
+    busy = device_busy(gpu, "hc", reqs, ("hc_exhaustive_77", "hc_point",
+                                         "hc_77_and_svc"), args.reps)
+    report["hc_device_busy"] = busy
+    print_busy(busy, lat_report)
+
+    t0 = time.perf_counter()
+    cpu = TempoDB(be, cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    cres = hc_paths(cpu, lambda m: BackendSearchBlock(be, m, device="cpu"),
+                    n_per, 0, False)
+    for name in res:
+        if cres[name]["resp"] != res[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    report["hc_cpu_check_s"] = time.perf_counter() - t0
+    print(f"hc cpu check: {len(res)} responses identical "
+          f"({report['hc_cpu_check_s']:.1f} s)", flush=True)
+    cpu.close()
+    dbs.remove(cpu)
+    rows = hc_kernel_phase(gpu, bsbs["gpu"], launches)
+    gpu.close()
+    dbs.remove(gpu)
+    return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
     ap.add_argument("--traces-per-block", type=int, default=65_536)
+    ap.add_argument("--hc-blocks", type=int, default=10)
+    ap.add_argument("--hc-traces-per-block", type=int, default=1_048_576)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=20261017)
     ap.add_argument("--report", default=None,
@@ -413,9 +928,7 @@ def main(argv=None) -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from tempo_tpu_torch.backend.local import LocalBackend
-    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
-    from tempo_tpu_torch.search.kernels import build, scan, topk
+    from tempo_tpu_torch.search.kernels import build
 
     report: dict = {"args": vars(args)}
 
@@ -426,99 +939,22 @@ def main(argv=None) -> int:
     print(f"build: {report['build_s']:.1f} s "
           f"({', '.join(sorted(build.BUILD_LOG)) or 'cached'})", flush=True)
 
-    n_total = args.blocks * args.traces_per_block
-    reqs = requests(args.blocks)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    dbs = []
+    dbs: list = []
+    launches = {k: 0 for k in KERNELS}
     try:
-        t0 = time.perf_counter()
-        nbytes = write_corpus(os.path.join(work, "blocks"), args.blocks,
-                              args.traces_per_block, ENTRIES_PER_PAGE,
-                              args.seed)
-        report["corpus"] = {"blocks": args.blocks, "traces": n_total,
-                            "compressed_bytes": nbytes,
-                            "write_s": time.perf_counter() - t0}
-        print(f"corpus: {args.blocks} blocks, {n_total} traces, "
-              f"{nbytes / 1e6:.1f} MB zlib, "
-              f"{report['corpus']['write_s']:.1f} s", flush=True)
-
-        cfg = TempoDBConfig(search_max_batch_pages=4096)
-        gpu = TempoDB(LocalBackend(os.path.join(work, "blocks")), cfg,
-                      device="cuda")
-        dbs.append(gpu)
-        gpu.poll()
-        torch.cuda.reset_peak_memory_stats()
-        scan.LAUNCHES.reset()
-        topk.LAUNCHES.reset()
-        res = run_queries(gpu, reqs, args.reps)       # the main path
-        launches = {"multi_scan": scan.LAUNCHES.n, "topk": topk.LAUNCHES.n}
-        report["launches"] = launches
-        report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-        report["staged_device_bytes"] = gpu.batcher._cache_total
-        if launches["multi_scan"] == 0 or launches["topk"] == 0:
-            raise AssertionError(f"main path launched no kernel: {launches}")
-        lat_report = {}
-        for name, r in res.items():
-            tags, kw = reqs[name]
-            check_response(name, r["resp"], tags, kw, n_total)
-            lat = r["lat"]
-            p50 = lat[len(lat) // 2]
-            p95 = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
-            m = r["resp"].metrics
-            lat_report[name] = {
-                "p50_ms": p50 * 1e3, "p95_ms": p95 * 1e3,
-                "first_ms": r["first_s"] * 1e3,
-                "traces_per_s": m.inspected_traces / p50 if p50 else None,
-                "inspected_traces": m.inspected_traces,
-                "inspected_blocks": m.inspected_blocks,
-                "skipped_blocks": m.skipped_blocks,
-                "results": len(r["resp"].traces),
-                "dispatches": r["dispatches"]}
-            print(f"search {name}: first {r['first_s'] * 1e3:.2f} ms, "
-                  f"p50 {p50 * 1e3:.2f} ms, p95 "
-                  f"{p95 * 1e3:.2f} ms, {m.inspected_traces} traces "
-                  f"inspected ({m.inspected_traces / p50:.4g} traces/s), "
-                  f"{m.inspected_blocks} blocks, {m.skipped_blocks} "
-                  f"skipped, {len(r['resp'].traces)} results, "
-                  f"{r['dispatches']} dispatches", flush=True)
-        report["search"] = lat_report
-        print("launches during the searches: " + json.dumps(launches),
-              flush=True)
-
-        busy = device_busy(gpu, reqs, ("exhaustive_bench", "bench_and",
-                                       "limit_1000"), args.reps)
-        report["device_busy"] = busy
-        for name, b in busy.items():
-            p50 = lat_report[name]["p50_ms"]
-            if b["device_ms"] is None:
-                print(f"device busy {name}: not measured (the profiler "
-                      "recorded no device activity)", flush=True)
-                continue
-            b["idle_share_of_p50"] = max(0.0, 1 - b["device_ms"] / p50)
-            print(f"device busy {name}: {b['device_ms']:.3f} ms per request "
-                  f"(profiler) of {p50:.3f} ms p50, idle share "
-                  f"{b['idle_share_of_p50']:.2f}", flush=True)
-
-        t0 = time.perf_counter()
-        cpu = TempoDB(LocalBackend(os.path.join(work, "blocks")), cfg,
-                      device="cpu")
-        dbs.append(cpu)
-        cpu.poll()
-        cres = run_queries(cpu, reqs, 0)
-        for name in reqs:
-            if cres[name]["resp"] != res[name]["resp"]:
-                raise AssertionError(f"{name}: card and CPU responses "
-                                     "differ")
-        report["cpu_check_s"] = time.perf_counter() - t0
-        print(f"cpu check: {len(reqs)} responses identical "
-              f"({report['cpu_check_s']:.1f} s)", flush=True)
-
-        kernels = kernel_phase(gpu, reqs, launches)
-        report["kernels"] = kernels
+        rows = tag_search_cell(args, work, report, dbs, launches)
+        rows += hc_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()
         shutil.rmtree(work, ignore_errors=True)
+    by_name = {r["name"]: r for r in rows}
+    kernels = [by_name[k] for k in KERNELS]
+    for r in kernels:
+        r["launches"] = launches[r["name"]]
+    report["kernels"] = kernels
+    report["launches_all_paths"] = launches
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,9 +5,12 @@ implementation beside it that imports nothing from it. Module names mirror
 the reference so each counterpart is easy to find
 (``tempo_tpu_torch/search/multiblock.py`` <-> ``tempo_tpu/search/multiblock.py``).
 
-The slice ported so far is backend tag search over search blocks:
-``db.TempoDB.search`` -> ``search.batcher.BlockBatcher`` ->
-``search.multiblock.MultiBlockEngine`` -> the hand-written CUDA kernels in
-``csrc/`` (``scan.cu`` and ``topk.cu``). Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; see ``device.py``.
+The slices ported so far are backend tag search over search blocks:
+``db.TempoDB.search`` (and ``search_block``, ``search_blocks``) ->
+``search.batcher.BlockBatcher`` -> ``search.multiblock.MultiBlockEngine``,
+and the single-block ``search.backend_search_block.BackendSearchBlock
+.search`` -> ``search.engine.ScanEngine``, over the hand-written CUDA
+kernels in ``csrc/`` (``scan.cu``, ``topk.cu``, and ``probe.cu`` for value
+dictionaries large enough to probe on the device). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; see ``device.py``.
 """

@@ -2,11 +2,12 @@
 
 Counterpart of the search half of the reference's ``db/tempodb.py``:
 ``poll`` of the blocklist from the backend, ``search`` of a tenant's
-blocks and ``search_blocks`` of a list of page-range jobs, both through
-the batched device engine. Writing trace blocks, trace-by-id lookup,
-compaction and retention are later slices; the search blocks this reads are written
-by ``search.backend_search_block.write_search_block`` (or by the
-reference, which writes the same bytes).
+blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
+list of them, all through the batched device engine. Writing trace
+blocks, trace-by-id lookup, compaction and retention are later slices;
+the search blocks this reads are written by
+``search.backend_search_block.write_search_block`` (or by the reference,
+which writes the same bytes).
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ class TempoDBConfig:
     search_max_batch_pages: int = 4096    # pages stacked per dispatch
     search_batch_cache_bytes: int = 4 << 30   # staged-batch device budget
     search_pipeline_depth: int = 2        # dispatches in flight
+    # value dictionaries with at least this many distinct values stage on
+    # the device and answer substring terms with the probe kernel (K3);
+    # None = dict_probe.DEVICE_PROBE_MIN_VALS (50k), <= 0 = host only
+    search_device_probe_min_vals: int | None = None
     pool_workers: int = 50                # concurrent meta reads per poll
 
 
@@ -56,7 +61,8 @@ class TempoDB:
             self.device,
             max_batch_pages=self.cfg.search_max_batch_pages,
             cache_bytes=self.cfg.search_batch_cache_bytes,
-            pipeline_depth=self.cfg.search_pipeline_depth)
+            pipeline_depth=self.cfg.search_pipeline_depth,
+            device_probe_min_vals=self.cfg.search_device_probe_min_vals)
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()
@@ -92,9 +98,11 @@ class TempoDB:
         with self._lock:
             bsb = self._search_blocks.get(meta.block_id)
             if bsb is None:
-                bsb = BackendSearchBlock(self.backend, meta,
-                                         header=self._headers.get(
-                                             meta.block_id))
+                bsb = BackendSearchBlock(
+                    self.backend, meta,
+                    header=self._headers.get(meta.block_id),
+                    probe_min_vals=self.cfg.search_device_probe_min_vals,
+                    device=self.device)
                 self._search_blocks[meta.block_id] = bsb
                 while len(self._search_blocks) > self.cfg.search_cache_blocks:
                     self._search_blocks.popitem(last=False)
@@ -178,6 +186,27 @@ class TempoDB:
         jobs = self._jobs(tenant, epoch)
         return self.batcher.search(jobs, req, results,
                                    plan_key=(tenant, epoch, len(jobs)))
+
+    def search_block(self, req) -> SearchResults:
+        """One search job (SearchBlockRequest): pages [start_page,
+        start_page + pages_to_search) of one block's search container,
+        with the block meta carried in the request. Runs through the
+        batcher, so a repeated job hits the staged cache. Raises
+        NotImplementedError when the block has no search container."""
+        meta = BlockMeta(
+            tenant_id=req.tenant_id, block_id=req.block_id,
+            encoding=req.encoding or "zstd", version=req.version or "vT1",
+            data_encoding=req.data_encoding or "v2",
+            start_time=req.start_time, end_time=req.end_time)
+        results = SearchResults.for_request(req.search_req)
+        try:
+            job = self._scan_job(meta, req.start_page,
+                                 req.pages_to_search or None)
+        except DoesNotExist:
+            raise self._no_container(req.tenant_id, req.block_id) from None
+        if job.n_pages > 0:
+            self.batcher.search([job], req.search_req, results)
+        return results
 
     def search_blocks(self, breq) -> SearchResults:
         """A batched job request (SearchBlocksRequest): many page-range

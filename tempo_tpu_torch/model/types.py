@@ -1,8 +1,9 @@
 """Search request/response types as plain dataclasses.
 
 The reference carries these as protobuf messages (``tempopb``:
-SearchRequest, BlockSearchJob, SearchBlocksRequest, TraceSearchMetadata,
-SearchMetrics, SearchResponse in protos/tempo.proto). The port keeps the proto's field names and defaults
+SearchRequest, SearchBlockRequest, BlockSearchJob, SearchBlocksRequest,
+TraceSearchMetadata, SearchMetrics, SearchResponse in
+protos/tempo.proto). The port keeps the proto's field names and defaults
 but needs no protobuf runtime on the card path; conversion to and from the
 wire messages belongs to whoever speaks the wire protocol.
 """
@@ -20,6 +21,25 @@ class SearchRequest:
     limit: int = 0
     start: int = 0   # unix seconds
     end: int = 0     # unix seconds
+
+
+@dataclass
+class SearchBlockRequest:
+    """One search job: pages [start_page, start_page + pages_to_search)
+    of one block's search container (0 pages = to the end), with the
+    block meta fields needed to open it without a meta.json read."""
+    search_req: SearchRequest = field(default_factory=SearchRequest)
+    block_id: str = ""
+    start_page: int = 0
+    pages_to_search: int = 0
+    encoding: str = ""
+    index_page_size: int = 0
+    total_records: int = 0
+    data_encoding: str = ""
+    version: str = ""
+    tenant_id: str = ""
+    start_time: int = 0
+    end_time: int = 0
 
 
 @dataclass

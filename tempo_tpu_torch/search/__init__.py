@@ -4,13 +4,17 @@ compilation, and the batched scan over hand-written CUDA kernels.
   data.py        per-trace search data + wire codec
   columnar.py    the columnar page format + container codec (byte-
                  identical to the reference's)
-  pipeline.py    host-side query compilation + block header pruning
+  pipeline.py    query compilation (host walk or device probe) + block
+                 header pruning
+  dict_probe.py  value dictionaries packed and staged for the device
+                 probe (kernel K3)
   results.py     result collection: dedupe, limit, metrics, ordering
-  engine.py      top-k sizing and the one-sync fetch of scan outputs
+  engine.py      the single-block engine (kernels K1s + K2), top-k sizing
+                 and the one-sync fetch of scan outputs
   kernels/       the CUDA kernels, their plain PyTorch versions, the build
   multiblock.py  stacking blocks into one batch, per-block query tables,
                  the batched scan (kernels K1 + K2) and result rendering
-  backend_search_block.py  container write/read
+  backend_search_block.py  container write/read, single-block search
   batcher.py     group planning, staged cache, pipelined dispatch
 """
 

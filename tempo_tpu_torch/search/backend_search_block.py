@@ -1,11 +1,16 @@
-"""Backend search block: write the columnar container, read it back.
+"""Backend search block: write the columnar container, read it back,
+search it alone.
 
-Counterpart of the reference's ``search/backend_search_block.py`` minus
-its single-block ``search`` (a later slice, with kernel B1). At block
-completion the search entries are built into the columnar container
+Counterpart of the reference's ``search/backend_search_block.py``. At
+block completion the search entries are built into the columnar container
 (object ``search``, compressed) plus a small JSON header
 (``search-header.json``) used to prune the block without touching the
 container. Blocks written here are read by the reference and vice versa.
+``BackendSearchBlock.search`` answers a request from one block: header
+prune, compile against its dictionaries (through the device probe when
+its value dictionary was staged), kernels K1s and K2 on the device. It
+has no host route: the reference's breaker fallback (``host_scan_single``)
+is not part of the port.
 """
 
 from __future__ import annotations
@@ -15,9 +20,13 @@ import threading
 
 from ..backend.raw import RawBackend
 from ..backend.types import NAME_SEARCH, NAME_SEARCH_HEADER, BlockMeta
+from ..device import resolve_device
 from ..encoding.compression import compress, decompress
 from .columnar import ColumnarPages, PageGeometry
 from .data import SearchData
+from .engine import ScanEngine, StagedPages, stage
+from .pipeline import block_header_skip_reason, compile_query
+from .results import SearchResults
 
 
 def write_search_block(backend: RawBackend, meta: BlockMeta,
@@ -50,14 +59,25 @@ def write_search_pages(backend: RawBackend, meta: BlockMeta,
 
 
 class BackendSearchBlock:
-    """One block's search header and container, loaded lazily and cached."""
+    """One block's search header and container, loaded lazily and cached,
+    and its single-block search."""
 
     def __init__(self, backend: RawBackend, meta: BlockMeta,
-                 header: dict | None = None):
+                 header: dict | None = None,
+                 probe_min_vals: int | None = None, device=None):
+        """`header`: an already-fetched rollup (saves one backend read).
+        `probe_min_vals`: the device-probe staging threshold
+        (TempoDBConfig.search_device_probe_min_vals; None = 50k, <= 0 =
+        host probing only). `device`: where ``staged`` puts the block —
+        ``cuda`` by default, raising without a card."""
         self.backend = backend
         self.meta = meta
+        self.probe_min_vals = probe_min_vals
+        self.device = resolve_device(device)
         self._header = header
         self._pages: ColumnarPages | None = None
+        self._staged: StagedPages | None = None
+        self._engine: ScanEngine | None = None
         self._lock = threading.Lock()
 
     def header(self) -> dict:
@@ -75,3 +95,51 @@ class BackendSearchBlock:
                 raw = decompress(blob, hdr.get("encoding", "zstd"))
                 self._pages = ColumnarPages.from_bytes(raw)
             return self._pages
+
+    def staged(self) -> StagedPages:
+        """This block alone on the device (cached). The batched path stages
+        groups of blocks through the batcher instead."""
+        with self._lock:
+            if self._staged is not None:
+                return self._staged
+        sp = stage(self.pages(), self.device,
+                   probe_min_vals=self.probe_min_vals)
+        with self._lock:
+            if self._staged is None:
+                self._staged = sp
+            return self._staged
+
+    def engine(self) -> ScanEngine:
+        """The block's own single-block engine (and compile cache)."""
+        with self._lock:
+            if self._engine is None:
+                self._engine = ScanEngine(self.device)
+            return self._engine
+
+    def search(self, req,
+               results: SearchResults | None = None) -> SearchResults:
+        """Answer `req` from this block alone, adding to `results`. The
+        block counts as inspected; a header or dictionary prune counts it
+        as skipped too, as the reference does."""
+        engine = self.engine()
+        results = results or SearchResults.for_request(req)
+        m = results.metrics
+        m.inspected_blocks += 1
+        if block_header_skip_reason(self.header(), req) is not None:
+            m.skipped_blocks += 1
+            return results
+        sp = self.staged()
+        cq = compile_query(sp.pages.key_dict, sp.pages.val_dict, req,
+                           cache_on=sp.pages, cache=engine.compile_cache,
+                           staged_dict=sp.staged_dict)
+        if cq is None:
+            m.skipped_blocks += 1
+            return results
+        _count, inspected, scores, idx = engine.scan_staged(sp, cq)
+        hdr = self.header()
+        m.inspected_traces += inspected
+        m.inspected_bytes += int(hdr.get("compressed_size", 0))
+        m.truncated_entries += int(hdr.get("truncated_entries", 0) or 0)
+        for meta in engine.results(sp, cq, scores, idx):
+            results.add(meta)
+        return results

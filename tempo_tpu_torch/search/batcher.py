@@ -14,7 +14,10 @@ the two kernels. What the grouping keeps from the reference:
   their entries come off the inspected count on the host;
 - **pipelined with early quit**: up to ``pipeline_depth`` dispatches are
   in flight, the next group stages in the background while the current
-  one scans, and dispatch stops once the result limit is met.
+  one scans, and dispatch stops once the result limit is met;
+- **probe dictionaries in the budget**: a batch's staged value
+  dictionaries (the device probe's input) count against the same byte
+  budget as its pages, and leave with the batch when it is evicted.
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
 breaker's host route and ``host_scan``, the dispatch watchdog, the query
@@ -26,13 +29,14 @@ a batch is staged on the engine's device and scanned there.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import threading
 import zlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
 from .engine import DEFAULT_TOP_K, fetch_scan_out
-from .multiblock import MultiBlockEngine, MultiQuery, compile_multi
+from .multiblock import MultiBlockEngine, compile_multi
 from .pipeline import block_header_skip_reason, is_exhaustive, tags_sig
 from .results import SearchResults
 
@@ -86,14 +90,18 @@ class BlockBatcher:
                  max_batch_pages: int = 4096,
                  cache_bytes: int = 4 << 30,
                  pipeline_depth: int = 2,
-                 io_workers: int = 8):
-        self.engine = MultiBlockEngine(device, top_k=top_k)
+                 io_workers: int = 8,
+                 device_probe_min_vals: int | None = None):
+        self.engine = MultiBlockEngine(
+            device, top_k=top_k, device_probe_min_vals=device_probe_min_vals)
         self.max_batch_pages = max_batch_pages
         self.cache_bytes = cache_bytes
         self.pipeline_depth = max(1, pipeline_depth)
         self.io_workers = io_workers
         self._cache: OrderedDict[tuple, _CachedBatch] = OrderedDict()
         self._cache_total = 0
+        # the share of _cache_total held by staged probe dictionaries
+        self._probe_dict_total = 0
         self._staging: dict[tuple, threading.Event] = {}
         self._prune_cache: OrderedDict = OrderedDict()
         self._plan_cache: OrderedDict = OrderedDict()
@@ -147,7 +155,15 @@ class BlockBatcher:
                           None)
             if victim is None:
                 break  # everything pinned: over budget until a drain
-            self._cache_total -= self._cache.pop(victim).nbytes
+            self._drop_locked(victim)
+
+    def _drop_locked(self, key) -> None:
+        """Forget a staged batch (caller holds self._lock). Its arrays and
+        probe dictionaries are freed with the last reference: at once, or
+        when a search that still holds it lets go."""
+        entry = self._cache.pop(key)
+        self._cache_total -= entry.nbytes
+        self._probe_dict_total -= entry.batch.dict_nbytes
 
     def _staged(self, group: list[ScanJob]) -> _CachedBatch:
         """The group's staged batch: a cache hit, or IO + decompress +
@@ -175,11 +191,11 @@ class BlockBatcher:
             batch = self.engine.place(self.engine.stage_host(pages))
             entry = _CachedBatch(batch=batch, nbytes=batch.nbytes)
             with self._lock:
-                prev = self._cache.pop(key, None)
-                if prev is not None:
-                    self._cache_total -= prev.nbytes
+                if key in self._cache:
+                    self._drop_locked(key)
                 self._cache[key] = entry
                 self._cache_total += entry.nbytes
+                self._probe_dict_total += batch.dict_nbytes
                 self._evict_locked()
             return entry
         finally:
@@ -192,7 +208,7 @@ class BlockBatcher:
         with self._lock:
             for k in [k for k in self._cache
                       if any(jk[0] not in live_block_ids for jk in k)]:
-                self._cache_total -= self._cache.pop(k).nbytes
+                self._drop_locked(k)
 
     # ------------------------------------------------------------------
     # search
@@ -256,7 +272,8 @@ class BlockBatcher:
             predicate): per-block compile and metric sums."""
             mq = compile_multi(list(batch.blocks), req, skip=skip,
                                memo=batch.memo,
-                               cache=self.engine.compile_cache)
+                               cache=self.engine.compile_cache,
+                               staged_dicts=batch.staged_dicts)
             if mq is None:
                 return {"all_skip": True, "skipped": len(group)}
             if not exhaustive and mq.n_terms:
@@ -348,11 +365,8 @@ class BlockBatcher:
             base = pre["mq"]
             # the limit is per request; the tables (and their device
             # copies, made at the first dispatch) are shared through `pre`
-            mq = MultiQuery(
-                term_keys=base.term_keys, val_ranges=base.val_ranges,
-                dur_lo=base.dur_lo, dur_hi=base.dur_hi,
-                win_start=base.win_start, win_end=base.win_end,
-                limit=req.limit or 20, n_terms=base.n_terms,
+            mq = dataclasses.replace(
+                base, limit=req.limit or 20,
                 device_tables=pre.get("device_tables"))
             out = self.engine.scan_async(cached.batch, mq)
             pre["device_tables"] = mq.device_tables

@@ -1,17 +1,34 @@
-"""Top-k sizing and the one-sync fetch of a scan's outputs.
+"""The single-block scan engine, top-k sizing and the one-sync fetch of a
+scan's outputs.
 
-Counterpart of the parts of the reference's ``search/engine.py`` the
-batched path uses (``DEFAULT_TOP_K``, ``resolve_top_k``,
-``fetch_scan_out``). The single-block ``ScanEngine`` and its kernel (B1)
-are a later slice.
+Counterpart of the reference's ``search/engine.py``: ``stage`` puts one
+block's columns on the device (page axis padded to a power of two, kv
+columns int32, as the reference stages them) with its value dictionary
+when that clears the probe threshold; ``ScanEngine`` dispatches kernel
+K1s (``kernels.scan.scan_single``, the port of B1) then K2
+(``kernels.topk.topk``, B2) and renders the top-k as results.
+``DEFAULT_TOP_K``, ``resolve_top_k`` and ``fetch_scan_out`` are shared
+with the batched path (``multiblock.py``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..model.types import TraceSearchMetadata
+from . import dict_probe
+from .columnar import ColumnarPages
+from .kernels.scan import scan_single
+from .kernels.topk import topk
+from .pipeline import CompileCache, CompiledQuery
+
 DEFAULT_TOP_K = 128
+
+DEVICE_ARRAYS = ("kv_key", "kv_val", "entry_start", "entry_end",
+                 "entry_dur", "entry_valid")
 
 
 def resolve_top_k(base: int, limit: int) -> int:
@@ -32,3 +49,134 @@ def fetch_scan_out(out) -> tuple:
     host = torch.cat([counts, scores, idx]).cpu().numpy()
     return (int(host[0]), int(host[1]), np.ascontiguousarray(host[2:2 + k]),
             np.ascontiguousarray(host[2 + k:]))
+
+
+@dataclass
+class StagedPages:
+    """One block's columns on the device, plus the host container that
+    renders results."""
+    device: dict          # name -> tensor, page axis padded to a bucket
+    pages: ColumnarPages
+    # dict_probe.DeviceDict when the value dictionary cleared the probe
+    # threshold at staging time: compilation then probes on the device
+    staged_dict: object = None
+
+
+def _bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_page_axis(pages: ColumnarPages, target: int) -> dict:
+    """Numpy columns with the page axis padded to `target` pages of
+    invalid entries and -1 kv slots; the u32 columns as int32 bits."""
+    out = {}
+    P = pages.n_pages
+    for name in DEVICE_ARRAYS:
+        arr = getattr(pages, name)
+        if target > P:
+            pad = np.zeros((target - P,) + arr.shape[1:], dtype=arr.dtype)
+            if name in ("kv_key", "kv_val"):
+                pad -= 1
+            arr = np.concatenate([arr, pad], axis=0)
+        if arr.dtype == np.uint32:
+            arr = arr.view(np.int32)
+        out[name] = arr
+    return out
+
+
+def stage_block_dict(pages: ColumnarPages, device: torch.device,
+                     probe_min_vals: int | None):
+    """The block's value dictionary on the device when it has at least
+    `probe_min_vals` values (None = dict_probe.DEVICE_PROBE_MIN_VALS;
+    <= 0 never), else None."""
+    mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
+          else probe_min_vals)
+    if mv <= 0 or len(pages.val_dict) < mv:
+        return None
+    return dict_probe.stage_val_dict(pages.val_dict, device, cache_on=pages)
+
+
+def stage(pages: ColumnarPages, device: torch.device,
+          probe_min_vals: int | None = None) -> StagedPages:
+    """Copy a block's columns to the device, the page axis padded to a
+    power of two (the reference's bucket; the port keeps it so both scan
+    the same padded block), and its dictionary when it clears the probe
+    threshold — applied here, at staging time."""
+    host = pad_page_axis(pages, _bucket(pages.n_pages))
+    dev = {}
+    for k, v in host.items():
+        if not (v.flags.writeable and v.flags.c_contiguous):
+            v = np.array(v, order="C")   # container bytes are read-only
+        dev[k] = torch.from_numpy(v).to(device)
+    return StagedPages(device=dev, pages=pages,
+                       staged_dict=stage_block_dict(pages, device,
+                                                    probe_min_vals))
+
+
+class ScanEngine:
+    """Single-block dispatch on one device: K1s then K2, one sync, and
+    result rendering. Owns the compile cache of the blocks it serves."""
+
+    def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K):
+        self.device = device
+        self.top_k = top_k
+        self.compile_cache = CompileCache()
+
+    def _tables(self, cq: CompiledQuery):
+        """The query's term tables on the device, widened to one row when
+        there is no term (the kernel's tables are never empty)."""
+        T = cq.n_terms
+        tk = cq.term_keys if T else np.full(1, -1, dtype=np.int32)
+        vr = cq.val_ranges if T else np.array([[[1, 0]]], dtype=np.int32)
+        return (torch.from_numpy(np.ascontiguousarray(tk)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(vr)).to(self.device))
+
+    def scan_staged_async(self, sp: StagedPages, cq: CompiledQuery):
+        """K1s then K2 on the current stream, without a device-to-host
+        sync. Returns device tensors (counts [2] = (match count,
+        inspected), top-k scores, top-k flat indices)."""
+        tk, vr = self._tables(cq)
+        d = sp.device
+        scores, counts = scan_single(
+            d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], tk, vr, cq.n_terms, cq.dur_lo,
+            min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
+            min(cq.win_end, 0xFFFFFFFF),
+            cq.val_hits if cq.n_terms else None)
+        top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
+                                                         cq.limit))
+        return counts, top_scores, top_idx
+
+    def scan_staged(self, sp: StagedPages, cq: CompiledQuery) -> tuple:
+        """(count, inspected, scores, idx) on the host."""
+        return fetch_scan_out(self.scan_staged_async(sp, cq))
+
+    def results(self, sp: StagedPages, cq: CompiledQuery,
+                scores: np.ndarray, idx: np.ndarray) -> list:
+        """Map top-k flat indices back to TraceSearchMetadata, stopping at
+        the first non-match or at the limit; pad pages are skipped."""
+        pages = sp.pages
+        E = pages.geometry.entries_per_page
+        out = []
+        for s, i in zip(scores.tolist(), idx.tolist()):
+            if s < 0 or len(out) >= cq.limit:
+                break
+            p, e = divmod(i, E)
+            if p >= pages.n_pages:
+                continue
+            m = TraceSearchMetadata(
+                trace_id=bytes(pages.trace_ids[p, e]).hex(),
+                start_time_unix_nano=int(pages.entry_start[p, e])
+                * 1_000_000_000,
+                duration_ms=int(pages.entry_dur[p, e]))
+            svc = int(pages.entry_root_svc[p, e])
+            name = int(pages.entry_root_name[p, e])
+            if svc >= 0:
+                m.root_service_name = pages.val_dict[svc]
+            if name >= 0:
+                m.root_trace_name = pages.val_dict[name]
+            out.append(m)
+        return out

@@ -4,10 +4,15 @@ Counterpart of the reference's ``search/multiblock.py`` on its default
 path. Many blocks' pages stack along one page axis and scan in one
 dispatch; a per-page block index (``page_block``) selects each page's row
 of the per-block term tables, because every block keeps its own
-dictionaries and the query compiles per block. The dispatch is two
-hand-written kernels: K1 (``kernels.scan.multi_scan``) evaluates the
-predicate and writes a score per entry plus the match and inspected
-counts, and K2 (``kernels.topk.topk``) picks the k most recent matches.
+dictionaries and the query compiles per block. Value dictionaries at or
+above the probe threshold stage with the batch (``staged_dicts``), and
+their blocks' terms compile through the device probe (K3) to hit masks,
+stacked per distinct dictionary as ``val_hits [G, T, Vm]`` with a
+``block_group [B]`` row map; the other blocks keep their id ranges, so
+one batch mixes both. The dispatch is two hand-written kernels: K1
+(``kernels.scan.multi_scan``) evaluates the predicate and writes a score
+per entry plus the match and inspected counts, and K2
+(``kernels.topk.topk``) picks the k most recent matches.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
+from . import dict_probe
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
 from .kernels.scan import multi_scan
@@ -40,6 +46,9 @@ class HostBatch:
     page_block: np.ndarray          # int32 [P_total], -1 on pad pages
     blocks: list                    # list[ColumnarPages]
     page_offset: list               # first stacked page of each block
+    # fp -> dict_probe.PackedDeviceDict of each distinct value dictionary
+    # at or above the probe threshold
+    packed_dicts: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -50,16 +59,25 @@ class BlockBatch:
     blocks: list
     page_offset: list
     memo: dict = field(default_factory=dict)   # query-independent memos
+    # fp -> dict_probe.DeviceDict: the staged value dictionaries whose
+    # blocks compile through the device probe
+    staged_dicts: dict = field(default_factory=dict)
 
     @property
     def n_pages(self) -> int:
         return int(self.page_block.shape[0])
 
     @property
+    def dict_nbytes(self) -> int:
+        """Device bytes pinned by the staged dictionaries."""
+        return int(sum(d.nbytes for d in self.staged_dicts.values()))
+
+    @property
     def nbytes(self) -> int:
-        """Device bytes pinned by the stacked arrays."""
+        """Device bytes pinned by the stacked arrays and the staged
+        dictionaries."""
         return int(sum(t.numel() * t.element_size()
-                       for t in self.device.values()))
+                       for t in self.device.values())) + self.dict_nbytes
 
 
 def _narrow(n: int):
@@ -67,14 +85,37 @@ def _narrow(n: int):
             else np.int16 if n <= 32_767 else np.int32)
 
 
+def pack_batch_dicts(blocks: list[ColumnarPages],
+                     probe_min_vals: int | None) -> dict:
+    """fp -> PackedDeviceDict for every distinct value dictionary with at
+    least `probe_min_vals` values (None = dict_probe's default; <= 0
+    disables). The packing memoizes on the immutable block container, so
+    an evicted batch re-stacked from the same blocks packs nothing."""
+    mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
+          else probe_min_vals)
+    out: dict = {}
+    if mv <= 0:
+        return out
+    for b in blocks:
+        if len(b.val_dict) < mv:
+            continue
+        fp = dict_fingerprint(b, b.key_dict, b.val_dict)
+        if fp not in out:
+            out[fp] = dict_probe.packed_for(b)
+    return out
+
+
 def stack_host(blocks: list[ColumnarPages],
-               pad_to: int | None = None) -> HostBatch:
+               pad_to: int | None = None,
+               probe_min_vals: int | None = 0) -> HostBatch:
     """Concatenate blocks of one entries-per-page along the page axis.
 
     The kv columns narrow to the smallest dtype the group's largest
     dictionary allows (the reference's ``multiblock.py:257-261`` rule), and
     narrower-C blocks pad their slots with -1. Pages past the blocks' own,
-    up to `pad_to`, are pad pages: page_block -1, kv -1, invalid entries."""
+    up to `pad_to`, are pad pages: page_block -1, kv -1, invalid entries.
+    `probe_min_vals` routes dictionaries at or above that size into the
+    probe staging (``pack_batch_dicts``); the default 0 stages none."""
     E = blocks[0].geometry.entries_per_page
     C = max(b.geometry.kv_per_entry for b in blocks)
     kv_dtype = {"kv_key": _narrow(max(len(b.key_dict) for b in blocks)),
@@ -117,7 +158,8 @@ def stack_host(blocks: list[ColumnarPages],
         cat[name] = cat[name].view(np.int32)
     cat["page_block"] = page_block
     return HostBatch(cat=cat, page_block=page_block, blocks=blocks,
-                     page_offset=page_offset)
+                     page_offset=page_offset,
+                     packed_dicts=pack_batch_dicts(blocks, probe_min_vals))
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -129,10 +171,14 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def place_batch(host: HostBatch, device: torch.device) -> BlockBatch:
-    """Host-to-device copy of a stacked batch."""
+    """Host-to-device copy of a stacked batch and its probe
+    dictionaries."""
     dev = {k: _to_device(v, device) for k, v in host.cat.items()}
+    staged = {fp: dict_probe.place_device_dict(pd, device)
+              for fp, pd in host.packed_dicts.items()}
     return BlockBatch(device=dev, page_block=host.page_block,
-                      blocks=host.blocks, page_offset=host.page_offset)
+                      blocks=host.blocks, page_offset=host.page_offset,
+                      staged_dicts=staged)
 
 
 @dataclass
@@ -146,8 +192,14 @@ class MultiQuery:
     win_end: int
     limit: int
     n_terms: int
-    # device copies of the two tables, made at the first dispatch and
-    # reused by every later dispatch of this query over the same batch
+    # device-probe product: bool [G, T', Vm] hit masks, one row per
+    # distinct probed dictionary, on the device; and int32 [B] block ->
+    # row (-1: the block's ranges apply). None when no block probed.
+    val_hits: object = None
+    block_group: np.ndarray | None = None
+    # device copies of the tables (term_keys, val_ranges, block_group),
+    # made at the first dispatch and reused by every later dispatch of
+    # this query over the same batch
     device_tables: tuple | None = None
 
 
@@ -172,18 +224,23 @@ def _dict_groups(blocks: list[ColumnarPages], memo: dict | None = None):
 
 def compile_multi(blocks: list[ColumnarPages], req,
                   skip: list[bool] | None = None, memo: dict | None = None,
-                  cache: CompileCache | None = None) -> MultiQuery | None:
+                  cache: CompileCache | None = None,
+                  staged_dicts: dict | None = None) -> MultiQuery | None:
     """Compile the request against every block's dictionaries, once per
     distinct dictionary. Blocks that prune get key id -1 (no page of theirs
     can match); `skip[i]` marks blocks already pruned by their header, which
-    stay in the batch and are masked back to that sentinel. None when every
-    block prunes."""
+    stay in the batch and are masked back to that sentinel (group -1, key
+    -1). `staged_dicts` (the batch's, by fingerprint) sends those
+    dictionaries' terms to the device probe. None when every block
+    prunes."""
     fp_of, rep_idx, rows_of = _dict_groups(blocks, memo)
+    staged_dicts = staged_dicts or {}
     compiled: dict[bytes, CompiledQuery | None] = {}
     for fp, i in rep_idx.items():
         b = blocks[i]
         compiled[fp] = compile_query(b.key_dict, b.val_dict, req,
-                                     cache_on=b, cache=cache)
+                                     cache_on=b, cache=cache,
+                                     staged_dict=staged_dicts.get(fp))
     per_block = [None if (skip is not None and skip[i]) else compiled[fp_of[i]]
                  for i in range(len(blocks))]
     if all(cq is None for cq in per_block):
@@ -209,23 +266,58 @@ def compile_multi(blocks: list[ColumnarPages], req,
         term_keys[rows[:, None], np.arange(t_n)] = cq.term_keys[:t_n]
         val_ranges[rows[:, None, None], np.arange(t_n)[:, None],
                    np.arange(r_n)] = cq.val_ranges[:t_n, :r_n]
+    val_hits, block_group = _stack_hits(compiled, rows_of, B, max(1, T))
     if skip is not None and any(skip):
         sk = np.asarray(skip, dtype=bool)
         term_keys[sk] = -1
         val_ranges[sk] = np.array([1, 0], dtype=np.int32)
+        if block_group is not None:
+            block_group[sk] = -1
     any_cq = next(cq for cq in per_block if cq is not None)
     return MultiQuery(term_keys=term_keys, val_ranges=val_ranges,
                       dur_lo=any_cq.dur_lo, dur_hi=any_cq.dur_hi,
                       win_start=any_cq.win_start, win_end=any_cq.win_end,
-                      limit=any_cq.limit, n_terms=T)
+                      limit=any_cq.limit, n_terms=T, val_hits=val_hits,
+                      block_group=block_group)
+
+
+def _stack_hits(compiled: dict, rows_of: dict, B: int, Tp: int):
+    """(val_hits [G, Tp, Vm], block_group [B]) from the probed
+    dictionaries' [T, V] masks, zero-padded to the widest dictionary;
+    (None, None) when no dictionary probed. A single mask of full width
+    is used as it is, with no copy."""
+    probe_fps = [fp for fp, cq in compiled.items()
+                 if cq is not None and cq.n_terms and cq.val_hits is not None]
+    if not probe_fps:
+        return None, None
+    masks = [compiled[fp].val_hits for fp in probe_fps]
+    Vm = max(int(h.shape[1]) for h in masks)
+    if len(masks) == 1 and masks[0].shape[0] == Tp:
+        val_hits = masks[0].unsqueeze(0)
+    else:
+        val_hits = torch.zeros((len(masks), Tp, Vm), dtype=torch.bool,
+                               device=masks[0].device)
+        for g, h in enumerate(masks):
+            t_n = min(int(h.shape[0]), Tp)
+            val_hits[g, :t_n, :h.shape[1]] = h[:t_n]
+    block_group = np.full(B, -1, dtype=np.int32)
+    for g, fp in enumerate(probe_fps):
+        block_group[np.asarray(rows_of[fp], dtype=np.int64)] = g
+    return val_hits, block_group
 
 
 class MultiBlockEngine:
     """Batched scan over many blocks in one dispatch on one device."""
 
-    def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K):
+    def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
+                 device_probe_min_vals: int | None = None):
+        """`device_probe_min_vals`: value-dictionary size at which a
+        batch stages the dictionary for the device probe (None =
+        dict_probe.DEVICE_PROBE_MIN_VALS; <= 0 keeps every probe on the
+        host)."""
         self.device = device
         self.top_k = top_k
+        self.device_probe_min_vals = device_probe_min_vals
         self.compile_cache = CompileCache()
 
     def stage_host(self, blocks: list[ColumnarPages]) -> HostBatch:
@@ -236,7 +328,8 @@ class MultiBlockEngine:
         pad_to = 1
         while pad_to < total:
             pad_to *= 2
-        return stack_host(blocks, pad_to=pad_to)
+        return stack_host(blocks, pad_to=pad_to,
+                          probe_min_vals=self.device_probe_min_vals)
 
     def place(self, host: HostBatch) -> BlockBatch:
         return place_batch(host, self.device)
@@ -248,14 +341,16 @@ class MultiBlockEngine:
         if mq.device_tables is None:
             mq.device_tables = (
                 torch.from_numpy(mq.term_keys).to(self.device),
-                torch.from_numpy(mq.val_ranges).to(self.device))
-        tk, vr = mq.device_tables
+                torch.from_numpy(mq.val_ranges).to(self.device),
+                None if mq.block_group is None else
+                torch.from_numpy(mq.block_group).to(self.device))
+        tk, vr, bg = mq.device_tables
         d = batch.device
         scores, counts = multi_scan(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"], tk, vr,
             mq.n_terms, mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
-            min(mq.win_end, 0xFFFFFFFF))
+            min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg)
         top_scores, top_idx = topk(scores,
                                    resolve_top_k(self.top_k, mq.limit))
         return counts, top_scores, top_idx

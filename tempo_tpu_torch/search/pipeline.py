@@ -1,13 +1,21 @@
-"""Host-side query compilation: dictionaries in, per-block predicate
-tables out.
+"""Query compilation: dictionaries in, per-block predicate tables out.
 
-Counterpart of the reference's ``search/pipeline.py`` on its host path.
-The substring match (``bytes.Contains``) runs once per (block dictionary,
-tag-set) over the block's sorted value dictionary with numpy, producing
-value-id sets that collapse to inclusive [lo, hi] id ranges the scan
-kernel compares against. A term whose key or value set is empty prunes
-the block before any device work. The reference's native memmem path and
-its device dictionary probe are later slices of the port.
+Counterpart of the reference's ``search/pipeline.py``. The substring
+match (``bytes.Contains``) runs once per (block dictionary, tag-set) over
+the block's sorted value dictionary, on one of two routes:
+
+- **device probe**: the dictionary was staged on the device (it has at
+  least ``dict_probe.DEVICE_PROBE_MIN_VALS`` values, or the configured
+  threshold), so kernel K3 computes a ``[T, V]`` hit mask there, which
+  the scan looks values up in; only ``any_hits`` comes back, for pruning;
+- **host**: numpy over the value list, producing value-id sets that
+  collapse to inclusive [lo, hi] id ranges the scan compares against.
+  Small dictionaries take it, and so does any query with a needle longer
+  than ``dict_probe.MAX_NEEDLE_BYTES`` — chosen from the needles' lengths
+  before anything is launched.
+
+A term whose key or value set is empty prunes the block before any scan.
+The reference's native memmem host walk is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
+
+from . import dict_probe
 
 UINT32_MAX = 0xFFFFFFFF
 
@@ -60,6 +70,10 @@ class CompiledQuery:
     win_start: int
     win_end: int
     limit: int
+    # device-probe product: bool [T, V] value hit mask on the device. When
+    # set, val_ranges is the never-match padding and the scan looks value
+    # ids up in this mask instead.
+    val_hits: object = None
 
     @property
     def n_terms(self) -> int:
@@ -106,13 +120,17 @@ def substring_value_ids(val_dict: list, needle: str) -> np.ndarray:
 _PRUNED = "pruned"  # cache sentinel: block provably cannot match these tags
 _COMPILE_CACHE_MAX = 128     # distinct tag-sets kept per dictionary
 _COMPILE_CACHE_DICTS = 4096  # distinct dictionaries tracked
+# entries whose product is a device hit mask pin device memory (V bytes
+# per term), so each dictionary keeps only the newest few of them
+_PROBE_CACHE_MAX = 8
 
 
 class CompileCache:
     """(dictionary content, tag-set) -> probe product, bounded LRU per
     dictionary. Blocks are immutable and tenants reuse a handful of
     dictionary contents, so repeated tag-sets skip the O(dictionary)
-    substring walk. One instance per TempoDB (or per test)."""
+    substring walk, and a repeated request launches no probe. Products of
+    either route serve both (both are exact). One instance per engine."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -140,6 +158,10 @@ class CompileCache:
             cache[sig] = value
             while len(cache) > _COMPILE_CACHE_MAX:
                 cache.popitem(last=False)
+            probed = [s for s, o in cache.items()
+                      if o is not _PRUNED and o[2] is not None]
+            for s in probed[:max(0, len(probed) - _PROBE_CACHE_MAX)]:
+                del cache[s]
 
 
 def dict_fingerprint(cache_on, key_dict: list, val_dict: list) -> bytes:
@@ -170,14 +192,17 @@ def tags_sig(req) -> tuple:
 
 
 def compile_query(key_dict: list, val_dict: list, req,
-                  cache_on=None, cache: CompileCache | None = None
-                  ) -> CompiledQuery | None:
+                  cache_on=None, cache: CompileCache | None = None,
+                  staged_dict=None) -> CompiledQuery | None:
     """None when the block provably cannot match (a key absent from the
     key dictionary, or no value satisfies a term). Under the exhaustive
     flag blocks are never pruned: an unsatisfiable term compiles to an
-    empty range set (scanned, matches nothing). With `cache` and
+    empty value set (scanned, matches nothing). With `cache` and
     `cache_on` (the block's container) the probe product is memoized by
-    dictionary content and tag-set."""
+    dictionary content and tag-set. `staged_dict` (a
+    dict_probe.DeviceDict of this value dictionary, present when staging
+    applied the size threshold) sends the substring test to the device
+    probe."""
     sig = fp = None
     if cache is not None and cache_on is not None:
         sig = tags_sig(req)
@@ -185,16 +210,16 @@ def compile_query(key_dict: list, val_dict: list, req,
         hit = cache.get(fp, sig)
         if hit is not None:
             return None if isinstance(hit, str) else _from_probe(hit, req)
-    out = _probe_tags(key_dict, val_dict, req)
+    out = _probe_tags(key_dict, val_dict, req, staged_dict)
     if sig is not None:
         cache.put(fp, sig, _PRUNED if out is None else out)
     return None if out is None else _from_probe(out, req)
 
 
 def _from_probe(probe, req) -> CompiledQuery:
-    term_keys, val_ranges = probe
+    term_keys, val_ranges, val_hits = probe
     return CompiledQuery(
-        term_keys=term_keys, val_ranges=val_ranges,
+        term_keys=term_keys, val_ranges=val_ranges, val_hits=val_hits,
         dur_lo=req.min_duration_ms or 0,
         dur_hi=req.max_duration_ms or UINT32_MAX,
         win_start=req.start or 0,
@@ -202,14 +227,54 @@ def _from_probe(probe, req) -> CompiledQuery:
         limit=req.limit or 20)
 
 
-def _probe_tags(key_dict: list, val_dict: list, req):
-    """Binary-search each term's key, scan the value dictionary for its
-    substring, fold the hits to ranges. Returns (term_keys, val_ranges) or
-    None (pruned)."""
+def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None):
+    """The tags-only part of compilation: the device probe when the
+    dictionary is staged and every needle fits the kernel, else the host
+    walk. Returns (term_keys, val_ranges, val_hits) or None (pruned)."""
     exhaustive = is_exhaustive(req)
+    terms = request_terms(req)
+    if staged_dict is not None and terms and max(
+            len(v.encode("utf-8")) for _, v in terms) \
+            <= dict_probe.MAX_NEEDLE_BYTES:
+        return _device_probe_tags(terms, key_dict, staged_dict, exhaustive)
+    return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
+
+
+def _device_probe_tags(terms, key_dict, staged_dict, exhaustive):
+    """One K3 launch for all terms. A term whose key is absent prunes the
+    block, or under the exhaustive flag gets an all-false row whatever
+    its needle. Without the flag, a term whose key exists but whose
+    needle hits no value prunes the block: reading `any_hits` is the
+    probe's one device-to-host sync."""
+    term_key_ids = []
+    needles = []
+    for k, v in terms:
+        i = bisect.bisect_left(key_dict, k)
+        if i >= len(key_dict) or key_dict[i] != k:
+            if not exhaustive:
+                return None
+            term_key_ids.append(-1)
+            needles.append(None)
+            continue
+        term_key_ids.append(i)
+        needles.append(v.encode("utf-8"))
+    hits, any_hits = dict_probe.probe_value_hits(staged_dict, needles)
+    if not exhaustive:
+        any_host = any_hits.cpu().numpy()
+        if any(ki >= 0 and not any_host[t]
+               for t, ki in enumerate(term_key_ids)):
+            return None
+    T = len(term_key_ids)
+    val_ranges = np.tile(np.array([1, 0], dtype=np.int32), (T, 1, 1))
+    return np.asarray(term_key_ids, dtype=np.int32), val_ranges, hits
+
+
+def _host_probe_tags(terms, key_dict: list, val_dict: list, exhaustive):
+    """Binary-search each term's key, scan the value dictionary for its
+    substring, fold the hits to ranges."""
     term_key_ids = []
     term_val_sets = []
-    for k, v in request_terms(req):
+    for k, v in terms:
         i = bisect.bisect_left(key_dict, k)
         if i >= len(key_dict) or key_dict[i] != k:
             if not exhaustive:
@@ -225,7 +290,8 @@ def _probe_tags(key_dict: list, val_dict: list, req):
 
     T = len(term_key_ids)
     if not T:
-        return np.zeros(0, dtype=np.int32), np.zeros((0, 1, 2), dtype=np.int32)
+        return (np.zeros(0, dtype=np.int32),
+                np.zeros((0, 1, 2), dtype=np.int32), None)
     range_sets = [ids_to_ranges(s) for s in term_val_sets]
     rmax = max(r.shape[0] for r in range_sets)
     R = 1
@@ -235,4 +301,4 @@ def _probe_tags(key_dict: list, val_dict: list, req):
     val_ranges = np.tile(np.array([1, 0], dtype=np.int32), (T, R, 1))
     for t, r in enumerate(range_sets):
         val_ranges[t, :r.shape[0]] = r
-    return np.asarray(term_key_ids, dtype=np.int32), val_ranges
+    return np.asarray(term_key_ids, dtype=np.int32), val_ranges, None

@@ -73,6 +73,10 @@ def test_importing_the_port_loads_no_reference_module():
         "import sys\n"
         "import tempo_tpu_torch.db, tempo_tpu_torch.search.batcher\n"
         "import tempo_tpu_torch.search.kernels.build\n"
+        "import tempo_tpu_torch.search.dict_probe\n"
+        "import tempo_tpu_torch.search.engine\n"
+        "import tempo_tpu_torch.search.backend_search_block\n"
+        "import tempo_tpu_torch.search.kernels.probe\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -108,10 +112,12 @@ def test_default_device_is_cuda_and_never_the_cpu(tmp_path):
 def test_kernel_wrappers_take_plain_path_only_on_cpu():
     """On CPU tensors the wrappers run the plain versions and count no
     launch; the launch counters move only where a kernel launches."""
-    from tempo_tpu_torch.search.kernels import scan, topk
+    from tempo_tpu_torch.search.kernels import probe, scan, topk
 
-    scan.LAUNCHES.reset()
-    topk.LAUNCHES.reset()
+    counters = (scan.LAUNCHES, scan.HIT_LAUNCHES, scan.SINGLE_LAUNCHES,
+                topk.LAUNCHES, probe.LAUNCHES)
+    for c in counters:
+        c.reset()
     s, counts = scan.multi_scan(
         torch.zeros((1, 4, 1), dtype=torch.int8) - 1,
         torch.zeros((1, 4, 1), dtype=torch.int8) - 1,
@@ -126,4 +132,27 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     assert counts.tolist() == [4, 4]
     top_s, top_i = topk.topk(s, 2)
     assert top_s.tolist() == [3, 2] and top_i.tolist() == [3, 2]
-    assert (scan.LAUNCHES.n, topk.LAUNCHES.n) == (0, 0)
+    kv = torch.zeros((1, 4, 1), dtype=torch.int32)
+    cols = (torch.arange(4, dtype=torch.int32).reshape(1, 4),
+            torch.arange(4, dtype=torch.int32).reshape(1, 4),
+            torch.zeros((1, 4), dtype=torch.int32),
+            torch.ones((1, 4), dtype=torch.bool))
+    hits = torch.tensor([[True]])
+    s, counts = scan.multi_scan(
+        kv, kv, *cols, torch.zeros(1, dtype=torch.int32),
+        torch.zeros((1, 1), dtype=torch.int32),
+        torch.tensor([[[[1, 0]]]], dtype=torch.int32), 1, 0, 0xFFFFFFFF, 0,
+        0xFFFFFFFF, hits[None], torch.zeros(1, dtype=torch.int32))
+    assert counts.tolist() == [4, 4]
+    s, counts = scan.scan_single(
+        kv, kv, *cols, torch.zeros(1, dtype=torch.int32),
+        torch.tensor([[[1, 0]]], dtype=torch.int32), 1, 0, 0xFFFFFFFF, 0,
+        0xFFFFFFFF, hits)
+    assert counts.tolist() == [4, 4]
+    h, any_h = probe.dict_probe(
+        torch.tensor(list(b"abc"), dtype=torch.uint8),
+        torch.tensor([0, 1, 3], dtype=torch.int32),
+        torch.tensor([list(b"b")], dtype=torch.uint8),
+        torch.tensor([1], dtype=torch.int32))
+    assert h.tolist() == [[False, True]] and any_h.tolist() == [True]
+    assert [c.n for c in counters] == [0] * 5
