@@ -20,7 +20,11 @@ error:
    again through a ``TempoDB`` on the CPU (the kernels' plain versions)
    and requires identical responses; then holds K1 (multi_scan, range
    mode) and K2 (topk) against their plain versions on the card and times
-   them;
+   them; then K4 (coalesced_scan, range mode) on 8 stacked requests and
+   K2r (topk_rows) at k = 128 and 1024, and a fused dispatch against the
+   members' solo dispatches; then the concurrent phase (below) with 8
+   bench requests and with 8 exhaustive ones, and the bench request alone
+   once more;
 3. the high-cardinality cell: 10 blocks x 1,048,576 traces, each trace
    with the 8 tags and a ``session.id`` unique across the corpus (~1.05M
    distinct values per block dictionary, so every block stages its
@@ -30,9 +34,22 @@ error:
    (the single-block engine), each cold then 10 times warm, with launch
    counts per request; profiles three; requires the CPU path's responses;
    then holds K3 (dict_probe), K1 in hit-mask mode and K1s (scan_single)
-   against their plain versions on the card and times them;
+   against their plain versions on the card and times them; then K4 in
+   hit-mask mode on 6 probed and 2 host-compiled requests, with the fused
+   dispatch against the solo ones; then the concurrent phase with 8
+   exhaustive session-id substrings, and the point lookup alone once
+   more;
 4. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
+
+The concurrent phase: 8 client threads, barrier-started, send one
+request each per round, one warm-up round and then ``--rounds`` timed
+ones, through a ``TempoDB`` with the default query coalescer and through
+a second one over the same blocks with coalescing off
+(``search_coalesce_max_queries=1``). Every response must equal the
+serial response of the same request. It prints round and request
+latencies, launches per kernel and the coalescer's queries per
+dispatch.
 
 It imports nothing of JAX and nothing of the tempo_tpu package.
 """
@@ -49,6 +66,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -73,7 +91,15 @@ SESSION_KEY = "session.id"      # the high-cardinality cell's ninth tag
 POINT_SESSION = 123_456         # the point lookup's session number
 BENCH = {"service.name": "svc-007", "http.status_code": "500"}
 KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
-           "dict_probe")
+           "dict_probe", "coalesced_scan", "coalesced_scan_hits",
+           "topk_rows")
+CLIENTS = 8                     # concurrent clients
+# the concurrent clients' predicates: one service each, AND status 500
+CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
+                   for i in range(CLIENTS)]
+# the high-cardinality cell's concurrent session.id substrings
+HC_SESSIONS = ("77", "123", "404", "5555", "0012", "99", "31", "808")
+EXHAUSTIVE = {"x-dbg-exhaustive": ""}
 
 
 def requests(blocks: int) -> dict:
@@ -190,7 +216,10 @@ def counters() -> dict:
 
     return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
             "scan_single": scan.SINGLE_LAUNCHES, "topk": topk.LAUNCHES,
-            "dict_probe": probe.LAUNCHES}
+            "dict_probe": probe.LAUNCHES,
+            "coalesced_scan": scan.COALESCED_LAUNCHES,
+            "coalesced_scan_hits": scan.COALESCED_HIT_LAUNCHES,
+            "topk_rows": topk.ROW_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -385,18 +414,15 @@ def sector_bytes(mask, item_bytes: int) -> int:
     return int(m.reshape(-1, per).any(dim=1).sum()) * 32
 
 
-def k1_bytes(args, scores, val_hits=None, block_group=None,
-             single: bool = False) -> int:
-    """The bytes K1's (or, with `single`, K1s's) function must move on
-    these inputs, counted in the sectors this run's data touches: the
-    valid flags (and page ids) read and the scores and counts written,
-    all; the term tables; each live entry's key slots; the value slots
-    whose key a term names, for entries still alive at that term, up to
-    the first that passes; in hit-mask mode the hit-table sectors those
-    slots look up; and for entries that pass the terms, the u32 columns
-    their bounds need (duration and window end only when the bound
-    excludes some value; start always, for the score). `args` are K1's
-    (K1s's are given in K1's form: page_block all 0, tables as row 0)."""
+def k1_touch(args, val_hits=None, block_group=None) -> dict:
+    """What K1's function must read on these inputs, as masks over the
+    entries: `live` (whose key slots it reads, when there are terms),
+    `need_val` (the value slots whose key a term names, for entries still
+    alive at that term, up to the first that passes), `dur`/`end`/`start`
+    (the entries whose u32 column it reads: those that passed the terms,
+    duration and window end only where the bound excludes some value) and
+    `match`; plus `hit_bytes`, the hit-table sectors those value slots
+    look up in hit-mask mode. `args` are K1's."""
     import torch
 
     (kv_key, kv_val, start, end, dur, valid, page_block, term_keys,
@@ -440,29 +466,105 @@ def k1_bytes(args, scores, val_hits=None, block_group=None,
             alive &= hit.any(-1)
         if val_hits is not None:
             hit_sectors = int(touched.sum()) * 32
+    out = {"live": live, "need_val": need_val, "hit_bytes": hit_sectors,
+           "terms": bool(n_terms), "dur": None, "end": None}
+    if dur_lo != 0 or dur_hi != u32:
+        out["dur"] = alive.clone()
+        d = dur.long() & u32
+        alive &= (d >= dur_lo) & (d <= dur_hi)
+    if win_start != 0:
+        out["end"] = alive.clone()
+        alive &= (end.long() & u32) >= win_start
+    out["start"] = alive.clone()
+    alive &= (start.long() & u32) <= win_end
+    out["match"] = alive
+    return out
+
+
+def touched_bytes(t: dict, kv_key, kv_val) -> int:
+    """Sectors of the kv slots and u32 columns a k1_touch result reads,
+    plus its hit-table sectors."""
+    total = t["hit_bytes"]
+    if t["terms"]:
+        total += sector_bytes(t["live"][..., None].expand_as(kv_key)
+                              .contiguous(), kv_key.element_size())
+        total += sector_bytes(t["need_val"], kv_val.element_size())
+    for col in ("dur", "end", "start"):
+        if t[col] is not None:
+            total += sector_bytes(t[col], 4)
+    return total
+
+
+def k1_bytes(args, scores, val_hits=None, block_group=None,
+             single: bool = False) -> int:
+    """The bytes K1's (or, with `single`, K1s's) function must move on
+    these inputs, counted in the sectors this run's data touches: the
+    valid flags (and page ids) read and the scores and counts written,
+    all; the term tables; and what k1_touch finds. `args` are K1's (K1s's
+    are given in K1's form: page_block all 0, tables as row 0)."""
+    import torch
+
+    t = k1_touch(args, val_hits, block_group)
+    if not torch.equal(t["match"].reshape(-1), scores >= 0):
+        raise AssertionError("k1_bytes: its predicate differs from K1's")
+    kv_key, kv_val, valid, page_block = args[0], args[1], args[5], args[6]
     n = valid.numel()
     total = n + n * 4 + 8                             # valid, scores, counts
     if not single:
         total += page_block.numel() * 4
-    total += term_keys.numel() * 4 + val_ranges.numel() * 4
+    total += args[7].numel() * 4 + args[8].numel() * 4
     if block_group is not None and not single:
         total += block_group.numel() * 4
-    total += hit_sectors
-    if n_terms:
-        total += sector_bytes(live[..., None].expand_as(kv_key).contiguous(),
-                              kv_key.element_size())
-        total += sector_bytes(need_val, kv_val.element_size())
-    if dur_lo != 0 or dur_hi != u32:
-        total += sector_bytes(alive, 4)
-        d = dur.long() & u32
-        alive &= (d >= dur_lo) & (d <= dur_hi)
-    if win_start != 0:
-        total += sector_bytes(alive, 4)
-        alive &= (end.long() & u32) >= win_start
-    total += sector_bytes(alive, 4)
-    alive &= (start.long() & u32) <= win_end
-    if not torch.equal(alive.reshape(-1), scores >= 0):
-        raise AssertionError("k1_bytes: its predicate differs from K1's")
+    return total + touched_bytes(t, kv_key, kv_val)
+
+
+def k4_bytes(page, tables, scores) -> int:
+    """The bytes K4's function must move on these inputs: the valid flags
+    and page ids read and the Q score columns and counts written, all;
+    the stacked tables; and the union over the real queries of what
+    k1_touch finds for each (a pad query, whose duration range is empty,
+    reads no page data). `page` are K1's page arrays, `tables` K4's
+    per-query inputs."""
+    import torch
+
+    tk, vr, ta, dlo, dhi, ws, we, val_hits, bg = tables
+    kv_key, kv_val, valid, page_block = page[0], page[1], page[5], page[6]
+    Q, n = scores.shape
+    u = None
+    hit_bytes = 0
+    for q in range(Q):
+        b = [int(x[q]) & 0xFFFFFFFF for x in (dlo, dhi, ws, we)]
+        if b[0] > b[1]:
+            if bool((scores[q] >= 0).any()):
+                raise AssertionError("k4_bytes: a pad query matched")
+            continue
+        act = ta[q].nonzero().flatten()
+        vh = bgq = None
+        if val_hits is not None and val_hits[q] is not None:
+            vh, bgq = val_hits[q][:, act], bg[q]
+        t = k1_touch((*page, tk[q][:, act], vr[q][:, act], int(act.numel()),
+                      *b), vh, bgq)
+        if not torch.equal(t["match"].reshape(-1), scores[q] >= 0):
+            raise AssertionError(f"k4_bytes: its predicate differs from "
+                                 f"K4's for query {q}")
+        hit_bytes += t["hit_bytes"]
+        if u is None:
+            u = t
+            continue
+        u["terms"] |= t["terms"]
+        u["need_val"] |= t["need_val"]
+        for col in ("dur", "end", "start"):
+            if t[col] is not None:
+                u[col] = t[col] if u[col] is None else u[col] | t[col]
+    total = n + page_block.numel() * 4 + Q * n * 4 + (Q + 1) * 4
+    total += sum(x.numel() * x.element_size()
+                 for x in (tk, vr, ta, dlo, dhi, ws, we, bg)
+                 if x is not None)
+    if val_hits is not None:
+        total += Q * 24                               # the address table
+    if u is not None:
+        u["hit_bytes"] = hit_bytes
+        total += touched_bytes(u, kv_key, kv_val)
     return total
 
 
@@ -670,6 +772,225 @@ def hc_kernel_phase(db, bsb, launches: dict) -> list:
     ]
 
 
+def coalesced_phase(db, reqs: list, label: str, launches: dict,
+                    with_rows: bool) -> list:
+    """K4 against its plain version on the largest staged batch of `db`,
+    with `reqs` ((tags, fields) pairs) stacked along the query axis; the
+    fused dispatch (K4 + K2r) against each member's solo dispatch (K1 +
+    K2), exactly, indices included; with `with_rows`, K2r against its
+    plain version at the group's k and at k = 1024 (a limit-1000
+    request's), and torch.topk's scores."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.engine import (fetch_coalesced_out,
+                                               fetch_scan_out, resolve_top_k)
+    from tempo_tpu_torch.search.kernels import scan, topk
+    from tempo_tpu_torch.search.multiblock import compile_multi, \
+        stack_queries
+
+    eng = db.batcher.engine
+    batch = max(db.batcher._cache.values(),
+                key=lambda c: c.batch.n_pages).batch
+    d = batch.device
+    mqs = []
+    for tags, kw in reqs:
+        mq = compile_multi(list(batch.blocks),
+                           SearchRequest(tags=dict(tags), **kw),
+                           memo=batch.memo, cache=eng.compile_cache,
+                           staged_dicts=batch.staged_dicts)
+        if mq is None:
+            raise AssertionError(f"{label}: a member prunes every block")
+        mq.limit = kw.get("limit") or 20
+        mqs.append(mq)
+    cq = stack_queries(mqs)
+    page = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"])
+    tables = eng.coalesced_tables(cq)
+    scores, counts, inspected = scan.coalesced_scan(*page, *tables)
+    err = require_equal(f"K4 ({label})", (scores, counts, inspected),
+                        scan.coalesced_scan_plain(*page, *tables))
+    k = max(resolve_top_k(eng.top_k, mq.limit) for mq in mqs)
+    fc, fins, fs, fi = fetch_coalesced_out(
+        eng.coalesced_scan_async(batch, cq, k))
+    for qi, mq in enumerate(mqs):
+        c, ins, s1, i1 = fetch_scan_out(eng.scan_async(batch, mq))
+        kq = len(s1)
+        if (int(fc[qi]), fins) != (c, ins) \
+                or not np.array_equal(fs[qi][:kq], s1) \
+                or not np.array_equal(fi[qi][:kq], i1):
+            raise AssertionError(f"{label}: fused member {qi} differs from "
+                                 "its solo dispatch")
+    need = k4_bytes(page, tables, scores)
+    ms = cuda_ms(lambda: scan.coalesced_scan(*page, *tables), 50)
+    plain = cuda_ms(lambda: scan.coalesced_scan_plain(*page, *tables), 3)
+    Q, n = scores.shape
+    hits = cq.val_hits is not None
+    shape = {"pages": batch.n_pages, "entries": n, "Q": Q,
+             "members": cq.n_queries, "T": cq.n_terms,
+             "R": int(cq.val_ranges.shape[3]), "B": int(cq.term_keys.shape[1]),
+             "kv_dtypes": [str(d["kv_key"].dtype), str(d["kv_val"].dtype)],
+             "C": int(d["kv_key"].shape[2]),
+             "probed_members": (sum(h is not None for h in cq.val_hits)
+                                if hits else 0),
+             "counts": counts.tolist(), "inspected": int(inspected),
+             "bytes_needed": need, "fused_equals_solo": True}
+    print(f"K4 {label}: Q = {Q} ({cq.n_queries} members), equal to its "
+          f"plain version and the fused dispatch to the solo ones; "
+          f"{ms:.4f} ms, bound {need / HBM_BYTES_PER_S * 1e3:.4f} ms",
+          flush=True)
+    rows = [kernel_row("coalesced_scan_hits" if hits else "coalesced_scan",
+                       "tempo_tpu_torch/csrc/scan.cu",
+                       "tempo_tpu/search/multiblock.py:1028", launches, err,
+                       ms, plain, need, None, shape)]
+    if not with_rows:
+        return rows
+    r_err = 0
+    for kk in (k, 1024):
+        s2, i2 = topk.topk_rows(scores, kk)
+        r_err = max(r_err, require_equal(f"K2r (k={kk})", (s2, i2),
+                                         topk.topk_rows_plain(scores, kk)))
+        ls = torch.topk(scores, kk, dim=1).values
+        if not torch.equal(torch.sort(ls, dim=1).values,
+                           torch.sort(s2, dim=1).values):
+            raise AssertionError(f"K2r (k={kk}) scores differ from "
+                                 "torch.topk's")
+    r_ms = cuda_ms(lambda: topk.topk_rows(scores, k), 50)
+    r_plain = cuda_ms(lambda: topk.topk_rows_plain(scores, k), 5)
+    r_lib = cuda_ms(lambda: torch.topk(scores, k, dim=1), 50)
+    rows.append(kernel_row("topk_rows", "tempo_tpu_torch/csrc/topk.cu",
+                           "tempo_tpu/search/multiblock.py:1084", launches,
+                           r_err, r_ms, r_plain, Q * n * 4 + Q * k * 8,
+                           r_lib, {"rows": Q, "n": n, "k": k}))
+    return rows
+
+
+def pct(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def concurrent_rounds(db, tenant: str, reqs: list, rounds: int,
+                      serial: list) -> dict:
+    """CLIENTS barrier-started threads, one request each per round: one
+    warm-up round, then `rounds` timed ones. Every response must equal
+    `serial` (the same requests answered one at a time). Launch counters
+    set to 0 just before the first round and read after the last; the
+    coalescer's counters over the timed rounds."""
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    requests = [SearchRequest(tags=dict(t), **kw) for t, kw in reqs]
+    barrier = threading.Barrier(len(requests))
+
+    def one(i):
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        resp = db.search(tenant, requests[i]).response()
+        return time.perf_counter() - t0, resp
+
+    co = db.batcher.coalescer
+    walls, lat = [], []
+    st0 = None
+    reset_counts()
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=len(requests)) as ex:
+        for r in range(rounds + 1):
+            if r == 1 and co is not None:
+                st0 = co.stats()
+            t0 = time.perf_counter()
+            futs = [ex.submit(one, i) for i in range(len(requests))]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            for i, (_dt, resp) in enumerate(outs):
+                if resp != serial[i]:
+                    raise AssertionError(f"concurrent request {i} differs "
+                                         "from its serial response")
+            if r:
+                walls.append(wall * 1e3)
+                lat += [dt * 1e3 for dt, _ in outs]
+    row = {"round_ms": sorted(walls), "lat_ms": sorted(lat),
+           "round_p50_ms": pct(walls, 0.5), "round_p95_ms": pct(walls, 0.95),
+           "lat_p50_ms": pct(lat, 0.5), "lat_p95_ms": pct(lat, 0.95),
+           "launches": read_counts(), "coalesce": None}
+    if co is not None:
+        st1 = co.stats()
+        disp = st1["dispatches"] - st0["dispatches"]
+        queries = st1["queries"] - st0["queries"]
+        row["coalesce"] = {
+            "dispatches": disp, "queries": queries,
+            "fused_dispatches": st1["fused_dispatches"]
+            - st0["fused_dispatches"],
+            "queries_per_dispatch": queries / max(1, disp),
+            "pending": st1["pending"], "window_ms": st1["window_ms"]}
+    return row
+
+
+def concurrent_phase(label: str, co_db, serial_db, tenant: str,
+                     sets: dict, rounds: int, launches: dict) -> dict:
+    """Each set of CLIENTS requests answered serially on `serial_db`, then
+    concurrently through `co_db` (the default coalescer) and through
+    `serial_db` (coalescing off). Adds the launches to `launches`."""
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    out = {}
+    for set_name, reqs in sets.items():
+        serial = [serial_db.search(tenant, SearchRequest(tags=dict(t), **kw))
+                  .response() for t, kw in reqs]
+        for db_name, db in (("coalescing", co_db),
+                            ("no_coalescing", serial_db)):
+            row = concurrent_rounds(db, tenant, reqs, rounds, serial)
+            add_counts(launches, row["launches"])
+            fused_k4 = (row["launches"]["coalesced_scan"]
+                        + row["launches"]["coalesced_scan_hits"])
+            if db is serial_db and (fused_k4 or row["launches"]["topk_rows"]):
+                raise AssertionError(f"{label} {set_name}: coalescing off "
+                                     "but a fused dispatch ran")
+            co = row["coalesce"]
+            print(f"concurrent {label} {set_name} ({db_name}): round p50 "
+                  f"{row['round_p50_ms']:.3f} ms, p95 "
+                  f"{row['round_p95_ms']:.3f} ms; request p50 "
+                  f"{row['lat_p50_ms']:.3f} ms, p95 {row['lat_p95_ms']:.3f} "
+                  f"ms; launches {json.dumps(row['launches'])}; coalescer "
+                  f"{json.dumps(co)}", flush=True)
+            out[f"{set_name}/{db_name}"] = row
+    return out
+
+
+def solo_again(db, tenant: str, name: str, tags: dict, kw: dict,
+               before: dict, reps: int, launches: dict) -> dict:
+    """The single-request bench again after the concurrent phase: no peer
+    counter or parked query may be left, and its p50 must stay within the
+    earlier run's spread plus half a window (a leaked peer counter would
+    add a whole window to every solo dispatch)."""
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    b = db.batcher
+    dbg = b.debug_stats()
+    if dbg["peers"] != {"interest": {}, "unplanned": 0} \
+            or dbg["coalesce"]["pending"]:
+        raise AssertionError(f"{name}: state left by the concurrent "
+                             f"phase: {dbg}")
+    req = SearchRequest(tags=dict(tags), **kw)
+    r = drive(lambda: db.search(tenant, req), reps, True)
+    add_counts(launches, r["launches"])
+    p50 = r["lat"][len(r["lat"]) // 2] * 1e3
+    lo, hi = before["lat"][0] * 1e3, before["lat"][-1] * 1e3
+    allowed = hi + b.coalescer.window_s * 1e3 / 2
+    row = {"p50_ms": p50, "before_p50_ms":
+           before["lat"][len(before["lat"]) // 2] * 1e3,
+           "before_spread_ms": [lo, hi], "within_spread": p50 <= hi,
+           "launches": r["launches"]}
+    print(f"{name} alone after the concurrent phase: p50 {p50:.3f} ms "
+          f"(before: p50 {row['before_p50_ms']:.3f} ms, spread "
+          f"{lo:.3f}-{hi:.3f} ms); coalescer pending 0, no peer left",
+          flush=True)
+    if p50 > allowed:
+        raise AssertionError(f"{name}: p50 {p50:.3f} ms after the "
+                             f"concurrent phase, over {allowed:.3f} ms")
+    return row
+
+
 def latency_row(r: dict, resp) -> dict:
     lat = r["lat"]
     p50 = lat[len(lat) // 2]
@@ -710,6 +1031,7 @@ def tag_search_cell(args, work: str, report: dict, dbs: list,
 
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
 
     n_total = args.blocks * args.traces_per_block
     reqs = requests(args.blocks)
@@ -766,11 +1088,45 @@ def tag_search_cell(args, work: str, report: dict, dbs: list,
     report["cpu_check_s"] = time.perf_counter() - t0
     print(f"cpu check: {len(reqs)} responses identical "
           f"({report['cpu_check_s']:.1f} s)", flush=True)
+    cpu.close()
+    dbs.remove(cpu)
     rows = kernel_phase(gpu, reqs, launches)
-    for db in (gpu, cpu):
+    rows += coalesced_phase(gpu, [(t, {"limit": 20})
+                                  for t in CONCURRENT_TAGS],
+                            "range mode, tag search", launches, True)
+
+    serial = TempoDB(LocalBackend(root), TempoDBConfig(
+        search_max_batch_pages=4096, search_coalesce_max_queries=1),
+        device="cuda")
+    dbs.append(serial)
+    serial.poll()
+    tags, kw = reqs["exhaustive_bench"]
+    serial.search("smoke", SearchRequest(tags=dict(tags), **kw))  # stage
+    torch.cuda.reset_peak_memory_stats()
+    report["concurrent"] = concurrent_phase(
+        "tag search", gpu, serial, "smoke",
+        {"bench": [(t, {"limit": 20}) for t in CONCURRENT_TAGS],
+         "exhaustive": [(dict(t, **EXHAUSTIVE), {"limit": 20})
+                        for t in CONCURRENT_TAGS]}, args.rounds, launches)
+    report["concurrent_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    require_fusion(report["concurrent"]["exhaustive/coalescing"],
+                   "coalesced_scan")
+    tags, kw = reqs["bench_and"]
+    report["solo_again"] = solo_again(gpu, "smoke", "bench_and", tags, kw,
+                                      res["bench_and"], args.reps, launches)
+    for db in (gpu, serial):
         db.close()
         dbs.remove(db)
     return rows
+
+
+def require_fusion(row: dict, kernel: str) -> None:
+    """The exhaustive concurrent rounds fused: more than one query per
+    dispatch, through K4 in the cell's mode."""
+    co = row["coalesce"]
+    if co["queries_per_dispatch"] <= 1 or not row["launches"][kernel]:
+        raise AssertionError(f"the concurrent exhaustive rounds did not "
+                             f"fuse: {co}, launches {row['launches']}")
 
 
 def hc_paths(db, bsb_of, n_per: int, reps: int, sync: bool) -> dict:
@@ -815,6 +1171,7 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
 
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search.backend_search_block import \
         BackendSearchBlock
 
@@ -838,6 +1195,7 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
     gpu.poll()
     groups = gpu.batcher.plan(gpu._jobs("hc", gpu.blocklist.epoch()))
     report["hc_plan"] = [len(g) for g in groups]
+    gc.collect()        # free the tag-search cell's closed databases first
     torch.cuda.reset_peak_memory_stats()
     bsbs = {}
 
@@ -903,8 +1261,36 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
     cpu.close()
     dbs.remove(cpu)
     rows = hc_kernel_phase(gpu, bsbs["gpu"], launches)
-    gpu.close()
-    dbs.remove(gpu)
+    rows += coalesced_phase(
+        gpu, [(dict(EXHAUSTIVE, **{SESSION_KEY: v}), {"limit": 20})
+              for v in HC_SESSIONS[:6]]
+        + [({}, {"min_duration_ms": 59_000, "limit": 20}),
+           ({}, {"start": BASE_S + 300, "end": BASE_S + 900, "limit": 20})],
+        "hit-mask mode, 6 probed + 2 host-compiled", launches, False)
+
+    serial = TempoDB(be, TempoDBConfig(search_max_batch_pages=4096,
+                                       search_coalesce_max_queries=1),
+                     device="cuda")
+    dbs.append(serial)
+    serial.poll()
+    tags, kw = reqs["hc_exhaustive_77"]
+    serial.search("hc", SearchRequest(tags=dict(tags), **kw))     # stage
+    torch.cuda.reset_peak_memory_stats()
+    report["hc_concurrent"] = concurrent_phase(
+        "high cardinality", gpu, serial, "hc",
+        {"sessions": [(dict(EXHAUSTIVE, **{SESSION_KEY: v}), {"limit": 20})
+                      for v in HC_SESSIONS]}, args.rounds, launches)
+    report["hc_concurrent_peak_device_bytes"] = \
+        torch.cuda.max_memory_allocated()
+    require_fusion(report["hc_concurrent"]["sessions/coalescing"],
+                   "coalesced_scan_hits")
+    tags, kw = reqs["hc_point"]
+    report["hc_solo_again"] = solo_again(gpu, "hc", "hc_point", tags, kw,
+                                         res["hc_point"], args.reps,
+                                         launches)
+    for db in (gpu, serial):
+        db.close()
+        dbs.remove(db)
     return rows
 
 
@@ -915,6 +1301,8 @@ def main(argv=None) -> int:
     ap.add_argument("--hc-blocks", type=int, default=10)
     ap.add_argument("--hc-traces-per-block", type=int, default=1_048_576)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=10,
+                    help="timed rounds of the concurrent phases")
     ap.add_argument("--seed", type=int, default=20261017)
     ap.add_argument("--report", default=None,
                     help="also write the full report (timings, shapes, "
@@ -953,6 +1341,9 @@ def main(argv=None) -> int:
     kernels = [by_name[k] for k in KERNELS]
     for r in kernels:
         r["launches"] = launches[r["name"]]
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} was never launched on the "
+                                 "main path")
     report["kernels"] = kernels
     report["launches_all_paths"] = launches
 

@@ -1,5 +1,6 @@
-// K1 multi_scan and K1s scan_single: the tag-search predicate, count and
-// score column.
+// K1 multi_scan, K1s scan_single and K4 coalesced_scan: the tag-search
+// predicate, count and score column, for one query (K1, K1s) or for Q
+// queries over the same staged pages in one launch (K4).
 //
 // K1 replaces tempo_tpu/search/multiblock.py `multi_entry_mask` and the
 // count/inspected reductions of `multi_scan_kernel` (TPU kernel B3,
@@ -29,6 +30,19 @@
 // uint32 in the container; they arrive as int32 tensors holding the same
 // bits and are compared as uint32 here.
 //
+// K4 replaces tempo_tpu/search/multiblock.py `coalesced_scan_kernel`
+// (TPU kernel B6, without its structural and aggregate inputs): the vmap
+// of `multi_entry_mask` over a query axis. The query tables stack as
+// term_keys [Q,B,T], val_ranges [Q,B,T,R,2], term_active [Q,T] and four
+// uint32 bounds [Q]. An inactive term is neutral-true in the AND (unlike
+// the -1 key, which is neutral-false for its block), and a query whose
+// duration range is empty (the pad queries: dur_lo 1 > dur_hi 0) matches
+// nothing. In hit-mask mode each query has its own hit table
+// u8 [G_q, T_q, V_q], found through a small device table of addresses so
+// that a fused dispatch copies no member's table, and its own row of
+// block_group [Q,B]. K4 writes scores [Q, P*E], counts [Q] and one
+// inspected count.
+//
 // Bound on an H100: bytes. Every entry reads its valid flag and writes
 // one int32 score; a live entry reads its C key slots and the value slots
 // whose key a term names (int8/int16/int32, as the batch was narrowed),
@@ -44,8 +58,15 @@
 // non-matches, so the top-k (K2) needs no separate mask array; count and
 // inspected reduce per warp with ballots, per block in shared memory, then
 // with one integer atomic per block, which is exact in any order. The two
-// modes and the single-block form are template parameters of one body, so
-// the range path compiles to the same code as before.
+// modes and the single-block form are template parameters of one body.
+// K4 is bound by the same reads, made once for all Q queries, plus Q
+// score columns written: one CTA covers (part of) one page, so all its
+// entries share one block, whose rows of the Q queries' tables it stages
+// in shared memory; each thread loads its entry's first 16 key and value
+// slots into registers once and then runs every query and term over them,
+// reading the u32 columns only if some query passed its terms. K1, K1s
+// and K4 test a slot with the same function (`slot_hit`), so the three
+// cannot drift apart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,6 +74,31 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// One kv slot against one term: key equality, then value membership --
+// a lookup in the term's hit-table row `h` (hit-mask mode), or the range
+// test over `rg` [R][2]. A value id < 0 never hits; an id past the table
+// clamps to its last entry, as the reference's gather does. `kk`/`vv` are
+// the entry's slots in device memory or in registers (K4); the value slot
+// is read only when the key matches.
+template <bool kHits, typename KP, typename VP>
+__device__ __forceinline__ bool slot_hit(const KP& kk, const VP& vv, int c,
+                                         int32_t key, const int32_t* rg,
+                                         int R, const uint8_t* h,
+                                         int64_t n_vals) {
+  if ((int32_t)kk[c] != key) return false;
+  const int32_t v = (int32_t)vv[c];
+  if (kHits && h != nullptr)
+    return v >= 0 && n_vals > 0 &&
+           __ldg(h + ((int64_t)v < n_vals ? (int64_t)v : n_vals - 1)) != 0;
+  for (int r = 0; r < R; ++r)
+    if (v >= rg[2 * r] && v <= rg[2 * r + 1]) return true;
+  return false;
+}
+
+__device__ __forceinline__ int32_t score_of(uint32_t start) {
+  return (int32_t)min(start, 0x7FFFFFFFu);
+}
 
 struct ScanArgs {
   const void* kv_key;            // [P, E, C] KT
@@ -104,28 +150,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
       for (int t = 0; t < a.n_terms && match; ++t) {
         const int64_t row = (int64_t)b * a.t_stride + t;
         const int32_t key = __ldg(a.term_keys + row);
+        const int32_t* rg = a.val_ranges + row * a.R * 2;
+        const uint8_t* h = (kHits && htab != nullptr)
+                               ? htab + (int64_t)t * a.n_vals
+                               : nullptr;
         bool hit = false;
-        if (kHits && htab != nullptr) {
-          const uint8_t* h = htab + (int64_t)t * a.n_vals;
-          for (int c = 0; c < a.C && !hit; ++c) {
-            if ((int32_t)kk[c] != key) continue;
-            const int64_t v = (int64_t)vv[c];
-            if (v >= 0 && a.n_vals > 0)
-              hit = __ldg(h + (v < a.n_vals ? v : a.n_vals - 1)) != 0;
-          }
-        } else {
-          const int32_t* rg = a.val_ranges + row * a.R * 2;
-          for (int c = 0; c < a.C && !hit; ++c) {
-            if ((int32_t)kk[c] != key) continue;
-            const int32_t v = (int32_t)vv[c];
-            for (int r = 0; r < a.R; ++r) {
-              if (v >= __ldg(rg + 2 * r) && v <= __ldg(rg + 2 * r + 1)) {
-                hit = true;
-                break;
-              }
-            }
-          }
-        }
+        for (int c = 0; c < a.C && !hit; ++c)
+          hit = slot_hit<kHits>(kk, vv, c, key, rg, a.R, h, a.n_vals);
         match = hit;
       }
     }
@@ -140,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
     if (match) {
       const uint32_t start = a.entry_start[i];
       match = start <= a.win_end;
-      if (match) score = (int32_t)min(start, 0x7FFFFFFFu);
+      if (match) score = score_of(start);
     }
     a.scores[i] = score;
   }
@@ -221,6 +252,210 @@ ScanArgs make_args(const void* kv_key, const void* kv_val,
   return a;
 }
 
+
+// ---------------------------------------------------------------------
+// K4 coalesced_scan
+
+constexpr int kMaxQ = 64;     // queries per launch (one bit each of a mask)
+constexpr int kRegC = 16;     // kv slots an entry keeps in registers
+constexpr int kSmemMax = 48 * 1024;
+
+struct CoalArgs {
+  const void* kv_key;            // [P, E, C] KT
+  const void* kv_val;            // [P, E, C] VT
+  const uint32_t* entry_start;   // [P, E]
+  const uint32_t* entry_end;
+  const uint32_t* entry_dur;
+  const bool* entry_valid;
+  const int32_t* page_block;     // [P]
+  const int32_t* term_keys;      // [Q, B, T]
+  const int32_t* val_ranges;     // [Q, B, T, R, 2]
+  const bool* term_active;       // [Q, T]
+  const uint32_t* dur_lo;        // [Q] each
+  const uint32_t* dur_hi;
+  const uint32_t* win_start;
+  const uint32_t* win_end;
+  const int32_t* block_group;    // [Q, B]; hit-mask mode only
+  const int64_t* hit_meta;       // [Q, 3]: table address (0: none),
+                                 // t_stride, n_vals; hit-mask mode only
+  int E, C, Q, B, T, R;
+  int chunks;                    // CTAs per page
+  int stage_tables;              // the block's [Q,T] rows go to smem
+  int32_t* scores;               // [Q, P * E]
+  int32_t* counts;               // [Q + 1]: matches per query, inspected;
+                                 // zeroed by the caller
+};
+
+// shared-memory layout of one K4 CTA, computed alike on host and device
+struct CoalLayout {
+  int hmeta, cnt, bounds, bg, tk, rg, act, bytes;
+};
+
+__host__ __device__ inline CoalLayout coal_layout(int Q, int T, int R,
+                                                  bool staged) {
+  CoalLayout l;
+  int off = 0;
+  l.hmeta = off;  off += 3 * Q * 8;           // int64 [Q][3]
+  l.cnt = off;    off += (Q + 1) * 4;         // int32 [Q + 1]
+  l.bounds = off; off += 4 * Q * 4;           // uint32 [4][Q]
+  l.bg = off;     off += Q * 4;               // int32 [Q]
+  l.tk = off;     if (staged) off += Q * T * 4;          // int32 [Q][T]
+  l.rg = off;     if (staged) off += Q * T * R * 2 * 4;  // int32 [Q][T][R][2]
+  l.act = off;    off += Q * T;               // u8 [Q][T]
+  l.bytes = (off + 15) & ~15;
+  return l;
+}
+
+template <typename KT, typename VT, bool kHits>
+__global__ void __launch_bounds__(kThreads)
+coalesced_kernel(const CoalArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const CoalLayout L = coal_layout(a.Q, a.T, a.R, a.stage_tables != 0);
+  int64_t* s_hm = (int64_t*)(smem + L.hmeta);
+  int* s_cnt = (int*)(smem + L.cnt);
+  uint32_t* s_bd = (uint32_t*)(smem + L.bounds);
+  int32_t* s_bg = (int32_t*)(smem + L.bg);
+  int32_t* s_tk = (int32_t*)(smem + L.tk);
+  int32_t* s_rg = (int32_t*)(smem + L.rg);
+  uint8_t* s_act = smem + L.act;
+
+  const int Q = a.Q, T = a.T, R = a.R;
+  const int tid = threadIdx.x;
+  const int64_t page = blockIdx.x / a.chunks;
+  const int e = (blockIdx.x % a.chunks) * blockDim.x + tid;
+  const int32_t b = __ldg(a.page_block + page);   // one block per CTA
+
+  // stage the per-query scalars and this block's rows of the tables
+  for (int j = tid; j <= Q; j += blockDim.x) s_cnt[j] = 0;
+  for (int j = tid; j < Q; j += blockDim.x) {
+    s_bd[j] = a.dur_lo[j];
+    s_bd[Q + j] = a.dur_hi[j];
+    s_bd[2 * Q + j] = a.win_start[j];
+    s_bd[3 * Q + j] = a.win_end[j];
+  }
+  for (int j = tid; j < Q * T; j += blockDim.x) s_act[j] = a.term_active[j];
+  if (b >= 0) {
+    if (kHits) {
+      for (int j = tid; j < Q; j += blockDim.x)
+        s_bg[j] = a.block_group[(int64_t)j * a.B + b];
+      for (int j = tid; j < 3 * Q; j += blockDim.x) s_hm[j] = a.hit_meta[j];
+    }
+    if (a.stage_tables) {
+      for (int j = tid; j < Q * T; j += blockDim.x)
+        s_tk[j] = a.term_keys[((int64_t)(j / T) * a.B + b) * T + j % T];
+      const int per_q = T * R * 2;
+      for (int j = tid; j < Q * per_q; j += blockDim.x)
+        s_rg[j] = a.val_ranges[((int64_t)(j / per_q) * a.B + b) * per_q +
+                               j % per_q];
+    }
+  }
+  __syncthreads();
+  // key(q, t) = tk[q * tk_qs + t]; ranges(q, t) = rg + q * rg_qs + t * R * 2
+  const int32_t* tk = s_tk;
+  const int32_t* rg = s_rg;
+  int64_t tk_qs = T, rg_qs = (int64_t)T * R * 2;
+  if (!a.stage_tables) {
+    const int64_t bb = b < 0 ? 0 : b;
+    tk = a.term_keys + bb * T;
+    rg = a.val_ranges + bb * T * R * 2;
+    tk_qs = (int64_t)a.B * T;
+    rg_qs = (int64_t)a.B * T * R * 2;
+  }
+
+  const bool in = e < a.E;
+  const int64_t i = page * a.E + e;
+  const bool live = in && b >= 0 && a.entry_valid[i];
+  uint64_t tmask = 0;   // bit q: the entry passes query q's terms
+  if (live) {
+    const int C = a.C;
+    const KT* kk = (const KT*)a.kv_key + i * C;
+    const VT* vv = (const VT*)a.kv_val + i * C;
+    // the entry's slots, read from device memory once for all queries
+    int32_t rk[kRegC], rv[kRegC];
+#pragma unroll
+    for (int c = 0; c < kRegC; ++c) {
+      rk[c] = c < C ? (int32_t)kk[c] : -1;
+      rv[c] = c < C ? (int32_t)vv[c] : -1;
+    }
+    for (int q = 0; q < Q; ++q) {
+      if (s_bd[q] > s_bd[Q + q]) continue;   // empty duration range
+      const uint8_t* hq = nullptr;
+      int64_t ht = 0, hv = 0;
+      if (kHits) {
+        const int32_t g = s_bg[q];
+        if (g >= 0 && s_hm[3 * q] != 0) {
+          ht = s_hm[3 * q + 1];
+          hv = s_hm[3 * q + 2];
+          hq = (const uint8_t*)s_hm[3 * q] + (int64_t)g * ht * hv;
+        }
+      }
+      bool m = true;
+      for (int t = 0; t < T && m; ++t) {
+        if (!s_act[q * T + t]) continue;          // inactive: neutral-true
+        const int32_t key = tk[q * tk_qs + t];
+        const int32_t* r = rg + q * rg_qs + (int64_t)t * R * 2;
+        const uint8_t* h = hq != nullptr ? hq + (int64_t)t * hv : nullptr;
+        bool hit = false;
+#pragma unroll
+        for (int c = 0; c < kRegC; ++c)
+          if (c < C && !hit)
+            hit = slot_hit<kHits>(rk, rv, c, key, r, R, h, hv);
+        for (int c = kRegC; c < C && !hit; ++c)
+          hit = slot_hit<kHits>(kk, vv, c, key, r, R, h, hv);
+        m = hit;
+      }
+      if (m) tmask |= 1ull << q;
+    }
+  }
+  // the u32 columns, only for entries that passed some query's terms
+  uint32_t dur = 0, end = 0, start = 0;
+  if (tmask) {
+    dur = a.entry_dur[i];
+    end = a.entry_end[i];
+    start = a.entry_start[i];
+  }
+  const int64_t n = (int64_t)gridDim.x / a.chunks * a.E;   // P * E
+  const int lane = tid & 31;
+  // every lane of every warp reaches the ballots (blockDim % 32 == 0)
+  for (int q = 0; q < Q; ++q) {
+    bool m = (tmask >> q) & 1ull;
+    if (m)
+      m = dur >= s_bd[q] && dur <= s_bd[Q + q] && end >= s_bd[2 * Q + q] &&
+          start <= s_bd[3 * Q + q];
+    if (in) a.scores[q * n + i] = m ? score_of(start) : -1;
+    const unsigned bal = __ballot_sync(0xffffffffu, m);
+    if (lane == 0 && bal) atomicAdd(&s_cnt[q], __popc(bal));
+  }
+  const unsigned lbal = __ballot_sync(0xffffffffu, live);
+  if (lane == 0 && lbal) atomicAdd(&s_cnt[Q], __popc(lbal));
+  __syncthreads();
+  for (int j = tid; j <= Q; j += blockDim.x)
+    if (s_cnt[j]) atomicAdd(&a.counts[j], s_cnt[j]);
+}
+
+template <typename KT, typename VT>
+int launch_coal(const CoalArgs& a, int64_t P, int threads, int smem,
+                cudaStream_t stream) {
+  const unsigned grid = (unsigned)(P * a.chunks);
+  if (a.hit_meta != nullptr) {
+    coalesced_kernel<KT, VT, true><<<grid, threads, smem, stream>>>(a);
+  } else {
+    coalesced_kernel<KT, VT, false><<<grid, threads, smem, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename KT>
+int coal_dispatch_val(int val_bytes, const CoalArgs& a, int64_t P,
+                      int threads, int smem, cudaStream_t s) {
+  switch (val_bytes) {
+    case 1: return launch_coal<KT, int8_t>(a, P, threads, smem, s);
+    case 2: return launch_coal<KT, int16_t>(a, P, threads, smem, s);
+    case 4: return launch_coal<KT, int32_t>(a, P, threads, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -275,6 +510,69 @@ int tt_scan_single(const void* kv_key, const void* kv_val,
       n_terms, t_stride, R, n_vals, dur_lo, dur_hi, win_start, win_end,
       scores, counts);
   return launch<int32_t, int32_t, true>(a, (cudaStream_t)stream);
+}
+
+// K4. Q <= 64 queries; term_keys [Q, B, T], val_ranges [Q, B, T, R, 2],
+// term_active (bool) [Q, T], the four bounds [Q] (uint32 bits); hit-mask
+// mode when block_group ([Q, B]) and hit_meta ([Q, 3] int64) are both
+// set. scores [Q, P * E]; counts [Q + 1], zeroed. Returns the
+// cudaError_t of the launch.
+int tt_coalesced_scan(int key_bytes, int val_bytes, const void* kv_key,
+                      const void* kv_val, const void* entry_start,
+                      const void* entry_end, const void* entry_dur,
+                      const void* entry_valid, const void* page_block,
+                      const void* term_keys, const void* val_ranges,
+                      const void* term_active, const void* dur_lo,
+                      const void* dur_hi, const void* win_start,
+                      const void* win_end, const void* block_group,
+                      const void* hit_meta, int64_t P, int E, int C, int Q,
+                      int B, int T, int R, void* scores, void* counts,
+                      void* stream) {
+  if (P <= 0 || E <= 0) return 0;
+  if (Q < 1 || Q > kMaxQ || T < 1 || R < 1 ||
+      (block_group == nullptr) != (hit_meta == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CoalArgs a;
+  a.kv_key = kv_key;
+  a.kv_val = kv_val;
+  a.entry_start = (const uint32_t*)entry_start;
+  a.entry_end = (const uint32_t*)entry_end;
+  a.entry_dur = (const uint32_t*)entry_dur;
+  a.entry_valid = (const bool*)entry_valid;
+  a.page_block = (const int32_t*)page_block;
+  a.term_keys = (const int32_t*)term_keys;
+  a.val_ranges = (const int32_t*)val_ranges;
+  a.term_active = (const bool*)term_active;
+  a.dur_lo = (const uint32_t*)dur_lo;
+  a.dur_hi = (const uint32_t*)dur_hi;
+  a.win_start = (const uint32_t*)win_start;
+  a.win_end = (const uint32_t*)win_end;
+  a.block_group = (const int32_t*)block_group;
+  a.hit_meta = (const int64_t*)hit_meta;
+  a.E = E;
+  a.C = C;
+  a.Q = Q;
+  a.B = B;
+  a.T = T;
+  a.R = R;
+  const int threads = E >= kThreads ? kThreads : ((E + 31) / 32) * 32;
+  a.chunks = (E + threads - 1) / threads;
+  if (P * a.chunks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  a.stage_tables = coal_layout(Q, T, R, true).bytes <= kSmemMax;
+  const int smem = coal_layout(Q, T, R, a.stage_tables != 0).bytes;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  a.scores = (int32_t*)scores;
+  a.counts = (int32_t*)counts;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (key_bytes) {
+    case 1:
+      return coal_dispatch_val<int8_t>(val_bytes, a, P, threads, smem, s);
+    case 2:
+      return coal_dispatch_val<int16_t>(val_bytes, a, P, threads, smem, s);
+    case 4:
+      return coal_dispatch_val<int32_t>(val_bytes, a, P, threads, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* tt_cuda_error_string(int code) {

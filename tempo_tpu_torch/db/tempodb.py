@@ -41,6 +41,11 @@ class TempoDBConfig:
     # the device and answer substring terms with the probe kernel (K3);
     # None = dict_probe.DEVICE_PROBE_MIN_VALS (50k), <= 0 = host only
     search_device_probe_min_vals: int | None = None
+    # concurrent searches whose dispatches land on one staged batch
+    # within this window share one fused dispatch, up to max_queries of
+    # them; max_queries <= 1 turns coalescing off
+    search_coalesce_window_s: float = 0.003
+    search_coalesce_max_queries: int = 8
     pool_workers: int = 50                # concurrent meta reads per poll
 
 
@@ -62,7 +67,9 @@ class TempoDB:
             max_batch_pages=self.cfg.search_max_batch_pages,
             cache_bytes=self.cfg.search_batch_cache_bytes,
             pipeline_depth=self.cfg.search_pipeline_depth,
-            device_probe_min_vals=self.cfg.search_device_probe_min_vals)
+            device_probe_min_vals=self.cfg.search_device_probe_min_vals,
+            coalesce_window_s=self.cfg.search_coalesce_window_s,
+            coalesce_max_queries=self.cfg.search_coalesce_max_queries)
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()
@@ -73,6 +80,7 @@ class TempoDB:
         self._lock = threading.Lock()
 
     def close(self) -> None:
+        """Stop the batcher's staging and coalescing threads."""
         self.batcher.close()
 
     # ------------------------------------------------------------------

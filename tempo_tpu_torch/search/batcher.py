@@ -17,26 +17,37 @@ the two kernels. What the grouping keeps from the reference:
   one scans, and dispatch stops once the result limit is met;
 - **probe dictionaries in the budget**: a batch's staged value
   dictionaries (the device probe's input) count against the same byte
-  budget as its pages, and leave with the batch when it is evicted.
+  budget as its pages, and leave with the batch when it is evicted;
+- **coalesced across requests**: concurrent searches whose dispatches
+  land on the same staged batch within a short window stack their
+  queries and share one fused dispatch (``QueryCoalescer``); a dispatch
+  that no other in-flight search can share skips the window.
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
-breaker's host route and ``host_scan``, the dispatch watchdog, the query
-coalescer, HBM ownership and hedging, per-query stats and profiling, and
-the host-RAM tier of the staged cache. Nothing here falls back to the CPU:
-a batch is staged on the engine's device and scanned there.
+breaker's host route and ``host_scan``, the dispatch watchdog, HBM
+ownership and hedging, per-query stats and profiling (and the
+coalescer's attribution of a fused dispatch's cost), the structural and
+``?agg=`` members of a fused group, and the host-RAM tier of the staged
+cache. Nothing here falls back to the CPU: a batch is staged on the
+engine's device and scanned there, and a fused dispatch that raises
+fails every member.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import heapq
 import threading
+import time
 import zlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
-from .engine import DEFAULT_TOP_K, fetch_scan_out
-from .multiblock import MultiBlockEngine, compile_multi
+from .engine import (DEFAULT_TOP_K, fetch_coalesced_out, fetch_scan_out,
+                     resolve_top_k)
+from .kernels.scan import MAX_QUERIES
+from .multiblock import MultiBlockEngine, compile_multi, stack_queries
 from .pipeline import block_header_skip_reason, is_exhaustive, tags_sig
 from .results import SearchResults
 
@@ -82,6 +93,221 @@ def _predicate_sig(req) -> tuple:
             req.max_duration_ms or 0, req.start or 0, req.end or 0)
 
 
+class _PendingCoalesce:
+    """Queries waiting on one staged batch for the window to close."""
+
+    __slots__ = ("batch", "gen", "items")
+
+    def __init__(self, batch, gen: int):
+        self.batch = batch
+        self.gen = gen
+        self.items: list = []     # [(mq, top_k, Future)]
+
+
+class _FusedOut:
+    """One fused dispatch's device outputs, fetched lazily: the first
+    member to drain claims the one device-to-host copy and makes it
+    outside any lock; later members wait on the event. A failed fetch is
+    raised to every member."""
+
+    __slots__ = ("_out", "_host", "_exc", "_claimed", "_done")
+
+    def __init__(self, out):
+        self._out = out
+        self._host = None
+        self._exc = None
+        self._claimed = threading.Lock()
+        self._done = threading.Event()
+
+    def host(self) -> tuple:
+        if not self._done.is_set() and self._claimed.acquire(blocking=False):
+            try:
+                self._host = fetch_coalesced_out(self._out)
+                self._out = None
+            except Exception as e:  # noqa: BLE001 -- raised to every member
+                self._exc = e
+            finally:
+                self._done.set()
+        else:
+            self._done.wait()
+        if self._exc is not None:
+            raise self._exc
+        if self._host is None:
+            raise RuntimeError("fused fetch aborted before it published")
+        return self._host
+
+
+class _FusedSlice:
+    """One member's view of a _FusedOut: iterates as the host
+    (count, inspected, scores, idx) of a solo dispatch."""
+
+    __slots__ = ("_shared", "_qi")
+
+    def __init__(self, shared: _FusedOut, qi: int):
+        self._shared = shared
+        self._qi = qi
+
+    def __iter__(self):
+        counts, inspected, scores, idx = self._shared.host()
+        qi = self._qi
+        return iter((int(counts[qi]), inspected, scores[qi], idx[qi]))
+
+
+class QueryCoalescer:
+    """Cross-request query coalescing: concurrent searches whose next
+    dispatch targets the same staged batch stack their compiled queries
+    and run as one fused dispatch (K4 + K2r).
+
+    ``submit`` parks a query in the batch's pending group and arms a
+    window (`window_s`); the group flushes when the window closes or at
+    once when it holds `max_queries`. A submit whose `peers` hint (the
+    in-flight searches that could target this batch, itself included) is
+    <= 1 flushes at once: no peer can come. A single-query flush runs the
+    ordinary dispatch (K1 + K2). One scheduler thread serves every
+    window from a deadline heap, handing due groups to a small flush
+    pool; a group's generation number lets it skip deadlines that a size
+    flush already took. An exception in a flush is set on every member's
+    future."""
+
+    def __init__(self, engine: MultiBlockEngine, window_s: float = 0.003,
+                 max_queries: int = 8, active_fn=None):
+        self.engine = engine
+        self.window_s = window_s
+        # K4 takes at most MAX_QUERIES queries a launch
+        self.max_queries = min(max(2, max_queries), MAX_QUERIES)
+        # in-flight searches when the caller gives no hint
+        self._active_fn = active_fn or (lambda: 2)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pending: dict[int, _PendingCoalesce] = {}  # id(batch) -> group
+        self._deadlines: list = []       # heap of (deadline, gen, key)
+        self._sched: threading.Thread | None = None
+        self._flush_pool: concurrent.futures.ThreadPoolExecutor | None = None
+        self._gen = 0
+        self._closed = False
+        self.dispatches = 0   # dispatches issued here, solo and fused
+        self.fused = 0        # dispatches that served more than one query
+        self.queries = 0      # queries served
+
+    def submit(self, batch, mq, top_k: int,
+               peers: int | None = None) -> concurrent.futures.Future:
+        """Queue one compiled query against `batch`. The future resolves
+        to the device outputs of a solo dispatch (as ``scan_async``
+        returns them) or to a _FusedSlice of a fused one."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        key = id(batch)
+        flush_now = None
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the query coalescer is closed")
+            grp = self._pending.get(key)
+            if grp is None:
+                self._gen += 1
+                grp = self._pending[key] = _PendingCoalesce(batch, self._gen)
+            grp.items.append((mq, top_k, fut))
+            if len(grp.items) >= self.max_queries:
+                del self._pending[key]
+                flush_now = grp
+            elif len(grp.items) == 1:
+                hint = peers if peers is not None else self._active_fn()
+                if hint <= 1:
+                    # no peer can share this dispatch: a window would
+                    # only add latency
+                    del self._pending[key]
+                    flush_now = grp
+                else:
+                    heapq.heappush(self._deadlines,
+                                   (time.perf_counter() + self.window_s,
+                                    grp.gen, key))
+                    if self._sched is None:
+                        self._flush_pool = \
+                            concurrent.futures.ThreadPoolExecutor(
+                                max_workers=4,
+                                thread_name_prefix="coalesce-flush")
+                        self._sched = threading.Thread(
+                            target=self._window_loop, daemon=True,
+                            name="coalesce-window")
+                        self._sched.start()
+                    self._cv.notify()
+        if flush_now is not None:
+            self._run(flush_now)
+        return fut
+
+    def _window_loop(self) -> None:
+        """The scheduler thread: pop due deadlines, skip those whose group
+        a size flush already took, hand the rest to the flush pool."""
+        while True:
+            with self._cv:
+                while not self._deadlines and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    return
+                deadline, gen, key = self._deadlines[0]
+                wait = deadline - time.perf_counter()
+                if wait > 0:
+                    self._cv.wait(wait)
+                    continue
+                heapq.heappop(self._deadlines)
+                grp = self._pending.get(key)
+                if grp is None or grp.gen != gen:
+                    continue
+                del self._pending[key]
+            self._flush_pool.submit(self._run, grp)
+
+    def _run(self, grp: _PendingCoalesce) -> None:
+        items = grp.items
+        try:
+            with self._lock:
+                self.dispatches += 1
+                self.queries += len(items)
+                if len(items) > 1:
+                    self.fused += 1
+            if len(items) == 1:
+                mq, _k, fut = items[0]
+                fut.set_result(self.engine.scan_async(grp.batch, mq))
+                return
+            cq = stack_queries([mq for mq, _k, _f in items])
+            k = max(k for _mq, k, _f in items)
+            shared = _FusedOut(
+                self.engine.coalesced_scan_async(grp.batch, cq, k))
+            for qi, (_mq, _k, fut) in enumerate(items):
+                fut.set_result(_FusedSlice(shared, qi))
+        except BaseException as e:  # noqa: BLE001 -- set on every member
+            for _mq, _k, fut in items:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    def stats(self) -> dict:
+        with self._lock:
+            pending = sum(len(g.items) for g in self._pending.values())
+            return {"dispatches": self.dispatches,
+                    "fused_dispatches": self.fused,
+                    "queries": self.queries,
+                    "ratio": round(self.queries / max(1, self.dispatches),
+                                   3),
+                    "pending": pending,
+                    "window_ms": self.window_s * 1e3}
+
+    def close(self) -> None:
+        """Stop the scheduler thread and the flush pool. Queries still
+        parked in a window are flushed first, so no member waits
+        forever."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+            sched = self._sched
+        if sched is not None:
+            sched.join(timeout=10)
+        with self._lock:
+            parked = list(self._pending.values())
+            self._pending.clear()
+            self._deadlines.clear()
+        for grp in parked:
+            self._run(grp)
+        if self._flush_pool is not None:
+            self._flush_pool.shutdown(wait=True)
+
+
 class BlockBatcher:
     """Groups ScanJobs into staged device batches and runs searches over
     them. Thread-safe; one instance per TempoDB."""
@@ -91,7 +317,11 @@ class BlockBatcher:
                  cache_bytes: int = 4 << 30,
                  pipeline_depth: int = 2,
                  io_workers: int = 8,
-                 device_probe_min_vals: int | None = None):
+                 device_probe_min_vals: int | None = None,
+                 coalesce_window_s: float = 0.003,
+                 coalesce_max_queries: int = 8):
+        """`coalesce_max_queries` <= 1 disables coalescing: every
+        dispatch runs at once, on the caller's thread."""
         self.engine = MultiBlockEngine(
             device, top_k=top_k, device_probe_min_vals=device_probe_min_vals)
         self.max_batch_pages = max_batch_pages
@@ -109,11 +339,34 @@ class BlockBatcher:
         # staging lookahead: stages group i+1 while group i scans
         self._prefetcher = concurrent.futures.ThreadPoolExecutor(
             max_workers=4, thread_name_prefix="stage-prefetch")
-        self.last_dispatches = 0   # dispatches of the last search
+        # peers of a dispatch, for the coalescer: _interest counts per
+        # group key the in-flight searches that plan to scan it and have
+        # not dispatched it yet; _unplanned the searches whose plan is not
+        # final (they could target any group)
+        self._interest: dict[tuple, int] = {}
+        self._unplanned = 0
+        self.coalescer = None
+        if coalesce_max_queries > 1:
+            self.coalescer = QueryCoalescer(
+                self.engine, window_s=coalesce_window_s,
+                max_queries=coalesce_max_queries)
+        self.last_dispatches = 0   # dispatch submits of the last search
 
     def close(self) -> None:
-        """Stop the staging threads (pending lookaheads are cancelled)."""
+        """Stop the staging threads (pending lookaheads are cancelled) and
+        the coalescer's."""
         self._prefetcher.shutdown(wait=True, cancel_futures=True)
+        if self.coalescer is not None:
+            self.coalescer.close()
+
+    def debug_stats(self) -> dict:
+        """The coalescer's counters and the peer counters."""
+        with self._lock:
+            peers = {"interest": dict(self._interest),
+                     "unplanned": self._unplanned}
+        return {"coalesce": (self.coalescer.stats()
+                             if self.coalescer is not None else None),
+                "peers": peers}
 
     # ------------------------------------------------------------------
     # planning
@@ -219,16 +472,33 @@ class BlockBatcher:
         """Run the request over all jobs: group, stage, compile, dispatch
         (pipelined, early-quitting), merge. `plan_key` (tenant, epoch, ...)
         memoizes the grouping, a pure function of the job list; a caller
-        that already holds the plan passes `groups`."""
+        that already holds the plan passes `groups`. Concurrent searches
+        coalesce their dispatches over a shared staged batch."""
+        with self._lock:
+            self._unplanned += 1
         pinned: list[_CachedBatch] = []
+        interest: list[tuple] = []    # group keys not yet dispatched
+        planned = [False]
         try:
             return self._search_impl(jobs, req, results, plan_key, groups,
-                                     pinned)
+                                     pinned, interest, planned)
         finally:
             with self._lock:
+                if planned[0]:
+                    for k in interest:
+                        self._release_locked(k)
+                else:
+                    self._unplanned -= 1
                 for c in pinned:
                     c.pins -= 1
                 self._evict_locked()
+
+    def _release_locked(self, gkey) -> None:
+        n = self._interest.get(gkey, 0) - 1
+        if n <= 0:
+            self._interest.pop(gkey, None)
+        else:
+            self._interest[gkey] = n
 
     def _plan_for(self, jobs, plan_key):
         if plan_key is None:
@@ -246,18 +516,41 @@ class BlockBatcher:
         return groups
 
     def _search_impl(self, jobs, req, results, plan_key, groups,
-                     pinned) -> SearchResults:
+                     pinned, interest, planned) -> SearchResults:
         results = results or SearchResults.for_request(req)
         exhaustive = is_exhaustive(req)
         if groups is None:
             groups = self._plan_for(jobs, plan_key)
+        # the plan is final: declare the groups this search will scan, so
+        # the coalescer can tell a real peer on a batch from an unrelated
+        # concurrent search
+        with self._lock:
+            self._unplanned -= 1
+            planned[0] = True
+            for g in groups:
+                k = tuple(j.key for j in g)
+                self._interest[k] = self._interest.get(k, 0) + 1
+                interest.append(k)
         sig = _predicate_sig(req)
         inflight: deque = deque()
         dispatches = 0
 
         def drain_one():
             cached, mq, pre, out = inflight.popleft()
-            count, inspected, scores, idx = fetch_scan_out(out)
+            if isinstance(out, concurrent.futures.Future):
+                out = out.result()
+            if isinstance(out, _FusedSlice):
+                count, inspected, scores, idx = out
+            else:
+                count, inspected, scores, idx = fetch_scan_out(out)
+            # the dispatch has run (on a window's flush thread, perhaps):
+            # keep its uploaded tables for the next request of this
+            # predicate over this batch. A fused dispatch uploads stacked
+            # tables instead and leaves none.
+            if mq.device_tables is not None:
+                with self._lock:
+                    if pre.get("device_tables") is None:
+                        pre["device_tables"] = mq.device_tables
             inspected -= pre["entries_skipped"]
             m = results.metrics
             m.inspected_blocks += pre["inspected_blocks"]
@@ -368,10 +661,21 @@ class BlockBatcher:
             mq = dataclasses.replace(
                 base, limit=req.limit or 20,
                 device_tables=pre.get("device_tables"))
-            out = self.engine.scan_async(cached.batch, mq)
-            pre["device_tables"] = mq.device_tables
+            if self.coalescer is not None:
+                with self._lock:
+                    peers = self._interest.get(gkey, 1) + self._unplanned
+                out = self.coalescer.submit(
+                    cached.batch, mq,
+                    resolve_top_k(self.engine.top_k, mq.limit), peers=peers)
+            else:
+                out = self.engine.scan_async(cached.batch, mq)
             dispatches += 1
             inflight.append((cached, mq, pre, out))
+            # this search does not come back to this group: later peers
+            # need not wait for it (a parked query still fuses with them)
+            with self._lock:
+                self._release_locked(gkey)
+            interest.remove(gkey)
             while len(inflight) >= self.pipeline_depth:
                 drain_one()
         while inflight:

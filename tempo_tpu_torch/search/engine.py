@@ -8,7 +8,8 @@ when that clears the probe threshold; ``ScanEngine`` dispatches kernel
 K1s (``kernels.scan.scan_single``, the port of B1) then K2
 (``kernels.topk.topk``, B2) and renders the top-k as results.
 ``DEFAULT_TOP_K``, ``resolve_top_k`` and ``fetch_scan_out`` are shared
-with the batched path (``multiblock.py``).
+with the batched path (``multiblock.py``); ``fetch_coalesced_out`` is
+the fused (query-axis) path's fetch.
 """
 
 from __future__ import annotations
@@ -49,6 +50,22 @@ def fetch_scan_out(out) -> tuple:
     host = torch.cat([counts, scores, idx]).cpu().numpy()
     return (int(host[0]), int(host[1]), np.ascontiguousarray(host[2:2 + k]),
             np.ascontiguousarray(host[2 + k:]))
+
+
+def fetch_coalesced_out(out) -> tuple:
+    """Query-axis variant of fetch_scan_out: (counts [Q], inspected,
+    scores [Q, k], idx [Q, k]) device tensors -> host (counts [Q],
+    inspected, scores [Q, k], idx [Q, k]) with a single device-to-host
+    copy, the one synchronisation point of the fused dispatch; members
+    then slice their rows of the host arrays."""
+    counts, inspected, scores, idx = out
+    q, k = scores.shape
+    host = torch.cat([counts, inspected.reshape(1), scores.reshape(-1),
+                      idx.reshape(-1)]).cpu().numpy()
+    body = host[q + 1:]
+    return (np.ascontiguousarray(host[:q]), int(host[q]),
+            np.ascontiguousarray(body[:q * k].reshape(q, k)),
+            np.ascontiguousarray(body[q * k:].reshape(q, k)))
 
 
 @dataclass

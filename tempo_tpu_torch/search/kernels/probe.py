@@ -116,5 +116,5 @@ def _dict_probe_cuda(buf, off, needles, lens):
                                needles.data_ptr(), lens.data_ptr(), T, L,
                                hits.data_ptr(), any_hits.data_ptr(), stream)
     check(lib, rc, "dict_probe")
-    LAUNCHES.n += 1
+    LAUNCHES.bump()
     return hits, any_hits

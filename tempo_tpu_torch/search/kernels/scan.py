@@ -1,5 +1,5 @@
-"""K1 ``multi_scan`` and K1s ``scan_single``: the tag-search predicate,
-count and score column.
+"""K1 ``multi_scan``, K1s ``scan_single`` and K4 ``coalesced_scan``: the
+tag-search predicate, count and score column.
 
 K1 is the counterpart of ``tempo_tpu/search/multiblock.py``
 ``multi_entry_mask`` and the count/inspected half of ``multi_scan_kernel``
@@ -26,6 +26,17 @@ an optional val_hits bool [T', V] used on every page.
 Outputs: scores int32 [P*E] (min(start, 2^31-1) where the entry matches,
 else -1) and counts int32 [2] = (match count, inspected), inspected being
 the valid entries (of non-pad pages).
+
+K4 is the counterpart of ``tempo_tpu/search/multiblock.py``
+``coalesced_scan_kernel`` (B6) without its structural and aggregate
+inputs: K1's function for Q queries over the same staged pages, in one
+launch. Its inputs are K1's page arrays and, per query, term_keys
+[Q, B, T], val_ranges [Q, B, T, R, 2], term_active bool [Q, T] (an
+inactive term is neutral-true) and the bounds dur_lo, dur_hi, win_start,
+win_end as int32 [Q] holding uint32 bits; in hit-mask mode, val_hits, a
+sequence of Q hit tables (bool [G_q, T_q, V_q], or None for a query
+compiled on the host), with block_group int32 [Q, B]. Outputs: scores
+int32 [Q, P*E], counts int32 [Q] and inspected, an int32 scalar.
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ from .build import check, load
 LAUNCHES = LaunchCount()         # K1 launches in range mode
 HIT_LAUNCHES = LaunchCount()     # K1 launches in hit-mask mode
 SINGLE_LAUNCHES = LaunchCount()  # K1s launches (either mode)
+COALESCED_LAUNCHES = LaunchCount()      # K4 launches in range mode
+COALESCED_HIT_LAUNCHES = LaunchCount()  # K4 launches in hit-mask mode
+MAX_QUERIES = 64                 # K4's query axis, at most
 
 _KV_DTYPES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
 _U32 = 0xFFFFFFFF
@@ -78,6 +92,19 @@ def scan_single(kv_key, kv_val, entry_start, entry_end, entry_dur,
                              entry_dur, entry_valid, term_keys, val_ranges,
                              n_terms, dur_lo, dur_hi, win_start, win_end,
                              val_hits)
+
+
+def coalesced_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
+                   entry_valid, page_block, term_keys, val_ranges,
+                   term_active, dur_lo, dur_hi, win_start, win_end,
+                   val_hits=None, block_group=None):
+    """(scores [Q, P*E], counts [Q], inspected) — the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
+    fn = (coalesced_scan_plain if kv_key.device.type == "cpu"
+          else _coalesced_scan_cuda)
+    return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
+              entry_valid, page_block, term_keys, val_ranges, term_active,
+              dur_lo, dur_hi, win_start, win_end, val_hits, block_group)
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +164,31 @@ def multi_scan_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                    dur_hi, win_start, win_end)
 
 
+def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
+                         entry_dur, entry_valid, page_block, term_keys,
+                         val_ranges, term_active, dur_lo, dur_hi,
+                         win_start, win_end, val_hits=None,
+                         block_group=None):
+    """K4's function in plain PyTorch ops: K1's plain version once per
+    query, over that query's active terms."""
+    rows, counts = [], []
+    inspected = None
+    for q in range(term_keys.shape[0]):
+        act = term_active[q].nonzero().flatten()
+        vh = bg = None
+        if val_hits is not None and val_hits[q] is not None:
+            vh, bg = val_hits[q][:, act], block_group[q]
+        s, c = multi_scan_plain(
+            kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+            page_block, term_keys[q][:, act], val_ranges[q][:, act],
+            int(act.numel()), *(int(x[q]) & _U32 for x in (
+                dur_lo, dur_hi, win_start, win_end)), vh, bg)
+        rows.append(s)
+        counts.append(c[0])
+        inspected = c[1]
+    return torch.stack(rows), torch.stack(counts), inspected
+
+
 def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms: int,
                       dur_lo: int, dur_hi: int, win_start: int,
@@ -178,6 +230,9 @@ def _lib():
         lib.tt_scan_single.restype = i32
         lib.tt_scan_single.argtypes = (
             [p] * 9 + [i64] + [i32] * 5 + [i64] + [u32] * 4 + [p, p, p])
+        lib.tt_coalesced_scan.restype = i32
+        lib.tt_coalesced_scan.argtypes = (
+            [i32, i32] + [p] * 16 + [i64] + [i32] * 6 + [p, p, p])
         lib._tt_typed = True
     return lib
 
@@ -267,7 +322,7 @@ def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             counts.data_ptr(), stream)
     check(lib, rc, "multi_scan")
     if n:
-        (LAUNCHES if val_hits is None else HIT_LAUNCHES).n += 1
+        (LAUNCHES if val_hits is None else HIT_LAUNCHES).bump()
     return scores, counts
 
 
@@ -316,5 +371,86 @@ def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             counts.data_ptr(), stream)
     check(lib, rc, "scan_single")
     if n:
-        SINGLE_LAUNCHES.n += 1
+        SINGLE_LAUNCHES.bump()
     return scores, counts
+
+
+def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
+                         entry_valid, page_block, term_keys, val_ranges,
+                         term_active, dur_lo, dur_hi, win_start, win_end,
+                         val_hits, block_group):
+    dev = kv_key.device
+    _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
+                   entry_valid)
+    P, E, C = kv_key.shape
+    if page_block.dtype != torch.int32 or tuple(page_block.shape) != (P,):
+        raise ValueError(f"page_block: want int32 {(P,)}")
+    if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32 \
+            or term_keys.dim() != 3:
+        raise TypeError("term tables must be int32, term_keys [Q, B, T]")
+    Q, B, T = term_keys.shape
+    if not 1 <= Q <= MAX_QUERIES or T < 1:
+        raise ValueError(f"coalesced_scan takes 1..{MAX_QUERIES} queries "
+                         "and at least one term column")
+    if val_ranges.dim() != 5 or tuple(val_ranges.shape[:3]) != (Q, B, T) \
+            or val_ranges.shape[4] != 2 or val_ranges.shape[3] < 1:
+        raise ValueError("val_ranges must be [Q, B, T, R, 2] beside "
+                         "term_keys [Q, B, T]")
+    if term_active.dtype != torch.bool \
+            or tuple(term_active.shape) != (Q, T):
+        raise ValueError(f"term_active: want bool {(Q, T)}")
+    bounds = (dur_lo, dur_hi, win_start, win_end)
+    for b in bounds:
+        if b.dtype != torch.int32 or tuple(b.shape) != (Q,):
+            raise ValueError(f"bounds: want int32 {(Q,)} (uint32 bits)")
+    if (val_hits is None) != (block_group is None):
+        raise ValueError("val_hits and block_group go together")
+    hit_meta = None
+    if val_hits is not None:
+        if len(val_hits) != Q:
+            raise ValueError(f"val_hits: want {Q} entries")
+        if block_group.dtype != torch.int32 \
+                or tuple(block_group.shape) != (Q, B):
+            raise ValueError(f"block_group: want int32 {(Q, B)}")
+        meta = []
+        for h in val_hits:
+            if h is None:
+                meta.append((0, 0, 0))
+                continue
+            if h.dtype != torch.bool or h.dim() != 3 or h.device != dev \
+                    or not h.is_contiguous():
+                raise ValueError("each val_hits table must be a contiguous "
+                                 "bool [G, T, V] tensor on the scan's "
+                                 "device")
+            meta.append((h.data_ptr() if h.numel() else 0,
+                         int(h.shape[1]), int(h.shape[2])))
+        # the tables stay where the members' compiles left them: the
+        # kernel finds each through this [Q, 3] table of addresses, so a
+        # fused dispatch copies none of them (the reference stacks them
+        # into one [Q, G, T, V] array, some 25 MB a dispatch for the
+        # high-cardinality cell)
+        hit_meta = torch.tensor(meta, dtype=torch.int64).to(dev)
+    _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
+                             entry_dur, entry_valid, page_block, term_keys,
+                             val_ranges, term_active, *bounds, block_group,
+                             hit_meta), "coalesced_scan")
+    scores = torch.empty((Q, P * E), dtype=torch.int32, device=dev)
+    counts = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tt_coalesced_scan(
+            _KV_DTYPES[kv_key.dtype], _KV_DTYPES[kv_val.dtype],
+            kv_key.data_ptr(), kv_val.data_ptr(), entry_start.data_ptr(),
+            entry_end.data_ptr(), entry_dur.data_ptr(),
+            entry_valid.data_ptr(), page_block.data_ptr(),
+            term_keys.data_ptr(), val_ranges.data_ptr(),
+            term_active.data_ptr(), *(b.data_ptr() for b in bounds),
+            _ptr(block_group), _ptr(hit_meta), P, E, C, Q, B, T,
+            int(val_ranges.shape[3]), scores.data_ptr(), counts.data_ptr(),
+            stream)
+    check(lib, rc, "coalesced_scan")
+    if P * E:
+        (COALESCED_LAUNCHES if val_hits is None
+         else COALESCED_HIT_LAUNCHES).bump()
+    return scores, counts[:Q], counts[Q]

@@ -12,7 +12,11 @@ stacked per distinct dictionary as ``val_hits [G, T, Vm]`` with a
 one batch mixes both. The dispatch is two hand-written kernels: K1
 (``kernels.scan.multi_scan``) evaluates the predicate and writes a score
 per entry plus the match and inspected counts, and K2
-(``kernels.topk.topk``) picks the k most recent matches.
+(``kernels.topk.topk``) picks the k most recent matches. Concurrent
+requests over one staged batch stack along a query axis
+(``stack_queries``) and run as one fused dispatch
+(``MultiBlockEngine.coalesced_scan_async``): K4
+(``kernels.scan.coalesced_scan``) then K2r (``kernels.topk.topk_rows``).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from ..model.types import TraceSearchMetadata
 from . import dict_probe
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
-from .kernels.scan import multi_scan
-from .kernels.topk import topk
+from .kernels.scan import coalesced_scan, multi_scan
+from .kernels.topk import topk, topk_rows
 from .pipeline import CompileCache, CompiledQuery, compile_query, \
     dict_fingerprint
 
@@ -78,6 +82,13 @@ class BlockBatch:
         dictionaries."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.device.values())) + self.dict_nbytes
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 def _narrow(n: int):
@@ -251,9 +262,7 @@ def compile_multi(blocks: list[ColumnarPages], req,
     for cq in per_block:
         if cq is not None and cq.n_terms:
             rmax = max(rmax, cq.val_ranges.shape[1])
-    R = 1
-    while R < rmax:
-        R *= 2
+    R = _pow2(rmax)
     term_keys = np.full((B, max(1, T)), -1, dtype=np.int32)
     val_ranges = np.tile(np.array([1, 0], dtype=np.int32),
                          (B, max(1, T), R, 1))
@@ -306,6 +315,97 @@ def _stack_hits(compiled: dict, rows_of: dict, B: int, Tp: int):
     return val_hits, block_group
 
 
+@dataclass
+class CoalescedQuery:
+    """Several requests' MultiQueries over the same staged batch, stacked
+    along a query axis for one fused dispatch (K4 + K2r)."""
+    term_keys: np.ndarray    # int32 [Q, B, T]
+    val_ranges: np.ndarray   # int32 [Q, B, T, R, 2]
+    term_active: np.ndarray  # bool [Q, T]; False = padding term (no-op)
+    dur_lo: np.ndarray       # uint32 [Q]
+    dur_hi: np.ndarray       # uint32 [Q]
+    win_start: np.ndarray    # uint32 [Q]
+    win_end: np.ndarray      # uint32 [Q]
+    n_terms: int             # T, padded
+    n_queries: int           # real queries; the pad rows match nothing
+    # device-probe members: Q entries, each the member's own hit tables
+    # bool [G, T', V] on the device or None (a host-compiled member, a
+    # pad query), and int32 [Q, B] block -> group rows, all -1 for those
+    # without tables. None when no member probed.
+    val_hits: tuple | None = None
+    block_group: np.ndarray | None = None
+
+
+def stack_queries(mqs: list[MultiQuery]) -> CoalescedQuery:
+    """Stack compiled queries over the same block batch along the query
+    axis, the reference's ``multiblock.stack_queries`` without its
+    structural and ``?agg=`` branches. Q, T and R pad to powers of two.
+    A real query's extra terms are inactive (neutral-true in the AND); a
+    pad query gets the empty duration range dur_lo 1 > dur_hi 0, so it
+    matches nothing. dur_hi and win_end clamp to uint32."""
+    for mq in mqs:
+        # the request tags that need these are refused at compile time
+        if getattr(mq, "structural", None) is not None \
+                or getattr(mq, "agg_stage", None) is not None:
+            raise ValueError("structural and ?agg= queries do not "
+                             "coalesce in the port")
+    Qn = len(mqs)
+    B = mqs[0].term_keys.shape[0]
+    Q = _pow2(Qn)
+    T = _pow2(max(1, max(mq.n_terms for mq in mqs)))
+    R = _pow2(max(mq.val_ranges.shape[2] for mq in mqs))
+    term_keys = np.full((Q, B, T), -1, dtype=np.int32)
+    val_ranges = np.tile(np.array([1, 0], dtype=np.int32), (Q, B, T, R, 1))
+    term_active = np.zeros((Q, T), dtype=bool)
+    dur_lo = np.ones(Q, dtype=np.uint32)
+    dur_hi = np.zeros(Q, dtype=np.uint32)
+    win_start = np.zeros(Q, dtype=np.uint32)
+    win_end = np.zeros(Q, dtype=np.uint32)
+    for qi, mq in enumerate(mqs):
+        if mq.term_keys.shape[0] != B:
+            raise ValueError("coalesced queries must share one batch")
+        t_n = mq.term_keys.shape[1]
+        term_keys[qi, :, :t_n] = mq.term_keys
+        val_ranges[qi, :, :t_n, :mq.val_ranges.shape[2]] = mq.val_ranges
+        term_active[qi, :mq.n_terms] = True
+        dur_lo[qi] = mq.dur_lo
+        dur_hi[qi] = min(mq.dur_hi, 0xFFFFFFFF)
+        win_start[qi] = mq.win_start
+        win_end[qi] = min(mq.win_end, 0xFFFFFFFF)
+    val_hits = block_group = None
+    if any(mq.val_hits is not None for mq in mqs):
+        # each member keeps its own device tables; K4 reads them through
+        # a table of their addresses instead of a stacked copy
+        val_hits = tuple(mq.val_hits for mq in mqs) + (None,) * (Q - Qn)
+        block_group = np.full((Q, B), -1, dtype=np.int32)
+        for qi, mq in enumerate(mqs):
+            if mq.val_hits is not None:
+                block_group[qi] = mq.block_group
+    return CoalescedQuery(
+        term_keys=term_keys, val_ranges=val_ranges, term_active=term_active,
+        dur_lo=dur_lo, dur_hi=dur_hi, win_start=win_start, win_end=win_end,
+        n_terms=T, n_queries=Qn, val_hits=val_hits, block_group=block_group)
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
+
+
+def _upload(arrays: list, device: torch.device) -> list:
+    """Small int32/bool arrays on the device with one host-to-device copy:
+    their bytes packed at 8-byte offsets into one buffer, viewed back."""
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 8) * 8
+    buf = np.zeros(total, dtype=np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
+    dev = torch.from_numpy(buf).to(device)
+    return [dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
 class MultiBlockEngine:
     """Batched scan over many blocks in one dispatch on one device."""
 
@@ -324,11 +424,8 @@ class MultiBlockEngine:
         """Stack a batch on the host with its page count padded to a power
         of two (the reference buckets shapes this way to bound recompiles;
         the port keeps the layout so both scan the same padded batch)."""
-        total = sum(b.n_pages for b in blocks)
-        pad_to = 1
-        while pad_to < total:
-            pad_to *= 2
-        return stack_host(blocks, pad_to=pad_to,
+        return stack_host(blocks,
+                          pad_to=_pow2(sum(b.n_pages for b in blocks)),
                           probe_min_vals=self.device_probe_min_vals)
 
     def place(self, host: HostBatch) -> BlockBatch:
@@ -357,6 +454,35 @@ class MultiBlockEngine:
 
     def scan(self, batch: BlockBatch, mq: MultiQuery) -> tuple:
         return fetch_scan_out(self.scan_async(batch, mq))
+
+    def coalesced_tables(self, cq: CoalescedQuery) -> tuple:
+        """K4's per-query inputs on the device: the stacked tables in one
+        host-to-device copy, then the members' hit tables as they are.
+        (term_keys, val_ranges, term_active, dur_lo, dur_hi, win_start,
+        win_end, val_hits, block_group)."""
+        bounds = [np.asarray(x, dtype=np.uint32).view(np.int32)
+                  for x in (cq.dur_lo, cq.dur_hi, cq.win_start, cq.win_end)]
+        arrays = [cq.term_keys, cq.val_ranges, cq.term_active, *bounds]
+        if cq.val_hits is not None:
+            arrays.append(cq.block_group)
+        tk, vr, ta, dlo, dhi, ws, we, *bg = _upload(arrays, self.device)
+        return (tk, vr, ta, dlo, dhi, ws, we, cq.val_hits,
+                bg[0] if bg else None)
+
+    def coalesced_scan_async(self, batch: BlockBatch, cq: CoalescedQuery,
+                             top_k: int):
+        """One fused dispatch for the stacked queries: the tables go up
+        once, then K4 and K2r run on the current stream, without a
+        device-to-host sync. `top_k` is the group's k, the largest of its
+        members'. Returns device tensors (counts [Q], inspected, top-k
+        scores [Q, k], top-k flat indices [Q, k])."""
+        d = batch.device
+        scores, counts, inspected = coalesced_scan(
+            d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"],
+            *self.coalesced_tables(cq))
+        top_scores, top_idx = topk_rows(scores, top_k)
+        return counts, inspected, top_scores, top_idx
 
     def results(self, batch: BlockBatch, mq: MultiQuery,
                 scores: np.ndarray, idx: np.ndarray) -> list:

@@ -115,7 +115,8 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     from tempo_tpu_torch.search.kernels import probe, scan, topk
 
     counters = (scan.LAUNCHES, scan.HIT_LAUNCHES, scan.SINGLE_LAUNCHES,
-                topk.LAUNCHES, probe.LAUNCHES)
+                topk.LAUNCHES, probe.LAUNCHES, scan.COALESCED_LAUNCHES,
+                scan.COALESCED_HIT_LAUNCHES, topk.ROW_LAUNCHES)
     for c in counters:
         c.reset()
     s, counts = scan.multi_scan(
@@ -155,4 +156,14 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         torch.tensor([list(b"b")], dtype=torch.uint8),
         torch.tensor([1], dtype=torch.int32))
     assert h.tolist() == [[False, True]] and any_h.tolist() == [True]
-    assert [c.n for c in counters] == [0] * 5
+    u32 = torch.tensor([-1], dtype=torch.int32)        # 0xFFFFFFFF bits
+    zero = torch.zeros(1, dtype=torch.int32)
+    for vh, bg in ((None, None), ((hits[None],), zero[None])):
+        s, qc, ins = scan.coalesced_scan(
+            kv, kv, *cols, zero, zero.reshape(1, 1, 1),
+            torch.tensor([[[[[1, 0]]]]], dtype=torch.int32),
+            torch.tensor([[vh is not None]]), zero, u32, zero, u32, vh, bg)
+        assert qc.tolist() == [4] and int(ins) == 4
+    rs, ri = topk.topk_rows(s, 2)
+    assert rs.tolist() == [[3, 2]] and ri.tolist() == [[3, 2]]
+    assert [c.n for c in counters] == [0] * 8
