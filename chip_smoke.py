@@ -3,7 +3,8 @@
 
   python3 chip_smoke.py                  # full size, as a user would call it
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
-      --hc-blocks 2 --hc-traces-per-block 131072     # a quick check
+      --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
+      --hc-packed-blocks 2                           # a quick check
 
 What it does, in order, failing (exit code != 0, no result line) on any
 error:
@@ -24,8 +25,18 @@ error:
    K2r (topk_rows) at k = 128 and 1024, and a fused dispatch against the
    members' solo dispatches; then the concurrent phase (below) with 8
    bench requests and with 8 exhaustive ones, and the bench request alone
-   once more;
-3. the high-cardinality cell: 10 blocks x 1,048,576 traces, each trace
+   once more; then the packed tag cell: a second TempoDB with
+   ``search_packed_residency=True`` over the same blocks answers the six
+   requests and the 8-client exhaustive set, each response equal to the
+   unpacked database's, prints both databases' staged bytes (physical
+   and logical), and holds K1 and K4 in the packed layout against their
+   plain versions;
+3. the long-duration cell: 64 blocks x 65,536 traces like the tag cell's,
+   except that 1 trace in 64 lasts 60,000-3,600,000 ms (packed: u16
+   duration buckets plus a u8 residual); an unpacked and a packed
+   TempoDB answer four duration requests alike, and K1 with bucketed
+   durations is held against its plain version;
+4. the high-cardinality cell: 10 blocks x 1,048,576 traces, each trace
    with the 8 tags and a ``session.id`` unique across the corpus (~1.05M
    distinct values per block dictionary, so every block stages its
    dictionary for the device probe at the default 50k threshold); answers
@@ -39,7 +50,12 @@ error:
    dispatch against the solo ones; then the concurrent phase with 8
    exhaustive session-id substrings, and the point lookup alone once
    more;
-4. prints the kernels line, the card's name and power limit, and as the
+5. the packed high-cardinality cell: the hc corpus's first 4 blocks (one
+   4,096-page group), an unpacked and a packed TempoDB through the same
+   three entry points, each packed response equal to the unpacked one;
+   then K1, K1s and K4 with word hit tables and K5 (pack_mask_words)
+   against their plain versions;
+6. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 The concurrent phase: 8 client threads, barrier-started, send one
@@ -92,7 +108,10 @@ POINT_SESSION = 123_456         # the point lookup's session number
 BENCH = {"service.name": "svc-007", "http.status_code": "500"}
 KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "dict_probe", "coalesced_scan", "coalesced_scan_hits",
-           "topk_rows")
+           "topk_rows", "multi_scan_packed", "multi_scan_packed_q",
+           "multi_scan_packed_hits", "scan_single_packed",
+           "coalesced_scan_packed", "coalesced_scan_packed_hits",
+           "pack_mask_words")
 CLIENTS = 8                     # concurrent clients
 # the concurrent clients' predicates: one service each, AND status 500
 CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
@@ -135,10 +154,13 @@ def hc_requests() -> dict:
     }
 
 
-def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False):
+def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
+               long_every: int = 0):
     """Block b's columns, from the seed, as the port's ColumnarPages. With
     `sessions`, every trace also carries session.id "session-%08d", unique
-    across blocks of n traces, in a seeded order."""
+    across blocks of n traces, in a seeded order. With `long_every`, one
+    trace in that many (seeded) lasts 60,000-3,600,000 ms instead of
+    under 60,000."""
     import numpy as np
 
     from tempo_tpu_torch.search.columnar import ColumnarPages
@@ -167,6 +189,9 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False):
     start = (BASE_S + b * BLOCK_SPAN_S
              + rng.integers(0, BLOCK_SPAN_S, size=(P, E))).astype(np.uint32)
     dur = rng.integers(1, 60_000, size=(P, E)).astype(np.uint32)
+    if long_every:
+        long = rng.integers(0, long_every, size=(P, E)) == 0
+        dur[long] = rng.integers(60_000, 3_600_001, size=int(long.sum()))
     end = (start + dur // 1000).astype(np.uint32)
     valid = (np.arange(P * E) < n).reshape(P, E)
     if sessions:
@@ -190,7 +215,8 @@ def block_id(b: int) -> str:
 
 
 def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
-                 seed: int, sessions: bool = False) -> int:
+                 seed: int, sessions: bool = False,
+                 long_every: int = 0) -> int:
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.backend.types import BlockMeta
     from tempo_tpu_torch.search.backend_search_block import \
@@ -199,7 +225,7 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
     be = LocalBackend(root)
 
     def one(b):
-        pages = make_block(seed, b, n, E, sessions)
+        pages = make_block(seed, b, n, E, sessions, long_every)
         meta = BlockMeta(tenant_id=tenant, block_id=block_id(b),
                          start_time=int(pages.header["min_start_s"]),
                          end_time=int(pages.header["max_end_s"]),
@@ -212,14 +238,21 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
 
 
 def counters() -> dict:
-    from tempo_tpu_torch.search.kernels import probe, scan, topk
+    from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
 
     return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
             "scan_single": scan.SINGLE_LAUNCHES, "topk": topk.LAUNCHES,
             "dict_probe": probe.LAUNCHES,
             "coalesced_scan": scan.COALESCED_LAUNCHES,
             "coalesced_scan_hits": scan.COALESCED_HIT_LAUNCHES,
-            "topk_rows": topk.ROW_LAUNCHES}
+            "topk_rows": topk.ROW_LAUNCHES,
+            "multi_scan_packed": scan.PACKED_LAUNCHES,
+            "multi_scan_packed_q": scan.PACKED_Q_LAUNCHES,
+            "multi_scan_packed_hits": scan.PACKED_HIT_LAUNCHES,
+            "scan_single_packed": scan.SINGLE_PACKED_LAUNCHES,
+            "coalesced_scan_packed": scan.COALESCED_PACKED_LAUNCHES,
+            "coalesced_scan_packed_hits": scan.COALESCED_PACKED_HIT_LAUNCHES,
+            "pack_mask_words": pack.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -401,49 +434,65 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def sector_bytes(mask, item_bytes: int) -> int:
+def sector_bytes(mask, item_bytes: float) -> int:
     """Bytes of the 32-byte memory sectors holding the elements of a
-    contiguous tensor of `item_bytes` items (1, 2 or 4: each item lies in
-    one sector) where `mask` is true."""
+    contiguous tensor of `item_bytes` items (0.5 for a u4 code, two to a
+    byte; 1, 2 or 4: each item lies in one sector) where `mask` is
+    true."""
     import torch
 
     m = mask.reshape(-1)
-    per = 32 // item_bytes
+    per = int(32 / item_bytes)
     if m.numel() % per:
         m = torch.cat([m, m.new_zeros(per - m.numel() % per)])
     return int(m.reshape(-1, per).any(dim=1).sum()) * 32
 
 
-def k1_touch(args, val_hits=None, block_group=None) -> dict:
+def _item(t, w) -> float:
+    """Bytes per slot of a kv column of width `w` (None: unpacked)."""
+    return 0.5 if w == "u4" else t.element_size()
+
+
+def k1_touch(args, val_hits=None, block_group=None, widths=None,
+             res=None) -> dict:
     """What K1's function must read on these inputs, as masks over the
     entries: `live` (whose key slots it reads, when there are terms),
     `need_val` (the value slots whose key a term names, for entries still
     alive at that term, up to the first that passes), `dur`/`end`/`start`
-    (the entries whose u32 column it reads: those that passed the terms,
-    duration and window end only where the bound excludes some value) and
-    `match`; plus `hit_bytes`, the hit-table sectors those value slots
-    look up in hit-mask mode. `args` are K1's."""
+    (the entries whose column it reads: those that passed the terms,
+    duration and window end only where the bound excludes some value),
+    `res` (bucketed durations: the entries whose bucket sits on a bound's
+    bucket, which read their residual) and `match`; plus `hit_bytes`, the
+    hit-table sectors (bytes or words) those value slots look up in
+    hit-mask mode. `args` are K1's; `widths`/`res` the packed layout's."""
     import torch
+
+    from tempo_tpu_torch.search import packing
 
     (kv_key, kv_val, start, end, dur, valid, page_block, term_keys,
      val_ranges, n_terms, dur_lo, dur_hi, win_start, win_end) = args
+    kw, vw, dw = widths or (None, None, None)
     u32 = 0xFFFFFFFF
     pb = page_block.long()
     safe = pb.clamp(min=0)
     live = valid & (pb >= 0)[:, None]
     alive = live.clone()
-    need_val = torch.zeros_like(kv_key, dtype=torch.bool)
+    kk = packing.unpack_ids(kv_key, kw)
+    vv = packing.unpack_ids(kv_val, vw)
+    need_val = torch.zeros_like(kk, dtype=torch.bool)
     hit_sectors = 0
     if n_terms:
-        kk, vv = kv_key.int(), kv_val.int()
         slot = torch.arange(kk.shape[2], device=kk.device)
         if val_hits is not None:
-            G, Tp, Vm = val_hits.shape
+            words = packing.is_packed_mask(val_hits)
+            G, Tp, Wm = val_hits.shape
             bg = block_group.long()[safe]
             probe_page = (bg >= 0)[:, None, None]
             g_idx = bg.clamp(min=0)[:, None, None].expand_as(vv)
-            safe_v = vv.clamp(min=0, max=max(0, Vm - 1)).long()
-            touched = torch.zeros(-(-G * Tp * Vm // 32), dtype=torch.bool,
+            safe_v = vv.clamp(min=0)
+            col = (safe_v >> 5 if words else safe_v).clamp(max=Wm - 1)
+            per = 8 if words else 32
+            touched = torch.zeros(-(-G * Tp * Wm // per), dtype=torch.bool,
                                   device=kk.device)
         for t in range(n_terms):
             keym = (kk == term_keys[safe, t][:, None, None]) & alive[..., None]
@@ -452,7 +501,8 @@ def k1_touch(args, val_hits=None, block_group=None) -> dict:
                 inr |= ((vv >= val_ranges[safe, t, r, 0][:, None, None])
                         & (vv <= val_ranges[safe, t, r, 1][:, None, None]))
             if val_hits is not None:
-                mh = val_hits[g_idx, t, safe_v] & (vv >= 0)
+                mh = packing.mask_select_grouped(val_hits, g_idx, t,
+                                                 safe_v) & (vv >= 0)
                 inr = torch.where(probe_page, mh, inr)
             hit = keym & inr
             first = torch.where(hit.any(-1), hit.int().argmax(-1),
@@ -461,17 +511,21 @@ def k1_touch(args, val_hits=None, block_group=None) -> dict:
             need_val |= need
             if val_hits is not None:
                 look = need & probe_page & (vv >= 0)
-                flat = (g_idx * Tp + t) * Vm + safe_v
-                touched[flat[look] // 32] = True
+                flat = (g_idx * Tp + t) * Wm + col
+                touched[flat[look] // per] = True
             alive &= hit.any(-1)
         if val_hits is not None:
             hit_sectors = int(touched.sum()) * 32
     out = {"live": live, "need_val": need_val, "hit_bytes": hit_sectors,
-           "terms": bool(n_terms), "dur": None, "end": None}
+           "terms": bool(n_terms), "dur": None, "end": None, "res": None,
+           "C": int(kk.shape[2])}
     if dur_lo != 0 or dur_hi != u32:
         out["dur"] = alive.clone()
-        d = dur.long() & u32
-        alive &= (d >= dur_lo) & (d <= dur_hi)
+        if dw is not None and dw.startswith("q"):
+            s = packing.dur_shift(dw)
+            q = dur.long() & 0xFFFF
+            out["res"] = alive & ((q == (dur_lo >> s)) | (q == (dur_hi >> s)))
+        alive &= packing.duration_ok(dur, res, dur_lo, dur_hi, dw)
     if win_start != 0:
         out["end"] = alive.clone()
         alive &= (end.long() & u32) >= win_start
@@ -481,22 +535,27 @@ def k1_touch(args, val_hits=None, block_group=None) -> dict:
     return out
 
 
-def touched_bytes(t: dict, kv_key, kv_val) -> int:
-    """Sectors of the kv slots and u32 columns a k1_touch result reads,
-    plus its hit-table sectors."""
+def touched_bytes(t: dict, kv_key, kv_val, widths=None, res=None) -> int:
+    """Sectors of the kv slots and entry columns a k1_touch result reads,
+    plus its hit-table sectors, at the layout's item sizes."""
+    kw, vw, _dw = widths or (None, None, None)
     total = t["hit_bytes"]
     if t["terms"]:
-        total += sector_bytes(t["live"][..., None].expand_as(kv_key)
-                              .contiguous(), kv_key.element_size())
-        total += sector_bytes(t["need_val"], kv_val.element_size())
-    for col in ("dur", "end", "start"):
+        live = t["live"]
+        total += sector_bytes(live[..., None].expand(*live.shape, t["C"])
+                              .contiguous(), _item(kv_key, kw))
+        total += sector_bytes(t["need_val"], _item(kv_val, vw))
+    dur_item = 4 if widths is None else 2
+    for col, item in (("dur", dur_item), ("end", 4), ("start", 4)):
         if t[col] is not None:
-            total += sector_bytes(t[col], 4)
+            total += sector_bytes(t[col], item)
+    if t["res"] is not None:
+        total += sector_bytes(t["res"], res.element_size())
     return total
 
 
 def k1_bytes(args, scores, val_hits=None, block_group=None,
-             single: bool = False) -> int:
+             single: bool = False, widths=None, res=None) -> int:
     """The bytes K1's (or, with `single`, K1s's) function must move on
     these inputs, counted in the sectors this run's data touches: the
     valid flags (and page ids) read and the scores and counts written,
@@ -504,7 +563,7 @@ def k1_bytes(args, scores, val_hits=None, block_group=None,
     are given in K1's form: page_block all 0, tables as row 0)."""
     import torch
 
-    t = k1_touch(args, val_hits, block_group)
+    t = k1_touch(args, val_hits, block_group, widths, res)
     if not torch.equal(t["match"].reshape(-1), scores >= 0):
         raise AssertionError("k1_bytes: its predicate differs from K1's")
     kv_key, kv_val, valid, page_block = args[0], args[1], args[5], args[6]
@@ -515,16 +574,16 @@ def k1_bytes(args, scores, val_hits=None, block_group=None,
     total += args[7].numel() * 4 + args[8].numel() * 4
     if block_group is not None and not single:
         total += block_group.numel() * 4
-    return total + touched_bytes(t, kv_key, kv_val)
+    return total + touched_bytes(t, kv_key, kv_val, widths, res)
 
 
-def k4_bytes(page, tables, scores) -> int:
+def k4_bytes(page, tables, scores, widths=None, res=None) -> int:
     """The bytes K4's function must move on these inputs: the valid flags
     and page ids read and the Q score columns and counts written, all;
     the stacked tables; and the union over the real queries of what
     k1_touch finds for each (a pad query, whose duration range is empty,
     reads no page data). `page` are K1's page arrays, `tables` K4's
-    per-query inputs."""
+    per-query inputs, `widths`/`res` the packed layout's."""
     import torch
 
     tk, vr, ta, dlo, dhi, ws, we, val_hits, bg = tables
@@ -543,7 +602,7 @@ def k4_bytes(page, tables, scores) -> int:
         if val_hits is not None and val_hits[q] is not None:
             vh, bgq = val_hits[q][:, act], bg[q]
         t = k1_touch((*page, tk[q][:, act], vr[q][:, act], int(act.numel()),
-                      *b), vh, bgq)
+                      *b), vh, bgq, widths, res)
         if not torch.equal(t["match"].reshape(-1), scores[q] >= 0):
             raise AssertionError(f"k4_bytes: its predicate differs from "
                                  f"K4's for query {q}")
@@ -553,7 +612,7 @@ def k4_bytes(page, tables, scores) -> int:
             continue
         u["terms"] |= t["terms"]
         u["need_val"] |= t["need_val"]
-        for col in ("dur", "end", "start"):
+        for col in ("dur", "end", "start", "res"):
             if t[col] is not None:
                 u[col] = t[col] if u[col] is None else u[col] | t[col]
     total = n + page_block.numel() * 4 + Q * n * 4 + (Q + 1) * 4
@@ -564,7 +623,7 @@ def k4_bytes(page, tables, scores) -> int:
         total += Q * 24                               # the address table
     if u is not None:
         u["hit_bytes"] = hit_bytes
-        total += touched_bytes(u, kv_key, kv_val)
+        total += touched_bytes(u, kv_key, kv_val, widths, res)
     return total
 
 
@@ -583,13 +642,152 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
     return err
 
 
+def device_ms(fn, reps: int) -> float | None:
+    """Device time per call of fn (torch.profiler: the device-side
+    events of `reps` calls, its kernels and the zeroing of its outputs,
+    summed), free of the host time that bounds a small kernel's CUDA-event
+    time when its calls run back to back. None when the profiler records
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / reps / 1e3 if total > 0 else None
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
-               bound_bytes, library_ms, shape) -> dict:
+               bound_bytes, library_ms, shape, fn=None) -> dict:
+    """A kernels-line row; with `fn` (one call of the kernel's wrapper)
+    the report's shape also gets its profiler device time."""
+    if fn is not None:
+        shape["device_ms"] = device_ms(fn, 20)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": library_ms, "shape": shape}
+
+
+def largest_batch(db):
+    """The staged batch with the most block pages, ties broken by group
+    key, so an unpacked and a packed database over the same blocks pick
+    the same group."""
+    return max(db.batcher._cache.items(),
+               key=lambda kv: (sum(b.n_pages for b in kv[1].batch.blocks),
+                               kv[0]))[1].batch
+
+
+def k1_row(db, name: str, replaces: str, tags: dict, kw: dict,
+           launches: dict, hits: bool) -> tuple:
+    """K1 against its plain version on the largest staged batch of `db`
+    (in the batch's layout, packed or not), with the request compiled as
+    the engine compiles it; exact equality. Returns (kernel row, the
+    kernel's scores)."""
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.multiblock import compile_multi
+
+    eng = db.batcher.engine
+    batch = largest_batch(db)
+    d = batch.device
+    mq = compile_multi(list(batch.blocks),
+                       SearchRequest(tags=dict(tags), **kw),
+                       memo=batch.memo, cache=eng.compile_cache,
+                       staged_dicts=batch.staged_dicts, packed=eng.packed)
+    if (mq.val_hits is not None) != hits:
+        raise AssertionError(f"{name}: the request compiled "
+                             f"{'no' if hits else 'a'} hit mask")
+    bg = (None if mq.block_group is None
+          else torch.from_numpy(mq.block_group).to(db.device))
+    res = d.get("entry_dur_res")
+    args = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"],
+            torch.from_numpy(mq.term_keys).to(db.device),
+            torch.from_numpy(mq.val_ranges).to(db.device), mq.n_terms,
+            mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
+            min(mq.win_end, 0xFFFFFFFF))
+    extra = (mq.val_hits, bg, batch.widths, res)
+    scores, counts = scan.multi_scan(*args, *extra)
+    err = require_equal(name, (scores, counts),
+                        scan.multi_scan_plain(*args, *extra))
+    need = k1_bytes(args, scores, mq.val_hits, bg, widths=batch.widths,
+                    res=res)
+    ms = cuda_ms(lambda: scan.multi_scan(*args, *extra), 50)
+    plain = cuda_ms(lambda: scan.multi_scan_plain(*args, *extra), 3)
+    shape = {"pages": batch.n_pages, "entries": scores.numel(),
+             "kv_dtypes": [str(d["kv_key"].dtype), str(d["kv_val"].dtype)],
+             "widths": batch.widths, "C": int(d["kv_key"].shape[2]),
+             "n_terms": mq.n_terms, "R": int(mq.val_ranges.shape[2]),
+             "val_hits": (None if mq.val_hits is None else
+                          [list(mq.val_hits.shape), str(mq.val_hits.dtype)]),
+             "match_count": int(counts[0]), "inspected": int(counts[1]),
+             "bytes_needed": need}
+    return (kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
+                       launches, err, ms, plain, need, None, shape,
+                       lambda: scan.multi_scan(*args, *extra)), scores)
+
+
+def k1s_row(bsb, name: str, replaces: str, launches: dict) -> dict:
+    """K1s against its plain version on a BackendSearchBlock's staged
+    block (in its layout) with the bench request, through the device
+    probe; exact equality."""
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.pipeline import compile_query
+
+    sp = bsb.staged()
+    engine = bsb.engine()
+    dev = engine.device
+    cq = compile_query(sp.pages.key_dict, sp.pages.val_dict,
+                       SearchRequest(tags=dict(BENCH), limit=20),
+                       cache_on=sp.pages, cache=engine.compile_cache,
+                       staged_dict=sp.staged_dict, packed=engine.packed)
+    if cq.val_hits is None:
+        raise AssertionError(f"{name}: the single block compiled no hit "
+                             "mask")
+    tk, vr = engine._tables(cq)
+    sd = sp.device
+    res = sd.get("entry_dur_res")
+    cols = (sd["kv_key"], sd["kv_val"], sd["entry_start"], sd["entry_end"],
+            sd["entry_dur"], sd["entry_valid"])
+    bounds = (cq.dur_lo, min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
+              min(cq.win_end, 0xFFFFFFFF))
+    s_args = (*cols, tk, vr, cq.n_terms, *bounds, cq.val_hits, sp.widths,
+              res)
+    s_scores, s_counts = scan.scan_single(*s_args)
+    err = require_equal(name, (s_scores, s_counts),
+                        scan.scan_single_plain(*s_args))
+    P = sd["kv_key"].shape[0]
+    as_multi = (*cols, torch.zeros(P, dtype=torch.int32, device=dev),
+                tk[None], vr[None], cq.n_terms, *bounds)
+    need = k1_bytes(as_multi, s_scores, cq.val_hits[None],
+                    torch.zeros(1, dtype=torch.int32, device=dev),
+                    single=True, widths=sp.widths, res=res)
+    ms = cuda_ms(lambda: scan.scan_single(*s_args), 50)
+    plain = cuda_ms(lambda: scan.scan_single_plain(*s_args), 3)
+    shape = {"pages": P, "entries": s_scores.numel(),
+             "widths": sp.widths, "C": int(sd["kv_key"].shape[2]),
+             "n_terms": cq.n_terms,
+             "val_hits": [list(cq.val_hits.shape), str(cq.val_hits.dtype)],
+             "match_count": int(s_counts[0]),
+             "inspected": int(s_counts[1]), "bytes_needed": need}
+    return kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
+                      launches, err, ms, plain, need, None, shape,
+                      lambda: scan.scan_single(*s_args))
 
 
 def kernel_phase(db, reqs: dict, launches: dict) -> list:
@@ -598,33 +796,15 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
     shapes; exact equality."""
     import torch
 
-    from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search.engine import resolve_top_k
-    from tempo_tpu_torch.search.kernels import scan, topk
-    from tempo_tpu_torch.search.multiblock import compile_multi
+    from tempo_tpu_torch.search.kernels import topk
 
-    cached = max(db.batcher._cache.values(), key=lambda c: c.batch.n_pages)
-    batch = cached.batch
-    d = batch.device
     tags, kw = reqs["bench_and"]
-    req = SearchRequest(tags=dict(tags), **kw)
-    mq = compile_multi(list(batch.blocks), req, memo=batch.memo,
-                       cache=db.batcher.engine.compile_cache,
-                       staged_dicts=batch.staged_dicts)
-    if mq.val_hits is not None:
-        raise AssertionError("the tag-search cell compiled a hit mask")
-    tk = torch.from_numpy(mq.term_keys).to(db.device)
-    vr = torch.from_numpy(mq.val_ranges).to(db.device)
-    bounds = (mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
-              min(mq.win_end, 0xFFFFFFFF))
-    args = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
-            d["entry_dur"], d["entry_valid"], d["page_block"], tk, vr,
-            mq.n_terms, *bounds)
-    scores, counts = scan.multi_scan(*args)
-    k1_err = require_equal("K1", (scores, counts),
-                           scan.multi_scan_plain(*args))
+    k1, scores = k1_row(db, "multi_scan",
+                        "tempo_tpu/search/multiblock.py:855", tags, kw,
+                        launches, False)
     k2_err = 0
-    k = resolve_top_k(128, req.limit)
+    k = resolve_top_k(128, kw["limit"])
     # the main path's k, a limit-1000 request's k, a k past the shared-
     # memory sort (global bitonic stages), and k > N on a short column
     short = scores[:1000].contiguous()
@@ -638,29 +818,16 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
         if not torch.equal(torch.sort(ls).values, torch.sort(s).values):
             raise AssertionError(f"K2 (n={col.numel()}, k={kk}) scores "
                                  "differ from torch.topk's")
-
     n = scores.numel()
-    k1_need = k1_bytes(args, scores)
     k2_bytes = n * 4 + k * 8                       # scores read, top-k written
-    k1_ms = cuda_ms(lambda: scan.multi_scan(*args), 50)
-    k1_plain = cuda_ms(lambda: scan.multi_scan_plain(*args), 5)
     k2_ms = cuda_ms(lambda: topk.topk(scores, k), 50)
     k2_plain = cuda_ms(lambda: topk.topk_plain(scores, k), 10)
     k2_lib = cuda_ms(lambda: torch.topk(scores, k), 50)
-    shape = {"pages": batch.n_pages, "entries": n,
-             "kv_dtypes": [str(d["kv_key"].dtype), str(d["kv_val"].dtype)],
-             "C": int(d["kv_key"].shape[2]), "n_terms": mq.n_terms,
-             "R": int(mq.val_ranges.shape[2]), "k": k,
-             "match_count": int(counts[0]), "inspected": int(counts[1]),
-             "bytes_needed": k1_need}
-    return [
-        kernel_row("multi_scan", "tempo_tpu_torch/csrc/scan.cu",
-                   "tempo_tpu/search/multiblock.py:855", launches, k1_err,
-                   k1_ms, k1_plain, k1_need, None, shape),
-        kernel_row("topk", "tempo_tpu_torch/csrc/topk.cu",
-                   "tempo_tpu/search/engine.py:295", launches, k2_err,
-                   k2_ms, k2_plain, k2_bytes, k2_lib, {"n": n, "k": k}),
-    ]
+    return [k1, kernel_row("topk", "tempo_tpu_torch/csrc/topk.cu",
+                           "tempo_tpu/search/engine.py:295", launches,
+                           k2_err, k2_ms, k2_plain, k2_bytes, k2_lib,
+                           {"n": n, "k": k},
+                           lambda: topk.topk(scores, k))]
 
 
 def hc_kernel_phase(db, bsb, launches: dict) -> list:
@@ -669,19 +836,10 @@ def hc_kernel_phase(db, bsb, launches: dict) -> list:
     one staged dictionary with the scattered needle "77", K1 on the
     largest staged group with the exhaustive request's hit masks, K1s on
     the single-block path's block with the bench request."""
-    import torch
-
-    from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search import dict_probe
-    from tempo_tpu_torch.search.kernels import probe, scan
-    from tempo_tpu_torch.search.multiblock import compile_multi
-    from tempo_tpu_torch.search.pipeline import compile_query
+    from tempo_tpu_torch.search.kernels import probe
 
-    cached = max(db.batcher._cache.values(), key=lambda c: c.batch.n_pages)
-    batch = cached.batch
-    d = batch.device
-
-    # K3
+    batch = largest_batch(db)
     dd = next(iter(batch.staged_dicts.values()))
     needles, lens = dict_probe.needle_tensors([b"77"], db.device)
     p_args = (dd.buf, dd.off, needles, lens)
@@ -695,81 +853,56 @@ def hc_kernel_phase(db, bsb, launches: dict) -> list:
     k3_plain = cuda_ms(lambda: probe.dict_probe_plain(*p_args), 3)
     k3_shape = {"values": V, "dict_bytes": int(dd.buf.numel()), "T": T,
                 "needle": "77", "hits": int(hits.sum())}
-
-    # K1, hit-mask mode
     tags, kw = hc_requests()["hc_exhaustive_77"]
-    mq = compile_multi(list(batch.blocks), SearchRequest(tags=dict(tags),
-                                                         **kw),
-                       memo=batch.memo, cache=db.batcher.engine.compile_cache,
-                       staged_dicts=batch.staged_dicts)
-    if mq.val_hits is None:
-        raise AssertionError("the high-cardinality group compiled no hit "
-                             "mask")
-    bg = torch.from_numpy(mq.block_group).to(db.device)
-    args = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
-            d["entry_dur"], d["entry_valid"], d["page_block"],
-            torch.from_numpy(mq.term_keys).to(db.device),
-            torch.from_numpy(mq.val_ranges).to(db.device), mq.n_terms,
-            mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
-            min(mq.win_end, 0xFFFFFFFF))
-    scores, counts = scan.multi_scan(*args, mq.val_hits, bg)
-    k1h_err = require_equal("K1 hit-mask mode", (scores, counts),
-                            scan.multi_scan_plain(*args, mq.val_hits, bg))
-    k1h_bytes = k1_bytes(args, scores, mq.val_hits, bg)
-    k1h_ms = cuda_ms(lambda: scan.multi_scan(*args, mq.val_hits, bg), 50)
-    k1h_plain = cuda_ms(
-        lambda: scan.multi_scan_plain(*args, mq.val_hits, bg), 3)
-    k1h_shape = {"pages": batch.n_pages, "entries": scores.numel(),
-                 "kv_dtypes": [str(d["kv_key"].dtype),
-                               str(d["kv_val"].dtype)],
-                 "C": int(d["kv_key"].shape[2]), "n_terms": mq.n_terms,
-                 "val_hits": list(mq.val_hits.shape),
-                 "match_count": int(counts[0]), "inspected": int(counts[1]),
-                 "bytes_needed": k1h_bytes}
-
-    # K1s, on the single-block path's block with the bench request
-    sp = bsb.staged()
-    engine = bsb.engine()
-    cq = compile_query(sp.pages.key_dict, sp.pages.val_dict,
-                       SearchRequest(tags=dict(BENCH), limit=20),
-                       cache_on=sp.pages, cache=engine.compile_cache,
-                       staged_dict=sp.staged_dict)
-    if cq.val_hits is None:
-        raise AssertionError("the single block compiled no hit mask")
-    tk, vr = engine._tables(cq)
-    sd = sp.device
-    cols = (sd["kv_key"], sd["kv_val"], sd["entry_start"], sd["entry_end"],
-            sd["entry_dur"], sd["entry_valid"])
-    s_args = (*cols, tk, vr, cq.n_terms, cq.dur_lo,
-              min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
-              min(cq.win_end, 0xFFFFFFFF), cq.val_hits)
-    s_scores, s_counts = scan.scan_single(*s_args)
-    k1s_err = require_equal("K1s", (s_scores, s_counts),
-                            scan.scan_single_plain(*s_args))
-    P = sd["kv_key"].shape[0]
-    as_multi = (*cols, torch.zeros(P, dtype=torch.int32, device=db.device),
-                tk[None], vr[None], *s_args[8:13])
-    k1s_bytes = k1_bytes(as_multi, s_scores, cq.val_hits[None],
-                         torch.zeros(1, dtype=torch.int32, device=db.device),
-                         single=True)
-    k1s_ms = cuda_ms(lambda: scan.scan_single(*s_args), 50)
-    k1s_plain = cuda_ms(lambda: scan.scan_single_plain(*s_args), 3)
-    k1s_shape = {"pages": P, "entries": s_scores.numel(),
-                 "C": int(sd["kv_key"].shape[2]), "n_terms": cq.n_terms,
-                 "val_hits": list(cq.val_hits.shape),
-                 "match_count": int(s_counts[0]),
-                 "inspected": int(s_counts[1]), "bytes_needed": k1s_bytes}
+    k1h, _scores = k1_row(db, "multi_scan_hits",
+                          "tempo_tpu/search/multiblock.py:855", tags, kw,
+                          launches, True)
     return [
-        kernel_row("multi_scan_hits", "tempo_tpu_torch/csrc/scan.cu",
-                   "tempo_tpu/search/multiblock.py:855", launches, k1h_err,
-                   k1h_ms, k1h_plain, k1h_bytes, None, k1h_shape),
-        kernel_row("scan_single", "tempo_tpu_torch/csrc/scan.cu",
-                   "tempo_tpu/search/engine.py:331", launches, k1s_err,
-                   k1s_ms, k1s_plain, k1s_bytes, None, k1s_shape),
+        k1h,
+        k1s_row(bsb, "scan_single", "tempo_tpu/search/engine.py:331",
+                launches),
         kernel_row("dict_probe", "tempo_tpu_torch/csrc/probe.cu",
                    "tempo_tpu/search/dict_probe.py:283", launches, k3_err,
-                   k3_ms, k3_plain, k3_bytes, None, k3_shape),
+                   k3_ms, k3_plain, k3_bytes, None, k3_shape,
+                   lambda: probe.dict_probe(*p_args)),
     ]
+
+
+def k5_row(db, launches: dict) -> dict:
+    """K5 against its plain version on the card: the probe's output for
+    "77" over one staged dictionary of the packed high-cardinality cell
+    ([1, 1,050,711] at full size), and a seeded [8, 2,135] mask (V not a
+    multiple of 32); exact equality."""
+    import torch
+
+    from tempo_tpu_torch.search import dict_probe
+    from tempo_tpu_torch.search.kernels import pack, probe
+
+    batch = largest_batch(db)
+    dd = next(iter(batch.staged_dicts.values()))
+    needles, lens = dict_probe.needle_tensors([b"77"], db.device)
+    hits, _any = probe.dict_probe(dd.buf, dd.off, needles, lens)
+    err = require_equal("K5", (pack.pack_mask_words(hits),),
+                        (pack.pack_mask_words_plain(hits),))
+    g = torch.Generator(device=db.device).manual_seed(2135)
+    small = torch.rand((8, 2_135), generator=g, device=db.device) < 0.3
+    err = max(err, require_equal(
+        "K5 [8, 2135]", (pack.pack_mask_words(small),),
+        (pack.pack_mask_words_plain(small),)))
+    R, V = hits.shape
+    W = -(-V // 32)
+    need = R * V + R * W * 4                     # bools read, words written
+    ms = cuda_ms(lambda: pack.pack_mask_words(hits), 50)
+    plain = cuda_ms(lambda: pack.pack_mask_words_plain(hits), 5)
+    small_ms = cuda_ms(lambda: pack.pack_mask_words(small), 50)
+    shape = {"rows": R, "V": V, "words": W, "also_checked": [8, 2_135],
+             "small_ms": small_ms,
+             "small_bound_ms": (8 * 2_135 + 8 * 67 * 4) / HBM_BYTES_PER_S
+             * 1e3}
+    return kernel_row("pack_mask_words", "tempo_tpu_torch/csrc/pack.cu",
+                      "tempo_tpu/search/packing.py:289", launches, err, ms,
+                      plain, need, None, shape,
+                      lambda: pack.pack_mask_words(hits))
 
 
 def coalesced_phase(db, reqs: list, label: str, launches: dict,
@@ -791,15 +924,15 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
         stack_queries
 
     eng = db.batcher.engine
-    batch = max(db.batcher._cache.values(),
-                key=lambda c: c.batch.n_pages).batch
+    batch = largest_batch(db)
     d = batch.device
     mqs = []
     for tags, kw in reqs:
         mq = compile_multi(list(batch.blocks),
                            SearchRequest(tags=dict(tags), **kw),
                            memo=batch.memo, cache=eng.compile_cache,
-                           staged_dicts=batch.staged_dicts)
+                           staged_dicts=batch.staged_dicts,
+                           packed=eng.packed)
         if mq is None:
             raise AssertionError(f"{label}: a member prunes every block")
         mq.limit = kw.get("limit") or 20
@@ -808,9 +941,11 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
     page = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"])
     tables = eng.coalesced_tables(cq)
-    scores, counts, inspected = scan.coalesced_scan(*page, *tables)
+    res = d.get("entry_dur_res")
+    layout = (batch.widths, res)
+    scores, counts, inspected = scan.coalesced_scan(*page, *tables, *layout)
     err = require_equal(f"K4 ({label})", (scores, counts, inspected),
-                        scan.coalesced_scan_plain(*page, *tables))
+                        scan.coalesced_scan_plain(*page, *tables, *layout))
     k = max(resolve_top_k(eng.top_k, mq.limit) for mq in mqs)
     fc, fins, fs, fi = fetch_coalesced_out(
         eng.coalesced_scan_async(batch, cq, k))
@@ -822,16 +957,17 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
                 or not np.array_equal(fi[qi][:kq], i1):
             raise AssertionError(f"{label}: fused member {qi} differs from "
                                  "its solo dispatch")
-    need = k4_bytes(page, tables, scores)
-    ms = cuda_ms(lambda: scan.coalesced_scan(*page, *tables), 50)
-    plain = cuda_ms(lambda: scan.coalesced_scan_plain(*page, *tables), 3)
+    need = k4_bytes(page, tables, scores, *layout)
+    ms = cuda_ms(lambda: scan.coalesced_scan(*page, *tables, *layout), 50)
+    plain = cuda_ms(
+        lambda: scan.coalesced_scan_plain(*page, *tables, *layout), 3)
     Q, n = scores.shape
     hits = cq.val_hits is not None
     shape = {"pages": batch.n_pages, "entries": n, "Q": Q,
              "members": cq.n_queries, "T": cq.n_terms,
              "R": int(cq.val_ranges.shape[3]), "B": int(cq.term_keys.shape[1]),
              "kv_dtypes": [str(d["kv_key"].dtype), str(d["kv_val"].dtype)],
-             "C": int(d["kv_key"].shape[2]),
+             "widths": batch.widths, "C": int(d["kv_key"].shape[2]),
              "probed_members": (sum(h is not None for h in cq.val_hits)
                                 if hits else 0),
              "counts": counts.tolist(), "inspected": int(inspected),
@@ -840,10 +976,14 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
           f"plain version and the fused dispatch to the solo ones; "
           f"{ms:.4f} ms, bound {need / HBM_BYTES_PER_S * 1e3:.4f} ms",
           flush=True)
-    rows = [kernel_row("coalesced_scan_hits" if hits else "coalesced_scan",
-                       "tempo_tpu_torch/csrc/scan.cu",
-                       "tempo_tpu/search/multiblock.py:1028", launches, err,
-                       ms, plain, need, None, shape)]
+    name = "coalesced_scan" + ("_packed" if batch.widths else "") \
+        + ("_hits" if hits else "")
+    replaces = ("tempo_tpu/search/multiblock.py:1028" if not batch.widths
+                else "tempo_tpu/search/packing.py:249" if hits
+                else "tempo_tpu/search/packing.py:196")
+    rows = [kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
+                       launches, err, ms, plain, need, None, shape,
+                       lambda: scan.coalesced_scan(*page, *tables, *layout))]
     if not with_rows:
         return rows
     r_err = 0
@@ -862,7 +1002,8 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
     rows.append(kernel_row("topk_rows", "tempo_tpu_torch/csrc/topk.cu",
                            "tempo_tpu/search/multiblock.py:1084", launches,
                            r_err, r_ms, r_plain, Q * n * 4 + Q * k * 8,
-                           r_lib, {"rows": Q, "n": n, "k": k}))
+                           r_lib, {"rows": Q, "n": n, "k": k},
+                           lambda: topk.topk_rows(scores, k)))
     return rows
 
 
@@ -1114,9 +1255,343 @@ def tag_search_cell(args, work: str, report: dict, dbs: list,
     tags, kw = reqs["bench_and"]
     report["solo_again"] = solo_again(gpu, "smoke", "bench_and", tags, kw,
                                       res["bench_and"], args.reps, launches)
+    rows += packed_tag_phase(args, root, reqs, res, gpu, report, dbs,
+                             launches)
     for db in (gpu, serial):
         db.close()
         dbs.remove(db)
+    return rows
+
+
+def staged_bytes(label: str, plain_db, packed_db) -> dict:
+    """The staged caches' bytes of an unpacked and a packed database over
+    the same blocks, physical and logical (debug_stats); the packed one
+    holds fewer physical bytes, and its logical bytes are the unpacked
+    one's."""
+    us = plain_db.batcher.debug_stats()["cache"]
+    ps = packed_db.batcher.debug_stats()["cache"]
+    widths = sorted({str(c.batch.widths)
+                     for c in packed_db.batcher._cache.values()})
+    print(f"staged bytes, {label}: unpacked {us['bytes']} physical, "
+          f"{us['logical_bytes']} logical; packed {ps['bytes']} physical, "
+          f"{ps['logical_bytes']} logical (of which dictionaries "
+          f"{ps['dict_bytes']}); widths {widths}", flush=True)
+    if not (ps["bytes"] < us["bytes"] == us["logical_bytes"]
+            == ps["logical_bytes"]):
+        raise AssertionError(f"{label}: staged bytes {us} unpacked, {ps} "
+                             "packed")
+    return {"unpacked": us, "packed": ps, "widths": widths}
+
+
+def same_responses(label: str, got: dict, want: dict) -> None:
+    for name, r in got.items():
+        if r["resp"] != want[name]["resp"]:
+            raise AssertionError(f"{label} {name}: the packed database's "
+                                 "response differs from the unpacked one's")
+    print(f"{label}: {len(got)} packed responses equal the unpacked ones",
+          flush=True)
+
+
+def require_launched(label: str, path: dict, want: tuple,
+                     never: tuple) -> None:
+    for k in want:
+        if not path[k]:
+            raise AssertionError(f"{label} launched no {k}: {path}")
+    for k in never:
+        if path[k]:
+            raise AssertionError(f"{label} launched {k}: {path}")
+
+
+def packed_tag_phase(args, root: str, reqs: dict, res: dict, plain_db,
+                     report: dict, dbs: list, launches: dict) -> list:
+    """The packed tag cell: a second TempoDB with
+    search_packed_residency=True over the same blocks answers the six
+    requests (its main path: counters set to 0 just before each, read
+    just after) and the 8-client exhaustive set, every response equal to
+    the unpacked database's; its staged bytes against the unpacked
+    database's; then K1 (packed range mode) and K4 (packed range mode,
+    Q = 8) against their plain versions."""
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    packed = TempoDB(LocalBackend(root), TempoDBConfig(
+        search_max_batch_pages=4096, search_packed_residency=True),
+        device="cuda")
+    dbs.append(packed)
+    packed.poll()
+    pres = run_queries(packed, "smoke", reqs, args.reps)   # the main path
+    path = {}
+    for r in pres.values():
+        add_counts(path, r["launches"])
+    require_launched("packed tag search", path,
+                     ("multi_scan_packed", "topk"),
+                     ("multi_scan", "multi_scan_hits", "dict_probe"))
+    add_counts(launches, path)
+    same_responses("packed tag search", pres, res)
+    lat = {}
+    for name, r in pres.items():
+        lat[name] = latency_row(r, r["resp"])
+        print_row(f"packed {name}", lat[name])
+    report["packed_search"] = lat
+    report["packed_launches"] = path
+    pc, kc = search_calls(plain_db, "smoke", reqs), \
+        search_calls(packed, "smoke", reqs)
+    report["packed_paired"] = paired_latency(
+        "tag search", {n: (pc[n], kc[n]) for n in reqs}, args.reps)
+    report["packed_staged"] = staged_bytes("tag search", plain_db, packed)
+    busy = device_busy(packed, "smoke", reqs, ("exhaustive_bench",
+                                               "bench_and"), args.reps)
+    report["packed_device_busy"] = busy
+    print_busy(busy, lat)
+
+    exh = [(dict(t, **EXHAUSTIVE), {"limit": 20}) for t in CONCURRENT_TAGS]
+    serial = [plain_db.search("smoke", SearchRequest(tags=dict(t), **kw))
+              .response() for t, kw in exh]
+    row = concurrent_rounds(packed, "smoke", exh, args.rounds, serial)
+    add_counts(launches, row["launches"])
+    require_fusion(row, "coalesced_scan_packed")
+    print(f"concurrent packed tag search exhaustive (coalescing): round p50 "
+          f"{row['round_p50_ms']:.3f} ms, p95 {row['round_p95_ms']:.3f} ms; "
+          f"request p50 {row['lat_p50_ms']:.3f} ms, p95 "
+          f"{row['lat_p95_ms']:.3f} ms; launches "
+          f"{json.dumps(row['launches'])}; coalescer "
+          f"{json.dumps(row['coalesce'])}", flush=True)
+    report["packed_concurrent"] = row
+
+    tags, kw = reqs["bench_and"]
+    k1, _scores = k1_row(packed, "multi_scan_packed",
+                         "tempo_tpu/search/packing.py:196", tags, kw,
+                         launches, False)
+    rows = [k1]
+    rows += coalesced_phase(packed, [(t, {"limit": 20})
+                                     for t in CONCURRENT_TAGS],
+                            "packed range mode, tag search", launches, False)
+    packed.close()
+    dbs.remove(packed)
+    return rows
+
+
+def long_requests() -> dict:
+    """The long-duration corpus's requests; the exhaustive one runs first
+    and stages every group."""
+    return {
+        "long_exhaustive_3599000": ({"x-dbg-exhaustive": ""},
+                                    {"min_duration_ms": 3_599_000,
+                                     "limit": 20}),
+        "long_59000_59999": ({}, {"min_duration_ms": 59_000,
+                                  "max_duration_ms": 59_999, "limit": 20}),
+        "long_65536_131071": ({}, {"min_duration_ms": 65_536,
+                                   "max_duration_ms": 131_071,
+                                   "limit": 20}),
+        "long_600000": ({}, {"min_duration_ms": 600_000, "limit": 20}),
+    }
+
+
+def long_duration_cell(args, work: str, report: dict, dbs: list,
+                       launches: dict) -> list:
+    """The long-duration corpus: blocks like the tag cell's, except that 1
+    trace in 64 lasts 60,000-3,600,000 ms, so the packed layout stores
+    durations as u16 buckets (q6) plus a u8 residual. An unpacked and a
+    packed TempoDB answer the four requests (the packed one's run is its
+    main path), every packed response equal to the unpacked one; then K1
+    in packed range mode with bucketed durations against its plain
+    version, with the bucket-aligned request."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+
+    n_per = args.traces_per_block
+    n_total = args.long_blocks * n_per
+    root = os.path.join(work, "long_blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, "long", args.long_blocks, n_per,
+                          ENTRIES_PER_PAGE, args.seed + 1, long_every=64)
+    report["long_corpus"] = {"blocks": args.long_blocks, "traces": n_total,
+                             "compressed_bytes": nbytes,
+                             "write_s": time.perf_counter() - t0}
+    print(f"long-duration corpus: {args.long_blocks} blocks, {n_total} "
+          f"traces, {nbytes / 1e6:.1f} MB zlib, "
+          f"{report['long_corpus']['write_s']:.1f} s", flush=True)
+    reqs = long_requests()
+    out = {}
+    for label, packed in (("unpacked", False), ("packed", True)):
+        db = TempoDB(LocalBackend(root), TempoDBConfig(
+            search_max_batch_pages=4096, search_packed_residency=packed),
+            device="cuda")
+        dbs.append(db)
+        db.poll()
+        out[label] = (db, run_queries(db, "long", reqs, args.reps))
+    plain_db, pres = out["unpacked"]
+    packed_db, kres = out["packed"]
+    for label, (_db, r) in out.items():
+        path = {}
+        for x in r.values():
+            add_counts(path, x["launches"])
+        add_counts(launches, path)
+        report[f"long_launches_{label}"] = path
+    require_launched("packed long-duration search",
+                     report["long_launches_packed"],
+                     ("multi_scan_packed_q", "topk"),
+                     ("multi_scan", "multi_scan_packed"))
+    same_responses("long-duration search", kres, pres)
+    lat = {}
+    for name, r in kres.items():
+        tags, kw = reqs[name]
+        check_response(name, r["resp"], tags, kw, n_total)
+        lat[f"unpacked/{name}"] = latency_row(pres[name], pres[name]["resp"])
+        lat[f"packed/{name}"] = latency_row(r, r["resp"])
+        print_row(f"unpacked {name}", lat[f"unpacked/{name}"])
+        print_row(f"packed {name}", lat[f"packed/{name}"])
+    report["long_search"] = lat
+    pc, kc = search_calls(plain_db, "long", reqs), \
+        search_calls(packed_db, "long", reqs)
+    report["long_paired"] = paired_latency(
+        "long-duration", {n: (pc[n], kc[n]) for n in reqs}, args.reps)
+    report["long_staged"] = staged_bytes("long-duration", plain_db,
+                                         packed_db)
+    if any(not str(c.batch.widths[2]).startswith("q")
+           for c in packed_db.batcher._cache.values()):
+        raise AssertionError("a long-duration batch kept u16 durations")
+    tags, kw = reqs["long_65536_131071"]
+    k1, _scores = k1_row(packed_db, "multi_scan_packed_q",
+                         "tempo_tpu/search/packing.py:213", tags, kw,
+                         launches, False)
+    for db in (plain_db, packed_db):
+        db.close()
+        dbs.remove(db)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [k1]
+
+
+def packed_hc_cell(args, work: str, report: dict, dbs: list,
+                   launches: dict) -> list:
+    """The packed high-cardinality cell: the hc corpus's first
+    `--hc-packed-blocks` blocks (one 4,096-page group at full size),
+    written again into a backend of their own, answered by an unpacked
+    and a packed TempoDB through the three entry points (hc_paths; the
+    packed one's run is its main path), every packed response equal to
+    the unpacked one; word-mask bytes per cached tag-set against bool
+    bytes; the 8-client exhaustive session set through the packed one,
+    each response equal to the unpacked one's serial response; then K1 (packed, word hit tables), K1s (packed, word hits),
+    K4 (packed, word hits, 6 probed + 2 host-compiled) and K5 against
+    their plain versions."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search import packing
+    from tempo_tpu_torch.search.backend_search_block import \
+        BackendSearchBlock
+
+    n_per = args.hc_traces_per_block
+    blocks = min(args.hc_packed_blocks, args.hc_blocks)
+    root = os.path.join(work, "hc_packed_blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, "hc", blocks, n_per, ENTRIES_PER_PAGE,
+                          args.seed, sessions=True)
+    report["hc_packed_corpus"] = {"blocks": blocks, "traces": blocks * n_per,
+                                  "compressed_bytes": nbytes,
+                                  "write_s": time.perf_counter() - t0}
+    print(f"packed hc corpus: the first {blocks} blocks, {blocks * n_per} "
+          f"traces, {report['hc_packed_corpus']['write_s']:.1f} s",
+          flush=True)
+    be = LocalBackend(root)
+    out = {}
+    bsbs = {}
+    calls = {}
+    for label, packed in (("unpacked", False), ("packed", True)):
+        db = TempoDB(be, TempoDBConfig(search_max_batch_pages=4096,
+                                       search_packed_residency=packed),
+                     device="cuda")
+        dbs.append(db)
+        db.poll()
+
+        def bsb_of(meta, label=label, packed=packed):
+            bsbs[label] = BackendSearchBlock(be, meta, device="cuda",
+                                             packed=packed)
+            return bsbs[label]
+
+        calls[label] = {}
+        out[label] = (db, hc_paths(db, bsb_of, n_per, args.reps, True,
+                                   calls[label]))
+    plain_db, pres = out["unpacked"]
+    packed_db, kres = out["packed"]
+    for label, (_db, r) in out.items():
+        path = {}
+        for x in r.values():
+            add_counts(path, x["launches"])
+        add_counts(launches, path)
+        report[f"hc_packed_launches_{label}"] = path
+    require_launched("packed hc search", report["hc_packed_launches_packed"],
+                     ("multi_scan_packed_hits", "scan_single_packed",
+                      "dict_probe", "pack_mask_words", "topk"),
+                     ("multi_scan_hits", "scan_single", "multi_scan"))
+    same_responses("packed hc search", kres, pres)
+    lat = {}
+    for name in kres:
+        lat[f"unpacked/{name}"] = latency_row(pres[name], pres[name]["resp"])
+        lat[f"packed/{name}"] = latency_row(kres[name], kres[name]["resp"])
+        print_row(f"unpacked hc4 {name}", lat[f"unpacked/{name}"])
+        print_row(f"packed hc4 {name}", lat[f"packed/{name}"])
+    report["hc_packed_search"] = lat
+    report["hc_packed_paired"] = paired_latency(
+        "hc4", {n: (calls["unpacked"][n], calls["packed"][n])
+                for n in calls["packed"]}, args.reps)
+    report["hc_packed_staged"] = staged_bytes("high cardinality", plain_db,
+                                              packed_db)
+    masks = {}
+    for label, (db, _r) in out.items():
+        sizes = [int(o[2].numel() * o[2].element_size())
+                 for d in db.batcher.engine.compile_cache._by_dict.values()
+                 for o in d.values()
+                 if not isinstance(o, str) and o[2] is not None]
+        masks[label] = sizes
+    if not masks["packed"] or not all(
+            packing.is_packed_mask(o[2])
+            for d in packed_db.batcher.engine.compile_cache._by_dict.values()
+            for o in d.values() if not isinstance(o, str)
+            and o[2] is not None):
+        raise AssertionError("the packed hc cache holds no word masks")
+    report["hc_mask_bytes"] = {k: sorted(set(v)) for k, v in masks.items()}
+    print(f"hit-mask bytes per cached tag-set: bool "
+          f"{report['hc_mask_bytes']['unpacked']}, words "
+          f"{report['hc_mask_bytes']['packed']}", flush=True)
+    sessions = [(dict(EXHAUSTIVE, **{SESSION_KEY: v}), {"limit": 20})
+                for v in HC_SESSIONS]
+    serial = [plain_db.search("hc", SearchRequest(tags=dict(t), **kw))
+              .response() for t, kw in sessions]
+    row = concurrent_rounds(packed_db, "hc", sessions, args.rounds, serial)
+    add_counts(launches, row["launches"])
+    require_fusion(row, "coalesced_scan_packed_hits")
+    print(f"concurrent packed high cardinality sessions (coalescing): round "
+          f"p50 {row['round_p50_ms']:.3f} ms, p95 {row['round_p95_ms']:.3f} "
+          f"ms; request p50 {row['lat_p50_ms']:.3f} ms, p95 "
+          f"{row['lat_p95_ms']:.3f} ms; launches "
+          f"{json.dumps(row['launches'])}; coalescer "
+          f"{json.dumps(row['coalesce'])}", flush=True)
+    report["hc_packed_concurrent"] = row
+    tags, kw = hc_requests()["hc_exhaustive_77"]
+    k1, _scores = k1_row(packed_db, "multi_scan_packed_hits",
+                         "tempo_tpu/search/packing.py:249", tags, kw,
+                         launches, True)
+    rows = [k1, k1s_row(bsbs["packed"], "scan_single_packed",
+                        "tempo_tpu/search/packing.py:237", launches)]
+    rows += coalesced_phase(
+        packed_db, [(dict(EXHAUSTIVE, **{SESSION_KEY: v}), {"limit": 20})
+                    for v in HC_SESSIONS[:6]]
+        + [({}, {"min_duration_ms": 59_000, "limit": 20}),
+           ({}, {"start": BASE_S + 300, "end": BASE_S + 900, "limit": 20})],
+        "packed hit-mask mode, 6 probed + 2 host-compiled", launches, False)
+    rows.append(k5_row(packed_db, launches))
+    for db in (plain_db, packed_db):
+        db.close()
+        dbs.remove(db)
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1129,19 +1604,22 @@ def require_fusion(row: dict, kernel: str) -> None:
                              f"fuse: {co}, launches {row['launches']}")
 
 
-def hc_paths(db, bsb_of, n_per: int, reps: int, sync: bool) -> dict:
+def hc_paths(db, bsb_of, n_per: int, reps: int, sync: bool,
+             calls: dict | None = None) -> dict:
     """The high-cardinality cell's requests through the three entry
     points, in order; the one-block requests go to the block holding the
     point lookup's session (blocks of `n_per` traces). `bsb_of` gives the
     single-block path's BackendSearchBlock. Returns name -> drive()
-    result."""
+    result; `calls`, when given, receives name -> the request's call."""
     from tempo_tpu_torch.model.types import SearchBlockRequest, \
         SearchRequest
 
     out = {}
+    calls = {} if calls is None else calls
     for name, (tags, kw) in hc_requests().items():
         req = SearchRequest(tags=dict(tags), **kw)
-        out[name] = drive(lambda: db.search("hc", req), reps, sync)
+        calls[name] = lambda req=req: db.search("hc", req)
+        out[name] = drive(calls[name], reps, sync)
         out[name]["dispatches"] = db.batcher.last_dispatches
     meta = next(m for m in db.blocklist.metas("hc")
                 if m.block_id == block_id(POINT_SESSION // n_per))
@@ -1151,21 +1629,60 @@ def hc_paths(db, bsb_of, n_per: int, reps: int, sync: bool) -> dict:
         encoding=meta.encoding, version=meta.version,
         data_encoding=meta.data_encoding, start_time=meta.start_time,
         end_time=meta.end_time)
-    out["hc_search_block_point"] = drive(lambda: db.search_block(job), reps,
-                                         sync)
+    calls["hc_search_block_point"] = lambda: db.search_block(job)
+    out["hc_search_block_point"] = drive(calls["hc_search_block_point"],
+                                         reps, sync)
     out["hc_search_block_point"]["dispatches"] = db.batcher.last_dispatches
     bsb = bsb_of(meta)
     for name, req in (("single_point", point),
                       ("single_bench", SearchRequest(tags=dict(BENCH),
                                                      limit=20))):
-        out[name] = drive(lambda: bsb.search(req), reps, sync)
+        calls[name] = lambda req=req: bsb.search(req)
+        out[name] = drive(calls[name], reps, sync)
         out[name]["dispatches"] = 1
     return out
 
 
+def paired_latency(label: str, calls: dict, reps: int) -> dict:
+    """The unpacked and the packed database's warm latency, request by
+    request, in turns within this process (unpacked, packed, then packed,
+    unpacked, ...), so both sides see the same clocks and host. `calls`:
+    name -> (unpacked call, packed call). Host clock, synchronised; p50
+    of each side."""
+    import torch
+
+    out = {}
+    for name, (plain, packed) in calls.items():
+        lat = {"unpacked": [], "packed": []}
+        for i in range(reps):
+            order = [("unpacked", plain), ("packed", packed)]
+            for side, call in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                call().response()
+                torch.cuda.synchronize()
+                lat[side].append((time.perf_counter() - t0) * 1e3)
+        row = {f"{side}_p50_ms": pct(v, 0.5) for side, v in lat.items()}
+        row["lat_ms"] = {side: sorted(v) for side, v in lat.items()}
+        out[name] = row
+        print(f"paired {label} {name}: p50 unpacked "
+              f"{row['unpacked_p50_ms']:.3f} ms, packed "
+              f"{row['packed_p50_ms']:.3f} ms ({reps} turns each)",
+              flush=True)
+    return out
+
+
+def search_calls(db, tenant: str, reqs: dict) -> dict:
+    """name -> a call of db.search with the named request."""
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    return {name: (lambda req=SearchRequest(tags=dict(t), **kw):
+                   db.search(tenant, req))
+            for name, (t, kw) in reqs.items()}
+
+
 def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
             ) -> list:
-    """The high-cardinality cell (step 3 of the module docstring).
+    """The high-cardinality cell (step 4 of the module docstring).
     Returns its kernel rows."""
     import torch
 
@@ -1300,6 +1817,11 @@ def main(argv=None) -> int:
     ap.add_argument("--traces-per-block", type=int, default=65_536)
     ap.add_argument("--hc-blocks", type=int, default=10)
     ap.add_argument("--hc-traces-per-block", type=int, default=1_048_576)
+    ap.add_argument("--hc-packed-blocks", type=int, default=4,
+                    help="blocks of the hc corpus in the packed hc cell")
+    ap.add_argument("--long-blocks", type=int, default=64,
+                    help="blocks of the long-duration corpus (traces per "
+                         "block as --traces-per-block)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -1332,7 +1854,9 @@ def main(argv=None) -> int:
     launches = {k: 0 for k in KERNELS}
     try:
         rows = tag_search_cell(args, work, report, dbs, launches)
+        rows += long_duration_cell(args, work, report, dbs, launches)
         rows += hc_cell(args, work, report, dbs, launches)
+        rows += packed_hc_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()
@@ -1346,6 +1870,14 @@ def main(argv=None) -> int:
                                  "main path")
     report["kernels"] = kernels
     report["launches_all_paths"] = launches
+    for r in kernels:
+        dm = r["shape"].get("device_ms")
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms a call back to back "
+              f"(CUDA events), "
+              + ("device time not measured" if dm is None else
+                 f"{dm:.4f} ms device time (profiler)")
+              + f", bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f}"
+              f" ms, {r['launches']} launches on the main path", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,7 +4,7 @@
 //
 // K1 replaces tempo_tpu/search/multiblock.py `multi_entry_mask` and the
 // count/inspected reductions of `multi_scan_kernel` (TPU kernel B3,
-// without its packed, structural and aggregate inputs); K1s replaces
+// without its structural and aggregate inputs); K1s replaces
 // tempo_tpu/search/engine.py `entry_match_mask` and the count/inspected
 // half of `scan_kernel` (B1). Both write the score column of
 // tempo_tpu/search/engine.py `masked_topk` (B2's input):
@@ -12,9 +12,9 @@
 //   live[i]   = entry_valid[i] && page_block[page(i)] >= 0   (K1s: valid)
 //   match[i]  = live[i]
 //            && AND over terms t < n_terms of
-//                 OR over slots c < C of  kv_key[i,c] == term_keys[b,t]
-//                       && value_ok(b, t, kv_val[i,c])
-//            && dur_lo <= entry_dur[i] <= dur_hi             (unsigned)
+//                 OR over slots c < C of  key(i,c) == term_keys[b,t]
+//                       && value_ok(b, t, val(i,c))
+//            && dur_ok(i)                                     (unsigned)
 //            && entry_end[i] >= win_start && entry_start[i] <= win_end  (unsigned)
 //   score[i]  = match ? min(entry_start[i], 2^31-1) : -1
 //   counts[0] += match, counts[1] += live
@@ -23,12 +23,31 @@
 // tables (K1s: one block, b = 0). value_ok is the range test, v in some
 // [lo,hi] of val_ranges[b,t,:], or, in hit-mask mode, a lookup in the
 // dictionary probe's output (K3): for K1, on the pages of a block with
-// g = block_group[b] >= 0, v >= 0 && val_hits[g, t, v] (rows g < 0 keep
-// the ranges, so one batch mixes probed and range blocks); for K1s,
-// v >= 0 && val_hits[t, v] on every page. An id past the table clamps to
-// its last entry, as the reference's gather does. The entry columns are
-// uint32 in the container; they arrive as int32 tensors holding the same
-// bits and are compared as uint32 here.
+// g = block_group[b] >= 0, v >= 0 && hit(g, t, v) (rows g < 0 keep the
+// ranges, so one batch mixes probed and range blocks); for K1s,
+// v >= 0 && hit(t, v) on every page. The container's uint32 columns
+// arrive as int32 tensors holding the same bits and are compared as
+// uint32 here.
+//
+// Packed residency (tempo_tpu/search/packing.py, the scan half of TPU
+// kernel B4: `unpack_ids`, `duration_ok`, `mask_select(_grouped)`). The
+// same kernels read a batch staged in the packed layout, in registers,
+// with no widening pass in device memory:
+//   - kv columns: the unpacked layout holds signed ids (int8/16/32, pad
+//     -1); the packed one holds codes id+1 (pad 0) as u8/u16/u32, or u4,
+//     two codes per byte with slot 2j in the low nibble of byte j. The
+//     column's reader (a template parameter: the only axis the inner
+//     loop needs specialised) turns slot c into its id.
+//   - duration: u32 (unpacked), exact u16, or u16 buckets dur >> s plus
+//     an s-bit residual (u8 for s <= 8, else u16). A bucket strictly
+//     between the bounds' buckets passes, one outside them fails, and
+//     only a row on a boundary bucket reads its residual and compares
+//     (q << s) | res exactly. A runtime-uniform branch.
+//   - hit tables: one byte per value, or 32-bit words with value v at
+//     bit v & 31 of word v >> 5. An id past the table reads its last
+//     element (for words: the last word, at bit v & 31), as the
+//     reference's gather does. A runtime-uniform branch in K1 and K1s,
+//     a template parameter of K4 (below).
 //
 // K4 replaces tempo_tpu/search/multiblock.py `coalesced_scan_kernel`
 // (TPU kernel B6, without its structural and aggregate inputs): the vmap
@@ -38,35 +57,38 @@
 // the -1 key, which is neutral-false for its block), and a query whose
 // duration range is empty (the pad queries: dur_lo 1 > dur_hi 0) matches
 // nothing. In hit-mask mode each query has its own hit table
-// u8 [G_q, T_q, V_q], found through a small device table of addresses so
-// that a fused dispatch copies no member's table, and its own row of
-// block_group [Q,B]. K4 writes scores [Q, P*E], counts [Q] and one
-// inspected count.
+// [G_q, T_q, V_q] (bytes or words), found through a small device table of
+// addresses so that a fused dispatch copies no member's table, and its
+// own row of block_group [Q,B]. K4 writes scores [Q, P*E], counts [Q] and
+// one inspected count.
 //
 // Bound on an H100: bytes. Every entry reads its valid flag and writes
 // one int32 score; a live entry reads its C key slots and the value slots
-// whose key a term names (int8/int16/int32, as the batch was narrowed),
-// plus, in hit-mask mode, one byte of the hit table per such slot (the
-// table is a few MB and stays in L2); only entries that pass the terms
-// read the u32 columns, and only those columns that a non-trivial bound
-// needs (start always, for the score). That is ~15-50 bytes per entry for
-// a handful of integer compares, far below the card's compute ridge; the
-// bound is the 32-byte sectors those reads and writes touch, over
-// 3.35 TB/s. Design: one thread per entry (adjacent threads on adjacent
-// entries, so the column reads coalesce); the term tables are tiny and are
-// read through the read-only cache; the score is written even for
-// non-matches, so the top-k (K2) needs no separate mask array; count and
-// inspected reduce per warp with ballots, per block in shared memory, then
-// with one integer atomic per block, which is exact in any order. The two
-// modes and the single-block form are template parameters of one body.
-// K4 is bound by the same reads, made once for all Q queries, plus Q
-// score columns written: one CTA covers (part of) one page, so all its
-// entries share one block, whose rows of the Q queries' tables it stages
-// in shared memory; each thread loads its entry's first 16 key and value
-// slots into registers once and then runs every query and term over them,
-// reading the u32 columns only if some query passed its terms. K1, K1s
-// and K4 test a slot with the same function (`slot_hit`), so the three
-// cannot drift apart.
+// whose key a term names (at the batch's width: 0.5 to 4 bytes a slot),
+// plus, in hit-mask mode, one byte or word of the hit table per such slot
+// (the table stays in L2); only entries that pass the terms read the
+// duration, end and start columns, and only those columns that a
+// non-trivial bound needs (start always, for the score). That is ~15-50
+// bytes per entry for a handful of integer compares, far below the card's
+// compute ridge; the bound is the 32-byte sectors those reads and writes
+// touch, over 3.35 TB/s. Design: one thread per entry (adjacent threads
+// on adjacent entries, so the column reads coalesce); the term tables are
+// tiny and are read through the read-only cache; the score is written
+// even for non-matches, so the top-k (K2) needs no separate mask array;
+// count and inspected reduce per warp with ballots, per block in shared
+// memory, then with one integer atomic per block, which is exact in any
+// order. K1 and K1s are one body (the single-block form is a template
+// parameter). K4 is bound by the same reads, made once for all Q queries,
+// plus Q score columns written: one CTA covers (part of) one page, so all
+// its entries share one block, whose rows of the Q queries' tables it
+// stages in shared memory; each thread loads its entry's first 16 key and
+// value slots into registers once and then runs every query and term over
+// them, reading the entry columns only if some query passed its terms.
+// K4's hit-mask mode and table format are a template parameter (as
+// runtime branches they doubled its registers, 114-122, and slowed its
+// hit mode ~1.5x on the card); K1's are runtime-uniform branches. K1, K1s and K4 test a slot with the same
+// function (`slot_hit`) and a duration with the same one (`dur_ok`), so
+// the three cannot drift apart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,25 +97,111 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// kv column layouts, as the wrappers in kernels/scan.py number them
+enum Layout : int {
+  kIds8 = 0, kIds16 = 1, kIds32 = 2,   // unpacked: signed ids, pad -1
+  kU4 = 3, kU8 = 4, kU16 = 5, kU32 = 6  // packed: codes id+1, pad 0
+};
+
+// Readers of one entry's kv slots: `at` points at entry i of a column
+// with C (unpacked) slots per entry; r[c] is slot c's id, -1 for a pad.
+template <typename T>
+struct Ids {
+  const T* p;
+  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
+    p = (const T*)base + i * C;
+  }
+  __device__ __forceinline__ int32_t operator[](int c) const {
+    return (int32_t)p[c];
+  }
+};
+
+template <typename U>
+struct Codes {
+  const U* p;
+  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
+    p = (const U*)base + i * C;
+  }
+  __device__ __forceinline__ int32_t operator[](int c) const {
+    return (int32_t)((uint32_t)p[c] - 1u);
+  }
+};
+
+struct Nibbles {            // C is even; an entry holds C / 2 bytes
+  const uint8_t* p;
+  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
+    p = (const uint8_t*)base + i * (C >> 1);
+  }
+  __device__ __forceinline__ int32_t operator[](int c) const {
+    return (int32_t)((p[c >> 1] >> ((c & 1) << 2)) & 0xF) - 1;
+  }
+};
+
+// One term's hit row: bytes (one per value) or 32-bit words; n = its
+// length in elements. v >= 0.
+__device__ __forceinline__ bool hit_lookup(const void* h, int64_t n,
+                                           bool words, int32_t v) {
+  if (words) {
+    int64_t w = v >> 5;
+    if (w >= n) w = n - 1;
+    return (__ldg((const uint32_t*)h + w) >> (v & 31)) & 1u;
+  }
+  return __ldg((const uint8_t*)h + ((int64_t)v < n ? (int64_t)v : n - 1))
+         != 0;
+}
+
+__device__ __forceinline__ const void* hit_row(const void* base, int64_t row,
+                                               int64_t n, bool words) {
+  return words ? (const void*)((const uint32_t*)base + row * n)
+               : (const void*)((const uint8_t*)base + row * n);
+}
+
 // One kv slot against one term: key equality, then value membership --
-// a lookup in the term's hit-table row `h` (hit-mask mode), or the range
-// test over `rg` [R][2]. A value id < 0 never hits; an id past the table
-// clamps to its last entry, as the reference's gather does. `kk`/`vv` are
-// the entry's slots in device memory or in registers (K4); the value slot
-// is read only when the key matches.
-template <bool kHits, typename KP, typename VP>
+// a lookup in the term's hit row `h` (hit-mask mode), or the range test
+// over `rg` [R][2]. A value id < 0 never hits. `kk`/`vv` are readers of
+// the entry's slots in device memory, or its slots in registers (K4); the
+// value slot is read only when the key matches.
+template <typename KP, typename VP>
 __device__ __forceinline__ bool slot_hit(const KP& kk, const VP& vv, int c,
                                          int32_t key, const int32_t* rg,
-                                         int R, const uint8_t* h,
-                                         int64_t n_vals) {
-  if ((int32_t)kk[c] != key) return false;
-  const int32_t v = (int32_t)vv[c];
-  if (kHits && h != nullptr)
-    return v >= 0 && n_vals > 0 &&
-           __ldg(h + ((int64_t)v < n_vals ? (int64_t)v : n_vals - 1)) != 0;
+                                         int R, const void* h,
+                                         int64_t n_vals, bool words) {
+  if (kk[c] != key) return false;
+  const int32_t v = vv[c];
+  if (h != nullptr) return v >= 0 && n_vals > 0 &&
+                           hit_lookup(h, n_vals, words, v);
   for (int r = 0; r < R; ++r)
     if (v >= rg[2 * r] && v <= rg[2 * r + 1]) return true;
   return false;
+}
+
+// The duration column: u32 (shift -1), exact u16 (shift 0), or u16
+// buckets with an s-bit residual of res_bytes bytes (shift s > 0).
+struct DurCol {
+  const void* dur;
+  const void* res;
+  int shift;
+  int res_bytes;
+};
+
+__device__ __forceinline__ uint32_t dur_raw(const DurCol& d, int64_t i) {
+  return d.shift < 0 ? ((const uint32_t*)d.dur)[i]
+                     : (uint32_t)((const uint16_t*)d.dur)[i];
+}
+
+// lo <= duration(i) <= hi, given its raw column value q
+__device__ __forceinline__ bool dur_ok(const DurCol& d, int64_t i,
+                                       uint32_t q, uint32_t lo,
+                                       uint32_t hi) {
+  if (d.shift <= 0) return q >= lo && q <= hi;
+  const uint32_t lq = lo >> d.shift, hq = hi >> d.shift;
+  if (q > lq && q < hq) return true;
+  if (q != lq && q != hq) return false;
+  const uint32_t r = d.res_bytes == 1
+                         ? (uint32_t)((const uint8_t*)d.res)[i]
+                         : (uint32_t)((const uint16_t*)d.res)[i];
+  const uint32_t full = (q << d.shift) | r;
+  return full >= lo && full <= hi;
 }
 
 __device__ __forceinline__ int32_t score_of(uint32_t start) {
@@ -101,26 +209,27 @@ __device__ __forceinline__ int32_t score_of(uint32_t start) {
 }
 
 struct ScanArgs {
-  const void* kv_key;            // [P, E, C] KT
-  const void* kv_val;            // [P, E, C] VT
+  const void* kv_key;            // [P, E, C] in the key layout
+  const void* kv_val;            // [P, E, C] in the value layout
   const uint32_t* entry_start;   // [P, E]
   const uint32_t* entry_end;
-  const uint32_t* entry_dur;
+  DurCol dur;
   const bool* entry_valid;
   const int32_t* page_block;     // [P]; unused by K1s
   const int32_t* term_keys;      // [B, t_stride]
   const int32_t* val_ranges;     // [B, t_stride, R, 2]
-  const uint8_t* val_hits;       // [G, t_stride, n_vals] (K1s: G = 1)
+  const void* val_hits;          // [G, t_stride, n_vals] (K1s: G = 1)
   const int32_t* block_group;    // [B]; K1 hit-mask mode only
   int64_t n_entries;
   int E, C, n_terms, t_stride, R;
-  int64_t n_vals;
+  int64_t n_vals;                // hit row length, in elements
+  int hit_words;                 // the hit table holds words
   uint32_t dur_lo, dur_hi, win_start, win_end;
   int32_t* scores;               // [P * E]
   int32_t* counts;               // [2], zeroed by the caller
 };
 
-template <typename KT, typename VT, bool kSingle, bool kHits>
+template <typename KR, typename VR, bool kSingle>
 __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   bool live = false;
@@ -135,38 +244,40 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
     }
     match = live;
     if (match && a.n_terms > 0) {
-      const KT* kk = (const KT*)a.kv_key + i * a.C;
-      const VT* vv = (const VT*)a.kv_val + i * a.C;
-      // this entry's block's hit table, or null for the range test
-      const uint8_t* htab = nullptr;
-      if (kHits) {
+      KR kk;
+      VR vv;
+      kk.at(a.kv_key, i, a.C);
+      vv.at(a.kv_val, i, a.C);
+      const bool words = a.hit_words != 0;
+      // this entry's block's hit table (first row), or null for the
+      // range test
+      int64_t hrow = -1;
+      if (a.val_hits != nullptr) {
         if (kSingle) {
-          htab = a.val_hits;
+          hrow = 0;
         } else {
           const int32_t g = __ldg(a.block_group + b);
-          if (g >= 0) htab = a.val_hits + (int64_t)g * a.t_stride * a.n_vals;
+          if (g >= 0) hrow = (int64_t)g * a.t_stride;
         }
       }
       for (int t = 0; t < a.n_terms && match; ++t) {
         const int64_t row = (int64_t)b * a.t_stride + t;
         const int32_t key = __ldg(a.term_keys + row);
         const int32_t* rg = a.val_ranges + row * a.R * 2;
-        const uint8_t* h = (kHits && htab != nullptr)
-                               ? htab + (int64_t)t * a.n_vals
-                               : nullptr;
+        const void* h = hrow >= 0
+                            ? hit_row(a.val_hits, hrow + t, a.n_vals, words)
+                            : nullptr;
         bool hit = false;
         for (int c = 0; c < a.C && !hit; ++c)
-          hit = slot_hit<kHits>(kk, vv, c, key, rg, a.R, h, a.n_vals);
+          hit = slot_hit(kk, vv, c, key, rg, a.R, h, a.n_vals, words);
         match = hit;
       }
     }
     // the entry columns are read only for entries that passed the terms,
     // and a bound that admits every value reads no column
     int32_t score = -1;
-    if (match && (a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu)) {
-      const uint32_t d = a.entry_dur[i];
-      match = d >= a.dur_lo && d <= a.dur_hi;
-    }
+    if (match && (a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu))
+      match = dur_ok(a.dur, i, dur_raw(a.dur, i), a.dur_lo, a.dur_hi);
     if (match && a.win_start != 0u) match = a.entry_end[i] >= a.win_start;
     if (match) {
       const uint32_t start = a.entry_start[i];
@@ -195,46 +306,92 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
   }
 }
 
-template <typename KT, typename VT, bool kSingle>
-int launch(const ScanArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.n_entries + kThreads - 1) / kThreads);
-  if (a.val_hits != nullptr)
-    scan_kernel<KT, VT, kSingle, true><<<blocks, kThreads, 0, stream>>>(a);
-  else
-    scan_kernel<KT, VT, kSingle, false><<<blocks, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename KT>
-int dispatch_val(int val_bytes, const ScanArgs& a, cudaStream_t stream) {
-  switch (val_bytes) {
-    case 1: return launch<KT, int8_t, false>(a, stream);
-    case 2: return launch<KT, int16_t, false>(a, stream);
-    case 4: return launch<KT, int32_t, false>(a, stream);
+// Calls f(KR{}, VR{}) with the readers of a layout pair: both unpacked
+// (all nine pairs) or both packed (all sixteen); kIds32Only admits the
+// unpacked int32 pair alone (K1s stages int32 ids).
+template <typename F>
+int with_codes(int layout, F&& f) {
+  switch (layout) {
+    case kU4: return f(Nibbles{});
+    case kU8: return f(Codes<uint8_t>{});
+    case kU16: return f(Codes<uint16_t>{});
+    case kU32: return f(Codes<uint32_t>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename F>
+int with_ids(int layout, F&& f) {
+  switch (layout) {
+    case kIds8: return f(Ids<int8_t>{});
+    case kIds16: return f(Ids<int16_t>{});
+    case kIds32: return f(Ids<int32_t>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kIds32Only, typename F>
+int with_readers(int kl, int vl, F&& f) {
+  if (kl >= kU4 && vl >= kU4)
+    return with_codes(kl, [&](auto k) {
+      return with_codes(vl, [&](auto v) { return f(k, v); });
+    });
+  if constexpr (kIds32Only) {
+    if (kl != kIds32 || vl != kIds32) return (int)cudaErrorInvalidValue;
+    return f(Ids<int32_t>{}, Ids<int32_t>{});
+  } else {
+    if (kl < kU4 && vl < kU4)
+      return with_ids(kl, [&](auto k) {
+        return with_ids(vl, [&](auto v) { return f(k, v); });
+      });
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kSingle>
+int launch_scan(int kl, int vl, const ScanArgs& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.n_entries + kThreads - 1) / kThreads);
+  return with_readers<kSingle>(kl, vl, [&](auto k, auto v) {
+    scan_kernel<decltype(k), decltype(v), kSingle>
+        <<<blocks, kThreads, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  });
+}
+
+bool valid_dur(int shift, int res_bytes, const void* res) {
+  if (shift <= 0) return true;
+  return shift <= 16 && res != nullptr &&
+         res_bytes == (shift <= 8 ? 1 : 2);
+}
+
+// C counts unpacked slots; a u4 column needs it even
+bool valid_layouts(int kl, int vl, int C) {
+  return !((kl == kU4 || vl == kU4) && (C & 1));
+}
+
 ScanArgs make_args(const void* kv_key, const void* kv_val,
                    const void* entry_start, const void* entry_end,
-                   const void* entry_dur, const void* entry_valid,
+                   const void* entry_dur, const void* entry_dur_res,
+                   int dur_shift, int res_bytes, const void* entry_valid,
                    const void* page_block, const void* term_keys,
                    const void* val_ranges, const void* val_hits,
-                   const void* block_group, int64_t n_entries, int E, int C,
-                   int n_terms, int t_stride, int R, int64_t n_vals,
-                   uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
-                   uint32_t win_end, void* scores, void* counts) {
+                   int hit_words, const void* block_group, int64_t n_entries,
+                   int E, int C, int n_terms, int t_stride, int R,
+                   int64_t n_vals, uint32_t dur_lo, uint32_t dur_hi,
+                   uint32_t win_start, uint32_t win_end, void* scores,
+                   void* counts) {
   ScanArgs a;
   a.kv_key = kv_key;
   a.kv_val = kv_val;
   a.entry_start = (const uint32_t*)entry_start;
   a.entry_end = (const uint32_t*)entry_end;
-  a.entry_dur = (const uint32_t*)entry_dur;
+  a.dur = DurCol{entry_dur, entry_dur_res, dur_shift, res_bytes};
   a.entry_valid = (const bool*)entry_valid;
   a.page_block = (const int32_t*)page_block;
   a.term_keys = (const int32_t*)term_keys;
   a.val_ranges = (const int32_t*)val_ranges;
-  a.val_hits = (const uint8_t*)val_hits;
+  a.val_hits = val_hits;
+  a.hit_words = hit_words;
   a.block_group = (const int32_t*)block_group;
   a.n_entries = n_entries;
   a.E = E;
@@ -261,11 +418,11 @@ constexpr int kRegC = 16;     // kv slots an entry keeps in registers
 constexpr int kSmemMax = 48 * 1024;
 
 struct CoalArgs {
-  const void* kv_key;            // [P, E, C] KT
-  const void* kv_val;            // [P, E, C] VT
+  const void* kv_key;            // [P, E, C] in the key layout
+  const void* kv_val;            // [P, E, C] in the value layout
   const uint32_t* entry_start;   // [P, E]
   const uint32_t* entry_end;
-  const uint32_t* entry_dur;
+  DurCol dur;
   const bool* entry_valid;
   const int32_t* page_block;     // [P]
   const int32_t* term_keys;      // [Q, B, T]
@@ -277,7 +434,9 @@ struct CoalArgs {
   const uint32_t* win_end;
   const int32_t* block_group;    // [Q, B]; hit-mask mode only
   const int64_t* hit_meta;       // [Q, 3]: table address (0: none),
-                                 // t_stride, n_vals; hit-mask mode only
+                                 // t_stride, row length in elements;
+                                 // hit-mask mode only
+  int hit_words;                 // every table holds words
   int E, C, Q, B, T, R;
   int chunks;                    // CTAs per page
   int stage_tables;              // the block's [Q,T] rows go to smem
@@ -306,7 +465,8 @@ __host__ __device__ inline CoalLayout coal_layout(int Q, int T, int R,
   return l;
 }
 
-template <typename KT, typename VT, bool kHits>
+// kHit: 0 = range mode, 1 = byte hit tables, 2 = word hit tables
+template <typename KR, typename VR, int kHit>
 __global__ void __launch_bounds__(kThreads)
 coalesced_kernel(const CoalArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -320,6 +480,11 @@ coalesced_kernel(const CoalArgs a) {
   uint8_t* s_act = smem + L.act;
 
   const int Q = a.Q, T = a.T, R = a.R;
+  // template parameters, unlike K1's runtime branches: with the mode and
+  // the table format known, K4 keeps its slot tests in about half the
+  // registers (and twice the resident warps)
+  constexpr bool hits = kHit != 0;
+  constexpr bool words = kHit == 2;
   const int tid = threadIdx.x;
   const int64_t page = blockIdx.x / a.chunks;
   const int e = (blockIdx.x % a.chunks) * blockDim.x + tid;
@@ -335,7 +500,7 @@ coalesced_kernel(const CoalArgs a) {
   }
   for (int j = tid; j < Q * T; j += blockDim.x) s_act[j] = a.term_active[j];
   if (b >= 0) {
-    if (kHits) {
+    if (hits) {
       for (int j = tid; j < Q; j += blockDim.x)
         s_bg[j] = a.block_group[(int64_t)j * a.B + b];
       for (int j = tid; j < 3 * Q; j += blockDim.x) s_hm[j] = a.hit_meta[j];
@@ -368,25 +533,27 @@ coalesced_kernel(const CoalArgs a) {
   uint64_t tmask = 0;   // bit q: the entry passes query q's terms
   if (live) {
     const int C = a.C;
-    const KT* kk = (const KT*)a.kv_key + i * C;
-    const VT* vv = (const VT*)a.kv_val + i * C;
+    KR kk;
+    VR vv;
+    kk.at(a.kv_key, i, C);
+    vv.at(a.kv_val, i, C);
     // the entry's slots, read from device memory once for all queries
     int32_t rk[kRegC], rv[kRegC];
 #pragma unroll
     for (int c = 0; c < kRegC; ++c) {
-      rk[c] = c < C ? (int32_t)kk[c] : -1;
-      rv[c] = c < C ? (int32_t)vv[c] : -1;
+      rk[c] = c < C ? kk[c] : -1;
+      rv[c] = c < C ? vv[c] : -1;
     }
     for (int q = 0; q < Q; ++q) {
       if (s_bd[q] > s_bd[Q + q]) continue;   // empty duration range
-      const uint8_t* hq = nullptr;
-      int64_t ht = 0, hv = 0;
-      if (kHits) {
+      const void* hq = nullptr;      // row (g, 0) of query q's table
+      int64_t hv = 0;
+      if (hits) {
         const int32_t g = s_bg[q];
         if (g >= 0 && s_hm[3 * q] != 0) {
-          ht = s_hm[3 * q + 1];
           hv = s_hm[3 * q + 2];
-          hq = (const uint8_t*)s_hm[3 * q] + (int64_t)g * ht * hv;
+          hq = hit_row((const void*)(uintptr_t)s_hm[3 * q],
+                       (int64_t)g * s_hm[3 * q + 1], hv, words);
         }
       }
       bool m = true;
@@ -394,23 +561,24 @@ coalesced_kernel(const CoalArgs a) {
         if (!s_act[q * T + t]) continue;          // inactive: neutral-true
         const int32_t key = tk[q * tk_qs + t];
         const int32_t* r = rg + q * rg_qs + (int64_t)t * R * 2;
-        const uint8_t* h = hq != nullptr ? hq + (int64_t)t * hv : nullptr;
+        const void* h =
+            hits && hq != nullptr ? hit_row(hq, t, hv, words) : nullptr;
         bool hit = false;
 #pragma unroll
         for (int c = 0; c < kRegC; ++c)
           if (c < C && !hit)
-            hit = slot_hit<kHits>(rk, rv, c, key, r, R, h, hv);
+            hit = slot_hit(rk, rv, c, key, r, R, h, hv, words);
         for (int c = kRegC; c < C && !hit; ++c)
-          hit = slot_hit<kHits>(kk, vv, c, key, r, R, h, hv);
+          hit = slot_hit(kk, vv, c, key, r, R, h, hv, words);
         m = hit;
       }
       if (m) tmask |= 1ull << q;
     }
   }
-  // the u32 columns, only for entries that passed some query's terms
-  uint32_t dur = 0, end = 0, start = 0;
+  // the entry columns, only for entries that passed some query's terms
+  uint32_t dq = 0, end = 0, start = 0;
   if (tmask) {
-    dur = a.entry_dur[i];
+    dq = dur_raw(a.dur, i);
     end = a.entry_end[i];
     start = a.entry_start[i];
   }
@@ -420,8 +588,8 @@ coalesced_kernel(const CoalArgs a) {
   for (int q = 0; q < Q; ++q) {
     bool m = (tmask >> q) & 1ull;
     if (m)
-      m = dur >= s_bd[q] && dur <= s_bd[Q + q] && end >= s_bd[2 * Q + q] &&
-          start <= s_bd[3 * Q + q];
+      m = dur_ok(a.dur, i, dq, s_bd[q], s_bd[Q + q]) &&
+          end >= s_bd[2 * Q + q] && start <= s_bd[3 * Q + q];
     if (in) a.scores[q * n + i] = m ? score_of(start) : -1;
     const unsigned bal = __ballot_sync(0xffffffffu, m);
     if (lane == 0 && bal) atomicAdd(&s_cnt[q], __popc(bal));
@@ -433,111 +601,100 @@ coalesced_kernel(const CoalArgs a) {
     if (s_cnt[j]) atomicAdd(&a.counts[j], s_cnt[j]);
 }
 
-template <typename KT, typename VT>
-int launch_coal(const CoalArgs& a, int64_t P, int threads, int smem,
-                cudaStream_t stream) {
-  const unsigned grid = (unsigned)(P * a.chunks);
-  if (a.hit_meta != nullptr) {
-    coalesced_kernel<KT, VT, true><<<grid, threads, smem, stream>>>(a);
-  } else {
-    coalesced_kernel<KT, VT, false><<<grid, threads, smem, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename KT>
-int coal_dispatch_val(int val_bytes, const CoalArgs& a, int64_t P,
-                      int threads, int smem, cudaStream_t s) {
-  switch (val_bytes) {
-    case 1: return launch_coal<KT, int8_t>(a, P, threads, smem, s);
-    case 2: return launch_coal<KT, int16_t>(a, P, threads, smem, s);
-    case 4: return launch_coal<KT, int32_t>(a, P, threads, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// K1. key_bytes/val_bytes: itemsize of the narrowed kv columns (1, 2 or
-// 4). val_hits (u8 [G, t_stride, n_vals]) and block_group (i32 [B]) are
-// both null (range mode) or both set (hit-mask mode). Returns the
-// cudaError_t of the launch (0 = launched).
-int tt_multi_scan(int key_bytes, int val_bytes, const void* kv_key,
+// K1. key_layout/val_layout: the kv columns' Layout (both unpacked or
+// both packed). dur_shift: -1 = u32 durations, 0 = exact u16, s > 0 = u16
+// buckets with an s-bit residual of res_bytes bytes (entry_dur_res).
+// val_hits ([G, t_stride, n_vals] bytes, or words with hit_words) and
+// block_group (i32 [B]) are both null (range mode) or both set (hit-mask
+// mode). Returns the cudaError_t of the launch (0 = launched).
+int tt_multi_scan(int key_layout, int val_layout, const void* kv_key,
                   const void* kv_val, const void* entry_start,
                   const void* entry_end, const void* entry_dur,
+                  const void* entry_dur_res, int dur_shift, int res_bytes,
                   const void* entry_valid, const void* page_block,
                   const void* term_keys, const void* val_ranges,
-                  const void* val_hits, const void* block_group,
-                  int64_t n_entries, int E, int C, int n_terms, int t_stride,
-                  int R, int64_t n_vals, uint32_t dur_lo, uint32_t dur_hi,
-                  uint32_t win_start, uint32_t win_end, void* scores,
-                  void* counts, void* stream) {
+                  const void* val_hits, int hit_words,
+                  const void* block_group, int64_t n_entries, int E, int C,
+                  int n_terms, int t_stride, int R, int64_t n_vals,
+                  uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
+                  uint32_t win_end, void* scores, void* counts,
+                  void* stream) {
   if (n_entries <= 0) return 0;
-  if ((val_hits == nullptr) != (block_group == nullptr))
+  if ((val_hits == nullptr) != (block_group == nullptr) ||
+      !valid_dur(dur_shift, res_bytes, entry_dur_res) ||
+      !valid_layouts(key_layout, val_layout, C))
     return (int)cudaErrorInvalidValue;
   const ScanArgs a = make_args(
-      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
-      page_block, term_keys, val_ranges, val_hits, block_group, n_entries, E,
-      C, n_terms, t_stride, R, n_vals, dur_lo, dur_hi, win_start, win_end,
-      scores, counts);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (key_bytes) {
-    case 1: return dispatch_val<int8_t>(val_bytes, a, s);
-    case 2: return dispatch_val<int16_t>(val_bytes, a, s);
-    case 4: return dispatch_val<int32_t>(val_bytes, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
+      dur_shift, res_bytes, entry_valid, page_block, term_keys, val_ranges,
+      val_hits, hit_words, block_group, n_entries, E, C, n_terms, t_stride,
+      R, n_vals, dur_lo, dur_hi, win_start, win_end, scores, counts);
+  return launch_scan<false>(key_layout, val_layout, a, (cudaStream_t)stream);
 }
 
-// K1s: one block's int32 kv columns, term tables [t_stride] and
-// [t_stride, R, 2], and an optional hit table u8 [t_stride, n_vals] (null
-// = range mode). Returns the cudaError_t of the launch.
-int tt_scan_single(const void* kv_key, const void* kv_val,
-                   const void* entry_start, const void* entry_end,
-                   const void* entry_dur, const void* entry_valid,
-                   const void* term_keys, const void* val_ranges,
-                   const void* val_hits, int64_t n_entries, int E, int C,
+// K1s: one block's kv columns (the unpacked layout: int32 ids; or any
+// packed pair), term tables [t_stride] and [t_stride, R, 2], durations
+// as for K1, and an optional hit table [t_stride, n_vals] (bytes, or
+// words with hit_words; null = range mode). Returns the cudaError_t of
+// the launch.
+int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
+                   const void* kv_val, const void* entry_start,
+                   const void* entry_end, const void* entry_dur,
+                   const void* entry_dur_res, int dur_shift, int res_bytes,
+                   const void* entry_valid, const void* term_keys,
+                   const void* val_ranges, const void* val_hits,
+                   int hit_words, int64_t n_entries, int E, int C,
                    int n_terms, int t_stride, int R, int64_t n_vals,
                    uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
                    uint32_t win_end, void* scores, void* counts,
                    void* stream) {
   if (n_entries <= 0) return 0;
+  if (!valid_dur(dur_shift, res_bytes, entry_dur_res) ||
+      !valid_layouts(key_layout, val_layout, C))
+    return (int)cudaErrorInvalidValue;
   const ScanArgs a = make_args(
-      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
-      nullptr, term_keys, val_ranges, val_hits, nullptr, n_entries, E, C,
-      n_terms, t_stride, R, n_vals, dur_lo, dur_hi, win_start, win_end,
-      scores, counts);
-  return launch<int32_t, int32_t, true>(a, (cudaStream_t)stream);
+      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
+      dur_shift, res_bytes, entry_valid, nullptr, term_keys, val_ranges,
+      val_hits, hit_words, nullptr, n_entries, E, C, n_terms, t_stride, R,
+      n_vals, dur_lo, dur_hi, win_start, win_end, scores, counts);
+  return launch_scan<true>(key_layout, val_layout, a, (cudaStream_t)stream);
 }
 
 // K4. Q <= 64 queries; term_keys [Q, B, T], val_ranges [Q, B, T, R, 2],
-// term_active (bool) [Q, T], the four bounds [Q] (uint32 bits); hit-mask
-// mode when block_group ([Q, B]) and hit_meta ([Q, 3] int64) are both
-// set. scores [Q, P * E]; counts [Q + 1], zeroed. Returns the
-// cudaError_t of the launch.
-int tt_coalesced_scan(int key_bytes, int val_bytes, const void* kv_key,
+// term_active (bool) [Q, T], the four bounds [Q] (uint32 bits); layouts
+// and durations as for K1; hit-mask mode when block_group ([Q, B]) and
+// hit_meta ([Q, 3] int64) are both set, every table in bytes or, with
+// hit_words, in words. scores [Q, P * E]; counts [Q + 1], zeroed.
+// Returns the cudaError_t of the launch.
+int tt_coalesced_scan(int key_layout, int val_layout, const void* kv_key,
                       const void* kv_val, const void* entry_start,
                       const void* entry_end, const void* entry_dur,
-                      const void* entry_valid, const void* page_block,
-                      const void* term_keys, const void* val_ranges,
-                      const void* term_active, const void* dur_lo,
-                      const void* dur_hi, const void* win_start,
-                      const void* win_end, const void* block_group,
-                      const void* hit_meta, int64_t P, int E, int C, int Q,
-                      int B, int T, int R, void* scores, void* counts,
+                      const void* entry_dur_res, int dur_shift,
+                      int res_bytes, const void* entry_valid,
+                      const void* page_block, const void* term_keys,
+                      const void* val_ranges, const void* term_active,
+                      const void* dur_lo, const void* dur_hi,
+                      const void* win_start, const void* win_end,
+                      const void* block_group, const void* hit_meta,
+                      int hit_words, int64_t P, int E, int C, int Q, int B,
+                      int T, int R, void* scores, void* counts,
                       void* stream) {
   if (P <= 0 || E <= 0) return 0;
   if (Q < 1 || Q > kMaxQ || T < 1 || R < 1 ||
-      (block_group == nullptr) != (hit_meta == nullptr))
+      (block_group == nullptr) != (hit_meta == nullptr) ||
+      !valid_dur(dur_shift, res_bytes, entry_dur_res) ||
+      !valid_layouts(key_layout, val_layout, C))
     return (int)cudaErrorInvalidValue;
   CoalArgs a;
   a.kv_key = kv_key;
   a.kv_val = kv_val;
   a.entry_start = (const uint32_t*)entry_start;
   a.entry_end = (const uint32_t*)entry_end;
-  a.entry_dur = (const uint32_t*)entry_dur;
+  a.dur = DurCol{entry_dur, entry_dur_res, dur_shift, res_bytes};
   a.entry_valid = (const bool*)entry_valid;
   a.page_block = (const int32_t*)page_block;
   a.term_keys = (const int32_t*)term_keys;
@@ -549,6 +706,7 @@ int tt_coalesced_scan(int key_bytes, int val_bytes, const void* kv_key,
   a.win_end = (const uint32_t*)win_end;
   a.block_group = (const int32_t*)block_group;
   a.hit_meta = (const int64_t*)hit_meta;
+  a.hit_words = hit_words;
   a.E = E;
   a.C = C;
   a.Q = Q;
@@ -563,16 +721,20 @@ int tt_coalesced_scan(int key_bytes, int val_bytes, const void* kv_key,
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   a.scores = (int32_t*)scores;
   a.counts = (int32_t*)counts;
+  const unsigned grid = (unsigned)(P * a.chunks);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (key_bytes) {
-    case 1:
-      return coal_dispatch_val<int8_t>(val_bytes, a, P, threads, smem, s);
-    case 2:
-      return coal_dispatch_val<int16_t>(val_bytes, a, P, threads, smem, s);
-    case 4:
-      return coal_dispatch_val<int32_t>(val_bytes, a, P, threads, smem, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_readers<false>(key_layout, val_layout, [&](auto k, auto v) {
+    if (a.hit_meta == nullptr)
+      coalesced_kernel<decltype(k), decltype(v), 0>
+          <<<grid, threads, smem, s>>>(a);
+    else if (a.hit_words)
+      coalesced_kernel<decltype(k), decltype(v), 2>
+          <<<grid, threads, smem, s>>>(a);
+    else
+      coalesced_kernel<decltype(k), decltype(v), 1>
+          <<<grid, threads, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* tt_cuda_error_string(int code) {

@@ -46,6 +46,12 @@ class TempoDBConfig:
     # them; max_queries <= 1 turns coalescing off
     search_coalesce_window_s: float = 0.003
     search_coalesce_max_queries: int = 8
+    # packed residency (search/packing.py): staged kv columns at the width
+    # the dictionaries need, durations as u16 (buckets plus residual when
+    # longer than 65,535 ms), probe hit masks as 32-bit words; the
+    # kernels read them as they are. Same answers, fewer staged bytes.
+    # Per database here; the reference's gate is process-wide.
+    search_packed_residency: bool = False
     pool_workers: int = 50                # concurrent meta reads per poll
 
 
@@ -69,7 +75,8 @@ class TempoDB:
             pipeline_depth=self.cfg.search_pipeline_depth,
             device_probe_min_vals=self.cfg.search_device_probe_min_vals,
             coalesce_window_s=self.cfg.search_coalesce_window_s,
-            coalesce_max_queries=self.cfg.search_coalesce_max_queries)
+            coalesce_max_queries=self.cfg.search_coalesce_max_queries,
+            packed=self.cfg.search_packed_residency)
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()
@@ -110,7 +117,8 @@ class TempoDB:
                     self.backend, meta,
                     header=self._headers.get(meta.block_id),
                     probe_min_vals=self.cfg.search_device_probe_min_vals,
-                    device=self.device)
+                    device=self.device,
+                    packed=self.cfg.search_packed_residency)
                 self._search_blocks[meta.block_id] = bsb
                 while len(self._search_blocks) > self.cfg.search_cache_blocks:
                     self._search_blocks.popitem(last=False)

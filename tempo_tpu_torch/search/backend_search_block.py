@@ -64,15 +64,19 @@ class BackendSearchBlock:
 
     def __init__(self, backend: RawBackend, meta: BlockMeta,
                  header: dict | None = None,
-                 probe_min_vals: int | None = None, device=None):
+                 probe_min_vals: int | None = None, device=None,
+                 packed: bool = False):
         """`header`: an already-fetched rollup (saves one backend read).
         `probe_min_vals`: the device-probe staging threshold
         (TempoDBConfig.search_device_probe_min_vals; None = 50k, <= 0 =
         host probing only). `device`: where ``staged`` puts the block —
-        ``cuda`` by default, raising without a card."""
+        ``cuda`` by default, raising without a card. `packed`: stage the
+        block in the packed layout (TempoDBConfig.
+        search_packed_residency; packing.py)."""
         self.backend = backend
         self.meta = meta
         self.probe_min_vals = probe_min_vals
+        self.packed = packed
         self.device = resolve_device(device)
         self._header = header
         self._pages: ColumnarPages | None = None
@@ -103,7 +107,7 @@ class BackendSearchBlock:
             if self._staged is not None:
                 return self._staged
         sp = stage(self.pages(), self.device,
-                   probe_min_vals=self.probe_min_vals)
+                   probe_min_vals=self.probe_min_vals, packed=self.packed)
         with self._lock:
             if self._staged is None:
                 self._staged = sp
@@ -113,7 +117,7 @@ class BackendSearchBlock:
         """The block's own single-block engine (and compile cache)."""
         with self._lock:
             if self._engine is None:
-                self._engine = ScanEngine(self.device)
+                self._engine = ScanEngine(self.device, packed=self.packed)
             return self._engine
 
     def search(self, req,
@@ -131,7 +135,7 @@ class BackendSearchBlock:
         sp = self.staged()
         cq = compile_query(sp.pages.key_dict, sp.pages.val_dict, req,
                            cache_on=sp.pages, cache=engine.compile_cache,
-                           staged_dict=sp.staged_dict)
+                           staged_dict=sp.staged_dict, packed=engine.packed)
         if cq is None:
             m.skipped_blocks += 1
             return results

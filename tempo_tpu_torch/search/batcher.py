@@ -18,6 +18,10 @@ the two kernels. What the grouping keeps from the reference:
 - **probe dictionaries in the budget**: a batch's staged value
   dictionaries (the device probe's input) count against the same byte
   budget as its pages, and leave with the batch when it is evicted;
+- **physical bytes in the budget**: with packed residency
+  (``packed=True``, ``packing.py``) the budget charges the packed bytes,
+  and ``debug_stats`` reports the staged total both physical and logical
+  (what the unpacked layout would hold; equal when not packed);
 - **coalesced across requests**: concurrent searches whose dispatches
   land on the same staged batch within a short window stack their
   queries and share one fused dispatch (``QueryCoalescer``); a dispatch
@@ -74,7 +78,8 @@ class ScanJob:
 @dataclass
 class _CachedBatch:
     batch: object           # multiblock.BlockBatch
-    nbytes: int
+    nbytes: int             # physical: what the budget charges
+    logical: int            # the unpacked layout's equivalent
     # per-predicate memo: header prune, per-block tables, metric sums
     query_cache: OrderedDict = field(default_factory=OrderedDict)
     # searches holding this batch between staging and their last drain;
@@ -319,11 +324,14 @@ class BlockBatcher:
                  io_workers: int = 8,
                  device_probe_min_vals: int | None = None,
                  coalesce_window_s: float = 0.003,
-                 coalesce_max_queries: int = 8):
+                 coalesce_max_queries: int = 8,
+                 packed: bool = False):
         """`coalesce_max_queries` <= 1 disables coalescing: every
-        dispatch runs at once, on the caller's thread."""
+        dispatch runs at once, on the caller's thread. `packed` stages
+        batches in the packed layout (packing.py)."""
         self.engine = MultiBlockEngine(
-            device, top_k=top_k, device_probe_min_vals=device_probe_min_vals)
+            device, top_k=top_k, device_probe_min_vals=device_probe_min_vals,
+            packed=packed)
         self.max_batch_pages = max_batch_pages
         self.cache_bytes = cache_bytes
         self.pipeline_depth = max(1, pipeline_depth)
@@ -332,6 +340,8 @@ class BlockBatcher:
         self._cache_total = 0
         # the share of _cache_total held by staged probe dictionaries
         self._probe_dict_total = 0
+        # _cache_total in the unpacked layout's bytes
+        self._cache_logical = 0
         self._staging: dict[tuple, threading.Event] = {}
         self._prune_cache: OrderedDict = OrderedDict()
         self._plan_cache: OrderedDict = OrderedDict()
@@ -360,13 +370,18 @@ class BlockBatcher:
             self.coalescer.close()
 
     def debug_stats(self) -> dict:
-        """The coalescer's counters and the peer counters."""
+        """The coalescer's counters, the peer counters and the staged
+        cache's bytes: physical (charged to the budget) and logical (the
+        unpacked layout's equivalent; equal when not packed)."""
         with self._lock:
             peers = {"interest": dict(self._interest),
                      "unplanned": self._unplanned}
+            cache = {"bytes": self._cache_total,
+                     "logical_bytes": self._cache_logical,
+                     "dict_bytes": self._probe_dict_total}
         return {"coalesce": (self.coalescer.stats()
                              if self.coalescer is not None else None),
-                "peers": peers}
+                "peers": peers, "cache": cache}
 
     # ------------------------------------------------------------------
     # planning
@@ -416,6 +431,7 @@ class BlockBatcher:
         when a search that still holds it lets go."""
         entry = self._cache.pop(key)
         self._cache_total -= entry.nbytes
+        self._cache_logical -= entry.logical
         self._probe_dict_total -= entry.batch.dict_nbytes
 
     def _staged(self, group: list[ScanJob]) -> _CachedBatch:
@@ -442,12 +458,14 @@ class BlockBatcher:
             else:
                 pages = [group[0].pages_fn()]
             batch = self.engine.place(self.engine.stage_host(pages))
-            entry = _CachedBatch(batch=batch, nbytes=batch.nbytes)
+            entry = _CachedBatch(batch=batch, nbytes=batch.nbytes,
+                                 logical=batch.logical_nbytes)
             with self._lock:
                 if key in self._cache:
                     self._drop_locked(key)
                 self._cache[key] = entry
                 self._cache_total += entry.nbytes
+                self._cache_logical += entry.logical
                 self._probe_dict_total += batch.dict_nbytes
                 self._evict_locked()
             return entry
@@ -566,7 +584,8 @@ class BlockBatcher:
             mq = compile_multi(list(batch.blocks), req, skip=skip,
                                memo=batch.memo,
                                cache=self.engine.compile_cache,
-                               staged_dicts=batch.staged_dicts)
+                               staged_dicts=batch.staged_dicts,
+                               packed=self.engine.packed)
             if mq is None:
                 return {"all_skip": True, "skipped": len(group)}
             if not exhaustive and mq.n_terms:

@@ -95,6 +95,19 @@ class ColumnarPages:
                 setattr(out, attr, cached)
         return out
 
+    def max_dur_ms(self) -> int:
+        """Upper bound on this container's durations, the packed layout's
+        width input (search/packing.py): the header rollup, which the
+        build records; a container without it scans its column once
+        (memoized)."""
+        v = self.header.get("max_dur_ms")
+        if v is None:
+            v = getattr(self, "_max_dur_ms", None)
+            if v is None:
+                v = self._max_dur_ms = (int(self.entry_dur.max())
+                                        if self.entry_dur.size else 0)
+        return int(v)
+
     # ------------------------------------------------------------------
     # build
 

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import packing
 from .kernels import probe as probe_k
 
 # Dictionaries below this many distinct values keep the exact host path:
@@ -153,7 +154,12 @@ def needle_tensors(needles: list, device: torch.device):
 
 def hits_to_ids(hits_row) -> np.ndarray:
     """One term's hit mask as a sorted id array (the bridge to
-    pipeline.substring_value_ids for tests and checks)."""
+    pipeline.substring_value_ids for tests and checks). Takes both mask
+    formats: a bool row, or a word row (int32 tensor or uint32 array) as
+    a packed engine's probe leaves it."""
+    if packing.is_packed_mask(hits_row):
+        hits_row = packing.unpack_mask_words(hits_row,
+                                             hits_row.shape[-1] * 32)
     if isinstance(hits_row, torch.Tensor):
         hits_row = hits_row.cpu().numpy()
     return np.nonzero(np.asarray(hits_row))[0].astype(np.int32)

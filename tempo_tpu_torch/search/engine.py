@@ -6,7 +6,9 @@ block's columns on the device (page axis padded to a power of two, kv
 columns int32, as the reference stages them) with its value dictionary
 when that clears the probe threshold; ``ScanEngine`` dispatches kernel
 K1s (``kernels.scan.scan_single``, the port of B1) then K2
-(``kernels.topk.topk``, B2) and renders the top-k as results.
+(``kernels.topk.topk``, B2) and renders the top-k as results. With
+``packed``, ``stage`` packs the block's columns as ``packing.py`` says
+(``StagedPages.widths``), and K1s reads them as they are.
 ``DEFAULT_TOP_K``, ``resolve_top_k`` and ``fetch_scan_out`` are shared
 with the batched path (``multiblock.py``); ``fetch_coalesced_out`` is
 the fused (query-axis) path's fetch.
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
-from . import dict_probe
+from . import dict_probe, packing
 from .columnar import ColumnarPages
 from .kernels.scan import scan_single
 from .kernels.topk import topk
@@ -77,6 +79,8 @@ class StagedPages:
     # dict_probe.DeviceDict when the value dictionary cleared the probe
     # threshold at staging time: compilation then probes on the device
     staged_dict: object = None
+    # packing.py's (key, value, duration) widths; None = unpacked
+    widths: tuple | None = None
 
 
 def _bucket(n: int) -> int:
@@ -88,7 +92,7 @@ def _bucket(n: int) -> int:
 
 def pad_page_axis(pages: ColumnarPages, target: int) -> dict:
     """Numpy columns with the page axis padded to `target` pages of
-    invalid entries and -1 kv slots; the u32 columns as int32 bits."""
+    invalid entries and -1 kv slots."""
     out = {}
     P = pages.n_pages
     for name in DEVICE_ARRAYS:
@@ -98,8 +102,6 @@ def pad_page_axis(pages: ColumnarPages, target: int) -> dict:
             if name in ("kv_key", "kv_val"):
                 pad -= 1
             arr = np.concatenate([arr, pad], axis=0)
-        if arr.dtype == np.uint32:
-            arr = arr.view(np.int32)
         out[name] = arr
     return out
 
@@ -117,29 +119,42 @@ def stage_block_dict(pages: ColumnarPages, device: torch.device,
 
 
 def stage(pages: ColumnarPages, device: torch.device,
-          probe_min_vals: int | None = None) -> StagedPages:
+          probe_min_vals: int | None = None,
+          packed: bool = False) -> StagedPages:
     """Copy a block's columns to the device, the page axis padded to a
     power of two (the reference's bucket; the port keeps it so both scan
     the same padded block), and its dictionary when it clears the probe
-    threshold — applied here, at staging time."""
+    threshold — applied here, at staging time. With `packed`, the
+    columns pack at the widths a one-block batch would get
+    (``packing.pack_columns``)."""
     host = pad_page_axis(pages, _bucket(pages.n_pages))
+    widths = None
+    if packed:
+        widths = packing.plan_widths(len(pages.key_dict),
+                                     len(pages.val_dict), pages.max_dur_ms())
+        host = packing.pack_columns(host, widths)
     dev = {}
     for k, v in host.items():
+        v = packing.device_view(v)      # unsigned bits in signed tensors
         if not (v.flags.writeable and v.flags.c_contiguous):
             v = np.array(v, order="C")   # container bytes are read-only
         dev[k] = torch.from_numpy(v).to(device)
     return StagedPages(device=dev, pages=pages,
                        staged_dict=stage_block_dict(pages, device,
-                                                    probe_min_vals))
+                                                    probe_min_vals),
+                       widths=widths)
 
 
 class ScanEngine:
     """Single-block dispatch on one device: K1s then K2, one sync, and
-    result rendering. Owns the compile cache of the blocks it serves."""
+    result rendering. Owns the compile cache of the blocks it serves;
+    `packed` engines stage packed blocks and compile word hit masks."""
 
-    def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K):
+    def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
+                 packed: bool = False):
         self.device = device
         self.top_k = top_k
+        self.packed = packed
         self.compile_cache = CompileCache()
 
     def _tables(self, cq: CompiledQuery):
@@ -162,7 +177,8 @@ class ScanEngine:
             d["entry_dur"], d["entry_valid"], tk, vr, cq.n_terms, cq.dur_lo,
             min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
             min(cq.win_end, 0xFFFFFFFF),
-            cq.val_hits if cq.n_terms else None)
+            cq.val_hits if cq.n_terms else None, sp.widths,
+            d.get("entry_dur_res"))
         top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
                                                          cq.limit))
         return counts, top_scores, top_idx

@@ -6,15 +6,23 @@
   K3  ``probe.dict_probe``     (csrc/probe.cu) <- tempo_tpu dict_probe.probe_kernel
   K4  ``scan.coalesced_scan``  (csrc/scan.cu)  <- tempo_tpu multiblock.coalesced_scan_kernel
   K2r ``topk.topk_rows``       (csrc/topk.cu)  <- its vmapped masked_topk
+  K5  ``pack.pack_mask_words`` (csrc/pack.cu)  <- tempo_tpu packing.pack_mask_words
+
+K1, K1s and K4 also read batches staged in the packed layout
+(``search/packing.py``): the scan half of the reference's packing
+functions runs inside them.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises. Each keeps a launch count
-(``scan.LAUNCHES`` for K1 in range mode, ``scan.HIT_LAUNCHES`` for K1 in
-hit-mask mode, ``scan.SINGLE_LAUNCHES``, ``scan.COALESCED_LAUNCHES`` and
-``scan.COALESCED_HIT_LAUNCHES`` for K4 in either mode, ``topk.LAUNCHES``,
-``topk.ROW_LAUNCHES``, ``probe.LAUNCHES``) that grows by one per call
-that launches the kernel, so a run can show the main path went through
-it.
+CUDA tensor it launches the kernel or raises. Each kernel and mode keeps
+a launch count that grows by one per call that launches the kernel, so a
+run can show the main path went through it: in ``scan``, ``LAUNCHES`` /
+``HIT_LAUNCHES`` (K1, range / hit-mask mode), ``SINGLE_LAUNCHES`` (K1s),
+``COALESCED_LAUNCHES`` / ``COALESCED_HIT_LAUNCHES`` (K4), and for the
+packed layout ``PACKED_LAUNCHES`` / ``PACKED_Q_LAUNCHES`` (K1 range mode
+with u16 / bucketed durations), ``PACKED_HIT_LAUNCHES``,
+``SINGLE_PACKED_LAUNCHES``, ``COALESCED_PACKED_LAUNCHES`` and
+``COALESCED_PACKED_HIT_LAUNCHES``; ``topk.LAUNCHES``,
+``topk.ROW_LAUNCHES``, ``probe.LAUNCHES`` and ``pack.LAUNCHES``.
 """
 
 import threading

@@ -3,7 +3,7 @@ tag-search predicate, count and score column.
 
 K1 is the counterpart of ``tempo_tpu/search/multiblock.py``
 ``multi_entry_mask`` and the count/inspected half of ``multi_scan_kernel``
-(TPU kernel B3 without its packed/structural/aggregate inputs), in range
+(TPU kernel B3 without its structural and aggregate inputs), in range
 mode or, given the dictionary probe's hit tables, in hit-mask mode. K1s is
 the counterpart of ``tempo_tpu/search/engine.py`` ``entry_match_mask`` and
 ``scan_kernel`` (B1): the same predicate over one block. Both write the
@@ -18,14 +18,27 @@ K1 inputs (all on one device, contiguous):
   page_block              [P] int32, -1 for pad pages
   term_keys               [B, T'] int32 (T' = max(1, n_terms))
   val_ranges              [B, T', R, 2] int32
-  val_hits, block_group   optional, together: bool [G, T', Vm] and int32
-                          [B]; a block with group g >= 0 tests a value v
-                          by val_hits[g, t, v] instead of the ranges
-K1s inputs: kv int32, no page_block, term tables [T'] and [T', R, 2], and
-an optional val_hits bool [T', V] used on every page.
+  val_hits, block_group   optional, together: [G, T', Vm] hit table and
+                          int32 [B]; a block with group g >= 0 tests a
+                          value v by its bit of val_hits[g, t] instead of
+                          the ranges
+K1s inputs: kv int32 (or a packed layout, below), no page_block, term
+tables [T'] and [T', R, 2], and an optional val_hits [T', V] used on
+every page.
 Outputs: scores int32 [P*E] (min(start, 2^31-1) where the entry matches,
 else -1) and counts int32 [2] = (match count, inspected), inspected being
 the valid entries (of non-pad pages).
+
+Packed residency (``search/packing.py``, the scan half of TPU kernel B4):
+given ``widths=(kw, vw, dw)``, the kv columns hold codes (id+1, pad 0):
+"u4" uint8 [P, E, C/2] (two slots a byte, slot 2j in the low nibble),
+"u8" uint8, "u16" int16 (uint16 bits), "u32" int32 (uint32 bits), each
+[P, E, C], C being the unpacked slot count. entry_dur is int16 (uint16
+bits): exact for dw "u16", buckets ``dur >> s`` for dw "q<s>", with
+``entry_dur_res`` [P, E] the low s bits (uint8 for s <= 8, else int16).
+A hit table is bool (one per value) or int32 words (uint32 bits; value
+v is bit v & 31 of word v >> 5), in either layout. Each mode (layout,
+hit mode, duration form) has its own launch count.
 
 K4 is the counterpart of ``tempo_tpu/search/multiblock.py``
 ``coalesced_scan_kernel`` (B6) without its structural and aggregate
@@ -34,8 +47,8 @@ launch. Its inputs are K1's page arrays and, per query, term_keys
 [Q, B, T], val_ranges [Q, B, T, R, 2], term_active bool [Q, T] (an
 inactive term is neutral-true) and the bounds dur_lo, dur_hi, win_start,
 win_end as int32 [Q] holding uint32 bits; in hit-mask mode, val_hits, a
-sequence of Q hit tables (bool [G_q, T_q, V_q], or None for a query
-compiled on the host), with block_group int32 [Q, B]. Outputs: scores
+sequence of Q hit tables ([G_q, T_q, V_q], all bool or all words, or
+None for a query compiled on the host), with block_group int32 [Q, B]. Outputs: scores
 int32 [Q, P*E], counts int32 [Q] and inspected, an int32 scalar.
 """
 
@@ -45,66 +58,74 @@ import ctypes
 
 import torch
 
+from .. import packing
 from . import LaunchCount
 from .build import check, load
 
+# unpacked layout
 LAUNCHES = LaunchCount()         # K1 launches in range mode
 HIT_LAUNCHES = LaunchCount()     # K1 launches in hit-mask mode
 SINGLE_LAUNCHES = LaunchCount()  # K1s launches (either mode)
 COALESCED_LAUNCHES = LaunchCount()      # K4 launches in range mode
 COALESCED_HIT_LAUNCHES = LaunchCount()  # K4 launches in hit-mask mode
+# packed layout
+PACKED_LAUNCHES = LaunchCount()         # K1, range mode, u16 durations
+PACKED_Q_LAUNCHES = LaunchCount()       # K1, range mode, bucketed ones
+PACKED_HIT_LAUNCHES = LaunchCount()     # K1, hit-mask mode
+SINGLE_PACKED_LAUNCHES = LaunchCount()  # K1s (either mode)
+COALESCED_PACKED_LAUNCHES = LaunchCount()      # K4, range mode
+COALESCED_PACKED_HIT_LAUNCHES = LaunchCount()  # K4, hit-mask mode
 MAX_QUERIES = 64                 # K4's query axis, at most
 
-_KV_DTYPES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
+# csrc/scan.cu's Layout numbers: the unpacked layout by dtype, the packed
+# one by width (with the dtype its codes arrive in)
+_ID_LAYOUTS = {torch.int8: 0, torch.int16: 1, torch.int32: 2}
+_CODE_LAYOUTS = {"u4": (3, torch.uint8), "u8": (4, torch.uint8),
+                 "u16": (5, torch.int16), "u32": (6, torch.int32)}
 _U32 = 0xFFFFFFFF
 
 
 def multi_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
                entry_valid, page_block, term_keys, val_ranges,
                n_terms: int, dur_lo: int, dur_hi: int, win_start: int,
-               win_end: int, val_hits=None, block_group=None):
+               win_end: int, val_hits=None, block_group=None,
+               widths=None, entry_dur_res=None):
     """(scores, counts) — the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
-    if kv_key.device.type == "cpu":
-        return multi_scan_plain(kv_key, kv_val, entry_start, entry_end,
-                                entry_dur, entry_valid, page_block,
-                                term_keys, val_ranges, n_terms, dur_lo,
-                                dur_hi, win_start, win_end, val_hits,
-                                block_group)
-    return _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end,
-                            entry_dur, entry_valid, page_block, term_keys,
-                            val_ranges, n_terms, dur_lo, dur_hi, win_start,
-                            win_end, val_hits, block_group)
+    fn = (multi_scan_plain if kv_key.device.type == "cpu"
+          else _multi_scan_cuda)
+    return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
+              entry_valid, page_block, term_keys, val_ranges, n_terms,
+              dur_lo, dur_hi, win_start, win_end, val_hits, block_group,
+              widths, entry_dur_res)
 
 
 def scan_single(kv_key, kv_val, entry_start, entry_end, entry_dur,
                 entry_valid, term_keys, val_ranges, n_terms: int,
                 dur_lo: int, dur_hi: int, win_start: int, win_end: int,
-                val_hits=None):
+                val_hits=None, widths=None, entry_dur_res=None):
     """(scores, counts) over one block — the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
-    if kv_key.device.type == "cpu":
-        return scan_single_plain(kv_key, kv_val, entry_start, entry_end,
-                                 entry_dur, entry_valid, term_keys,
-                                 val_ranges, n_terms, dur_lo, dur_hi,
-                                 win_start, win_end, val_hits)
-    return _scan_single_cuda(kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_valid, term_keys, val_ranges,
-                             n_terms, dur_lo, dur_hi, win_start, win_end,
-                             val_hits)
+    fn = (scan_single_plain if kv_key.device.type == "cpu"
+          else _scan_single_cuda)
+    return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
+              entry_valid, term_keys, val_ranges, n_terms, dur_lo, dur_hi,
+              win_start, win_end, val_hits, widths, entry_dur_res)
 
 
 def coalesced_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
                    entry_valid, page_block, term_keys, val_ranges,
                    term_active, dur_lo, dur_hi, win_start, win_end,
-                   val_hits=None, block_group=None):
+                   val_hits=None, block_group=None, widths=None,
+                   entry_dur_res=None):
     """(scores [Q, P*E], counts [Q], inspected) — the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = (coalesced_scan_plain if kv_key.device.type == "cpu"
           else _coalesced_scan_cuda)
     return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
               entry_valid, page_block, term_keys, val_ranges, term_active,
-              dur_lo, dur_hi, win_start, win_end, val_hits, block_group)
+              dur_lo, dur_hi, win_start, win_end, val_hits, block_group,
+              widths, entry_dur_res)
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -118,11 +139,16 @@ def _in_ranges(vv, lo, hi):
     return ((vv[..., None] >= lo) & (vv[..., None] <= hi)).any(dim=-1)
 
 
-def _finish(mask, live, entry_start, entry_end, entry_dur, dur_lo, dur_hi,
-            win_start, win_end):
+def _unpack_kv(kv_key, kv_val, widths):
+    kw, vw = (None, None) if widths is None else widths[:2]
+    return packing.unpack_ids(kv_key, kw), packing.unpack_ids(kv_val, vw)
+
+
+def _finish(mask, live, entry_start, entry_end, entry_dur, entry_dur_res,
+            widths, dur_lo, dur_hi, win_start, win_end):
     start = _u32(entry_start)
-    dur = _u32(entry_dur)
-    mask &= (dur >= int(dur_lo)) & (dur <= int(dur_hi))
+    mask &= packing.duration_ok(entry_dur, entry_dur_res, dur_lo, dur_hi,
+                                None if widths is None else widths[2])
     mask &= _u32(entry_end) >= int(win_start)
     mask &= start <= int(win_end)
     scores = torch.where(mask, start.clamp(max=2**31 - 1),
@@ -134,41 +160,41 @@ def _finish(mask, live, entry_start, entry_end, entry_dur, dur_lo, dur_hi,
 def multi_scan_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                      entry_valid, page_block, term_keys, val_ranges,
                      n_terms: int, dur_lo: int, dur_hi: int, win_start: int,
-                     win_end: int, val_hits=None, block_group=None):
+                     win_end: int, val_hits=None, block_group=None,
+                     widths=None, entry_dur_res=None):
     """K1's function in plain PyTorch ops, on whatever device the tensors
-    are on."""
+    are on; the packed columns unpack through ``packing``."""
     pb = page_block.to(torch.int64)
     safe = pb.clamp(min=0)
     live = entry_valid & (pb >= 0)[:, None]
     mask = live.clone()
     if n_terms:
-        kk = kv_key.to(torch.int32)
-        vv = kv_val.to(torch.int32)
+        kk, vv = _unpack_kv(kv_key, kv_val, widths)
         if val_hits is not None:
             bg = block_group.to(torch.int64)[safe]                # [P]
             probe_page = (bg >= 0)[:, None, None]
             g_idx = bg.clamp(min=0)[:, None, None].expand_as(vv)
-            # an id past the table clamps to its last entry, as the
-            # reference's gather does
-            safe_v = vv.clamp(min=0, max=val_hits.shape[2] - 1
-                              ).to(torch.int64)
+            safe_v = vv.clamp(min=0)
         for t in range(n_terms):
             keym = kk == term_keys[safe, t][:, None, None]
             valm = _in_ranges(vv, val_ranges[safe, t, :, 0][:, None, None],
                               val_ranges[safe, t, :, 1][:, None, None])
             if val_hits is not None:
-                mh = val_hits[g_idx, t, safe_v] & (vv >= 0)
+                mh = packing.mask_select_grouped(val_hits, g_idx, t,
+                                                 safe_v) & (vv >= 0)
                 valm = torch.where(probe_page, mh, valm)
             mask &= (keym & valm).any(dim=-1)
-    return _finish(mask, live, entry_start, entry_end, entry_dur, dur_lo,
-                   dur_hi, win_start, win_end)
+    return _finish(mask, live, entry_start, entry_end, entry_dur,
+                   entry_dur_res, widths, dur_lo, dur_hi, win_start,
+                   win_end)
 
 
 def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
                          entry_dur, entry_valid, page_block, term_keys,
                          val_ranges, term_active, dur_lo, dur_hi,
                          win_start, win_end, val_hits=None,
-                         block_group=None):
+                         block_group=None, widths=None,
+                         entry_dur_res=None):
     """K4's function in plain PyTorch ops: K1's plain version once per
     query, over that query's active terms."""
     rows, counts = [], []
@@ -182,7 +208,8 @@ def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
             kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
             page_block, term_keys[q][:, act], val_ranges[q][:, act],
             int(act.numel()), *(int(x[q]) & _U32 for x in (
-                dur_lo, dur_hi, win_start, win_end)), vh, bg)
+                dur_lo, dur_hi, win_start, win_end)), vh, bg,
+            widths=widths, entry_dur_res=entry_dur_res)
         rows.append(s)
         counts.append(c[0])
         inspected = c[1]
@@ -192,7 +219,8 @@ def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
 def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms: int,
                       dur_lo: int, dur_hi: int, win_start: int,
-                      win_end: int, val_hits=None):
+                      win_end: int, val_hits=None, widths=None,
+                      entry_dur_res=None):
     """K1s's function in plain PyTorch ops, written from the reference's
     ``engine.entry_match_mask``: per term, key equality and value
     membership (a hit-table lookup when ``val_hits`` is given, else the
@@ -200,20 +228,19 @@ def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
     live = entry_valid
     mask = live.clone()
     if n_terms:
-        kk = kv_key.to(torch.int32)
-        vv = kv_val.to(torch.int32)
+        kk, vv = _unpack_kv(kv_key, kv_val, widths)
         for t in range(n_terms):
             keym = kk == term_keys[t]
             if val_hits is not None:
-                row = val_hits[t]
-                safe_v = vv.clamp(min=0, max=row.numel() - 1)
-                valm = row[safe_v.to(torch.int64)] & (vv >= 0)
+                valm = packing.mask_select(val_hits[t], vv.clamp(min=0)) \
+                    & (vv >= 0)
             else:
                 valm = _in_ranges(vv, val_ranges[t, :, 0],
                                   val_ranges[t, :, 1])
             mask &= (keym & valm).any(dim=-1)
-    return _finish(mask, live, entry_start, entry_end, entry_dur, dur_lo,
-                   dur_hi, win_start, win_end)
+    return _finish(mask, live, entry_start, entry_end, entry_dur,
+                   entry_dur_res, widths, dur_lo, dur_hi, win_start,
+                   win_end)
 
 
 def _lib():
@@ -223,35 +250,89 @@ def _lib():
         i32 = ctypes.c_int
         u32 = ctypes.c_uint32
         i64 = ctypes.c_int64
+        # kv layouts, kv columns, start, end, dur, dur_res, shift, res
+        # bytes, valid
+        cols = [i32, i32] + [p] * 6 + [i32, i32, p]
         lib.tt_multi_scan.restype = i32
         lib.tt_multi_scan.argtypes = (
-            [i32, i32] + [p] * 11 + [i64] + [i32] * 5 + [i64]
+            cols + [p] * 4 + [i32, p, i64] + [i32] * 5 + [i64]
             + [u32] * 4 + [p, p, p])
         lib.tt_scan_single.restype = i32
         lib.tt_scan_single.argtypes = (
-            [p] * 9 + [i64] + [i32] * 5 + [i64] + [u32] * 4 + [p, p, p])
+            cols + [p] * 3 + [i32, i64] + [i32] * 5 + [i64] + [u32] * 4
+            + [p, p, p])
         lib.tt_coalesced_scan.restype = i32
         lib.tt_coalesced_scan.argtypes = (
-            [i32, i32] + [p] * 16 + [i64] + [i32] * 6 + [p, p, p])
+            cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, p, p])
         lib._tt_typed = True
     return lib
 
 
 def _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
-                   entry_valid):
-    if kv_key.dtype not in _KV_DTYPES or kv_val.dtype not in _KV_DTYPES:
-        raise TypeError(f"kv columns must be int8/int16/int32, got "
-                        f"{kv_key.dtype}/{kv_val.dtype}")
-    if kv_key.dim() != 3 or kv_val.shape != kv_key.shape:
+                   entry_valid, entry_dur_res, widths) -> tuple:
+    """Check the page arrays against the layout `widths` names. Returns
+    (key layout, value layout, C, duration shift, residual bytes): the
+    layouts as csrc/scan.cu numbers them, C the unpacked slot count, and
+    shift -1 for u32 durations, 0 for exact u16, s for u16 buckets."""
+    if kv_key.dim() != 3 or kv_val.dim() != 3 \
+            or kv_key.shape[:2] != kv_val.shape[:2]:
         raise ValueError("kv_key and kv_val must be [P, E, C] alike")
-    P, E, _C = kv_key.shape
+    P, E = kv_key.shape[:2]
+    if widths is None:
+        if kv_key.dtype not in _ID_LAYOUTS or kv_val.dtype not in _ID_LAYOUTS:
+            raise TypeError(f"kv columns must be int8/int16/int32, got "
+                            f"{kv_key.dtype}/{kv_val.dtype}")
+        if kv_val.shape != kv_key.shape:
+            raise ValueError("kv_key and kv_val must be [P, E, C] alike")
+        layouts = (_ID_LAYOUTS[kv_key.dtype], _ID_LAYOUTS[kv_val.dtype])
+        C = int(kv_key.shape[2])
+        dur_dt, shift, res_bytes = torch.int32, -1, 0
+    else:
+        kw, vw, dw = widths
+        slots = []
+        layouts = []
+        for name, col, w in (("kv_key", kv_key, kw), ("kv_val", kv_val, vw)):
+            if w not in _CODE_LAYOUTS:
+                raise ValueError(f"{name}: unknown width {w!r}")
+            lay, dt = _CODE_LAYOUTS[w]
+            if col.dtype != dt:
+                raise TypeError(f"{name}: width {w} wants {dt}, got "
+                                f"{col.dtype}")
+            layouts.append(lay)
+            slots.append(int(col.shape[2]) * (2 if w == "u4" else 1))
+        if slots[0] != slots[1]:
+            raise ValueError(f"kv columns unpack to {slots[0]} and "
+                             f"{slots[1]} slots")
+        C = slots[0]
+        dur_dt = torch.int16
+        shift = packing.dur_shift(dw)
+        if not (dw == "u16" or (dw.startswith("q") and 1 <= shift <= 16)):
+            raise ValueError(f"unknown duration width {dw!r}")
+        res_bytes = 0 if shift == 0 else (1 if shift <= 8 else 2)
+    if res_bytes:
+        res_dt = torch.uint8 if res_bytes == 1 else torch.int16
+        if entry_dur_res is None or entry_dur_res.dtype != res_dt \
+                or tuple(entry_dur_res.shape) != (P, E):
+            raise ValueError(f"entry_dur_res: want {res_dt} {(P, E)} for "
+                             f"duration width {widths[2]}")
+    elif entry_dur_res is not None:
+        raise ValueError("entry_dur_res goes only with bucketed durations")
     for name, t, dt in (("entry_start", entry_start, torch.int32),
                         ("entry_end", entry_end, torch.int32),
-                        ("entry_dur", entry_dur, torch.int32),
+                        ("entry_dur", entry_dur, dur_dt),
                         ("entry_valid", entry_valid, torch.bool)):
         if t.dtype != dt or tuple(t.shape) != (P, E):
             raise ValueError(f"{name}: want {dt} {(P, E)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    return layouts[0], layouts[1], C, shift, res_bytes
+
+
+def _check_hit_table(h, dims: int, what: str) -> int:
+    """1 when hit table `h` holds words (int32), 0 for bytes (bool)."""
+    if h.dtype not in (torch.bool, torch.int32) or h.dim() != dims:
+        raise ValueError(f"{what} must be a bool or int32-word table of "
+                         f"{dims} dims, got {h.dtype} {tuple(h.shape)}")
+    return int(h.dtype == torch.int32)
 
 
 def _check_same_device(dev, tensors, what):
@@ -271,14 +352,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count(k4: bool, widths, hits: bool) -> LaunchCount:
+    """The counter of one K1 (or, with `k4`, K4) launch's mode."""
+    if widths is None:
+        if k4:
+            return COALESCED_HIT_LAUNCHES if hits else COALESCED_LAUNCHES
+        return HIT_LAUNCHES if hits else LAUNCHES
+    if k4:
+        return (COALESCED_PACKED_HIT_LAUNCHES if hits
+                else COALESCED_PACKED_LAUNCHES)
+    if hits:
+        return PACKED_HIT_LAUNCHES
+    return PACKED_Q_LAUNCHES if widths[2].startswith("q") \
+        else PACKED_LAUNCHES
+
+
 def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                      entry_valid, page_block, term_keys, val_ranges,
                      n_terms, dur_lo, dur_hi, win_start, win_end, val_hits,
-                     block_group):
+                     block_group, widths=None, entry_dur_res=None):
     dev = kv_key.device
-    _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
-                   entry_valid)
-    P, E, C = kv_key.shape
+    kl, vl, C, shift, res_bytes = _check_entries(
+        kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+        entry_dur_res, widths)
+    P, E = kv_key.shape[:2]
     if page_block.dtype != torch.int32 or tuple(page_block.shape) != (P,):
         raise ValueError(f"page_block: want int32 {(P,)}")
     if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32:
@@ -289,20 +386,22 @@ def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
         raise ValueError("val_ranges must be [B, T, R, 2] beside term_keys "
                          "[B, T]")
     n_vals = 0
+    words = 0
     if (val_hits is None) != (block_group is None):
         raise ValueError("val_hits and block_group go together")
     if val_hits is not None:
-        if val_hits.dtype != torch.bool or val_hits.dim() != 3 \
-                or val_hits.shape[1] != t_stride:
-            raise ValueError("val_hits must be bool [G, T, V] beside "
-                             "term_keys [B, T]")
+        words = _check_hit_table(val_hits, 3, "val_hits")
+        if val_hits.shape[1] != t_stride:
+            raise ValueError("val_hits must be [G, T, V] beside term_keys "
+                             "[B, T]")
         if block_group.dtype != torch.int32 \
                 or tuple(block_group.shape) != (B,):
             raise ValueError(f"block_group: want int32 {(B,)}")
         n_vals = int(val_hits.shape[2])
     _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_valid, page_block, term_keys,
-                             val_ranges, val_hits, block_group), "multi_scan")
+                             entry_dur, entry_dur_res, entry_valid,
+                             page_block, term_keys, val_ranges, val_hits,
+                             block_group), "multi_scan")
     _check_bounds(dur_lo, dur_hi, win_start, win_end)
     n = P * E
     scores = torch.empty(n, dtype=torch.int32, device=dev)
@@ -311,30 +410,34 @@ def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_multi_scan(
-            _KV_DTYPES[kv_key.dtype], _KV_DTYPES[kv_val.dtype],
-            kv_key.data_ptr(), kv_val.data_ptr(), entry_start.data_ptr(),
-            entry_end.data_ptr(), entry_dur.data_ptr(),
+            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
+            entry_start.data_ptr(), entry_end.data_ptr(),
+            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
             entry_valid.data_ptr(), page_block.data_ptr(),
             term_keys.data_ptr(), val_ranges.data_ptr(), _ptr(val_hits),
-            _ptr(block_group), n, E, C, int(n_terms), t_stride,
+            words, _ptr(block_group), n, E, C, int(n_terms), t_stride,
             int(val_ranges.shape[2]), n_vals, int(dur_lo), int(dur_hi),
             int(win_start), int(win_end), scores.data_ptr(),
             counts.data_ptr(), stream)
     check(lib, rc, "multi_scan")
     if n:
-        (LAUNCHES if val_hits is None else HIT_LAUNCHES).bump()
+        _count(False, widths, val_hits is not None).bump()
     return scores, counts
 
 
 def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms, dur_lo,
-                      dur_hi, win_start, win_end, val_hits):
+                      dur_hi, win_start, win_end, val_hits, widths=None,
+                      entry_dur_res=None):
     dev = kv_key.device
-    _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
-                   entry_valid)
-    if kv_key.dtype != torch.int32 or kv_val.dtype != torch.int32:
-        raise TypeError("scan_single takes int32 kv columns")
-    P, E, C = kv_key.shape
+    kl, vl, C, shift, res_bytes = _check_entries(
+        kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+        entry_dur_res, widths)
+    if widths is None and (kv_key.dtype != torch.int32
+                           or kv_val.dtype != torch.int32):
+        raise TypeError("scan_single takes int32 kv columns or a packed "
+                        "layout")
+    P, E = kv_key.shape[:2]
     if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32:
         raise TypeError("term tables must be int32")
     if term_keys.dim() != 1:
@@ -344,16 +447,16 @@ def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             or val_ranges.shape[2] != 2 or n_terms > t_stride:
         raise ValueError("val_ranges must be [T, R, 2] beside term_keys [T]")
     n_vals = 0
+    words = 0
     if val_hits is not None:
-        if val_hits.dtype != torch.bool or val_hits.dim() != 2 \
-                or val_hits.shape[0] < n_terms:
-            raise ValueError("val_hits must be bool [T, V]")
+        words = _check_hit_table(val_hits, 2, "val_hits")
         if val_hits.shape[0] != t_stride:
             raise ValueError("val_hits rows must match term_keys")
         n_vals = int(val_hits.shape[1])
     _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_valid, term_keys, val_ranges,
-                             val_hits), "scan_single")
+                             entry_dur, entry_dur_res, entry_valid,
+                             term_keys, val_ranges, val_hits),
+                       "scan_single")
     _check_bounds(dur_lo, dur_hi, win_start, win_end)
     n = P * E
     scores = torch.empty(n, dtype=torch.int32, device=dev)
@@ -362,27 +465,31 @@ def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_scan_single(
-            kv_key.data_ptr(), kv_val.data_ptr(), entry_start.data_ptr(),
-            entry_end.data_ptr(), entry_dur.data_ptr(),
+            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
+            entry_start.data_ptr(), entry_end.data_ptr(),
+            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
             entry_valid.data_ptr(), term_keys.data_ptr(),
-            val_ranges.data_ptr(), _ptr(val_hits), n, E, C, int(n_terms),
-            t_stride, int(val_ranges.shape[1]), n_vals, int(dur_lo),
-            int(dur_hi), int(win_start), int(win_end), scores.data_ptr(),
-            counts.data_ptr(), stream)
+            val_ranges.data_ptr(), _ptr(val_hits), words, n, E, C,
+            int(n_terms), t_stride, int(val_ranges.shape[1]), n_vals,
+            int(dur_lo), int(dur_hi), int(win_start), int(win_end),
+            scores.data_ptr(), counts.data_ptr(), stream)
     check(lib, rc, "scan_single")
     if n:
-        SINGLE_LAUNCHES.bump()
+        (SINGLE_LAUNCHES if widths is None
+         else SINGLE_PACKED_LAUNCHES).bump()
     return scores, counts
 
 
 def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                          entry_valid, page_block, term_keys, val_ranges,
                          term_active, dur_lo, dur_hi, win_start, win_end,
-                         val_hits, block_group):
+                         val_hits, block_group, widths=None,
+                         entry_dur_res=None):
     dev = kv_key.device
-    _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
-                   entry_valid)
-    P, E, C = kv_key.shape
+    kl, vl, C, shift, res_bytes = _check_entries(
+        kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+        entry_dur_res, widths)
+    P, E = kv_key.shape[:2]
     if page_block.dtype != torch.int32 or tuple(page_block.shape) != (P,):
         raise ValueError(f"page_block: want int32 {(P,)}")
     if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32 \
@@ -406,6 +513,7 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
     if (val_hits is None) != (block_group is None):
         raise ValueError("val_hits and block_group go together")
     hit_meta = None
+    words = 0
     if val_hits is not None:
         if len(val_hits) != Q:
             raise ValueError(f"val_hits: want {Q} entries")
@@ -413,44 +521,48 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                 or tuple(block_group.shape) != (Q, B):
             raise ValueError(f"block_group: want int32 {(Q, B)}")
         meta = []
+        formats = set()
         for h in val_hits:
             if h is None:
                 meta.append((0, 0, 0))
                 continue
-            if h.dtype != torch.bool or h.dim() != 3 or h.device != dev \
-                    or not h.is_contiguous():
-                raise ValueError("each val_hits table must be a contiguous "
-                                 "bool [G, T, V] tensor on the scan's "
-                                 "device")
+            formats.add(_check_hit_table(h, 3, "each val_hits table"))
+            if h.device != dev or not h.is_contiguous():
+                raise ValueError("each val_hits table must be contiguous "
+                                 "on the scan's device")
             meta.append((h.data_ptr() if h.numel() else 0,
                          int(h.shape[1]), int(h.shape[2])))
+        if len(formats) > 1:
+            raise ValueError("val_hits tables mix bytes and words")
+        words = formats.pop() if formats else 0
         # the tables stay where the members' compiles left them: the
-        # kernel finds each through this [Q, 3] table of addresses, so a
-        # fused dispatch copies none of them (the reference stacks them
-        # into one [Q, G, T, V] array, some 25 MB a dispatch for the
+        # kernel finds each through this [Q, 3] table of addresses (row
+        # lengths in elements: values, or words), so a fused dispatch
+        # copies none of them (the reference stacks them into one
+        # [Q, G, T, V] array, some 25 MB a dispatch for the
         # high-cardinality cell)
         hit_meta = torch.tensor(meta, dtype=torch.int64).to(dev)
     _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_valid, page_block, term_keys,
-                             val_ranges, term_active, *bounds, block_group,
-                             hit_meta), "coalesced_scan")
+                             entry_dur, entry_dur_res, entry_valid,
+                             page_block, term_keys, val_ranges, term_active,
+                             *bounds, block_group, hit_meta),
+                       "coalesced_scan")
     scores = torch.empty((Q, P * E), dtype=torch.int32, device=dev)
     counts = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_coalesced_scan(
-            _KV_DTYPES[kv_key.dtype], _KV_DTYPES[kv_val.dtype],
-            kv_key.data_ptr(), kv_val.data_ptr(), entry_start.data_ptr(),
-            entry_end.data_ptr(), entry_dur.data_ptr(),
+            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
+            entry_start.data_ptr(), entry_end.data_ptr(),
+            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
             entry_valid.data_ptr(), page_block.data_ptr(),
             term_keys.data_ptr(), val_ranges.data_ptr(),
             term_active.data_ptr(), *(b.data_ptr() for b in bounds),
-            _ptr(block_group), _ptr(hit_meta), P, E, C, Q, B, T,
+            _ptr(block_group), _ptr(hit_meta), words, P, E, C, Q, B, T,
             int(val_ranges.shape[3]), scores.data_ptr(), counts.data_ptr(),
             stream)
     check(lib, rc, "coalesced_scan")
     if P * E:
-        (COALESCED_LAUNCHES if val_hits is None
-         else COALESCED_HIT_LAUNCHES).bump()
+        _count(True, widths, val_hits is not None).bump()
     return scores, counts[:Q], counts[Q]

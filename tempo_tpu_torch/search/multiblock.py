@@ -17,6 +17,9 @@ requests over one staged batch stack along a query axis
 (``stack_queries``) and run as one fused dispatch
 (``MultiBlockEngine.coalesced_scan_async``): K4
 (``kernels.scan.coalesced_scan``) then K2r (``kernels.topk.topk_rows``).
+An engine made with ``packed=True`` stages its batches in the packed
+layout of ``packing.py`` (``HostBatch.widths``), which the kernels read
+as they are, and its probe products are word masks.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
-from . import dict_probe
+from . import dict_probe, packing
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
 from .kernels.scan import coalesced_scan, multi_scan
@@ -35,9 +38,10 @@ from .kernels.topk import topk, topk_rows
 from .pipeline import CompileCache, CompiledQuery, compile_query, \
     dict_fingerprint
 
-# kv columns narrow to int8 / int16 / int32 by dictionary size; the entry
-# columns keep the container's uint32 bits in int32 tensors (torch has few
-# uint32 ops) and the kernel compares them as uint32
+# kv columns narrow to int8 / int16 / int32 by dictionary size (or pack,
+# see packing.py); the entry columns keep the container's uint32 bits in
+# int32 tensors (torch has few uint32 ops) and the kernel compares them as
+# uint32
 _PAGE_ARRAYS = ("kv_key", "kv_val", "entry_start", "entry_end", "entry_dur",
                 "entry_valid")
 
@@ -53,6 +57,12 @@ class HostBatch:
     # fp -> dict_probe.PackedDeviceDict of each distinct value dictionary
     # at or above the probe threshold
     packed_dicts: dict = field(default_factory=dict)
+    # packing.py's (key, value, duration) widths; None = the unpacked
+    # layout
+    widths: tuple | None = None
+    # bytes the unpacked layout would stage for `cat` (== its bytes when
+    # widths is None)
+    cat_logical_nbytes: int = 0
 
 
 @dataclass
@@ -66,6 +76,8 @@ class BlockBatch:
     # fp -> dict_probe.DeviceDict: the staged value dictionaries whose
     # blocks compile through the device probe
     staged_dicts: dict = field(default_factory=dict)
+    widths: tuple | None = None     # as HostBatch.widths
+    logical_device_nbytes: int = 0  # HostBatch.cat_logical_nbytes
 
     @property
     def n_pages(self) -> int:
@@ -79,9 +91,18 @@ class BlockBatch:
     @property
     def nbytes(self) -> int:
         """Device bytes pinned by the stacked arrays and the staged
-        dictionaries."""
+        dictionaries: physical bytes, what the staged cache's budget
+        charges."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.device.values())) + self.dict_nbytes
+
+    @property
+    def logical_nbytes(self) -> int:
+        """What `nbytes` would be in the unpacked layout (the same when
+        the batch is not packed)."""
+        if self.widths is None:
+            return self.nbytes
+        return self.logical_device_nbytes + self.dict_nbytes
 
 
 def _pow2(n: int) -> int:
@@ -118,7 +139,8 @@ def pack_batch_dicts(blocks: list[ColumnarPages],
 
 def stack_host(blocks: list[ColumnarPages],
                pad_to: int | None = None,
-               probe_min_vals: int | None = 0) -> HostBatch:
+               probe_min_vals: int | None = 0,
+               packed: bool = False) -> HostBatch:
     """Concatenate blocks of one entries-per-page along the page axis.
 
     The kv columns narrow to the smallest dtype the group's largest
@@ -126,11 +148,29 @@ def stack_host(blocks: list[ColumnarPages],
     narrower-C blocks pad their slots with -1. Pages past the blocks' own,
     up to `pad_to`, are pad pages: page_block -1, kv -1, invalid entries.
     `probe_min_vals` routes dictionaries at or above that size into the
-    probe staging (``pack_batch_dicts``); the default 0 stages none."""
+    probe staging (``pack_batch_dicts``); the default 0 stages none.
+
+    With `packed`, the reference's packed branch (``multiblock.py:
+    237-340``): widths from the largest dictionaries and the largest
+    header duration (``packing.plan_widths``), C padded to even for u4,
+    each block's kv columns packed before stacking, durations packed
+    before the page padding (adding ``entry_dur_res`` when bucketed), pad
+    pages with code 0. Unsigned 16 and 32-bit columns (the entry columns'
+    u32 in either layout) hold their bits in int16/int32 arrays
+    (``packing.device_view``)."""
     E = blocks[0].geometry.entries_per_page
-    C = max(b.geometry.kv_per_entry for b in blocks)
-    kv_dtype = {"kv_key": _narrow(max(len(b.key_dict) for b in blocks)),
-                "kv_val": _narrow(max(len(b.val_dict) for b in blocks))}
+    C = C0 = max(b.geometry.kv_per_entry for b in blocks)
+    n_keys = max(len(b.key_dict) for b in blocks)
+    n_vals = max(len(b.val_dict) for b in blocks)
+    widths = None
+    if packed:
+        widths = packing.plan_widths(n_keys, n_vals,
+                                     max(b.max_dur_ms() for b in blocks))
+        if "u4" in widths[:2] and C % 2:
+            C += 1   # both kv columns unpack to one (even) slot count
+    kv_dtype = {"kv_key": _narrow(n_keys), "kv_val": _narrow(n_vals)}
+    kv_width = None if widths is None else {"kv_key": widths[0],
+                                            "kv_val": widths[1]}
     arrays = {name: [] for name in _PAGE_ARRAYS}
     page_block = []
     page_offset = []
@@ -143,11 +183,14 @@ def stack_host(blocks: list[ColumnarPages],
         for name in _PAGE_ARRAYS:
             arr = getattr(b, name)
             if name in kv_dtype:
-                arr = arr.astype(kv_dtype[name], copy=False)
+                if kv_width is None:
+                    arr = arr.astype(kv_dtype[name], copy=False)
                 if arr.shape[2] < C:
                     pad = np.full((P, E, C - arr.shape[2]), -1,
-                                  dtype=kv_dtype[name])
+                                  dtype=arr.dtype)
                     arr = np.concatenate([arr, pad], axis=2)
+                if kv_width is not None:
+                    arr = packing.pack_ids_array(arr, kv_width[name])
             arrays[name].append(arr)
         page_block.extend([bi] * P)
         total += P
@@ -156,21 +199,33 @@ def stack_host(blocks: list[ColumnarPages],
     else:
         cat = {k: np.concatenate(v, axis=0) for k, v in arrays.items()}
     page_block = np.asarray(page_block, dtype=np.int32)
+    if widths is not None:
+        # before the page padding, so pad rows are zero buckets
+        q, res = packing.pack_duration(cat["entry_dur"], widths[2])
+        cat["entry_dur"] = q
+        if res is not None:
+            cat["entry_dur_res"] = res
     if pad_to and pad_to > total:
         extra = pad_to - total
         for name, arr in cat.items():
             pad = np.zeros((extra,) + arr.shape[1:], dtype=arr.dtype)
-            if name in kv_dtype:
-                pad -= 1
+            if name in kv_dtype and widths is None:
+                pad -= 1         # the packed layout pads with code 0
             cat[name] = np.concatenate([arr, pad], axis=0)
         page_block = np.concatenate(
             [page_block, np.full(extra, -1, dtype=np.int32)])
-    for name in ("entry_start", "entry_end", "entry_dur"):
-        cat[name] = cat[name].view(np.int32)
+    # unsigned bits in signed arrays: the u32 entry columns, and the
+    # packed layout's u16/u32 ones
+    cat = {k: packing.device_view(v) for k, v in cat.items()}
     cat["page_block"] = page_block
+    entries_padded = int(page_block.shape[0]) * E
+    logical = (packing.logical_nbytes(entries_padded, C0, n_keys, n_vals)
+               + int(page_block.nbytes) if widths is not None
+               else int(sum(v.nbytes for v in cat.values())))
     return HostBatch(cat=cat, page_block=page_block, blocks=blocks,
                      page_offset=page_offset,
-                     packed_dicts=pack_batch_dicts(blocks, probe_min_vals))
+                     packed_dicts=pack_batch_dicts(blocks, probe_min_vals),
+                     widths=widths, cat_logical_nbytes=logical)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -189,7 +244,8 @@ def place_batch(host: HostBatch, device: torch.device) -> BlockBatch:
               for fp, pd in host.packed_dicts.items()}
     return BlockBatch(device=dev, page_block=host.page_block,
                       blocks=host.blocks, page_offset=host.page_offset,
-                      staged_dicts=staged)
+                      staged_dicts=staged, widths=host.widths,
+                      logical_device_nbytes=host.cat_logical_nbytes)
 
 
 @dataclass
@@ -203,8 +259,9 @@ class MultiQuery:
     win_end: int
     limit: int
     n_terms: int
-    # device-probe product: bool [G, T', Vm] hit masks, one row per
-    # distinct probed dictionary, on the device; and int32 [B] block ->
+    # device-probe product: [G, T', Vm] hit masks (bool, or int32 words
+    # in a packed engine), one row per distinct probed dictionary, on the
+    # device; and int32 [B] block ->
     # row (-1: the block's ranges apply). None when no block probed.
     val_hits: object = None
     block_group: np.ndarray | None = None
@@ -236,14 +293,15 @@ def _dict_groups(blocks: list[ColumnarPages], memo: dict | None = None):
 def compile_multi(blocks: list[ColumnarPages], req,
                   skip: list[bool] | None = None, memo: dict | None = None,
                   cache: CompileCache | None = None,
-                  staged_dicts: dict | None = None) -> MultiQuery | None:
+                  staged_dicts: dict | None = None,
+                  packed: bool = False) -> MultiQuery | None:
     """Compile the request against every block's dictionaries, once per
     distinct dictionary. Blocks that prune get key id -1 (no page of theirs
     can match); `skip[i]` marks blocks already pruned by their header, which
     stay in the batch and are masked back to that sentinel (group -1, key
     -1). `staged_dicts` (the batch's, by fingerprint) sends those
-    dictionaries' terms to the device probe. None when every block
-    prunes."""
+    dictionaries' terms to the device probe; with `packed` its hit masks
+    come back as words. None when every block prunes."""
     fp_of, rep_idx, rows_of = _dict_groups(blocks, memo)
     staged_dicts = staged_dicts or {}
     compiled: dict[bytes, CompiledQuery | None] = {}
@@ -251,7 +309,8 @@ def compile_multi(blocks: list[ColumnarPages], req,
         b = blocks[i]
         compiled[fp] = compile_query(b.key_dict, b.val_dict, req,
                                      cache_on=b, cache=cache,
-                                     staged_dict=staged_dicts.get(fp))
+                                     staged_dict=staged_dicts.get(fp),
+                                     packed=packed)
     per_block = [None if (skip is not None and skip[i]) else compiled[fp_of[i]]
                  for i in range(len(blocks))]
     if all(cq is None for cq in per_block):
@@ -292,9 +351,11 @@ def compile_multi(blocks: list[ColumnarPages], req,
 
 def _stack_hits(compiled: dict, rows_of: dict, B: int, Tp: int):
     """(val_hits [G, Tp, Vm], block_group [B]) from the probed
-    dictionaries' [T, V] masks, zero-padded to the widest dictionary;
-    (None, None) when no dictionary probed. A single mask of full width
-    is used as it is, with no copy."""
+    dictionaries' [T, V] masks (bool, or words), zero-padded to the
+    widest dictionary; (None, None) when no dictionary probed. A single
+    mask of full width is used as it is, with no copy. Word masks pass
+    through as words (one compile_multi call compiles every dictionary
+    in one format, its `packed`)."""
     probe_fps = [fp for fp, cq in compiled.items()
                  if cq is not None and cq.n_terms and cq.val_hits is not None]
     if not probe_fps:
@@ -304,7 +365,7 @@ def _stack_hits(compiled: dict, rows_of: dict, B: int, Tp: int):
     if len(masks) == 1 and masks[0].shape[0] == Tp:
         val_hits = masks[0].unsqueeze(0)
     else:
-        val_hits = torch.zeros((len(masks), Tp, Vm), dtype=torch.bool,
+        val_hits = torch.zeros((len(masks), Tp, Vm), dtype=masks[0].dtype,
                                device=masks[0].device)
         for g, h in enumerate(masks):
             t_n = min(int(h.shape[0]), Tp)
@@ -329,7 +390,8 @@ class CoalescedQuery:
     n_terms: int             # T, padded
     n_queries: int           # real queries; the pad rows match nothing
     # device-probe members: Q entries, each the member's own hit tables
-    # bool [G, T', V] on the device or None (a host-compiled member, a
+    # [G, T', V] (bool or words) on the device or None (a host-compiled
+    # member, a
     # pad query), and int32 [Q, B] block -> group rows, all -1 for those
     # without tables. None when no member probed.
     val_hits: tuple | None = None
@@ -410,14 +472,17 @@ class MultiBlockEngine:
     """Batched scan over many blocks in one dispatch on one device."""
 
     def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
-                 device_probe_min_vals: int | None = None):
+                 device_probe_min_vals: int | None = None,
+                 packed: bool = False):
         """`device_probe_min_vals`: value-dictionary size at which a
         batch stages the dictionary for the device probe (None =
         dict_probe.DEVICE_PROBE_MIN_VALS; <= 0 keeps every probe on the
-        host)."""
+        host). `packed`: stage batches in the packed layout and keep probe
+        products as word masks (packing.py)."""
         self.device = device
         self.top_k = top_k
         self.device_probe_min_vals = device_probe_min_vals
+        self.packed = packed
         self.compile_cache = CompileCache()
 
     def stage_host(self, blocks: list[ColumnarPages]) -> HostBatch:
@@ -426,7 +491,8 @@ class MultiBlockEngine:
         the port keeps the layout so both scan the same padded batch)."""
         return stack_host(blocks,
                           pad_to=_pow2(sum(b.n_pages for b in blocks)),
-                          probe_min_vals=self.device_probe_min_vals)
+                          probe_min_vals=self.device_probe_min_vals,
+                          packed=self.packed)
 
     def place(self, host: HostBatch) -> BlockBatch:
         return place_batch(host, self.device)
@@ -447,7 +513,8 @@ class MultiBlockEngine:
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"], tk, vr,
             mq.n_terms, mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
-            min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg)
+            min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg, batch.widths,
+            d.get("entry_dur_res"))
         top_scores, top_idx = topk(scores,
                                    resolve_top_k(self.top_k, mq.limit))
         return counts, top_scores, top_idx
@@ -480,7 +547,8 @@ class MultiBlockEngine:
         scores, counts, inspected = coalesced_scan(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"],
-            *self.coalesced_tables(cq))
+            *self.coalesced_tables(cq), batch.widths,
+            d.get("entry_dur_res"))
         top_scores, top_idx = topk_rows(scores, top_k)
         return counts, inspected, top_scores, top_idx
 

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import dict_probe
+from . import dict_probe, packing
 
 UINT32_MAX = 0xFFFFFFFF
 
@@ -70,9 +70,10 @@ class CompiledQuery:
     win_start: int
     win_end: int
     limit: int
-    # device-probe product: bool [T, V] value hit mask on the device. When
-    # set, val_ranges is the never-match padding and the scan looks value
-    # ids up in this mask instead.
+    # device-probe product: [T, V] value hit mask on the device, bool, or
+    # int32 words [T, ceil(V/32)] for a packed engine. When set,
+    # val_ranges is the never-match padding and the scan looks value ids
+    # up in this mask instead.
     val_hits: object = None
 
     @property
@@ -121,8 +122,11 @@ _PRUNED = "pruned"  # cache sentinel: block provably cannot match these tags
 _COMPILE_CACHE_MAX = 128     # distinct tag-sets kept per dictionary
 _COMPILE_CACHE_DICTS = 4096  # distinct dictionaries tracked
 # entries whose product is a device hit mask pin device memory (V bytes
-# per term), so each dictionary keeps only the newest few of them
+# per term), so each dictionary keeps only the newest few of them; word
+# masks (a packed engine's) are 8x smaller, so 8x as many fit the same
+# device memory
 _PROBE_CACHE_MAX = 8
+_PROBE_CACHE_MAX_PACKED = 64
 
 
 class CompileCache:
@@ -130,7 +134,9 @@ class CompileCache:
     dictionary. Blocks are immutable and tenants reuse a handful of
     dictionary contents, so repeated tag-sets skip the O(dictionary)
     substring walk, and a repeated request launches no probe. Products of
-    either route serve both (both are exact). One instance per engine."""
+    either route serve both (both are exact); a device product in the
+    other mask format than the caller's is a miss. One instance per
+    engine."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -158,10 +164,13 @@ class CompileCache:
             cache[sig] = value
             while len(cache) > _COMPILE_CACHE_MAX:
                 cache.popitem(last=False)
-            probed = [s for s, o in cache.items()
-                      if o is not _PRUNED and o[2] is not None]
-            for s in probed[:max(0, len(probed) - _PROBE_CACHE_MAX)]:
-                del cache[s]
+            for words, bound in ((False, _PROBE_CACHE_MAX),
+                                 (True, _PROBE_CACHE_MAX_PACKED)):
+                probed = [s for s, o in cache.items()
+                          if o is not _PRUNED and o[2] is not None
+                          and packing.is_packed_mask(o[2]) == words]
+                for s in probed[:max(0, len(probed) - bound)]:
+                    del cache[s]
 
 
 def dict_fingerprint(cache_on, key_dict: list, val_dict: list) -> bytes:
@@ -193,7 +202,8 @@ def tags_sig(req) -> tuple:
 
 def compile_query(key_dict: list, val_dict: list, req,
                   cache_on=None, cache: CompileCache | None = None,
-                  staged_dict=None) -> CompiledQuery | None:
+                  staged_dict=None, packed: bool = False
+                  ) -> CompiledQuery | None:
     """None when the block provably cannot match (a key absent from the
     key dictionary, or no value satisfies a term). Under the exhaustive
     flag blocks are never pruned: an unsatisfiable term compiles to an
@@ -202,15 +212,20 @@ def compile_query(key_dict: list, val_dict: list, req,
     dictionary content and tag-set. `staged_dict` (a
     dict_probe.DeviceDict of this value dictionary, present when staging
     applied the size threshold) sends the substring test to the device
-    probe."""
+    probe; with `packed` (a packed engine) its hit mask is bit-packed into
+    words by K5."""
     sig = fp = None
     if cache is not None and cache_on is not None:
         sig = tags_sig(req)
         fp = dict_fingerprint(cache_on, key_dict, val_dict)
         hit = cache.get(fp, sig)
+        if hit is not None and not isinstance(hit, str) \
+                and hit[2] is not None \
+                and packing.is_packed_mask(hit[2]) != packed:
+            hit = None
         if hit is not None:
             return None if isinstance(hit, str) else _from_probe(hit, req)
-    out = _probe_tags(key_dict, val_dict, req, staged_dict)
+    out = _probe_tags(key_dict, val_dict, req, staged_dict, packed)
     if sig is not None:
         cache.put(fp, sig, _PRUNED if out is None else out)
     return None if out is None else _from_probe(out, req)
@@ -227,7 +242,8 @@ def _from_probe(probe, req) -> CompiledQuery:
         limit=req.limit or 20)
 
 
-def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None):
+def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
+                packed: bool = False):
     """The tags-only part of compilation: the device probe when the
     dictionary is staged and every needle fits the kernel, else the host
     walk. Returns (term_keys, val_ranges, val_hits) or None (pruned)."""
@@ -236,16 +252,19 @@ def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None):
     if staged_dict is not None and terms and max(
             len(v.encode("utf-8")) for _, v in terms) \
             <= dict_probe.MAX_NEEDLE_BYTES:
-        return _device_probe_tags(terms, key_dict, staged_dict, exhaustive)
+        return _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
+                                  packed)
     return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
 
 
-def _device_probe_tags(terms, key_dict, staged_dict, exhaustive):
-    """One K3 launch for all terms. A term whose key is absent prunes the
-    block, or under the exhaustive flag gets an all-false row whatever
-    its needle. Without the flag, a term whose key exists but whose
-    needle hits no value prunes the block: reading `any_hits` is the
-    probe's one device-to-host sync."""
+def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
+                       packed: bool = False):
+    """One K3 launch for all terms (then, with `packed`, one K5 launch
+    that packs the mask into words). A term whose key is absent prunes
+    the block, or under the exhaustive flag gets an all-false row
+    whatever its needle. Without the flag, a term whose key exists but
+    whose needle hits no value prunes the block: reading `any_hits` is
+    the probe's one device-to-host sync."""
     term_key_ids = []
     needles = []
     for k, v in terms:
@@ -264,6 +283,8 @@ def _device_probe_tags(terms, key_dict, staged_dict, exhaustive):
         if any(ki >= 0 and not any_host[t]
                for t, ki in enumerate(term_key_ids)):
             return None
+    if packed:
+        hits = packing.pack_mask_words(hits)
     T = len(term_key_ids)
     val_ranges = np.tile(np.array([1, 0], dtype=np.int32), (T, 1, 1))
     return np.asarray(term_key_ids, dtype=np.int32), val_ranges, hits

@@ -77,6 +77,8 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.search.engine\n"
         "import tempo_tpu_torch.search.backend_search_block\n"
         "import tempo_tpu_torch.search.kernels.probe\n"
+        "import tempo_tpu_torch.search.kernels.pack\n"
+        "import tempo_tpu_torch.search.packing\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -112,11 +114,16 @@ def test_default_device_is_cuda_and_never_the_cpu(tmp_path):
 def test_kernel_wrappers_take_plain_path_only_on_cpu():
     """On CPU tensors the wrappers run the plain versions and count no
     launch; the launch counters move only where a kernel launches."""
-    from tempo_tpu_torch.search.kernels import probe, scan, topk
+    from tempo_tpu_torch.search import packing
+    from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
 
     counters = (scan.LAUNCHES, scan.HIT_LAUNCHES, scan.SINGLE_LAUNCHES,
                 topk.LAUNCHES, probe.LAUNCHES, scan.COALESCED_LAUNCHES,
-                scan.COALESCED_HIT_LAUNCHES, topk.ROW_LAUNCHES)
+                scan.COALESCED_HIT_LAUNCHES, topk.ROW_LAUNCHES,
+                pack.LAUNCHES, scan.PACKED_LAUNCHES, scan.PACKED_Q_LAUNCHES,
+                scan.PACKED_HIT_LAUNCHES, scan.SINGLE_PACKED_LAUNCHES,
+                scan.COALESCED_PACKED_LAUNCHES,
+                scan.COALESCED_PACKED_HIT_LAUNCHES)
     for c in counters:
         c.reset()
     s, counts = scan.multi_scan(
@@ -166,4 +173,34 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         assert qc.tolist() == [4] and int(ins) == 4
     rs, ri = topk.topk_rows(s, 2)
     assert rs.tolist() == [[3, 2]] and ri.tolist() == [[3, 2]]
-    assert [c.n for c in counters] == [0] * 8
+    # K5, and the packed layout of K1, K1s and K4: u4 keys and values
+    # (code 1 = id 0 in both nibbles), bucketed durations with a residual
+    words = pack.pack_mask_words(torch.tensor([[True] + [False] * 32]))
+    assert words.tolist() == [[1, 0]]
+    assert packing.pack_mask_words(hits).tolist() == [[1]]
+    codes = torch.full((1, 4, 1), 0x11, dtype=torch.uint8)
+    q = torch.zeros((1, 4), dtype=torch.int16)
+    res = torch.zeros((1, 4), dtype=torch.uint8)
+    for widths, r in ((("u4", "u4", "u16"), None), (("u4", "u4", "q6"), res)):
+        pcols = (cols[0], cols[1], q, cols[3])
+        for vh in (None, words[:, :1]):
+            s, counts = scan.multi_scan(
+                codes, codes, *pcols, zero, zero.reshape(1, 1),
+                torch.tensor([[[[0, 0]]]], dtype=torch.int32), 1, 0,
+                0xFFFFFFFF, 0, 0xFFFFFFFF,
+                None if vh is None else vh[None],
+                None if vh is None else zero, widths, r)
+            assert counts.tolist() == [4, 4]
+            s, counts = scan.scan_single(
+                codes, codes, *pcols, zero,
+                torch.tensor([[[0, 0]]], dtype=torch.int32), 1, 0,
+                0xFFFFFFFF, 0, 0xFFFFFFFF, vh, widths, r)
+            assert counts.tolist() == [4, 4]
+            s, qc, ins = scan.coalesced_scan(
+                codes, codes, *pcols, zero, zero.reshape(1, 1, 1),
+                torch.tensor([[[[[0, 0]]]]], dtype=torch.int32),
+                torch.tensor([[True]]), zero, u32, zero, u32,
+                None if vh is None else (vh[None],),
+                None if vh is None else zero[None], widths, r)
+            assert qc.tolist() == [4] and int(ins) == 4
+    assert [c.n for c in counters] == [0] * 15
