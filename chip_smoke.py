@@ -4,7 +4,8 @@
   python3 chip_smoke.py                  # full size, as a user would call it
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
       --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
-      --hc-packed-blocks 2                           # a quick check
+      --hc-packed-blocks 2 --st-blocks 4 \\
+      --st-traces-per-block 16384                    # a quick check
 
 What it does, in order, failing (exit code != 0, no result line) on any
 error:
@@ -55,7 +56,22 @@ error:
    three entry points, each packed response equal to the unpacked one;
    then K1, K1s and K4 with word hit tables and K5 (pack_mask_words)
    against their plain versions;
-6. prints the kernels line, the card's name and power limit, and as the
+6. the structural cell: 16 blocks x 65,536 traces like the tag cell's,
+   each trace with 1-31 span rows (16.8M spans; service.name, name,
+   http.status_code, 1-2,000 ms, kind 0-5), through a TempoDB with
+   ``search_structural_enabled``: five structural plans (child, desc,
+   count, quantile, and-not-exists), each exhaustive and at limit 20,
+   through ``TempoDB.search``, ``search_block`` and
+   ``BackendSearchBlock.search`` (block 0), each cold then timed; the
+   CPU path's responses required; K6 (structural_mask: an exact desc
+   plan, an exact quantile plan, 8 bucketed plans) and K1, K4 and K1s
+   with its verdicts against their plain versions, the fused dispatch
+   against the solo ones; 8 barrier-started clients with 8 plans of one
+   canonical bucket, through a second TempoDB with stacking and
+   bucketing on and through the first (off), every response equal to
+   the serial one; then an unpacked and a packed TempoDB over the first
+   4 blocks, every packed response equal to the unpacked one;
+7. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 The concurrent phase: 8 client threads, barrier-started, send one
@@ -104,6 +120,7 @@ KEYS = {
     "service.name": [f"svc-{i:03d}" for i in range(64)],
 }
 SESSION_KEY = "session.id"      # the high-cardinality cell's ninth tag
+SPAN_OPS = [f"op-{i}" for i in range(16)]   # the structural cell's spans
 POINT_SESSION = 123_456         # the point lookup's session number
 BENCH = {"service.name": "svc-007", "http.status_code": "500"}
 KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
@@ -111,7 +128,8 @@ KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "topk_rows", "multi_scan_packed", "multi_scan_packed_q",
            "multi_scan_packed_hits", "scan_single_packed",
            "coalesced_scan_packed", "coalesced_scan_packed_hits",
-           "pack_mask_words")
+           "pack_mask_words", "structural_mask", "multi_scan_verdicts",
+           "scan_single_verdicts", "coalesced_scan_verdicts")
 CLIENTS = 8                     # concurrent clients
 # the concurrent clients' predicates: one service each, AND status 500
 CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
@@ -155,18 +173,20 @@ def hc_requests() -> dict:
 
 
 def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
-               long_every: int = 0):
+               long_every: int = 0, spans: bool = False):
     """Block b's columns, from the seed, as the port's ColumnarPages. With
     `sessions`, every trace also carries session.id "session-%08d", unique
     across blocks of n traces, in a seeded order. With `long_every`, one
     trace in that many (seeded) lasts 60,000-3,600,000 ms instead of
-    under 60,000."""
+    under 60,000. With `spans`, every trace also carries span rows
+    (``span_segment``)."""
     import numpy as np
 
     from tempo_tpu_torch.search.columnar import ColumnarPages
 
     rng = np.random.default_rng([seed, b])
-    base_vals = sorted({v for vs in KEYS.values() for v in vs})
+    base_vals = sorted({v for vs in KEYS.values() for v in vs}
+                       | (set(SPAN_OPS) if spans else set()))
     key_dict = sorted(list(KEYS) + ([SESSION_KEY] if sessions else []))
     # no base value starts with "session-", so the sessions (zero-padded,
     # numeric order = string order) form one run of the sorted dictionary
@@ -205,9 +225,47 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
                               dtype=np.uint8).reshape(P, E, 16)
     svc = kv_val[:, :, key_dict.index("service.name")]
     name = kv_val[:, :, key_dict.index("name")]
-    return ColumnarPages.from_arrays(key_dict, val_dict, kv_key, kv_val,
-                                     start, end, dur, valid, svc, name,
-                                     trace_ids)
+    return ColumnarPages.from_arrays(
+        key_dict, val_dict, kv_key, kv_val, start, end, dur, valid, svc,
+        name, trace_ids,
+        spans=span_segment(rng, n, P, E, key_dict, vidx) if spans else None)
+
+
+def span_segment(rng, n: int, P: int, E: int, key_dict: list,
+                 vidx: dict) -> dict:
+    """The span rows of n traces laid out as the container's span segment:
+    1-31 spans a trace (uniform), span 0 the root, each later span's
+    parent a random earlier span of its trace or, 1 in 20, none;
+    service.name, name (op-0..op-15) and http.status_code per span (Cs =
+    4 slots, the last a pad), 1-2,000 ms, kind 0-5."""
+    import numpy as np
+
+    counts = rng.integers(1, 32, size=n)
+    S = int(counts.sum())
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    local = np.arange(S) - first
+    parent = np.where(local > 0, first + (rng.random(S) * local)
+                      .astype(np.int64), -1)
+    parent[(local > 0) & (rng.random(S) < 0.05)] = -1
+    cols = ("http.status_code", "name", "service.name")   # sorted keys
+    kv_key = np.full((S, 4), -1, dtype=np.int32)
+    kv_val = np.full((S, 4), -1, dtype=np.int32)
+    for c, k in enumerate(cols):
+        vals = SPAN_OPS if k == "name" else KEYS[k]
+        ids = np.asarray([vidx[v] for v in vals], dtype=np.int32)
+        kv_key[:, c] = key_dict.index(k)
+        kv_val[:, c] = ids[rng.integers(0, len(ids), size=S)]
+    begin = np.zeros(P * E, dtype=np.int32)
+    count = np.zeros(P * E, dtype=np.int32)
+    begin[:n] = np.cumsum(counts) - counts
+    count[:n] = counts
+    return {"span_trace": np.repeat(np.arange(n, dtype=np.int32), counts),
+            "span_parent": parent.astype(np.int32),
+            "span_dur": rng.integers(1, 2001, size=S).astype(np.uint32),
+            "span_kind": rng.integers(0, 6, size=S).astype(np.int8),
+            "span_kv_key": kv_key, "span_kv_val": kv_val,
+            "entry_span_begin": begin.reshape(P, E),
+            "entry_span_count": count.reshape(P, E)}
 
 
 def block_id(b: int) -> str:
@@ -216,7 +274,7 @@ def block_id(b: int) -> str:
 
 def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
                  seed: int, sessions: bool = False,
-                 long_every: int = 0) -> int:
+                 long_every: int = 0, spans: bool = False) -> int:
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.backend.types import BlockMeta
     from tempo_tpu_torch.search.backend_search_block import \
@@ -225,7 +283,7 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
     be = LocalBackend(root)
 
     def one(b):
-        pages = make_block(seed, b, n, E, sessions, long_every)
+        pages = make_block(seed, b, n, E, sessions, long_every, spans)
         meta = BlockMeta(tenant_id=tenant, block_id=block_id(b),
                          start_time=int(pages.header["min_start_s"]),
                          end_time=int(pages.header["max_end_s"]),
@@ -239,6 +297,7 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
 
 def counters() -> dict:
     from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
+    from tempo_tpu_torch.search.kernels import structural as k6
 
     return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
             "scan_single": scan.SINGLE_LAUNCHES, "topk": topk.LAUNCHES,
@@ -252,7 +311,11 @@ def counters() -> dict:
             "scan_single_packed": scan.SINGLE_PACKED_LAUNCHES,
             "coalesced_scan_packed": scan.COALESCED_PACKED_LAUNCHES,
             "coalesced_scan_packed_hits": scan.COALESCED_PACKED_HIT_LAUNCHES,
-            "pack_mask_words": pack.LAUNCHES}
+            "pack_mask_words": pack.LAUNCHES,
+            "structural_mask": k6.LAUNCHES,
+            "multi_scan_verdicts": scan.VERDICT_LAUNCHES,
+            "scan_single_verdicts": scan.SINGLE_VERDICT_LAUNCHES,
+            "coalesced_scan_verdicts": scan.COALESCED_VERDICT_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -454,7 +517,7 @@ def _item(t, w) -> float:
 
 
 def k1_touch(args, val_hits=None, block_group=None, widths=None,
-             res=None) -> dict:
+             res=None, verdicts=None) -> dict:
     """What K1's function must read on these inputs, as masks over the
     entries: `live` (whose key slots it reads, when there are terms),
     `need_val` (the value slots whose key a term names, for entries still
@@ -464,7 +527,9 @@ def k1_touch(args, val_hits=None, block_group=None, widths=None,
     `res` (bucketed durations: the entries whose bucket sits on a bound's
     bucket, which read their residual) and `match`; plus `hit_bytes`, the
     hit-table sectors (bytes or words) those value slots look up in
-    hit-mask mode. `args` are K1's; `widths`/`res` the packed layout's."""
+    hit-mask mode. `args` are K1's; `widths`/`res` the packed layout's;
+    `verdicts` K6's (read for every live entry, and only the entries
+    they pass go on to the terms)."""
     import torch
 
     from tempo_tpu_torch.search import packing
@@ -477,6 +542,8 @@ def k1_touch(args, val_hits=None, block_group=None, widths=None,
     safe = pb.clamp(min=0)
     live = valid & (pb >= 0)[:, None]
     alive = live.clone()
+    if verdicts is not None:
+        alive &= verdicts.reshape(live.shape) != 0
     kk = packing.unpack_ids(kv_key, kw)
     vv = packing.unpack_ids(kv_val, vw)
     need_val = torch.zeros_like(kk, dtype=torch.bool)
@@ -518,7 +585,10 @@ def k1_touch(args, val_hits=None, block_group=None, widths=None,
             hit_sectors = int(touched.sum()) * 32
     out = {"live": live, "need_val": need_val, "hit_bytes": hit_sectors,
            "terms": bool(n_terms), "dur": None, "end": None, "res": None,
-           "C": int(kk.shape[2])}
+           "C": int(kk.shape[2]),
+           "verdicts": None if verdicts is None else live.clone(),
+           "key_rows": live if verdicts is None else
+           live & (verdicts.reshape(live.shape) != 0)}
     if dur_lo != 0 or dur_hi != u32:
         out["dur"] = alive.clone()
         if dw is not None and dw.startswith("q"):
@@ -540,8 +610,10 @@ def touched_bytes(t: dict, kv_key, kv_val, widths=None, res=None) -> int:
     plus its hit-table sectors, at the layout's item sizes."""
     kw, vw, _dw = widths or (None, None, None)
     total = t["hit_bytes"]
+    if t.get("verdicts") is not None:
+        total += sector_bytes(t["verdicts"], 1)
     if t["terms"]:
-        live = t["live"]
+        live = t.get("key_rows", t["live"])
         total += sector_bytes(live[..., None].expand(*live.shape, t["C"])
                               .contiguous(), _item(kv_key, kw))
         total += sector_bytes(t["need_val"], _item(kv_val, vw))
@@ -555,7 +627,8 @@ def touched_bytes(t: dict, kv_key, kv_val, widths=None, res=None) -> int:
 
 
 def k1_bytes(args, scores, val_hits=None, block_group=None,
-             single: bool = False, widths=None, res=None) -> int:
+             single: bool = False, widths=None, res=None,
+             verdicts=None) -> int:
     """The bytes K1's (or, with `single`, K1s's) function must move on
     these inputs, counted in the sectors this run's data touches: the
     valid flags (and page ids) read and the scores and counts written,
@@ -563,7 +636,7 @@ def k1_bytes(args, scores, val_hits=None, block_group=None,
     are given in K1's form: page_block all 0, tables as row 0)."""
     import torch
 
-    t = k1_touch(args, val_hits, block_group, widths, res)
+    t = k1_touch(args, val_hits, block_group, widths, res, verdicts)
     if not torch.equal(t["match"].reshape(-1), scores >= 0):
         raise AssertionError("k1_bytes: its predicate differs from K1's")
     kv_key, kv_val, valid, page_block = args[0], args[1], args[5], args[6]
@@ -577,7 +650,8 @@ def k1_bytes(args, scores, val_hits=None, block_group=None,
     return total + touched_bytes(t, kv_key, kv_val, widths, res)
 
 
-def k4_bytes(page, tables, scores, widths=None, res=None) -> int:
+def k4_bytes(page, tables, scores, widths=None, res=None,
+             verdicts=None) -> int:
     """The bytes K4's function must move on these inputs: the valid flags
     and page ids read and the Q score columns and counts written, all;
     the stacked tables; and the union over the real queries of what
@@ -601,17 +675,25 @@ def k4_bytes(page, tables, scores, widths=None, res=None) -> int:
         vh = bgq = None
         if val_hits is not None and val_hits[q] is not None:
             vh, bgq = val_hits[q][:, act], bg[q]
+        v = None
+        if verdicts is not None:
+            v = verdicts[q] if q < verdicts.shape[0] else \
+                torch.zeros_like(verdicts[0])
         t = k1_touch((*page, tk[q][:, act], vr[q][:, act], int(act.numel()),
-                      *b), vh, bgq, widths, res)
+                      *b), vh, bgq, widths, res, v)
         if not torch.equal(t["match"].reshape(-1), scores[q] >= 0):
             raise AssertionError(f"k4_bytes: its predicate differs from "
                                  f"K4's for query {q}")
         hit_bytes += t["hit_bytes"]
+        if t["verdicts"] is not None:     # each query reads its own row
+            hit_bytes += sector_bytes(t["verdicts"], 1)
+            t["verdicts"] = None
         if u is None:
             u = t
             continue
         u["terms"] |= t["terms"]
         u["need_val"] |= t["need_val"]
+        u["key_rows"] = u["key_rows"] | t["key_rows"]
         for col in ("dur", "end", "start", "res"):
             if t[col] is not None:
                 u[col] = t[col] if u[col] is None else u[col] | t[col]
@@ -663,6 +745,29 @@ def device_ms(fn, reps: int) -> float | None:
                 if e.device_type == DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False))
     return total / reps / 1e3 if total > 0 else None
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> tuple:
+    """(device ms per launch, launch records kept) of the kernel whose
+    name holds `kernel`, over `reps` calls of fn: the mean of the records
+    torch.profiler kept, so that a record it drops (late in a long run
+    it kept about a quarter of K6's) does not read as time saved."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    total = sum(e.self_device_time_total for e in ev)
+    return (total / n / 1e3 if n else None), n
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
@@ -1811,6 +1916,560 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the structural cell
+
+ST_PLANS = {
+    "child": {"child": {"parent": {"tag": {"k": "service.name",
+                                           "v": "svc-007"}},
+                        "child": {"dur": {"min_ms": 500}}}},
+    "desc": {"desc": {"anc": {"tag": {"k": "service.name", "v": "svc-001"}},
+                      "span": {"kind": "client"}}},
+    "count": {"count": {"of": {"tag": {"k": "name", "v": "op-1"}},
+                        "op": ">", "n": 3}},
+    "quantile": {"quantile": {"of": {"dur": {"min_ms": 0}}, "q": "0.9",
+                              "op": ">=", "ms": 500}},
+    "and_not": {"and": [{"tag": {"k": "http.status_code", "v": "500"}},
+                        {"not": {"exists": {"kind": 2}}}]},
+}
+# eight plans of one canonical bucket ("bucket", 4, 2, True): a relation
+# over two span leaves, each plan different
+ST_BUCKET_PLANS = [
+    {"child": {"parent": {"tag": {"k": "service.name", "v": "svc-000"}},
+               "child": {"dur": {"min_ms": 500}}}},
+    {"desc": {"anc": {"tag": {"k": "service.name", "v": "svc-001"}},
+              "span": {"kind": 3}}},
+    {"child": {"parent": {"kind": 2}, "child": {"tag": {"k": "name",
+                                                        "v": "op-1"}}}},
+    {"desc": {"anc": {"dur": {"min_ms": 1500}},
+              "span": {"tag": {"k": "service.name", "v": "svc-003"}}}},
+    {"child": {"parent": {"tag": {"k": "service.name", "v": "svc-004"}},
+               "child": {"kind": 1}}},
+    {"desc": {"anc": {"kind": 4}, "span": {"dur": {"min_ms": 1000}}}},
+    {"child": {"parent": {"dur": {"max_ms": 10}},
+               "child": {"tag": {"k": "name", "v": "op-7"}}}},
+    {"desc": {"anc": {"tag": {"k": "service.name", "v": "svc-007"}},
+              "span": {"tag": {"k": "name", "v": "op-3"}}}},
+]
+
+
+def st_tag(plan: dict, exhaustive: bool) -> dict:
+    from tempo_tpu_torch.search import ir, structural
+
+    tags = {structural.STRUCTURAL_QUERY_TAG:
+            ir.quote(ir.to_json(ir.parse(json.dumps(plan))))}
+    if exhaustive:
+        tags.update(EXHAUSTIVE)
+    return tags
+
+
+def st_requests() -> dict:
+    """The structural cell's requests, each exhaustive (these run first
+    and stage every group) and at limit 20."""
+    out = {f"st_{n}_exhaustive": (st_tag(p, True), {"limit": 20})
+           for n, p in ST_PLANS.items()}
+    out.update({f"st_{n}": (st_tag(p, False), {"limit": 20})
+                for n, p in ST_PLANS.items()})
+    return out
+
+
+def k6_bytes(d: dict, spans: dict | None, lanes, n_out: int) -> int:
+    """The bytes K6's function must move: per real span the span columns
+    the lanes' programs read (span_trace always; span_block and kv slots
+    for a tag leaf, durations for a dur leaf or a quantile, kind for a
+    kind leaf, parents for child/desc), every entry's valid flag and span
+    run (begin, count), the page ids, the entry columns a trace leaf
+    reads (kv slots, durations), the programs and tables, and the
+    verdicts written, one byte per entry and lane."""
+    import numpy as np
+
+    sops = set(np.unique(lanes.span_prog[:, :, 0]).tolist())
+    tops = set(np.unique(lanes.trace_prog[:, :, 0]).tolist())
+    P, E = d["entry_valid"].shape
+    total = P * E + P * 4 + n_out
+    total += sum(int(a.nbytes) for a in (
+        lanes.span_prog, lanes.trace_prog, lanes.term_keys,
+        lanes.val_ranges, lanes.dur_params, lanes.kind_params,
+        lanes.agg_params))
+    if spans is not None:
+        S = int(spans["entry_span_count"].sum())
+        per = 4
+        if 1 in sops:
+            per += 4 + 2 * 4 * int(spans["span_kv_key"].shape[1])
+        if 2 in sops or 5 in tops:
+            per += 4
+        if 3 in sops:
+            per += 1
+        if sops & {7, 8}:
+            per += 4
+        total += S * per + P * E * 8
+    if 1 in tops:
+        total += sum(t.numel() * t.element_size()
+                     for t in (d["kv_key"], d["kv_val"]))
+    if 2 in tops:
+        total += d["entry_dur"].numel() * d["entry_dur"].element_size()
+        if "entry_dur_res" in d:
+            total += d["entry_dur_res"].numel()
+    return total
+
+
+def st_compile(db, batch, plans: list):
+    """MultiQueries of exhaustive structural requests over `batch`,
+    compiled as the batcher compiles them."""
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search import ir, structural
+    from tempo_tpu_torch.search.multiblock import compile_multi
+
+    eng = db.batcher.engine
+    out = []
+    for plan in plans:
+        req = SearchRequest(tags=st_tag(plan, True), limit=20)
+        mq = compile_multi(list(batch.blocks), req, memo=batch.memo,
+                           cache=eng.compile_cache,
+                           staged_dicts=batch.staged_dicts, packed=eng.packed)
+        mq.structural = structural.compile_structural(
+            ir.parse(json.dumps(plan)), list(batch.blocks),
+            staged_dicts=batch.staged_dicts, packed=eng.packed,
+            memo=batch.memo)
+        out.append(mq)
+    return out
+
+
+def k6_measure(db, batch, lanes) -> tuple:
+    """K6 over `lanes` on `batch` against its plain version: (verdicts,
+    max abs err, card ms, (device ms per launch, profiler records
+    kept), plain ms, bound bytes); see ``kernel_device_ms``."""
+    from tempo_tpu_torch.search.kernels import structural as k6
+
+    d = batch.device
+    args = (d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"],
+            d["page_block"], batch.span_device, batch.span_max_run,
+            lanes.device(db.device), lanes.val_hits, batch.widths,
+            d.get("entry_dur_res"))
+    v = k6.structural_mask(*args)
+    err = require_equal("K6", (v,), (k6.structural_mask_plain(*args),))
+    ms = cuda_ms(lambda: k6.structural_mask(*args), 20)
+    dev = kernel_device_ms(lambda: k6.structural_mask(*args), 20,
+                           "structural_kernel")
+    plain = cuda_ms(lambda: k6.structural_mask_plain(*args), 3)
+    need = k6_bytes(d, batch.span_device, lanes, v.numel())
+    return v, err, ms, dev, plain, need
+
+
+def shuffle_span_runs(b, seed: int) -> None:
+    """Reorder block `b`'s span axis so that its entries' runs lie in a
+    seeded random order (each run stays contiguous, parents and begins
+    remapped): the runs of one page are then no longer adjacent."""
+    import numpy as np
+
+    begin = b.entry_span_begin.reshape(-1).astype(np.int64)
+    count = b.entry_span_count.reshape(-1).astype(np.int64)
+    live = np.flatnonzero(count > 0)
+    order = np.random.default_rng(seed).permutation(live)
+    c = count[order]
+    perm = np.repeat(begin[order] - (np.cumsum(c) - c), c) \
+        + np.arange(int(c.sum()))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    par = b.span_parent[perm]
+    b.span_parent = np.where(par >= 0, inv[np.clip(par, 0, None)],
+                             -1).astype(b.span_parent.dtype)
+    for name in ("span_trace", "span_dur", "span_kind", "span_kv_key",
+                 "span_kv_val"):
+        setattr(b, name, getattr(b, name)[perm])
+    nb = np.where(count > 0, inv[np.clip(begin, 0, perm.size - 1)], 0)
+    b.entry_span_begin = nb.astype(b.entry_span_begin.dtype).reshape(
+        b.entry_span_begin.shape)
+
+
+def k6_out_of_order(eng, pages) -> tuple:
+    """K6 on 8 pages of `pages` whose span runs were put out of entry
+    order (each page's span range then spans the slice), staged on the
+    card, against its plain version for the desc and quantile plans:
+    (report, max abs err)."""
+    from tempo_tpu_torch.search import ir, structural
+    from tempo_tpu_torch.search.kernels import structural as k6
+    from tempo_tpu_torch.search.multiblock import place_batch
+
+    blk = pages.slice_pages(0, 8)
+    n_in_order = int(blk.entry_span_count.sum(axis=1).max())
+    shuffle_span_runs(blk, 7)
+    batch = place_batch(eng.stage_host([blk]), eng.device)
+    d = batch.device
+    err, hits = 0, {}
+    for name in ("desc", "quantile"):
+        st = structural.compile_structural(
+            ir.parse(json.dumps(ST_PLANS[name])), [blk],
+            staged_dicts=batch.staged_dicts, packed=eng.packed,
+            memo=batch.memo)
+        args = (d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"],
+                d["page_block"], batch.span_device, batch.span_max_run,
+                st.lanes().device(eng.device), st.lanes().val_hits,
+                batch.widths, d.get("entry_dur_res"))
+        v = k6.structural_mask(*args)
+        err = max(err, require_equal(f"K6 out of order ({name})", (v,),
+                                     (k6.structural_mask_plain(*args),)))
+        hits[name] = int(v.sum())
+    if batch.span_max_run <= n_in_order:
+        raise AssertionError("shuffled runs did not widen a page's range")
+    print(f"K6 on runs out of entry order: max_page_run "
+          f"{batch.span_max_run} (a page's spans at most {n_in_order}); "
+          f"equal to its plain version", flush=True)
+    return {"pages": batch.n_pages, "max_page_run": batch.span_max_run,
+            "most_spans_of_a_page": n_in_order, "verdicts": hits}, err
+
+
+def structural_kernel_phase(db, bsb, launches: dict) -> list:
+    """K6 (an exact desc plan, an exact quantile plan, 8 bucketed plans),
+    then K1, K4 and K1s with its verdicts, each against its plain version
+    on the largest staged batch (K1s: the single-block path's block);
+    the fused dispatch against the members' solo ones."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.search import ir, structural
+    from tempo_tpu_torch.search.engine import (fetch_coalesced_out,
+                                               fetch_scan_out, resolve_top_k)
+    from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.multiblock import stack_queries
+    from tempo_tpu_torch.search.pipeline import compile_query
+
+    eng = db.batcher.engine
+    batch = largest_batch(db)
+    d = batch.device
+    res = d.get("entry_dur_res")
+    mq_desc, mq_q = st_compile(db, batch, [ST_PLANS["desc"],
+                                           ST_PLANS["quantile"]])
+    shape = {"pages": batch.n_pages, "entries": batch.n_pages *
+             int(d["kv_key"].shape[1]), "span_axis":
+             int(batch.span_device["span_trace"].numel()),
+             "spans": int(batch.span_device["entry_span_count"].sum()),
+             "max_page_run": batch.span_max_run, "widths": batch.widths}
+    v_desc, err, ms, dev, plain, need = k6_measure(
+        db, batch, mq_desc.structural.lanes())
+    shape["device_ms"], shape["device_records"] = dev
+    shape["desc"] = {"verdicts": int(v_desc.sum()), "bytes_needed": need}
+    _v, e2, q_ms, q_dev, q_plain, q_need = k6_measure(
+        db, batch, mq_q.structural.lanes())
+    shape["quantile"] = {"ms": q_ms, "plain_ms": q_plain,
+                         "bound_ms": q_need / HBM_BYTES_PER_S * 1e3,
+                         "device_ms": q_dev[0], "device_records": q_dev[1],
+                         "verdicts": int(_v.sum()),
+                         "bytes_needed": q_need}
+    mqs = st_compile(db, batch, ST_BUCKET_PLANS)
+    cq = stack_queries(mqs, eng.structural_cfg.bucket_max_nodes)
+    if not isinstance(cq.structural, structural.BucketedStructural):
+        raise AssertionError("the bucket plans did not stack as a bucket")
+    v8, e3, b_ms, b_dev, b_plain, b_need = k6_measure(
+        db, batch, cq.structural.lanes)
+    shape["bucketed"] = {"Q": int(v8.shape[0]), "desc": cq.structural.plan,
+                         "ms": b_ms, "plain_ms": b_plain,
+                         "bound_ms": b_need / HBM_BYTES_PER_S * 1e3,
+                         "device_ms": b_dev[0], "device_records": b_dev[1],
+                         "bytes_needed": b_need}
+    shape["out_of_order"], e4 = k6_out_of_order(eng, bsb.staged().pages)
+    k6_row = kernel_row("structural_mask",
+                        "tempo_tpu_torch/csrc/structural.cu",
+                        "tempo_tpu/search/structural.py:1109", launches,
+                        max(err, e2, e3, e4), ms, plain, need, None, shape)
+    print(f"K6: desc {ms:.4f} ms (bound {need / HBM_BYTES_PER_S * 1e3:.4f}),"
+          f" quantile {q_ms:.4f} ms, bucketed Q = {v8.shape[0]} {b_ms:.4f} "
+          f"ms; each equal to its plain version; desc device {dev[0]} ms a "
+          f"launch over {dev[1]} profiler records of 20", flush=True)
+
+    # K1 with the desc plan's verdicts, as the main path launches it
+    page = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"])
+    bg = (None if mq_desc.block_group is None
+          else torch.from_numpy(mq_desc.block_group).to(db.device))
+    args = (*page, torch.from_numpy(mq_desc.term_keys).to(db.device),
+            torch.from_numpy(mq_desc.val_ranges).to(db.device),
+            mq_desc.n_terms, mq_desc.dur_lo, min(mq_desc.dur_hi, 0xFFFFFFFF),
+            mq_desc.win_start, min(mq_desc.win_end, 0xFFFFFFFF))
+    vrow = v_desc[0]
+    extra = (mq_desc.val_hits, bg, batch.widths, res, vrow)
+    s1, c1 = scan.multi_scan(*args, *extra)
+    err1 = require_equal("K1 with verdicts", (s1, c1),
+                         scan.multi_scan_plain(*args, *extra))
+    need1 = k1_bytes(args, s1, mq_desc.val_hits, bg, widths=batch.widths,
+                     res=res, verdicts=vrow)
+    k1_row_ = kernel_row(
+        "multi_scan_verdicts", "tempo_tpu_torch/csrc/scan.cu",
+        "tempo_tpu/search/multiblock.py:870", launches, err1,
+        cuda_ms(lambda: scan.multi_scan(*args, *extra), 50),
+        cuda_ms(lambda: scan.multi_scan_plain(*args, *extra), 3), need1,
+        None, {"pages": batch.n_pages, "entries": s1.numel(),
+               "match_count": int(c1[0]), "inspected": int(c1[1]),
+               "bytes_needed": need1},
+        lambda: scan.multi_scan(*args, *extra))
+
+    # K4 with the bucketed group's verdicts; fused against solo
+    tables = eng.coalesced_tables(cq)
+    s4, c4, i4 = scan.coalesced_scan(*page, *tables, batch.widths, res, v8)
+    err4 = require_equal("K4 with verdicts", (s4, c4, i4),
+                         scan.coalesced_scan_plain(*page, *tables,
+                                                   batch.widths, res, v8))
+    k = max(resolve_top_k(eng.top_k, mq.limit) for mq in mqs)
+    fc, fins, fs, fi = fetch_coalesced_out(
+        eng.coalesced_scan_async(batch, cq, k))
+    for qi, mq in enumerate(mqs):
+        c, ins, so, io = fetch_scan_out(eng.scan_async(batch, mq))
+        kq = len(so)
+        if (int(fc[qi]), fins) != (c, ins) \
+                or not np.array_equal(fs[qi][:kq], so) \
+                or not np.array_equal(fi[qi][:kq], io):
+            raise AssertionError(f"structural fused member {qi} differs "
+                                 "from its solo dispatch")
+    need4 = k4_bytes(page, tables, s4, batch.widths, res, v8)
+    k4_row = kernel_row(
+        "coalesced_scan_verdicts", "tempo_tpu_torch/csrc/scan.cu",
+        "tempo_tpu/search/multiblock.py:1060", launches, err4,
+        cuda_ms(lambda: scan.coalesced_scan(*page, *tables, batch.widths,
+                                            res, v8), 50),
+        cuda_ms(lambda: scan.coalesced_scan_plain(*page, *tables,
+                                                  batch.widths, res, v8), 3),
+        need4, None, {"Q": int(s4.shape[0]), "members": cq.n_queries,
+                      "entries": int(s4.shape[1]), "counts": c4.tolist(),
+                      "bytes_needed": need4, "fused_equals_solo": True},
+        lambda: scan.coalesced_scan(*page, *tables, batch.widths, res, v8))
+
+    # K1s with verdicts on the single-block path's block
+    sp = bsb.staged()
+    se = bsb.engine()
+    pages = sp.pages
+    req_tags = st_tag(ST_PLANS["desc"], True)
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    cq1 = compile_query(pages.key_dict, pages.val_dict,
+                        SearchRequest(tags=req_tags, limit=20),
+                        cache_on=pages, cache=se.compile_cache,
+                        staged_dict=sp.staged_dict, packed=se.packed)
+    st1 = structural.compile_structural(ir.parse(json.dumps(
+        ST_PLANS["desc"])), [pages], packed=se.packed)
+    vs = se.structural_verdicts(sp, st1.lanes())[0]
+    tk, vr = se._tables(cq1)
+    sd = sp.device
+    cols = (sd["kv_key"], sd["kv_val"], sd["entry_start"], sd["entry_end"],
+            sd["entry_dur"], sd["entry_valid"])
+    bounds = (cq1.dur_lo, min(cq1.dur_hi, 0xFFFFFFFF), cq1.win_start,
+              min(cq1.win_end, 0xFFFFFFFF))
+    s_args = (*cols, tk, vr, cq1.n_terms, *bounds, None, sp.widths,
+              sd.get("entry_dur_res"), vs)
+    ss, sc = scan.scan_single(*s_args)
+    errs = require_equal("K1s with verdicts", (ss, sc),
+                         scan.scan_single_plain(*s_args))
+    P = sd["kv_key"].shape[0]
+    as_multi = (*cols, torch.zeros(P, dtype=torch.int32, device=db.device),
+                tk[None], vr[None], cq1.n_terms, *bounds)
+    needs = k1_bytes(as_multi, ss, single=True, widths=sp.widths,
+                     res=sd.get("entry_dur_res"), verdicts=vs)
+    k1s_row = kernel_row(
+        "scan_single_verdicts", "tempo_tpu_torch/csrc/scan.cu",
+        "tempo_tpu/search/engine.py:351", launches, errs,
+        cuda_ms(lambda: scan.scan_single(*s_args), 50),
+        cuda_ms(lambda: scan.scan_single_plain(*s_args), 3), needs, None,
+        {"pages": P, "entries": ss.numel(), "match_count": int(sc[0]),
+         "bytes_needed": needs}, lambda: scan.scan_single(*s_args))
+    return [k6_row, k1_row_, k4_row, k1s_row]
+
+
+def st_single_paths(db, bsb, tenant: str, reps: int, sync: bool) -> dict:
+    """The structural plans, exhaustive and at limit 20, through
+    ``TempoDB.search_block`` and ``BackendSearchBlock.search`` on block
+    0."""
+    from tempo_tpu_torch.model.types import SearchBlockRequest, \
+        SearchRequest
+
+    meta = next(m for m in db.blocklist.metas(tenant)
+                if m.block_id == block_id(0))
+    out = {}
+    for name, (tags, kw) in st_requests().items():
+        req = SearchRequest(tags=dict(tags), **kw)
+        job = SearchBlockRequest(
+            search_req=req, tenant_id=tenant, block_id=meta.block_id,
+            encoding=meta.encoding, version=meta.version,
+            data_encoding=meta.data_encoding, start_time=meta.start_time,
+            end_time=meta.end_time)
+        out[f"search_block/{name}"] = drive(lambda: db.search_block(job),
+                                            reps, sync)
+        out[f"single/{name}"] = drive(lambda: bsb.search(req), reps, sync)
+    return out
+
+
+def structural_cell(args, work: str, report: dict, dbs: list,
+                    launches: dict) -> list:
+    """The structural cell (step 6 of the module docstring). Returns its
+    kernel rows."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.backend_search_block import \
+        BackendSearchBlock
+
+    n_per = args.st_traces_per_block
+    n_total = args.st_blocks * n_per
+    root = os.path.join(work, "st_blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, "st", args.st_blocks, n_per,
+                          ENTRIES_PER_PAGE, args.seed + 3, spans=True)
+    report["st_corpus"] = {"blocks": args.st_blocks, "traces": n_total,
+                           "compressed_bytes": nbytes,
+                           "write_s": time.perf_counter() - t0}
+    print(f"structural corpus: {args.st_blocks} blocks, {n_total} traces "
+          f"with 1-31 spans each, {nbytes / 1e6:.1f} MB zlib, "
+          f"{report['st_corpus']['write_s']:.1f} s", flush=True)
+    be = LocalBackend(root)
+    cfg = TempoDBConfig(search_max_batch_pages=4096,
+                        search_structural_enabled=True)
+    gpu = TempoDB(be, cfg, device="cuda")
+    dbs.append(gpu)
+    gpu.poll()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = st_requests()
+    res = run_queries(gpu, "st", reqs, args.reps)         # the main path
+    bsbs = {}
+
+    def bsb_for(meta, device, c=cfg):
+        return BackendSearchBlock(be, meta, device=device,
+                                  structural_cfg=c.structural())
+
+    meta0 = next(m for m in gpu.blocklist.metas("st")
+                 if m.block_id == block_id(0))
+    bsbs["gpu"] = bsb_for(meta0, "cuda")
+    res.update(st_single_paths(gpu, bsbs["gpu"], "st", args.reps, True))
+    path = {}
+    for r in res.values():
+        add_counts(path, r["launches"])
+    require_launched("structural search", path,
+                     ("structural_mask", "multi_scan_verdicts",
+                      "scan_single_verdicts", "topk"),
+                     ("dict_probe",))
+    add_counts(launches, path)
+    report["st_launches"] = path
+    report["st_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    groups = [{"blocks": len(c.batch.blocks), "pages": c.batch.n_pages,
+               "bytes": c.nbytes, "span_bytes": c.batch.span_nbytes,
+               "span_axis": int(c.batch.span_device["span_trace"].numel()),
+               "spans": int(c.batch.span_device["entry_span_count"].sum())}
+              for c in gpu.batcher._cache.values()]
+    report["st_staged"] = groups
+    for g in groups:
+        print(f"structural staged group of {g['blocks']} block(s), "
+              f"{g['pages']} pages: {g['bytes']} B, of which spans "
+              f"{g['span_bytes']} B ({g['spans']} spans on an axis of "
+              f"{g['span_axis']}) and the rest {g['bytes'] - g['span_bytes']}"
+              " B", flush=True)
+    lat = {}
+    for name, r in res.items():
+        tags, kw = reqs.get(name.split("/")[-1], ({}, {"limit": 20}))
+        check_response(name, r["resp"], tags, kw,
+                       n_total if name in reqs else n_per)
+        lat[name] = latency_row(r, r["resp"])
+        lat[name]["dispatches"] = r.get("dispatches")
+        print_row(name, lat[name])
+    report["st_search"] = lat
+    if not any(res[f"st_{n}_exhaustive"]["resp"].traces for n in ST_PLANS):
+        raise AssertionError("no structural request matched anything")
+    busy = device_busy(gpu, "st", reqs, ("st_desc_exhaustive",
+                                         "st_quantile_exhaustive",
+                                         "st_child"), args.reps)
+    report["st_device_busy"] = busy
+    print_busy(busy, lat)
+
+    t0 = time.perf_counter()
+    cpu = TempoDB(be, cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    cres = run_queries(cpu, "st", reqs, 0)
+    cres.update(st_single_paths(cpu, bsb_for(meta0, "cpu"), "st", 0, False))
+    for name in res:
+        if cres[name]["resp"] != res[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    report["st_cpu_check_s"] = time.perf_counter() - t0
+    print(f"structural cpu check: {len(res)} responses identical "
+          f"({report['st_cpu_check_s']:.1f} s)", flush=True)
+    cpu.close()
+    dbs.remove(cpu)
+    del cpu, cres
+    gc.collect()
+
+    rows = structural_kernel_phase(gpu, bsbs["gpu"], launches)
+
+    # concurrency: 8 clients, 8 plans of one bucket; stacking and
+    # bucketing on (a second database over the same blocks) and off
+    stacked = TempoDB(be, TempoDBConfig(
+        search_max_batch_pages=4096, search_structural_enabled=True,
+        search_structural_stack_enabled=True,
+        search_structural_bucket_enabled=True), device="cuda")
+    dbs.append(stacked)
+    stacked.poll()
+    creqs = [(st_tag(p, True), {"limit": 20}) for p in ST_BUCKET_PLANS]
+    serial = [gpu.search("st", SearchRequest(tags=dict(t), **kw)).response()
+              for t, kw in creqs]
+    conc = {}
+    for label, db in (("stacked_bucketed", stacked), ("solo", gpu)):
+        st0 = db.batcher.coalescer.stats()
+        row = concurrent_rounds(db, "st", creqs, args.rounds, serial)
+        st1 = db.batcher.coalescer.stats()
+        for k in ("structural_queries", "structural_stacked",
+                  "structural_bucketed"):
+            row["coalesce"][k] = st1[k] - st0[k]
+        add_counts(launches, row["launches"])
+        conc[label] = row
+        print(f"concurrent structural ({label}): round p50 "
+              f"{row['round_p50_ms']:.3f} ms, p95 {row['round_p95_ms']:.3f} "
+              f"ms; request p50 {row['lat_p50_ms']:.3f} ms, p95 "
+              f"{row['lat_p95_ms']:.3f} ms; launches "
+              f"{json.dumps(row['launches'])}; coalescer "
+              f"{json.dumps(row['coalesce'])}", flush=True)
+    report["st_concurrent"] = conc
+    co = conc["stacked_bucketed"]
+    require_fusion(co, "coalesced_scan_verdicts")
+    if not co["coalesce"]["structural_bucketed"]:
+        raise AssertionError(f"no bucketed fusion: {co['coalesce']}")
+    if conc["solo"]["coalesce"]["structural_stacked"]:
+        raise AssertionError("stacking off, but structural queries fused")
+    stacked.close()
+    dbs.remove(stacked)
+
+    # packed: the first blocks, an unpacked and a packed database
+    k = min(args.st_packed_blocks, args.st_blocks)
+    root4 = os.path.join(work, "st4_blocks")
+    write_corpus(root4, "st4", k, n_per, ENTRIES_PER_PAGE, args.seed + 3,
+                 spans=True)
+    both = {}
+    for label, packed in (("unpacked", False), ("packed", True)):
+        db = TempoDB(LocalBackend(root4), TempoDBConfig(
+            search_max_batch_pages=4096, search_structural_enabled=True,
+            search_packed_residency=packed), device="cuda")
+        dbs.append(db)
+        db.poll()
+        both[label] = (db, run_queries(db, "st4", reqs, 0))
+    ppath = {}
+    for r in both["packed"][1].values():
+        add_counts(ppath, r["launches"])
+    require_launched("packed structural search", ppath,
+                     ("structural_mask", "multi_scan_verdicts"), ())
+    add_counts(launches, ppath)
+    same_responses("packed structural search", both["packed"][1],
+                   both["unpacked"][1])
+    report["st_packed"] = {
+        "blocks": k, "launches": ppath,
+        "staged": staged_bytes("structural", both["unpacked"][0],
+                               both["packed"][0])}
+    for label in both:
+        both[label][0].close()
+        dbs.remove(both[label][0])
+    gpu.close()
+    dbs.remove(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -1822,6 +2481,12 @@ def main(argv=None) -> int:
     ap.add_argument("--long-blocks", type=int, default=64,
                     help="blocks of the long-duration corpus (traces per "
                          "block as --traces-per-block)")
+    ap.add_argument("--st-blocks", type=int, default=16,
+                    help="blocks of the structural corpus")
+    ap.add_argument("--st-traces-per-block", type=int, default=65_536)
+    ap.add_argument("--st-packed-blocks", type=int, default=4,
+                    help="blocks of the structural corpus in its packed "
+                         "phase")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -1857,6 +2522,7 @@ def main(argv=None) -> int:
         rows += long_duration_cell(args, work, report, dbs, launches)
         rows += hc_cell(args, work, report, dbs, launches)
         rows += packed_hc_cell(args, work, report, dbs, launches)
+        rows += structural_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()

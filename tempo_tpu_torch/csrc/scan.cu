@@ -4,13 +4,13 @@
 //
 // K1 replaces tempo_tpu/search/multiblock.py `multi_entry_mask` and the
 // count/inspected reductions of `multi_scan_kernel` (TPU kernel B3,
-// without its structural and aggregate inputs); K1s replaces
+// without its aggregate input); K1s replaces
 // tempo_tpu/search/engine.py `entry_match_mask` and the count/inspected
 // half of `scan_kernel` (B1). Both write the score column of
 // tempo_tpu/search/engine.py `masked_topk` (B2's input):
 //
 //   live[i]   = entry_valid[i] && page_block[page(i)] >= 0   (K1s: valid)
-//   match[i]  = live[i]
+//   match[i]  = live[i] && (no verdicts || verdicts[i] != 0)
 //            && AND over terms t < n_terms of
 //                 OR over slots c < C of  key(i,c) == term_keys[b,t]
 //                       && value_ok(b, t, val(i,c))
@@ -49,8 +49,15 @@
 //     reference's gather does. A runtime-uniform branch in K1 and K1s,
 //     a template parameter of K4 (below).
 //
+// Structural verdicts (kernel K6, csrc/structural.cu): an optional u8
+// column [P*E] (K4: [rows, P*E], one row per query, a query past the rows
+// matching nothing) that ANDs into the match before the terms, so count,
+// score and top-k see it, as the reference ANDs structural_entry_mask into
+// the mask (multiblock.py:869-877, :1060-1066, engine.py:351-354). A null
+// pointer is one untaken branch.
+//
 // K4 replaces tempo_tpu/search/multiblock.py `coalesced_scan_kernel`
-// (TPU kernel B6, without its structural and aggregate inputs): the vmap
+// (TPU kernel B6, without its aggregate input): the vmap
 // of `multi_entry_mask` over a query axis. The query tables stack as
 // term_keys [Q,B,T], val_ranges [Q,B,T,R,2], term_active [Q,T] and four
 // uint32 bounds [Q]. An inactive term is neutral-true in the AND (unlike
@@ -90,119 +97,11 @@
 // function (`slot_hit`) and a duration with the same one (`dur_ok`), so
 // the three cannot drift apart.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "scan_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// kv column layouts, as the wrappers in kernels/scan.py number them
-enum Layout : int {
-  kIds8 = 0, kIds16 = 1, kIds32 = 2,   // unpacked: signed ids, pad -1
-  kU4 = 3, kU8 = 4, kU16 = 5, kU32 = 6  // packed: codes id+1, pad 0
-};
-
-// Readers of one entry's kv slots: `at` points at entry i of a column
-// with C (unpacked) slots per entry; r[c] is slot c's id, -1 for a pad.
-template <typename T>
-struct Ids {
-  const T* p;
-  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
-    p = (const T*)base + i * C;
-  }
-  __device__ __forceinline__ int32_t operator[](int c) const {
-    return (int32_t)p[c];
-  }
-};
-
-template <typename U>
-struct Codes {
-  const U* p;
-  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
-    p = (const U*)base + i * C;
-  }
-  __device__ __forceinline__ int32_t operator[](int c) const {
-    return (int32_t)((uint32_t)p[c] - 1u);
-  }
-};
-
-struct Nibbles {            // C is even; an entry holds C / 2 bytes
-  const uint8_t* p;
-  __device__ __forceinline__ void at(const void* base, int64_t i, int C) {
-    p = (const uint8_t*)base + i * (C >> 1);
-  }
-  __device__ __forceinline__ int32_t operator[](int c) const {
-    return (int32_t)((p[c >> 1] >> ((c & 1) << 2)) & 0xF) - 1;
-  }
-};
-
-// One term's hit row: bytes (one per value) or 32-bit words; n = its
-// length in elements. v >= 0.
-__device__ __forceinline__ bool hit_lookup(const void* h, int64_t n,
-                                           bool words, int32_t v) {
-  if (words) {
-    int64_t w = v >> 5;
-    if (w >= n) w = n - 1;
-    return (__ldg((const uint32_t*)h + w) >> (v & 31)) & 1u;
-  }
-  return __ldg((const uint8_t*)h + ((int64_t)v < n ? (int64_t)v : n - 1))
-         != 0;
-}
-
-__device__ __forceinline__ const void* hit_row(const void* base, int64_t row,
-                                               int64_t n, bool words) {
-  return words ? (const void*)((const uint32_t*)base + row * n)
-               : (const void*)((const uint8_t*)base + row * n);
-}
-
-// One kv slot against one term: key equality, then value membership --
-// a lookup in the term's hit row `h` (hit-mask mode), or the range test
-// over `rg` [R][2]. A value id < 0 never hits. `kk`/`vv` are readers of
-// the entry's slots in device memory, or its slots in registers (K4); the
-// value slot is read only when the key matches.
-template <typename KP, typename VP>
-__device__ __forceinline__ bool slot_hit(const KP& kk, const VP& vv, int c,
-                                         int32_t key, const int32_t* rg,
-                                         int R, const void* h,
-                                         int64_t n_vals, bool words) {
-  if (kk[c] != key) return false;
-  const int32_t v = vv[c];
-  if (h != nullptr) return v >= 0 && n_vals > 0 &&
-                           hit_lookup(h, n_vals, words, v);
-  for (int r = 0; r < R; ++r)
-    if (v >= rg[2 * r] && v <= rg[2 * r + 1]) return true;
-  return false;
-}
-
-// The duration column: u32 (shift -1), exact u16 (shift 0), or u16
-// buckets with an s-bit residual of res_bytes bytes (shift s > 0).
-struct DurCol {
-  const void* dur;
-  const void* res;
-  int shift;
-  int res_bytes;
-};
-
-__device__ __forceinline__ uint32_t dur_raw(const DurCol& d, int64_t i) {
-  return d.shift < 0 ? ((const uint32_t*)d.dur)[i]
-                     : (uint32_t)((const uint16_t*)d.dur)[i];
-}
-
-// lo <= duration(i) <= hi, given its raw column value q
-__device__ __forceinline__ bool dur_ok(const DurCol& d, int64_t i,
-                                       uint32_t q, uint32_t lo,
-                                       uint32_t hi) {
-  if (d.shift <= 0) return q >= lo && q <= hi;
-  const uint32_t lq = lo >> d.shift, hq = hi >> d.shift;
-  if (q > lq && q < hq) return true;
-  if (q != lq && q != hq) return false;
-  const uint32_t r = d.res_bytes == 1
-                         ? (uint32_t)((const uint8_t*)d.res)[i]
-                         : (uint32_t)((const uint16_t*)d.res)[i];
-  const uint32_t full = (q << d.shift) | r;
-  return full >= lo && full <= hi;
-}
 
 __device__ __forceinline__ int32_t score_of(uint32_t start) {
   return (int32_t)min(start, 0x7FFFFFFFu);
@@ -220,6 +119,7 @@ struct ScanArgs {
   const int32_t* val_ranges;     // [B, t_stride, R, 2]
   const void* val_hits;          // [G, t_stride, n_vals] (K1s: G = 1)
   const int32_t* block_group;    // [B]; K1 hit-mask mode only
+  const uint8_t* verdicts;       // [P * E] or null
   int64_t n_entries;
   int E, C, n_terms, t_stride, R;
   int64_t n_vals;                // hit row length, in elements
@@ -243,6 +143,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
       live = a.entry_valid[i] && b >= 0;
     }
     match = live;
+    if (match && a.verdicts != nullptr) match = a.verdicts[i] != 0;
     if (match && a.n_terms > 0) {
       KR kk;
       VR vv;
@@ -306,48 +207,6 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
   }
 }
 
-// Calls f(KR{}, VR{}) with the readers of a layout pair: both unpacked
-// (all nine pairs) or both packed (all sixteen); kIds32Only admits the
-// unpacked int32 pair alone (K1s stages int32 ids).
-template <typename F>
-int with_codes(int layout, F&& f) {
-  switch (layout) {
-    case kU4: return f(Nibbles{});
-    case kU8: return f(Codes<uint8_t>{});
-    case kU16: return f(Codes<uint16_t>{});
-    case kU32: return f(Codes<uint32_t>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename F>
-int with_ids(int layout, F&& f) {
-  switch (layout) {
-    case kIds8: return f(Ids<int8_t>{});
-    case kIds16: return f(Ids<int16_t>{});
-    case kIds32: return f(Ids<int32_t>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <bool kIds32Only, typename F>
-int with_readers(int kl, int vl, F&& f) {
-  if (kl >= kU4 && vl >= kU4)
-    return with_codes(kl, [&](auto k) {
-      return with_codes(vl, [&](auto v) { return f(k, v); });
-    });
-  if constexpr (kIds32Only) {
-    if (kl != kIds32 || vl != kIds32) return (int)cudaErrorInvalidValue;
-    return f(Ids<int32_t>{}, Ids<int32_t>{});
-  } else {
-    if (kl < kU4 && vl < kU4)
-      return with_ids(kl, [&](auto k) {
-        return with_ids(vl, [&](auto v) { return f(k, v); });
-      });
-    return (int)cudaErrorInvalidValue;
-  }
-}
-
 template <bool kSingle>
 int launch_scan(int kl, int vl, const ScanArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.n_entries + kThreads - 1) / kThreads);
@@ -356,17 +215,6 @@ int launch_scan(int kl, int vl, const ScanArgs& a, cudaStream_t stream) {
         <<<blocks, kThreads, 0, stream>>>(a);
     return (int)cudaGetLastError();
   });
-}
-
-bool valid_dur(int shift, int res_bytes, const void* res) {
-  if (shift <= 0) return true;
-  return shift <= 16 && res != nullptr &&
-         res_bytes == (shift <= 8 ? 1 : 2);
-}
-
-// C counts unpacked slots; a u4 column needs it even
-bool valid_layouts(int kl, int vl, int C) {
-  return !((kl == kU4 || vl == kU4) && (C & 1));
 }
 
 ScanArgs make_args(const void* kv_key, const void* kv_val,
@@ -378,8 +226,8 @@ ScanArgs make_args(const void* kv_key, const void* kv_val,
                    int hit_words, const void* block_group, int64_t n_entries,
                    int E, int C, int n_terms, int t_stride, int R,
                    int64_t n_vals, uint32_t dur_lo, uint32_t dur_hi,
-                   uint32_t win_start, uint32_t win_end, void* scores,
-                   void* counts) {
+                   uint32_t win_start, uint32_t win_end,
+                   const void* verdicts, void* scores, void* counts) {
   ScanArgs a;
   a.kv_key = kv_key;
   a.kv_val = kv_val;
@@ -393,6 +241,7 @@ ScanArgs make_args(const void* kv_key, const void* kv_val,
   a.val_hits = val_hits;
   a.hit_words = hit_words;
   a.block_group = (const int32_t*)block_group;
+  a.verdicts = (const uint8_t*)verdicts;
   a.n_entries = n_entries;
   a.E = E;
   a.C = C;
@@ -433,6 +282,8 @@ struct CoalArgs {
   const uint32_t* win_start;
   const uint32_t* win_end;
   const int32_t* block_group;    // [Q, B]; hit-mask mode only
+  const uint8_t* verdicts;       // [v_rows, P * E] or null
+  int v_rows;
   const int64_t* hit_meta;       // [Q, 3]: table address (0: none),
                                  // t_stride, row length in elements;
                                  // hit-mask mode only
@@ -529,6 +380,7 @@ coalesced_kernel(const CoalArgs a) {
 
   const bool in = e < a.E;
   const int64_t i = page * a.E + e;
+  const int64_t n = (int64_t)gridDim.x / a.chunks * a.E;   // P * E
   const bool live = in && b >= 0 && a.entry_valid[i];
   uint64_t tmask = 0;   // bit q: the entry passes query q's terms
   if (live) {
@@ -546,6 +398,9 @@ coalesced_kernel(const CoalArgs a) {
     }
     for (int q = 0; q < Q; ++q) {
       if (s_bd[q] > s_bd[Q + q]) continue;   // empty duration range
+      if (a.verdicts != nullptr &&
+          (q >= a.v_rows || a.verdicts[(int64_t)q * n + i] == 0))
+        continue;
       const void* hq = nullptr;      // row (g, 0) of query q's table
       int64_t hv = 0;
       if (hits) {
@@ -582,7 +437,6 @@ coalesced_kernel(const CoalArgs a) {
     end = a.entry_end[i];
     start = a.entry_start[i];
   }
-  const int64_t n = (int64_t)gridDim.x / a.chunks * a.E;   // P * E
   const int lane = tid & 31;
   // every lane of every warp reaches the ballots (blockDim % 32 == 0)
   for (int q = 0; q < Q; ++q) {
@@ -610,7 +464,8 @@ extern "C" {
 // buckets with an s-bit residual of res_bytes bytes (entry_dur_res).
 // val_hits ([G, t_stride, n_vals] bytes, or words with hit_words) and
 // block_group (i32 [B]) are both null (range mode) or both set (hit-mask
-// mode). Returns the cudaError_t of the launch (0 = launched).
+// mode). verdicts: u8 [n_entries] structural verdicts, or null. Returns
+// the cudaError_t of the launch (0 = launched).
 int tt_multi_scan(int key_layout, int val_layout, const void* kv_key,
                   const void* kv_val, const void* entry_start,
                   const void* entry_end, const void* entry_dur,
@@ -621,8 +476,8 @@ int tt_multi_scan(int key_layout, int val_layout, const void* kv_key,
                   const void* block_group, int64_t n_entries, int E, int C,
                   int n_terms, int t_stride, int R, int64_t n_vals,
                   uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
-                  uint32_t win_end, void* scores, void* counts,
-                  void* stream) {
+                  uint32_t win_end, const void* verdicts, void* scores,
+                  void* counts, void* stream) {
   if (n_entries <= 0) return 0;
   if ((val_hits == nullptr) != (block_group == nullptr) ||
       !valid_dur(dur_shift, res_bytes, entry_dur_res) ||
@@ -632,15 +487,16 @@ int tt_multi_scan(int key_layout, int val_layout, const void* kv_key,
       kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
       dur_shift, res_bytes, entry_valid, page_block, term_keys, val_ranges,
       val_hits, hit_words, block_group, n_entries, E, C, n_terms, t_stride,
-      R, n_vals, dur_lo, dur_hi, win_start, win_end, scores, counts);
+      R, n_vals, dur_lo, dur_hi, win_start, win_end, verdicts, scores,
+      counts);
   return launch_scan<false>(key_layout, val_layout, a, (cudaStream_t)stream);
 }
 
 // K1s: one block's kv columns (the unpacked layout: int32 ids; or any
 // packed pair), term tables [t_stride] and [t_stride, R, 2], durations
 // as for K1, and an optional hit table [t_stride, n_vals] (bytes, or
-// words with hit_words; null = range mode). Returns the cudaError_t of
-// the launch.
+// words with hit_words; null = range mode), and verdicts as for K1.
+// Returns the cudaError_t of the launch.
 int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
                    const void* kv_val, const void* entry_start,
                    const void* entry_end, const void* entry_dur,
@@ -650,8 +506,8 @@ int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
                    int hit_words, int64_t n_entries, int E, int C,
                    int n_terms, int t_stride, int R, int64_t n_vals,
                    uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
-                   uint32_t win_end, void* scores, void* counts,
-                   void* stream) {
+                   uint32_t win_end, const void* verdicts, void* scores,
+                   void* counts, void* stream) {
   if (n_entries <= 0) return 0;
   if (!valid_dur(dur_shift, res_bytes, entry_dur_res) ||
       !valid_layouts(key_layout, val_layout, C))
@@ -660,7 +516,7 @@ int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
       kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
       dur_shift, res_bytes, entry_valid, nullptr, term_keys, val_ranges,
       val_hits, hit_words, nullptr, n_entries, E, C, n_terms, t_stride, R,
-      n_vals, dur_lo, dur_hi, win_start, win_end, scores, counts);
+      n_vals, dur_lo, dur_hi, win_start, win_end, verdicts, scores, counts);
   return launch_scan<true>(key_layout, val_layout, a, (cudaStream_t)stream);
 }
 
@@ -668,8 +524,9 @@ int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
 // term_active (bool) [Q, T], the four bounds [Q] (uint32 bits); layouts
 // and durations as for K1; hit-mask mode when block_group ([Q, B]) and
 // hit_meta ([Q, 3] int64) are both set, every table in bytes or, with
-// hit_words, in words. scores [Q, P * E]; counts [Q + 1], zeroed.
-// Returns the cudaError_t of the launch.
+// hit_words, in words. verdicts: u8 [v_rows, P * E] structural verdicts
+// (query q >= v_rows matches nothing), or null. scores [Q, P * E]; counts
+// [Q + 1], zeroed. Returns the cudaError_t of the launch.
 int tt_coalesced_scan(int key_layout, int val_layout, const void* kv_key,
                       const void* kv_val, const void* entry_start,
                       const void* entry_end, const void* entry_dur,
@@ -681,8 +538,8 @@ int tt_coalesced_scan(int key_layout, int val_layout, const void* kv_key,
                       const void* win_start, const void* win_end,
                       const void* block_group, const void* hit_meta,
                       int hit_words, int64_t P, int E, int C, int Q, int B,
-                      int T, int R, void* scores, void* counts,
-                      void* stream) {
+                      int T, int R, const void* verdicts, int v_rows,
+                      void* scores, void* counts, void* stream) {
   if (P <= 0 || E <= 0) return 0;
   if (Q < 1 || Q > kMaxQ || T < 1 || R < 1 ||
       (block_group == nullptr) != (hit_meta == nullptr) ||
@@ -706,6 +563,8 @@ int tt_coalesced_scan(int key_layout, int val_layout, const void* kv_key,
   a.win_end = (const uint32_t*)win_end;
   a.block_group = (const int32_t*)block_group;
   a.hit_meta = (const int64_t*)hit_meta;
+  a.verdicts = (const uint8_t*)verdicts;
+  a.v_rows = v_rows;
   a.hit_words = hit_words;
   a.E = E;
   a.C = C;

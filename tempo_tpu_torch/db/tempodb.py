@@ -25,6 +25,7 @@ from ..device import resolve_device
 from ..search.backend_search_block import BackendSearchBlock
 from ..search.batcher import BlockBatcher, ScanJob
 from ..search.results import SearchResults
+from ..search.structural import StructuralConfig
 from .blocklist import Blocklist
 from .poller import Poller
 
@@ -52,7 +53,25 @@ class TempoDBConfig:
     # kernels read them as they are. Same answers, fewer staged bytes.
     # Per database here; the reference's gate is process-wide.
     search_packed_residency: bool = False
+    # structural queries (search/structural.py): the x-structural-q
+    # request tag is served, and staged batches carry the blocks' span
+    # segments; off, a request carrying the tag is refused (ValueError).
+    # With stacking, concurrent structural queries of one plan share a
+    # fused dispatch; with bucketing too, plans that canonicalize into one
+    # bucket of at most _bucket_max_nodes slots do. Per database here;
+    # the reference's gate is process-wide.
+    search_structural_enabled: bool = False
+    search_structural_stack_enabled: bool = False
+    search_structural_bucket_enabled: bool = False
+    search_structural_bucket_max_nodes: int = 16
     pool_workers: int = 50                # concurrent meta reads per poll
+
+    def structural(self) -> StructuralConfig:
+        return StructuralConfig(
+            enabled=self.search_structural_enabled,
+            stack_enabled=self.search_structural_stack_enabled,
+            bucket_enabled=self.search_structural_bucket_enabled,
+            bucket_max_nodes=max(2, self.search_structural_bucket_max_nodes))
 
 
 class TempoDB:
@@ -76,7 +95,8 @@ class TempoDB:
             device_probe_min_vals=self.cfg.search_device_probe_min_vals,
             coalesce_window_s=self.cfg.search_coalesce_window_s,
             coalesce_max_queries=self.cfg.search_coalesce_max_queries,
-            packed=self.cfg.search_packed_residency)
+            packed=self.cfg.search_packed_residency,
+            structural_cfg=self.cfg.structural())
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()
@@ -118,7 +138,8 @@ class TempoDB:
                     header=self._headers.get(meta.block_id),
                     probe_min_vals=self.cfg.search_device_probe_min_vals,
                     device=self.device,
-                    packed=self.cfg.search_packed_residency)
+                    packed=self.cfg.search_packed_residency,
+                    structural_cfg=self.cfg.structural())
                 self._search_blocks[meta.block_id] = bsb
                 while len(self._search_blocks) > self.cfg.search_cache_blocks:
                     self._search_blocks.popitem(last=False)

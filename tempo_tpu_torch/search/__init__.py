@@ -1,9 +1,12 @@
 """Search subsystem of the port: columnar search blocks, host query
 compilation, and the batched scan over hand-written CUDA kernels.
 
-  data.py        per-trace search data + wire codec
+  data.py        per-trace search data (span rows too) + wire codec
   columnar.py    the columnar page format + container codec (byte-
-                 identical to the reference's)
+                 identical to the reference's), span segment included
+  ir.py          the structural query IR (a copy of the reference's)
+  structural.py  structural queries: gate, compile to slot programs and
+                 tables, span staging, stacking, the host oracle
   pipeline.py    query compilation (host walk or device probe) + block
                  header pruning
   dict_probe.py  value dictionaries packed and staged for the device
@@ -11,7 +14,8 @@ compilation, and the batched scan over hand-written CUDA kernels.
   results.py     result collection: dedupe, limit, metrics, ordering
   engine.py      the single-block engine (kernels K1s + K2), top-k sizing
                  and the one-sync fetch of scan outputs
-  kernels/       the CUDA kernels, their plain PyTorch versions, the build
+  kernels/       the CUDA kernels (K1-K6), their plain PyTorch versions,
+                 the build
   multiblock.py  stacking blocks into one batch, per-block query tables,
                  the batched scan (kernels K1 + K2) and result rendering
   backend_search_block.py  container write/read, single-block search

@@ -8,9 +8,9 @@ block completion the search entries are built into the columnar container
 container. Blocks written here are read by the reference and vice versa.
 ``BackendSearchBlock.search`` answers a request from one block: header
 prune, compile against its dictionaries (through the device probe when
-its value dictionary was staged), kernels K1s and K2 on the device. It
-has no host route: the reference's breaker fallback (``host_scan_single``)
-is not part of the port.
+its value dictionary was staged), kernels K1s and K2 on the device (K6
+first for a structural request). It has no host route: the reference's
+breaker fallback (``host_scan_single``) is not part of the port.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ from ..device import resolve_device
 from ..encoding.compression import compress, decompress
 from .columnar import ColumnarPages, PageGeometry
 from .data import SearchData
+from . import structural
 from .engine import ScanEngine, StagedPages, stage
-from .pipeline import block_header_skip_reason, compile_query
+from .pipeline import block_header_skip_reason, compile_query, \
+    dict_fingerprint
 from .results import SearchResults
 
 
@@ -65,18 +67,23 @@ class BackendSearchBlock:
     def __init__(self, backend: RawBackend, meta: BlockMeta,
                  header: dict | None = None,
                  probe_min_vals: int | None = None, device=None,
-                 packed: bool = False):
+                 packed: bool = False,
+                 structural_cfg: structural.StructuralConfig = structural.OFF):
         """`header`: an already-fetched rollup (saves one backend read).
         `probe_min_vals`: the device-probe staging threshold
         (TempoDBConfig.search_device_probe_min_vals; None = 50k, <= 0 =
         host probing only). `device`: where ``staged`` puts the block —
         ``cuda`` by default, raising without a card. `packed`: stage the
         block in the packed layout (TempoDBConfig.
-        search_packed_residency; packing.py)."""
+        search_packed_residency; packing.py). `structural_cfg`: the
+        database's structural gate (TempoDBConfig.search_structural_*);
+        on, the block stages its span segment and structural requests are
+        served."""
         self.backend = backend
         self.meta = meta
         self.probe_min_vals = probe_min_vals
         self.packed = packed
+        self.structural_cfg = structural_cfg
         self.device = resolve_device(device)
         self._header = header
         self._pages: ColumnarPages | None = None
@@ -107,7 +114,8 @@ class BackendSearchBlock:
             if self._staged is not None:
                 return self._staged
         sp = stage(self.pages(), self.device,
-                   probe_min_vals=self.probe_min_vals, packed=self.packed)
+                   probe_min_vals=self.probe_min_vals, packed=self.packed,
+                   spans=self.structural_cfg.enabled)
         with self._lock:
             if self._staged is None:
                 self._staged = sp
@@ -124,7 +132,9 @@ class BackendSearchBlock:
                results: SearchResults | None = None) -> SearchResults:
         """Answer `req` from this block alone, adding to `results`. The
         block counts as inspected; a header or dictionary prune counts it
-        as skipped too, as the reference does."""
+        as skipped too, as the reference does. A structural request is
+        refused (ValueError) when the gate is off."""
+        expr = structural.structural_query(req, self.structural_cfg)
         engine = self.engine()
         results = results or SearchResults.for_request(req)
         m = results.metrics
@@ -139,6 +149,13 @@ class BackendSearchBlock:
         if cq is None:
             m.skipped_blocks += 1
             return results
+        if expr is not None:
+            pages = sp.pages
+            staged = None if sp.staged_dict is None else {
+                dict_fingerprint(pages, pages.key_dict, pages.val_dict):
+                sp.staged_dict}
+            cq.structural = structural.compile_structural(
+                expr, [pages], staged_dicts=staged, packed=engine.packed)
         _count, inspected, scores, idx = engine.scan_staged(sp, cq)
         hdr = self.header()
         m.inspected_traces += inspected

@@ -25,16 +25,23 @@ the two kernels. What the grouping keeps from the reference:
 - **coalesced across requests**: concurrent searches whose dispatches
   land on the same staged batch within a short window stack their
   queries and share one fused dispatch (``QueryCoalescer``); a dispatch
-  that no other in-flight search can share skips the window.
+  that no other in-flight search can share skips the window;
+- **structural queries** (``structural.py``, the database's gate on): a
+  batch stages its span segment, the predicate compiles per (batch,
+  predicate) beside the tag terms, and kernel K6 feeds K1 its verdicts.
+  In the coalescer a structural query dispatches alone at once unless
+  stacking is on; then it groups with same-plan peers, or with
+  same-bucket peers when bucketing is on too (K6 over the members'
+  lanes, then K4).
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
 breaker's host route and ``host_scan``, the dispatch watchdog, HBM
 ownership and hedging, per-query stats and profiling (and the
-coalescer's attribution of a fused dispatch's cost), the structural and
-``?agg=`` members of a fused group, and the host-RAM tier of the staged
-cache. Nothing here falls back to the CPU: a batch is staged on the
-engine's device and scanned there, and a fused dispatch that raises
-fails every member.
+coalescer's attribution of a fused dispatch's cost), the ``?agg=``
+members of a fused group, and the host-RAM tier of the staged cache.
+Nothing here falls back to the CPU: a batch is staged on the engine's
+device and scanned there, and a fused dispatch that raises fails every
+member.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import zlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
+from . import structural
 from .engine import (DEFAULT_TOP_K, fetch_coalesced_out, fetch_scan_out,
                      resolve_top_k)
 from .kernels.scan import MAX_QUERIES
@@ -93,9 +101,13 @@ _PRUNE_CACHE_MAX = 4096
 
 def _predicate_sig(req) -> tuple:
     """Everything about the request that affects pruning and compilation
-    (not the limit, which is filled per query)."""
+    (not the limit, which is filled per query). The raw structural tag
+    rides separately: tags_sig leaves it out (it is not a dictionary
+    term), but two requests that differ only in it must not share a
+    memo."""
     return (tags_sig(req), req.min_duration_ms or 0,
-            req.max_duration_ms or 0, req.start or 0, req.end or 0)
+            req.max_duration_ms or 0, req.start or 0, req.end or 0,
+            req.tags.get(structural.STRUCTURAL_QUERY_TAG, ""))
 
 
 class _PendingCoalesce:
@@ -172,7 +184,12 @@ class QueryCoalescer:
     window from a deadline heap, handing due groups to a small flush
     pool; a group's generation number lets it skip deadlines that a size
     flush already took. An exception in a flush is set on every member's
-    future."""
+    future.
+
+    A structural query groups by the engine's structural gate
+    (``StructuralConfig.stack_group_key``): with stacking off it
+    dispatches alone at once; with it on it waits with same-plan peers
+    (same-bucket peers with bucketing), apart from plain queries."""
 
     def __init__(self, engine: MultiBlockEngine, window_s: float = 0.003,
                  max_queries: int = 8, active_fn=None):
@@ -184,7 +201,9 @@ class QueryCoalescer:
         self._active_fn = active_fn or (lambda: 2)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        self._pending: dict[int, _PendingCoalesce] = {}  # id(batch) -> group
+        # (id(batch), None) for plain queries, the structural group key
+        # for structural ones -> group
+        self._pending: dict[tuple, _PendingCoalesce] = {}
         self._deadlines: list = []       # heap of (deadline, gen, key)
         self._sched: threading.Thread | None = None
         self._flush_pool: concurrent.futures.ThreadPoolExecutor | None = None
@@ -193,6 +212,9 @@ class QueryCoalescer:
         self.dispatches = 0   # dispatches issued here, solo and fused
         self.fused = 0        # dispatches that served more than one query
         self.queries = 0      # queries served
+        self.structural_queries = 0   # structural queries served
+        self.structural_stacked = 0   # ...that shared a fused dispatch
+        self.structural_bucketed = 0  # ...whose fused group mixed plans
 
     def submit(self, batch, mq, top_k: int,
                peers: int | None = None) -> concurrent.futures.Future:
@@ -200,7 +222,17 @@ class QueryCoalescer:
         to the device outputs of a solo dispatch (as ``scan_async``
         returns them) or to a _FusedSlice of a fused one."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        key = id(batch)
+        key = (id(batch), None)
+        if mq.structural is not None:
+            skey = self.engine.structural_cfg.stack_group_key(batch,
+                                                             mq.structural)
+            if skey is None:
+                # stacking off: dispatch alone, now
+                grp = _PendingCoalesce(batch, -1)
+                grp.items.append((mq, top_k, fut))
+                self._run(grp)
+                return fut
+            key = skey
         flush_now = None
         with self._lock:
             if self._closed:
@@ -262,16 +294,24 @@ class QueryCoalescer:
     def _run(self, grp: _PendingCoalesce) -> None:
         items = grp.items
         try:
+            sts = [mq.structural for mq, _k, _f in items]
             with self._lock:
                 self.dispatches += 1
                 self.queries += len(items)
                 if len(items) > 1:
                     self.fused += 1
+                if sts[0] is not None:
+                    self.structural_queries += len(items)
+                    if len(items) > 1:
+                        self.structural_stacked += len(items)
+                        if any(st.plan != sts[0].plan for st in sts[1:]):
+                            self.structural_bucketed += len(items)
             if len(items) == 1:
                 mq, _k, fut = items[0]
                 fut.set_result(self.engine.scan_async(grp.batch, mq))
                 return
-            cq = stack_queries([mq for mq, _k, _f in items])
+            cq = stack_queries([mq for mq, _k, _f in items],
+                               self.engine.structural_cfg.bucket_max_nodes)
             k = max(k for _mq, k, _f in items)
             shared = _FusedOut(
                 self.engine.coalesced_scan_async(grp.batch, cq, k))
@@ -291,7 +331,10 @@ class QueryCoalescer:
                     "ratio": round(self.queries / max(1, self.dispatches),
                                    3),
                     "pending": pending,
-                    "window_ms": self.window_s * 1e3}
+                    "window_ms": self.window_s * 1e3,
+                    "structural_queries": self.structural_queries,
+                    "structural_stacked": self.structural_stacked,
+                    "structural_bucketed": self.structural_bucketed}
 
     def close(self) -> None:
         """Stop the scheduler thread and the flush pool. Queries still
@@ -325,13 +368,15 @@ class BlockBatcher:
                  device_probe_min_vals: int | None = None,
                  coalesce_window_s: float = 0.003,
                  coalesce_max_queries: int = 8,
-                 packed: bool = False):
+                 packed: bool = False,
+                 structural_cfg: structural.StructuralConfig = structural.OFF):
         """`coalesce_max_queries` <= 1 disables coalescing: every
         dispatch runs at once, on the caller's thread. `packed` stages
-        batches in the packed layout (packing.py)."""
+        batches in the packed layout (packing.py). `structural_cfg`: the
+        database's structural gate and stacking knobs."""
         self.engine = MultiBlockEngine(
             device, top_k=top_k, device_probe_min_vals=device_probe_min_vals,
-            packed=packed)
+            packed=packed, structural_cfg=structural_cfg)
         self.max_batch_pages = max_batch_pages
         self.cache_bytes = cache_bytes
         self.pipeline_depth = max(1, pipeline_depth)
@@ -491,15 +536,18 @@ class BlockBatcher:
         (pipelined, early-quitting), merge. `plan_key` (tenant, epoch, ...)
         memoizes the grouping, a pure function of the job list; a caller
         that already holds the plan passes `groups`. Concurrent searches
-        coalesce their dispatches over a shared staged batch."""
+        coalesce their dispatches over a shared staged batch. A
+        structural request is refused (ValueError) when the gate is
+        off."""
+        expr = structural.structural_query(req, self.engine.structural_cfg)
         with self._lock:
             self._unplanned += 1
         pinned: list[_CachedBatch] = []
         interest: list[tuple] = []    # group keys not yet dispatched
         planned = [False]
         try:
-            return self._search_impl(jobs, req, results, plan_key, groups,
-                                     pinned, interest, planned)
+            return self._search_impl(jobs, req, expr, results, plan_key,
+                                     groups, pinned, interest, planned)
         finally:
             with self._lock:
                 if planned[0]:
@@ -533,7 +581,7 @@ class BlockBatcher:
                 self._plan_cache.popitem(last=False)
         return groups
 
-    def _search_impl(self, jobs, req, results, plan_key, groups,
+    def _search_impl(self, jobs, req, expr, results, plan_key, groups,
                      pinned, interest, planned) -> SearchResults:
         results = results or SearchResults.for_request(req)
         exhaustive = is_exhaustive(req)
@@ -580,7 +628,8 @@ class BlockBatcher:
 
         def prepare(group, batch, skip) -> dict:
             """Predicate work over one group, memoized per (batch,
-            predicate): per-block compile and metric sums."""
+            predicate): per-block compile (the structural predicate's
+            too) and metric sums."""
             mq = compile_multi(list(batch.blocks), req, skip=skip,
                                memo=batch.memo,
                                cache=self.engine.compile_cache,
@@ -588,6 +637,11 @@ class BlockBatcher:
                                packed=self.engine.packed)
             if mq is None:
                 return {"all_skip": True, "skipped": len(group)}
+            if expr is not None:
+                mq.structural = structural.compile_structural(
+                    expr, list(batch.blocks),
+                    staged_dicts=batch.staged_dicts,
+                    packed=self.engine.packed, memo=batch.memo)
             if not exhaustive and mq.n_terms:
                 dict_pruned = (mq.term_keys == -1).all(axis=1)
                 skip = [s or bool(dict_pruned[i]) for i, s in enumerate(skip)]

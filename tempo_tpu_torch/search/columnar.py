@@ -15,9 +15,19 @@ int32 ids into per-block sorted dictionaries — and laid out densely:
 
 P = pages, E = entries per page, C = kv slots per entry. The container
 bytes (``to_bytes``) are identical to the reference's for the same
-entries, so each package reads the other's blocks. The reference's
-optional span segment (its structural engine) is not part of this slice:
-containers that carry one read fine, and its sections are ignored.
+entries, so each package reads the other's blocks.
+
+The optional span segment (the structural engine's substrate) is present
+only when some entry carries span rows: a flat span axis S in entry
+order, each trace's spans one contiguous run, sharing the block's
+dictionaries:
+
+  span_trace    int32 [S]      flat entry index p*E+e of the span's trace
+  span_parent   int32 [S]      flat span index of its parent, -1 = none
+  span_dur      u32   [S]      ms
+  span_kind     int8  [S]      OTLP kind
+  span_kv_key/val int32 [S, Cs]  (pad -1), Cs a power of two <= 64
+  entry_span_begin/count int32 [P, E]  each entry's run of spans
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ _VERSION = 2
 _HDR = struct.Struct("<IIQ")
 _U16 = struct.Struct("<H")
 _U32 = struct.Struct("<I")
+SPAN_KV_CAP = 64        # kv slots per span row, at most
 
 
 @dataclass(frozen=True)
@@ -63,6 +74,16 @@ class ColumnarPages:
     trace_ids: np.ndarray    # uint8 [P,E,16]
     n_entries: int = 0
     header: dict = field(default_factory=dict)
+    # the optional span segment (see the module docstring); None when no
+    # entry carries spans
+    span_trace: np.ndarray | None = None
+    span_parent: np.ndarray | None = None
+    span_dur: np.ndarray | None = None
+    span_kind: np.ndarray | None = None
+    span_kv_key: np.ndarray | None = None
+    span_kv_val: np.ndarray | None = None
+    entry_span_begin: np.ndarray | None = None
+    entry_span_count: np.ndarray | None = None
 
     _ARRAYS = (
         ("kv_key", np.int32), ("kv_val", np.int32),
@@ -71,10 +92,25 @@ class ColumnarPages:
         ("entry_root_svc", np.int32), ("entry_root_name", np.int32),
         ("trace_ids", np.uint8),
     )
+    # written only when the container carries spans, after _ARRAYS
+    _SPAN_ARRAYS = (
+        ("span_trace", np.int32), ("span_parent", np.int32),
+        ("span_dur", np.uint32), ("span_kind", np.int8),
+        ("span_kv_key", np.int32), ("span_kv_val", np.int32),
+        ("entry_span_begin", np.int32), ("entry_span_count", np.int32),
+    )
 
     @property
     def n_pages(self) -> int:
         return self.kv_key.shape[0]
+
+    @property
+    def has_spans(self) -> bool:
+        return self.span_trace is not None and self.span_trace.size > 0
+
+    @property
+    def n_spans(self) -> int:
+        return 0 if self.span_trace is None else int(self.span_trace.shape[0])
 
     def slice_pages(self, start: int, count: int) -> "ColumnarPages":
         """A view over pages [start, start+count): the unit of a page-range
@@ -85,6 +121,26 @@ class ColumnarPages:
         hdr = dict(self.header)
         hdr["n_pages"] = end - start
         hdr["n_entries"] = int(kw["entry_valid"].sum())
+        if self.has_spans:
+            # a page range's spans are one contiguous run; entry and
+            # parent indices rebase to the slice's origin
+            E = self.geometry.entries_per_page
+            begin = self.entry_span_begin[start:end]
+            cnt = self.entry_span_count[start:end]
+            live = cnt > 0
+            sb = int(begin[live].min()) if live.any() else 0
+            se = int((begin[live] + cnt[live]).max()) if live.any() else 0
+            kw["span_trace"] = self.span_trace[sb:se] - start * E
+            par = self.span_parent[sb:se].copy()
+            par[par >= 0] -= sb
+            kw["span_parent"] = par
+            for name in ("span_dur", "span_kind", "span_kv_key",
+                         "span_kv_val"):
+                kw[name] = getattr(self, name)[sb:se]
+            kw["entry_span_begin"] = np.where(live, begin - sb,
+                                              0).astype(np.int32)
+            kw["entry_span_count"] = cnt
+            hdr["n_spans"] = se - sb
         out = ColumnarPages(
             geometry=self.geometry, key_dict=self.key_dict,
             val_dict=self.val_dict, n_entries=hdr["n_entries"],
@@ -115,10 +171,14 @@ class ColumnarPages:
     def build(cls, entries: list[SearchData],
               geometry: PageGeometry = PageGeometry()) -> "ColumnarPages":
         """Dictionary-encode per-trace search data into pages — the same
-        layout, header and slot order as the reference's build."""
+        layout, header and slot order as the reference's build, span
+        segment included (span rows share the block's dictionaries; a
+        parent index outside the trace's span list becomes -1)."""
         E = geometry.entries_per_page
         keys: set[str] = set()
         vals: set[str] = set()
+        total_spans = 0
+        span_kv_max = 0
         for sd in entries:
             for k, vs in sd.kvs.items():
                 keys.add(k)
@@ -127,6 +187,14 @@ class ColumnarPages:
                 vals.add(sd.root_service)
             if sd.root_name:
                 vals.add(sd.root_name)
+            for sp in sd.spans:
+                total_spans += 1
+                width = 0
+                for k, vs in sp.kvs.items():
+                    keys.add(k)
+                    vals.update(vs)
+                    width += len(vs)
+                span_kv_max = max(span_kv_max, width)
         key_dict = sorted(keys)
         val_dict = sorted(vals)
         kidx = {k: i for i, k in enumerate(key_dict)}
@@ -150,12 +218,46 @@ class ColumnarPages:
         entry_root_name = np.full((P, E), -1, dtype=np.int32)
         trace_ids = np.zeros((P, E, 16), dtype=np.uint8)
 
+        sa = None
+        if total_spans:
+            Cs = 1
+            while Cs < min(span_kv_max, SPAN_KV_CAP):
+                Cs *= 2
+            Cs = min(Cs, SPAN_KV_CAP)
+            sa = {
+                "span_trace": np.full(total_spans, -1, dtype=np.int32),
+                "span_parent": np.full(total_spans, -1, dtype=np.int32),
+                "span_dur": np.zeros(total_spans, dtype=np.uint32),
+                "span_kind": np.zeros(total_spans, dtype=np.int8),
+                "span_kv_key": np.full((total_spans, Cs), -1,
+                                       dtype=np.int32),
+                "span_kv_val": np.full((total_spans, Cs), -1,
+                                       dtype=np.int32),
+                "entry_span_begin": np.zeros((P, E), dtype=np.int32),
+                "entry_span_count": np.zeros((P, E), dtype=np.int32),
+            }
+        cursor = 0
+
         n_entries = 0
         truncated = 0
         min_start, max_end = 0xFFFFFFFF, 0
         min_dur, max_dur = 0xFFFFFFFF, 0
         for i, sd in enumerate(entries):
             p, e = divmod(i, E)
+            if sa is not None and sd.spans:
+                n = len(sd.spans)
+                sa["entry_span_begin"][p, e] = cursor
+                sa["entry_span_count"][p, e] = n
+                for si, sp in enumerate(sd.spans):
+                    row = cursor + si
+                    sa["span_trace"][row] = i
+                    if 0 <= sp.parent < n:
+                        sa["span_parent"][row] = cursor + sp.parent
+                    sa["span_dur"][row] = min(sp.dur_ms, 0xFFFFFFFF)
+                    sa["span_kind"][row] = sp.kind & 0x7F
+                    _put_slots(sa["span_kv_key"][row], sa["span_kv_val"][row],
+                               sp.kvs, kidx, vidx)
+                cursor += n
             entry_start[p, e] = sd.start_s & 0xFFFFFFFF
             entry_end[p, e] = sd.end_s & 0xFFFFFFFF
             entry_dur[p, e] = min(sd.dur_ms, 0xFFFFFFFF)
@@ -168,16 +270,7 @@ class ColumnarPages:
                                             dtype=np.uint8)
             if sum(len(vs) for vs in sd.kvs.values()) > C:
                 truncated += 1
-            slot = 0
-            for k in sorted(sd.kvs):
-                if slot >= C:
-                    break
-                for v in sorted(sd.kvs[k]):
-                    if slot >= C:
-                        break
-                    kv_key[p, e, slot] = kidx[k]
-                    kv_val[p, e, slot] = vidx[v]
-                    slot += 1
+            _put_slots(kv_key[p, e], kv_val[p, e], sd.kvs, kidx, vidx)
             n_entries += 1
             if sd.start_s:
                 min_start = min(min_start, sd.start_s)
@@ -198,24 +291,29 @@ class ColumnarPages:
             "min_dur_ms": 0 if min_dur == 0xFFFFFFFF else min_dur,
             "max_dur_ms": max_dur,
         }
+        if sa is not None:
+            header["n_spans"] = total_spans
+            header["span_kv_per_entry"] = int(sa["span_kv_key"].shape[1])
         return cls(
             geometry=PageGeometry(E, C), key_dict=key_dict, val_dict=val_dict,
             kv_key=kv_key, kv_val=kv_val,
             entry_start=entry_start, entry_end=entry_end, entry_dur=entry_dur,
             entry_valid=entry_valid, entry_root_svc=entry_root_svc,
             entry_root_name=entry_root_name, trace_ids=trace_ids,
-            n_entries=n_entries, header=header)
+            n_entries=n_entries, header=header, **(sa or {}))
 
     @classmethod
     def from_arrays(cls, key_dict: list, val_dict: list, kv_key, kv_val,
                     entry_start, entry_end, entry_dur, entry_valid,
                     entry_root_svc, entry_root_name, trace_ids,
-                    truncated_entries: int = 0) -> "ColumnarPages":
+                    truncated_entries: int = 0,
+                    spans: dict | None = None) -> "ColumnarPages":
         """Pages from already-encoded numpy columns and sorted
         dictionaries (the reference's ColumnarPages fields, or a bulk
         corpus generator's). Columns are cast to the container dtypes and
         the header rollup is computed from the valid entries the way the
-        build computes it."""
+        build computes it. `spans`: the span segment's arrays by name
+        (``_SPAN_ARRAYS``), laid out as the build lays them out."""
         def col(a, dt):
             return np.ascontiguousarray(np.asarray(a).astype(dt, copy=False))
 
@@ -242,6 +340,13 @@ class ColumnarPages:
             "min_dur_ms": int(durs.min()) if durs.size else 0,
             "max_dur_ms": int(durs.max()) if durs.size else 0,
         }
+        if spans is not None:
+            kw.update({name: col(spans[name], dt)
+                       for name, dt in cls._SPAN_ARRAYS})
+            if kw["span_trace"].size:
+                header["n_spans"] = int(kw["span_trace"].shape[0])
+                header["span_kv_per_entry"] = int(
+                    kw["span_kv_key"].shape[1])
         return cls(geometry=PageGeometry(E, C), key_dict=list(key_dict),
                    val_dict=list(val_dict), n_entries=n_entries,
                    header=header, **kw)
@@ -253,6 +358,10 @@ class ColumnarPages:
         sections: dict[str, bytes] = {}
         for name, _ in self._ARRAYS:
             sections[name] = np.ascontiguousarray(getattr(self, name)).tobytes()
+        if self.has_spans:
+            for name, _ in self._SPAN_ARRAYS:
+                sections[name] = np.ascontiguousarray(
+                    getattr(self, name)).tobytes()
         sections["key_dict"] = _pack_strs(self.key_dict)
         sections["val_dict"] = _pack_strs(self.val_dict)
         offsets = {}
@@ -295,6 +404,18 @@ class ColumnarPages:
                                 count=length // np.dtype(dtype).itemsize,
                                 offset=base + off)
             kw[name] = arr.reshape(shapes[name])
+        S = int(hdr.get("n_spans", 0) or 0)
+        if S and "span_trace" in sections:
+            Cs = int(hdr.get("span_kv_per_entry", 1))
+            span_shapes = {"span_kv_key": (S, Cs), "span_kv_val": (S, Cs),
+                           "entry_span_begin": (P, E),
+                           "entry_span_count": (P, E)}
+            for name, dtype in cls._SPAN_ARRAYS:
+                off, length = sections[name]
+                arr = np.frombuffer(buf, dtype=dtype,
+                                    count=length // np.dtype(dtype).itemsize,
+                                    offset=base + off)
+                kw[name] = arr.reshape(span_shapes.get(name, (S,)))
         off, length = sections["key_dict"]
         key_sec = buf[base + off: base + off + length]
         off, length = sections["val_dict"]
@@ -307,6 +428,21 @@ class ColumnarPages:
         out._dict_section_sha = (bytes.fromhex(ds) if ds
                                  else _dict_sections_sha(key_sec, val_sec))
         return out
+
+
+def _put_slots(keys: np.ndarray, vals: np.ndarray, kvs: dict, kidx: dict,
+               vidx: dict) -> None:
+    """Fill one row's kv slots in sorted key, then value, order, up to
+    the row's width (the rest stay -1)."""
+    C = keys.shape[0]
+    slot = 0
+    for k in sorted(kvs):
+        for v in sorted(kvs[k]):
+            if slot >= C:
+                return
+            keys[slot] = kidx[k]
+            vals[slot] = vidx[v]
+            slot += 1
 
 
 def _dict_sections_sha(key_sec: bytes, val_sec: bytes) -> bytes:

@@ -8,7 +8,10 @@ when that clears the probe threshold; ``ScanEngine`` dispatches kernel
 K1s (``kernels.scan.scan_single``, the port of B1) then K2
 (``kernels.topk.topk``, B2) and renders the top-k as results. With
 ``packed``, ``stage`` packs the block's columns as ``packing.py`` says
-(``StagedPages.widths``), and K1s reads them as they are.
+(``StagedPages.widths``), and K1s reads them as they are. With the
+structural gate on, ``stage`` stages the block's span segment too, and a
+query with a structural predicate runs K6 first (``kernels.structural``),
+its verdicts into K1s.
 ``DEFAULT_TOP_K``, ``resolve_top_k`` and ``fetch_scan_out`` are shared
 with the batched path (``multiblock.py``); ``fetch_coalesced_out`` is
 the fused (query-axis) path's fetch.
@@ -22,9 +25,10 @@ import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
-from . import dict_probe, packing
+from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .kernels.scan import scan_single
+from .kernels.structural import structural_mask
 from .kernels.topk import topk
 from .pipeline import CompileCache, CompiledQuery
 
@@ -81,6 +85,10 @@ class StagedPages:
     staged_dict: object = None
     # packing.py's (key, value, duration) widths; None = unpacked
     widths: tuple | None = None
+    # the span segment on the device (structural gate on and the block
+    # carries spans), and the most spans of any page
+    span_device: dict | None = None
+    span_max_run: int = 0
 
 
 def _bucket(n: int) -> int:
@@ -120,14 +128,18 @@ def stage_block_dict(pages: ColumnarPages, device: torch.device,
 
 def stage(pages: ColumnarPages, device: torch.device,
           probe_min_vals: int | None = None,
-          packed: bool = False) -> StagedPages:
+          packed: bool = False, spans: bool = False) -> StagedPages:
     """Copy a block's columns to the device, the page axis padded to a
     power of two (the reference's bucket; the port keeps it so both scan
     the same padded block), and its dictionary when it clears the probe
     threshold — applied here, at staging time. With `packed`, the
     columns pack at the widths a one-block batch would get
-    (``packing.pack_columns``)."""
-    host = pad_page_axis(pages, _bucket(pages.n_pages))
+    (``packing.pack_columns``); with `spans` (the structural gate on),
+    the block's span segment stages too."""
+    from .multiblock import place_spans
+
+    B = _bucket(pages.n_pages)
+    host = pad_page_axis(pages, B)
     widths = None
     if packed:
         widths = packing.plan_widths(len(pages.key_dict),
@@ -139,10 +151,13 @@ def stage(pages: ColumnarPages, device: torch.device,
         if not (v.flags.writeable and v.flags.c_contiguous):
             v = np.array(v, order="C")   # container bytes are read-only
         dev[k] = torch.from_numpy(v).to(device)
+    span_dev, max_run = place_spans(
+        structural.stage_single(pages, B) if spans else None, device)
     return StagedPages(device=dev, pages=pages,
                        staged_dict=stage_block_dict(pages, device,
                                                     probe_min_vals),
-                       widths=widths)
+                       widths=widths, span_device=span_dev,
+                       span_max_run=max_run)
 
 
 class ScanEngine:
@@ -166,19 +181,35 @@ class ScanEngine:
         return (torch.from_numpy(np.ascontiguousarray(tk)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(vr)).to(self.device))
 
+    def structural_verdicts(self, sp: StagedPages, lanes) -> torch.Tensor:
+        """K6 over the block for each lane: uint8 [Q, P*E] (every page is
+        the block's, row 0 of the tables)."""
+        d = sp.device
+        pb = torch.zeros(d["kv_key"].shape[0], dtype=torch.int32,
+                         device=self.device)
+        return structural_mask(
+            d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"], pb,
+            sp.span_device, sp.span_max_run, lanes.device(self.device),
+            lanes.val_hits, sp.widths, d.get("entry_dur_res"))
+
     def scan_staged_async(self, sp: StagedPages, cq: CompiledQuery):
-        """K1s then K2 on the current stream, without a device-to-host
-        sync. Returns device tensors (counts [2] = (match count,
-        inspected), top-k scores, top-k flat indices)."""
+        """K1s then K2 on the current stream (K6 first for a structural
+        query, its verdicts into K1s), without a device-to-host sync.
+        Returns device tensors (counts [2] = (match count, inspected),
+        top-k scores, top-k flat indices)."""
         tk, vr = self._tables(cq)
         d = sp.device
+        verdicts = None
+        if cq.structural is not None:
+            verdicts = self.structural_verdicts(sp,
+                                                cq.structural.lanes())[0]
         scores, counts = scan_single(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], tk, vr, cq.n_terms, cq.dur_lo,
             min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
             min(cq.win_end, 0xFFFFFFFF),
             cq.val_hits if cq.n_terms else None, sp.widths,
-            d.get("entry_dur_res"))
+            d.get("entry_dur_res"), verdicts)
         top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
                                                          cq.limit))
         return counts, top_scores, top_idx

@@ -7,10 +7,14 @@
   K4  ``scan.coalesced_scan``  (csrc/scan.cu)  <- tempo_tpu multiblock.coalesced_scan_kernel
   K2r ``topk.topk_rows``       (csrc/topk.cu)  <- its vmapped masked_topk
   K5  ``pack.pack_mask_words`` (csrc/pack.cu)  <- tempo_tpu packing.pack_mask_words
+  K6  ``structural.structural_mask`` (csrc/structural.cu)
+                               <- tempo_tpu structural.structural_entry_mask
 
 K1, K1s and K4 also read batches staged in the packed layout
 (``search/packing.py``): the scan half of the reference's packing
-functions runs inside them.
+functions runs inside them; K6 reads the same layouts through the shared
+readers of ``csrc/scan_common.cuh``. K1, K1s and K4 take K6's verdicts
+as an optional input.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. Each kernel and mode keeps
@@ -21,8 +25,10 @@ run can show the main path went through it: in ``scan``, ``LAUNCHES`` /
 packed layout ``PACKED_LAUNCHES`` / ``PACKED_Q_LAUNCHES`` (K1 range mode
 with u16 / bucketed durations), ``PACKED_HIT_LAUNCHES``,
 ``SINGLE_PACKED_LAUNCHES``, ``COALESCED_PACKED_LAUNCHES`` and
-``COALESCED_PACKED_HIT_LAUNCHES``; ``topk.LAUNCHES``,
-``topk.ROW_LAUNCHES``, ``probe.LAUNCHES`` and ``pack.LAUNCHES``.
+``COALESCED_PACKED_HIT_LAUNCHES``, and with verdicts (any layout and
+hit mode) ``VERDICT_LAUNCHES``, ``SINGLE_VERDICT_LAUNCHES`` and
+``COALESCED_VERDICT_LAUNCHES``; ``topk.LAUNCHES``, ``topk.ROW_LAUNCHES``,
+``probe.LAUNCHES``, ``pack.LAUNCHES`` and ``structural.LAUNCHES``.
 """
 
 import threading

@@ -1,12 +1,14 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each ``tempo_tpu_torch/csrc/<name>.cu`` compiles into its own shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), for ``sm_90a``. The first call to :func:`load` starts one
-``nvcc`` per source, all at once, waits for them, and caches the results
-under ``tempo_tpu_torch/csrc/build/`` named by a hash of the source and
-flags; later processes reuse a library whose hash matches. Nothing is
-built when the package is imported.
+Each ``tempo_tpu_torch/csrc/<name>.cu`` (with the ``*.cuh`` headers it
+includes) compiles into its own shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), for ``sm_90a``. The
+first call to :func:`load` starts one ``nvcc`` per source, all at once,
+waits for them, and caches the results under
+``tempo_tpu_torch/csrc/build/`` named by a hash of the source, the
+headers and the flags; later processes reuse a library whose hash
+matches. Nothing is built
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):   # the shared headers too
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

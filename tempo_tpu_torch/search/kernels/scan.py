@@ -3,7 +3,7 @@ tag-search predicate, count and score column.
 
 K1 is the counterpart of ``tempo_tpu/search/multiblock.py``
 ``multi_entry_mask`` and the count/inspected half of ``multi_scan_kernel``
-(TPU kernel B3 without its structural and aggregate inputs), in range
+(TPU kernel B3 without its aggregate input), in range
 mode or, given the dictionary probe's hit tables, in hit-mask mode. K1s is
 the counterpart of ``tempo_tpu/search/engine.py`` ``entry_match_mask`` and
 ``scan_kernel`` (B1): the same predicate over one block. Both write the
@@ -25,6 +25,9 @@ K1 inputs (all on one device, contiguous):
 K1s inputs: kv int32 (or a packed layout, below), no page_block, term
 tables [T'] and [T', R, 2], and an optional val_hits [T', V] used on
 every page.
+K1 and K1s also take an optional ``verdicts`` uint8 [P*E], the
+structural verdicts of kernel K6 (``kernels/structural.py``), ANDed into
+the match as the reference ANDs ``structural_entry_mask`` into the mask.
 Outputs: scores int32 [P*E] (min(start, 2^31-1) where the entry matches,
 else -1) and counts int32 [2] = (match count, inspected), inspected being
 the valid entries (of non-pad pages).
@@ -41,15 +44,22 @@ v is bit v & 31 of word v >> 5), in either layout. Each mode (layout,
 hit mode, duration form) has its own launch count.
 
 K4 is the counterpart of ``tempo_tpu/search/multiblock.py``
-``coalesced_scan_kernel`` (B6) without its structural and aggregate
-inputs: K1's function for Q queries over the same staged pages, in one
+``coalesced_scan_kernel`` (B6) without its aggregate input: K1's
+function for Q queries over the same staged pages, in one
 launch. Its inputs are K1's page arrays and, per query, term_keys
 [Q, B, T], val_ranges [Q, B, T, R, 2], term_active bool [Q, T] (an
 inactive term is neutral-true) and the bounds dur_lo, dur_hi, win_start,
 win_end as int32 [Q] holding uint32 bits; in hit-mask mode, val_hits, a
 sequence of Q hit tables ([G_q, T_q, V_q], all bool or all words, or
-None for a query compiled on the host), with block_group int32 [Q, B]. Outputs: scores
-int32 [Q, P*E], counts int32 [Q] and inspected, an int32 scalar.
+None for a query compiled on the host), with block_group int32 [Q, B];
+optionally ``verdicts`` uint8 [V, P*E], K6's verdicts of the first V
+queries (a query past them matches nothing). Outputs: scores int32
+[Q, P*E], counts int32 [Q] and inspected, an int32 scalar.
+
+A launch with verdicts counts in ``VERDICT_LAUNCHES`` (K1),
+``SINGLE_VERDICT_LAUNCHES`` (K1s) or ``COALESCED_VERDICT_LAUNCHES`` (K4),
+whatever its layout and hit mode; the other counters count launches
+without them.
 """
 
 from __future__ import annotations
@@ -75,6 +85,10 @@ PACKED_HIT_LAUNCHES = LaunchCount()     # K1, hit-mask mode
 SINGLE_PACKED_LAUNCHES = LaunchCount()  # K1s (either mode)
 COALESCED_PACKED_LAUNCHES = LaunchCount()      # K4, range mode
 COALESCED_PACKED_HIT_LAUNCHES = LaunchCount()  # K4, hit-mask mode
+# with structural verdicts, any layout and hit mode
+VERDICT_LAUNCHES = LaunchCount()             # K1
+SINGLE_VERDICT_LAUNCHES = LaunchCount()      # K1s
+COALESCED_VERDICT_LAUNCHES = LaunchCount()   # K4
 MAX_QUERIES = 64                 # K4's query axis, at most
 
 # csrc/scan.cu's Layout numbers: the unpacked layout by dtype, the packed
@@ -89,7 +103,7 @@ def multi_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
                entry_valid, page_block, term_keys, val_ranges,
                n_terms: int, dur_lo: int, dur_hi: int, win_start: int,
                win_end: int, val_hits=None, block_group=None,
-               widths=None, entry_dur_res=None):
+               widths=None, entry_dur_res=None, verdicts=None):
     """(scores, counts) — the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
     fn = (multi_scan_plain if kv_key.device.type == "cpu"
@@ -97,27 +111,28 @@ def multi_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
     return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
               entry_valid, page_block, term_keys, val_ranges, n_terms,
               dur_lo, dur_hi, win_start, win_end, val_hits, block_group,
-              widths, entry_dur_res)
+              widths, entry_dur_res, verdicts)
 
 
 def scan_single(kv_key, kv_val, entry_start, entry_end, entry_dur,
                 entry_valid, term_keys, val_ranges, n_terms: int,
                 dur_lo: int, dur_hi: int, win_start: int, win_end: int,
-                val_hits=None, widths=None, entry_dur_res=None):
+                val_hits=None, widths=None, entry_dur_res=None,
+                verdicts=None):
     """(scores, counts) over one block — the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
     fn = (scan_single_plain if kv_key.device.type == "cpu"
           else _scan_single_cuda)
     return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
               entry_valid, term_keys, val_ranges, n_terms, dur_lo, dur_hi,
-              win_start, win_end, val_hits, widths, entry_dur_res)
+              win_start, win_end, val_hits, widths, entry_dur_res, verdicts)
 
 
 def coalesced_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
                    entry_valid, page_block, term_keys, val_ranges,
                    term_active, dur_lo, dur_hi, win_start, win_end,
                    val_hits=None, block_group=None, widths=None,
-                   entry_dur_res=None):
+                   entry_dur_res=None, verdicts=None):
     """(scores [Q, P*E], counts [Q], inspected) — the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors."""
     fn = (coalesced_scan_plain if kv_key.device.type == "cpu"
@@ -125,7 +140,7 @@ def coalesced_scan(kv_key, kv_val, entry_start, entry_end, entry_dur,
     return fn(kv_key, kv_val, entry_start, entry_end, entry_dur,
               entry_valid, page_block, term_keys, val_ranges, term_active,
               dur_lo, dur_hi, win_start, win_end, val_hits, block_group,
-              widths, entry_dur_res)
+              widths, entry_dur_res, verdicts)
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +157,12 @@ def _in_ranges(vv, lo, hi):
 def _unpack_kv(kv_key, kv_val, widths):
     kw, vw = (None, None) if widths is None else widths[:2]
     return packing.unpack_ids(kv_key, kw), packing.unpack_ids(kv_val, vw)
+
+
+def _and_verdicts(mask, verdicts):
+    if verdicts is not None:
+        mask &= verdicts.reshape(mask.shape) != 0
+    return mask
 
 
 def _finish(mask, live, entry_start, entry_end, entry_dur, entry_dur_res,
@@ -161,13 +182,13 @@ def multi_scan_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                      entry_valid, page_block, term_keys, val_ranges,
                      n_terms: int, dur_lo: int, dur_hi: int, win_start: int,
                      win_end: int, val_hits=None, block_group=None,
-                     widths=None, entry_dur_res=None):
+                     widths=None, entry_dur_res=None, verdicts=None):
     """K1's function in plain PyTorch ops, on whatever device the tensors
     are on; the packed columns unpack through ``packing``."""
     pb = page_block.to(torch.int64)
     safe = pb.clamp(min=0)
     live = entry_valid & (pb >= 0)[:, None]
-    mask = live.clone()
+    mask = _and_verdicts(live.clone(), verdicts)
     if n_terms:
         kk, vv = _unpack_kv(kv_key, kv_val, widths)
         if val_hits is not None:
@@ -194,9 +215,9 @@ def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
                          val_ranges, term_active, dur_lo, dur_hi,
                          win_start, win_end, val_hits=None,
                          block_group=None, widths=None,
-                         entry_dur_res=None):
+                         entry_dur_res=None, verdicts=None):
     """K4's function in plain PyTorch ops: K1's plain version once per
-    query, over that query's active terms."""
+    query, over that query's active terms and verdict row."""
     rows, counts = [], []
     inspected = None
     for q in range(term_keys.shape[0]):
@@ -209,7 +230,10 @@ def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
             page_block, term_keys[q][:, act], val_ranges[q][:, act],
             int(act.numel()), *(int(x[q]) & _U32 for x in (
                 dur_lo, dur_hi, win_start, win_end)), vh, bg,
-            widths=widths, entry_dur_res=entry_dur_res)
+            widths=widths, entry_dur_res=entry_dur_res,
+            verdicts=None if verdicts is None else (
+                verdicts[q] if q < verdicts.shape[0]
+                else torch.zeros_like(verdicts[0])))
         rows.append(s)
         counts.append(c[0])
         inspected = c[1]
@@ -220,13 +244,13 @@ def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms: int,
                       dur_lo: int, dur_hi: int, win_start: int,
                       win_end: int, val_hits=None, widths=None,
-                      entry_dur_res=None):
+                      entry_dur_res=None, verdicts=None):
     """K1s's function in plain PyTorch ops, written from the reference's
     ``engine.entry_match_mask``: per term, key equality and value
     membership (a hit-table lookup when ``val_hits`` is given, else the
     range compares), OR over slots, AND over terms."""
     live = entry_valid
-    mask = live.clone()
+    mask = _and_verdicts(live.clone(), verdicts)
     if n_terms:
         kk, vv = _unpack_kv(kv_key, kv_val, widths)
         for t in range(n_terms):
@@ -256,14 +280,14 @@ def _lib():
         lib.tt_multi_scan.restype = i32
         lib.tt_multi_scan.argtypes = (
             cols + [p] * 4 + [i32, p, i64] + [i32] * 5 + [i64]
-            + [u32] * 4 + [p, p, p])
+            + [u32] * 4 + [p, p, p, p])
         lib.tt_scan_single.restype = i32
         lib.tt_scan_single.argtypes = (
             cols + [p] * 3 + [i32, i64] + [i32] * 5 + [i64] + [u32] * 4
-            + [p, p, p])
+            + [p, p, p, p])
         lib.tt_coalesced_scan.restype = i32
         lib.tt_coalesced_scan.argtypes = (
-            cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, p, p])
+            cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, i32, p, p, p])
         lib._tt_typed = True
     return lib
 
@@ -321,6 +345,8 @@ def _check_entries(kv_key, kv_val, entry_start, entry_end, entry_dur,
                         ("entry_end", entry_end, torch.int32),
                         ("entry_dur", entry_dur, dur_dt),
                         ("entry_valid", entry_valid, torch.bool)):
+        if t is None and name in ("entry_start", "entry_end"):
+            continue        # K6 reads neither
         if t.dtype != dt or tuple(t.shape) != (P, E):
             raise ValueError(f"{name}: want {dt} {(P, E)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
@@ -333,6 +359,28 @@ def _check_hit_table(h, dims: int, what: str) -> int:
         raise ValueError(f"{what} must be a bool or int32-word table of "
                          f"{dims} dims, got {h.dtype} {tuple(h.shape)}")
     return int(h.dtype == torch.int32)
+
+
+def _hit_meta(val_hits, dev) -> tuple:
+    """(address table int64 [Q, 3] on `dev`, words flag) of per-query hit
+    tables ([G, T, V] each, all bool or all words, or None): each row is
+    (address or 0, T, row length in elements), so a kernel finds every
+    query's own table without a stacked copy."""
+    meta, formats = [], set()
+    for h in val_hits:
+        if h is None:
+            meta.append((0, 0, 0))
+            continue
+        formats.add(_check_hit_table(h, 3, "each val_hits table"))
+        if h.device != dev or not h.is_contiguous():
+            raise ValueError("each val_hits table must be contiguous on the "
+                             "kernel's device")
+        meta.append((h.data_ptr() if h.numel() else 0, int(h.shape[1]),
+                     int(h.shape[2])))
+    if len(formats) > 1:
+        raise ValueError("val_hits tables mix bytes and words")
+    return (torch.tensor(meta, dtype=torch.int64).to(dev),
+            formats.pop() if formats else 0)
 
 
 def _check_same_device(dev, tensors, what):
@@ -350,6 +398,21 @@ def _check_bounds(*bounds):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _check_verdicts(v, rows_shape, dev, what):
+    """A verdict tensor: uint8, contiguous, on `dev`, of `rows_shape`
+    (K4: any number of rows up to Q before the entry axis)."""
+    if v is None:
+        return
+    ok = (v.dtype == torch.uint8 and v.device == dev and v.is_contiguous()
+          and v.dim() == len(rows_shape)
+          and tuple(v.shape[-1:]) == tuple(rows_shape[-1:])
+          and all(a <= b for a, b in zip(v.shape[:-1], rows_shape[:-1])))
+    if not ok:
+        raise ValueError(f"{what}: verdicts must be contiguous uint8 "
+                         f"{rows_shape} on the scan's device, got "
+                         f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
 
 def _count(k4: bool, widths, hits: bool) -> LaunchCount:
@@ -370,7 +433,8 @@ def _count(k4: bool, widths, hits: bool) -> LaunchCount:
 def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                      entry_valid, page_block, term_keys, val_ranges,
                      n_terms, dur_lo, dur_hi, win_start, win_end, val_hits,
-                     block_group, widths=None, entry_dur_res=None):
+                     block_group, widths=None, entry_dur_res=None,
+                     verdicts=None):
     dev = kv_key.device
     kl, vl, C, shift, res_bytes = _check_entries(
         kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
@@ -404,6 +468,7 @@ def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                              block_group), "multi_scan")
     _check_bounds(dur_lo, dur_hi, win_start, win_end)
     n = P * E
+    _check_verdicts(verdicts, (n,), dev, "multi_scan")
     scores = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     lib = _lib()
@@ -417,18 +482,19 @@ def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             term_keys.data_ptr(), val_ranges.data_ptr(), _ptr(val_hits),
             words, _ptr(block_group), n, E, C, int(n_terms), t_stride,
             int(val_ranges.shape[2]), n_vals, int(dur_lo), int(dur_hi),
-            int(win_start), int(win_end), scores.data_ptr(),
+            int(win_start), int(win_end), _ptr(verdicts), scores.data_ptr(),
             counts.data_ptr(), stream)
     check(lib, rc, "multi_scan")
     if n:
-        _count(False, widths, val_hits is not None).bump()
+        (VERDICT_LAUNCHES if verdicts is not None
+         else _count(False, widths, val_hits is not None)).bump()
     return scores, counts
 
 
 def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms, dur_lo,
                       dur_hi, win_start, win_end, val_hits, widths=None,
-                      entry_dur_res=None):
+                      entry_dur_res=None, verdicts=None):
     dev = kv_key.device
     kl, vl, C, shift, res_bytes = _check_entries(
         kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
@@ -459,6 +525,7 @@ def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                        "scan_single")
     _check_bounds(dur_lo, dur_hi, win_start, win_end)
     n = P * E
+    _check_verdicts(verdicts, (n,), dev, "scan_single")
     scores = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
     lib = _lib()
@@ -472,10 +539,11 @@ def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             val_ranges.data_ptr(), _ptr(val_hits), words, n, E, C,
             int(n_terms), t_stride, int(val_ranges.shape[1]), n_vals,
             int(dur_lo), int(dur_hi), int(win_start), int(win_end),
-            scores.data_ptr(), counts.data_ptr(), stream)
+            _ptr(verdicts), scores.data_ptr(), counts.data_ptr(), stream)
     check(lib, rc, "scan_single")
     if n:
-        (SINGLE_LAUNCHES if widths is None
+        (SINGLE_VERDICT_LAUNCHES if verdicts is not None
+         else SINGLE_LAUNCHES if widths is None
          else SINGLE_PACKED_LAUNCHES).bump()
     return scores, counts
 
@@ -484,7 +552,7 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                          entry_valid, page_block, term_keys, val_ranges,
                          term_active, dur_lo, dur_hi, win_start, win_end,
                          val_hits, block_group, widths=None,
-                         entry_dur_res=None):
+                         entry_dur_res=None, verdicts=None):
     dev = kv_key.device
     kl, vl, C, shift, res_bytes = _check_entries(
         kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
@@ -520,33 +588,16 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
         if block_group.dtype != torch.int32 \
                 or tuple(block_group.shape) != (Q, B):
             raise ValueError(f"block_group: want int32 {(Q, B)}")
-        meta = []
-        formats = set()
-        for h in val_hits:
-            if h is None:
-                meta.append((0, 0, 0))
-                continue
-            formats.add(_check_hit_table(h, 3, "each val_hits table"))
-            if h.device != dev or not h.is_contiguous():
-                raise ValueError("each val_hits table must be contiguous "
-                                 "on the scan's device")
-            meta.append((h.data_ptr() if h.numel() else 0,
-                         int(h.shape[1]), int(h.shape[2])))
-        if len(formats) > 1:
-            raise ValueError("val_hits tables mix bytes and words")
-        words = formats.pop() if formats else 0
-        # the tables stay where the members' compiles left them: the
-        # kernel finds each through this [Q, 3] table of addresses (row
-        # lengths in elements: values, or words), so a fused dispatch
-        # copies none of them (the reference stacks them into one
-        # [Q, G, T, V] array, some 25 MB a dispatch for the
-        # high-cardinality cell)
-        hit_meta = torch.tensor(meta, dtype=torch.int64).to(dev)
+        # the tables stay where the members' compiles left them (the
+        # reference stacks them into one [Q, G, T, V] array, some 25 MB a
+        # dispatch for the high-cardinality cell)
+        hit_meta, words = _hit_meta(val_hits, dev)
     _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
                              entry_dur, entry_dur_res, entry_valid,
                              page_block, term_keys, val_ranges, term_active,
                              *bounds, block_group, hit_meta),
                        "coalesced_scan")
+    _check_verdicts(verdicts, (Q, P * E), dev, "coalesced_scan")
     scores = torch.empty((Q, P * E), dtype=torch.int32, device=dev)
     counts = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
     lib = _lib()
@@ -560,9 +611,11 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
             term_keys.data_ptr(), val_ranges.data_ptr(),
             term_active.data_ptr(), *(b.data_ptr() for b in bounds),
             _ptr(block_group), _ptr(hit_meta), words, P, E, C, Q, B, T,
-            int(val_ranges.shape[3]), scores.data_ptr(), counts.data_ptr(),
-            stream)
+            int(val_ranges.shape[3]), _ptr(verdicts),
+            0 if verdicts is None else int(verdicts.shape[0]),
+            scores.data_ptr(), counts.data_ptr(), stream)
     check(lib, rc, "coalesced_scan")
     if P * E:
-        _count(True, widths, val_hits is not None).bump()
+        (COALESCED_VERDICT_LAUNCHES if verdicts is not None
+         else _count(True, widths, val_hits is not None)).bump()
     return scores, counts[:Q], counts[Q]

@@ -19,7 +19,12 @@ requests over one staged batch stack along a query axis
 (``kernels.scan.coalesced_scan``) then K2r (``kernels.topk.topk_rows``).
 An engine made with ``packed=True`` stages its batches in the packed
 layout of ``packing.py`` (``HostBatch.widths``), which the kernels read
-as they are, and its probe products are word masks.
+as they are, and its probe products are word masks. An engine whose
+structural gate is on (``structural.StructuralConfig``) stages the
+blocks' span segments with each batch (``HostBatch.span_cat``); a query
+carrying a compiled structural predicate (``MultiQuery.structural``)
+runs K6 (``kernels.structural.structural_mask``) first and hands its
+verdicts to K1, or, stacked, to K4.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
-from . import dict_probe, packing
+from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
 from .kernels.scan import coalesced_scan, multi_scan
+from .kernels.structural import structural_mask
 from .kernels.topk import topk, topk_rows
 from .pipeline import CompileCache, CompiledQuery, compile_query, \
     dict_fingerprint
@@ -63,6 +69,9 @@ class HostBatch:
     # bytes the unpacked layout would stage for `cat` (== its bytes when
     # widths is None)
     cat_logical_nbytes: int = 0
+    # the blocks' span segments (structural.stack_spans), staged when the
+    # engine's structural gate is on and some block carries spans
+    span_cat: dict | None = None
 
 
 @dataclass
@@ -78,6 +87,10 @@ class BlockBatch:
     staged_dicts: dict = field(default_factory=dict)
     widths: tuple | None = None     # as HostBatch.widths
     logical_device_nbytes: int = 0  # HostBatch.cat_logical_nbytes
+    # HostBatch.span_cat on the device (uint32 span_dur as int32 bits),
+    # and the most spans of any page (K6's scratch length)
+    span_device: dict | None = None
+    span_max_run: int = 0
 
     @property
     def n_pages(self) -> int:
@@ -89,12 +102,20 @@ class BlockBatch:
         return int(sum(d.nbytes for d in self.staged_dicts.values()))
 
     @property
-    def nbytes(self) -> int:
-        """Device bytes pinned by the stacked arrays and the staged
-        dictionaries: physical bytes, what the staged cache's budget
-        charges."""
+    def span_nbytes(self) -> int:
+        """Device bytes pinned by the staged span segment (its span axis
+        padded to a power of two)."""
         return int(sum(t.numel() * t.element_size()
-                       for t in self.device.values())) + self.dict_nbytes
+                       for t in (self.span_device or {}).values()))
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes pinned by the stacked arrays, the span segment and
+        the staged dictionaries: physical bytes, what the staged cache's
+        budget charges."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.device.values())) + self.dict_nbytes \
+            + self.span_nbytes
 
     @property
     def logical_nbytes(self) -> int:
@@ -102,7 +123,8 @@ class BlockBatch:
         the batch is not packed)."""
         if self.widths is None:
             return self.nbytes
-        return self.logical_device_nbytes + self.dict_nbytes
+        return self.logical_device_nbytes + self.dict_nbytes \
+            + self.span_nbytes
 
 
 def _pow2(n: int) -> int:
@@ -140,7 +162,7 @@ def pack_batch_dicts(blocks: list[ColumnarPages],
 def stack_host(blocks: list[ColumnarPages],
                pad_to: int | None = None,
                probe_min_vals: int | None = 0,
-               packed: bool = False) -> HostBatch:
+               packed: bool = False, spans: bool = False) -> HostBatch:
     """Concatenate blocks of one entries-per-page along the page axis.
 
     The kv columns narrow to the smallest dtype the group's largest
@@ -157,7 +179,8 @@ def stack_host(blocks: list[ColumnarPages],
     before the page padding (adding ``entry_dur_res`` when bucketed), pad
     pages with code 0. Unsigned 16 and 32-bit columns (the entry columns'
     u32 in either layout) hold their bits in int16/int32 arrays
-    (``packing.device_view``)."""
+    (``packing.device_view``). With `spans` (the structural gate on), the
+    blocks' span segments stack too (``structural.stack_spans``)."""
     E = blocks[0].geometry.entries_per_page
     C = C0 = max(b.geometry.kv_per_entry for b in blocks)
     n_keys = max(len(b.key_dict) for b in blocks)
@@ -222,10 +245,13 @@ def stack_host(blocks: list[ColumnarPages],
     logical = (packing.logical_nbytes(entries_padded, C0, n_keys, n_vals)
                + int(page_block.nbytes) if widths is not None
                else int(sum(v.nbytes for v in cat.values())))
+    span_cat = (structural.stack_spans(blocks, E, int(page_block.shape[0]))
+                if spans else None)
     return HostBatch(cat=cat, page_block=page_block, blocks=blocks,
                      page_offset=page_offset,
                      packed_dicts=pack_batch_dicts(blocks, probe_min_vals),
-                     widths=widths, cat_logical_nbytes=logical)
+                     widths=widths, cat_logical_nbytes=logical,
+                     span_cat=span_cat)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -237,15 +263,27 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def place_batch(host: HostBatch, device: torch.device) -> BlockBatch:
-    """Host-to-device copy of a stacked batch and its probe
-    dictionaries."""
+    """Host-to-device copy of a stacked batch, its span segment and its
+    probe dictionaries."""
     dev = {k: _to_device(v, device) for k, v in host.cat.items()}
     staged = {fp: dict_probe.place_device_dict(pd, device)
               for fp, pd in host.packed_dicts.items()}
+    span_dev, max_run = place_spans(host.span_cat, device)
     return BlockBatch(device=dev, page_block=host.page_block,
                       blocks=host.blocks, page_offset=host.page_offset,
                       staged_dicts=staged, widths=host.widths,
-                      logical_device_nbytes=host.cat_logical_nbytes)
+                      logical_device_nbytes=host.cat_logical_nbytes,
+                      span_device=span_dev, span_max_run=max_run)
+
+
+def place_spans(span_cat: dict | None, device: torch.device) -> tuple:
+    """(span columns on the device, the most spans of any page), or
+    (None, 0) for a batch without spans."""
+    if span_cat is None:
+        return None, 0
+    return ({k: _to_device(packing.device_view(v), device)
+             for k, v in span_cat.items()},
+            structural.max_page_run(span_cat))
 
 
 @dataclass
@@ -269,6 +307,9 @@ class MultiQuery:
     # made at the first dispatch and reused by every later dispatch of
     # this query over the same batch
     device_tables: tuple | None = None
+    # the request's structural predicate compiled against this batch
+    # (structural.CompiledStructural), or None
+    structural: object = None
 
 
 def _dict_groups(blocks: list[ColumnarPages], memo: dict | None = None):
@@ -396,21 +437,32 @@ class CoalescedQuery:
     # without tables. None when no member probed.
     val_hits: tuple | None = None
     block_group: np.ndarray | None = None
+    # the members' structural predicates, one K6 lane each
+    # (structural.StackedStructural or BucketedStructural), or None
+    structural: object = None
 
 
-def stack_queries(mqs: list[MultiQuery]) -> CoalescedQuery:
+def stack_queries(mqs: list[MultiQuery],
+                  bucket_max_nodes: int = 16) -> CoalescedQuery:
     """Stack compiled queries over the same block batch along the query
     axis, the reference's ``multiblock.stack_queries`` without its
-    structural and ``?agg=`` branches. Q, T and R pad to powers of two.
-    A real query's extra terms are inactive (neutral-true in the AND); a
-    pad query gets the empty duration range dur_lo 1 > dur_hi 0, so it
-    matches nothing. dur_hi and win_end clamp to uint32."""
-    for mq in mqs:
-        # the request tags that need these are refused at compile time
-        if getattr(mq, "structural", None) is not None \
-                or getattr(mq, "agg_stage", None) is not None:
-            raise ValueError("structural and ?agg= queries do not "
-                             "coalesce in the port")
+    ``?agg=`` branch. Q, T and R pad to powers of two. A real query's
+    extra terms are inactive (neutral-true in the AND); a pad query gets
+    the empty duration range dur_lo 1 > dur_hi 0, so it matches nothing.
+    dur_hi and win_end clamp to uint32. Structural members stack when
+    every member carries one and all share one plan, or all canonicalize
+    into one bucket of at most `bucket_max_nodes` slots
+    (``structural.stack_members``); a mixed group raises."""
+    if any(getattr(mq, "agg_stage", None) is not None for mq in mqs):
+        # the request tag that needs it is refused at compile time
+        raise ValueError("?agg= queries do not coalesce in the port")
+    sts = [mq.structural for mq in mqs]
+    stacked_st = None
+    if any(st is not None for st in sts):
+        if any(st is None for st in sts):
+            raise ValueError(
+                "coalesced structural queries must all share one plan")
+        stacked_st = structural.stack_members(sts, bucket_max_nodes)
     Qn = len(mqs)
     B = mqs[0].term_keys.shape[0]
     Q = _pow2(Qn)
@@ -446,7 +498,8 @@ def stack_queries(mqs: list[MultiQuery]) -> CoalescedQuery:
     return CoalescedQuery(
         term_keys=term_keys, val_ranges=val_ranges, term_active=term_active,
         dur_lo=dur_lo, dur_hi=dur_hi, win_start=win_start, win_end=win_end,
-        n_terms=T, n_queries=Qn, val_hits=val_hits, block_group=block_group)
+        n_terms=T, n_queries=Qn, val_hits=val_hits, block_group=block_group,
+        structural=stacked_st)
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
@@ -473,16 +526,19 @@ class MultiBlockEngine:
 
     def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
                  device_probe_min_vals: int | None = None,
-                 packed: bool = False):
+                 packed: bool = False,
+                 structural_cfg: structural.StructuralConfig = structural.OFF):
         """`device_probe_min_vals`: value-dictionary size at which a
         batch stages the dictionary for the device probe (None =
         dict_probe.DEVICE_PROBE_MIN_VALS; <= 0 keeps every probe on the
         host). `packed`: stage batches in the packed layout and keep probe
-        products as word masks (packing.py)."""
+        products as word masks (packing.py). `structural_cfg`: the
+        database's structural gate; on, batches stage span segments."""
         self.device = device
         self.top_k = top_k
         self.device_probe_min_vals = device_probe_min_vals
         self.packed = packed
+        self.structural_cfg = structural_cfg
         self.compile_cache = CompileCache()
 
     def stage_host(self, blocks: list[ColumnarPages]) -> HostBatch:
@@ -492,15 +548,27 @@ class MultiBlockEngine:
         return stack_host(blocks,
                           pad_to=_pow2(sum(b.n_pages for b in blocks)),
                           probe_min_vals=self.device_probe_min_vals,
-                          packed=self.packed)
+                          packed=self.packed,
+                          spans=self.structural_cfg.enabled)
 
     def place(self, host: HostBatch) -> BlockBatch:
         return place_batch(host, self.device)
 
+    def structural_verdicts(self, batch: BlockBatch,
+                            lanes: structural.Lanes):
+        """K6 over the batch for each lane: uint8 [Q, P*E]."""
+        d = batch.device
+        return structural_mask(
+            d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"],
+            d["page_block"], batch.span_device, batch.span_max_run,
+            lanes.device(self.device), lanes.val_hits, batch.widths,
+            d.get("entry_dur_res"))
+
     def scan_async(self, batch: BlockBatch, mq: MultiQuery):
-        """One dispatch, K1 then K2 on the current stream, without a
-        device-to-host sync. Returns device tensors (counts [2] = (match
-        count, inspected), top-k scores, top-k flat indices)."""
+        """One dispatch, K1 then K2 on the current stream (K6 first for a
+        structural query, its verdicts into K1), without a device-to-host
+        sync. Returns device tensors (counts [2] = (match count,
+        inspected), top-k scores, top-k flat indices)."""
         if mq.device_tables is None:
             mq.device_tables = (
                 torch.from_numpy(mq.term_keys).to(self.device),
@@ -509,12 +577,16 @@ class MultiBlockEngine:
                 torch.from_numpy(mq.block_group).to(self.device))
         tk, vr, bg = mq.device_tables
         d = batch.device
+        verdicts = None
+        if mq.structural is not None:
+            verdicts = self.structural_verdicts(batch,
+                                                mq.structural.lanes())[0]
         scores, counts = multi_scan(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"], tk, vr,
             mq.n_terms, mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
             min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg, batch.widths,
-            d.get("entry_dur_res"))
+            d.get("entry_dur_res"), verdicts)
         top_scores, top_idx = topk(scores,
                                    resolve_top_k(self.top_k, mq.limit))
         return counts, top_scores, top_idx
@@ -539,16 +611,20 @@ class MultiBlockEngine:
     def coalesced_scan_async(self, batch: BlockBatch, cq: CoalescedQuery,
                              top_k: int):
         """One fused dispatch for the stacked queries: the tables go up
-        once, then K4 and K2r run on the current stream, without a
-        device-to-host sync. `top_k` is the group's k, the largest of its
-        members'. Returns device tensors (counts [Q], inspected, top-k
-        scores [Q, k], top-k flat indices [Q, k])."""
+        once, then (K6 over the structural members' lanes) K4 and K2r run
+        on the current stream, without a device-to-host sync. `top_k` is
+        the group's k, the largest of its members'. Returns device tensors
+        (counts [Q], inspected, top-k scores [Q, k], top-k flat indices
+        [Q, k])."""
         d = batch.device
+        verdicts = None
+        if cq.structural is not None:
+            verdicts = self.structural_verdicts(batch, cq.structural.lanes)
         scores, counts, inspected = coalesced_scan(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
             d["entry_dur"], d["entry_valid"], d["page_block"],
             *self.coalesced_tables(cq), batch.widths,
-            d.get("entry_dur_res"))
+            d.get("entry_dur_res"), verdicts)
         top_scores, top_idx = topk_rows(scores, top_k)
         return counts, inspected, top_scores, top_idx
 

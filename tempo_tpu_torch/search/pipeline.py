@@ -29,17 +29,17 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import dict_probe, packing
+from .structural import STRUCTURAL_QUERY_TAG
 
 UINT32_MAX = 0xFFFFFFFF
 
 # in-band flags, never tag predicates. A request carrying this one scans
 # every page of every block (no pruning, no early quit); the other tag
-# predicates still apply.
+# predicates still apply. The structural tag carries a structural query
+# (search/structural.py), compiled on its own.
 EXHAUSTIVE_SEARCH_TAG = "x-dbg-exhaustive"
-# the reference's structural query and ?agg= tags: their engines are not
-# part of this slice, so a request carrying either is refused rather than
-# answered without them
-STRUCTURAL_QUERY_TAG = "x-structural-q"
+# the reference's ?agg= tag: its engine is not ported yet, so a request
+# carrying it is refused rather than answered without it
 AGG_QUERY_TAG = "x-agg-q"
 _RESERVED_TAGS = (EXHAUSTIVE_SEARCH_TAG, STRUCTURAL_QUERY_TAG, AGG_QUERY_TAG)
 
@@ -49,13 +49,12 @@ def is_exhaustive(req) -> bool:
 
 
 def request_terms(req) -> list:
-    """Sorted (key, value) tag predicates of a request. Raises ValueError
-    for the structural and aggregate tags, which this slice does not
-    serve."""
-    for tag in (STRUCTURAL_QUERY_TAG, AGG_QUERY_TAG):
-        if tag in req.tags:
-            raise ValueError(f"{tag!r} queries are not supported by the "
-                             "torch port yet")
+    """Sorted (key, value) tag predicates of a request: every tag but the
+    in-band flags. Raises ValueError for the ?agg= tag, which the port
+    does not serve yet."""
+    if AGG_QUERY_TAG in req.tags:
+        raise ValueError(f"{AGG_QUERY_TAG!r} queries are not supported by "
+                         "the torch port yet")
     return sorted((k, v) for k, v in req.tags.items()
                   if k not in _RESERVED_TAGS)
 
@@ -75,6 +74,9 @@ class CompiledQuery:
     # val_ranges is the never-match padding and the scan looks value ids
     # up in this mask instead.
     val_hits: object = None
+    # the request's structural predicate compiled against this block
+    # (structural.CompiledStructural), set by the single-block search
+    structural: object = None
 
     @property
     def n_terms(self) -> int:

@@ -160,11 +160,24 @@ def test_ids_to_ranges_identical():
 
 
 def test_reserved_tags_are_refused():
+    """The ?agg= tag is refused at compile time; the structural tag only
+    where the database's structural gate is off (it is not a tag term
+    either way)."""
+    from tempo_tpu_torch.search import ir
+    from tempo_tpu_torch.search.structural import StructuralConfig, \
+        structural_query
+
     pages = ColumnarPages.build(_entries(7, 10, data), PageGeometry(8, 4))
-    for tag in ("x-structural-q", "x-agg-q"):
-        with pytest.raises(ValueError):
-            compile_query(pages.key_dict, pages.val_dict,
-                          SearchRequest(tags={tag: "1"}))
+    with pytest.raises(ValueError):
+        compile_query(pages.key_dict, pages.val_dict,
+                      SearchRequest(tags={"x-agg-q": "1"}))
+    req = SearchRequest(tags={"x-structural-q":
+                              ir.quote('{"exists": {"kind": 2}}')})
+    with pytest.raises(ValueError):
+        structural_query(req, StructuralConfig())
+    assert structural_query(req, StructuralConfig(enabled=True)) is not None
+    cq = compile_query(pages.key_dict, pages.val_dict, req)
+    assert cq.n_terms == 0
 
 
 def test_written_block_files_identical(tmp_path):

@@ -79,6 +79,9 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.search.kernels.probe\n"
         "import tempo_tpu_torch.search.kernels.pack\n"
         "import tempo_tpu_torch.search.packing\n"
+        "import tempo_tpu_torch.search.ir\n"
+        "import tempo_tpu_torch.search.structural\n"
+        "import tempo_tpu_torch.search.kernels.structural\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -116,6 +119,7 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     launch; the launch counters move only where a kernel launches."""
     from tempo_tpu_torch.search import packing
     from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
+    from tempo_tpu_torch.search.kernels import structural as k6
 
     counters = (scan.LAUNCHES, scan.HIT_LAUNCHES, scan.SINGLE_LAUNCHES,
                 topk.LAUNCHES, probe.LAUNCHES, scan.COALESCED_LAUNCHES,
@@ -123,7 +127,9 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
                 pack.LAUNCHES, scan.PACKED_LAUNCHES, scan.PACKED_Q_LAUNCHES,
                 scan.PACKED_HIT_LAUNCHES, scan.SINGLE_PACKED_LAUNCHES,
                 scan.COALESCED_PACKED_LAUNCHES,
-                scan.COALESCED_PACKED_HIT_LAUNCHES)
+                scan.COALESCED_PACKED_HIT_LAUNCHES, k6.LAUNCHES,
+                scan.VERDICT_LAUNCHES, scan.SINGLE_VERDICT_LAUNCHES,
+                scan.COALESCED_VERDICT_LAUNCHES)
     for c in counters:
         c.reset()
     s, counts = scan.multi_scan(
@@ -203,4 +209,40 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
                 None if vh is None else (vh[None],),
                 None if vh is None else zero[None], widths, r)
             assert qc.tolist() == [4] and int(ins) == 4
-    assert [c.n for c in counters] == [0] * 15
+    # K6 over one span per entry (exists kind 0: every entry), then its
+    # verdicts into K1, K1s and K4
+    spans = {"span_trace": torch.arange(4, dtype=torch.int32),
+             "span_parent": torch.full((4,), -1, dtype=torch.int32),
+             "span_block": torch.zeros(4, dtype=torch.int32),
+             "span_dur": torch.ones(4, dtype=torch.int32),
+             "span_kind": torch.zeros(4, dtype=torch.int8),
+             "span_kv_key": torch.full((4, 1), -1, dtype=torch.int32),
+             "span_kv_val": torch.full((4, 1), -1, dtype=torch.int32),
+             "entry_span_begin": torch.arange(4, dtype=torch.int32)
+             .reshape(1, 4),
+             "entry_span_count": torch.ones((1, 4), dtype=torch.int32)}
+    lanes = (torch.tensor([[[3, 0, 0, 0]]], dtype=torch.int32),
+             torch.tensor([[[3, 1, 0, 0], [7, 1, 1, 0]]], dtype=torch.int32),
+             torch.full((1, 1, 1), -1, dtype=torch.int32),
+             torch.tensor([[[[[1, 0]]]]], dtype=torch.int32),
+             torch.zeros((1, 1, 2), dtype=torch.int32),
+             torch.zeros((1, 1), dtype=torch.int32),
+             torch.tensor([[[0, 1, 0]]], dtype=torch.int32), None)
+    v = k6.structural_mask(kv, kv, cols[2], cols[3], zero, spans, 4, lanes)
+    assert v.tolist() == [[1, 1, 1, 1]]
+    v[0, 1] = 0
+    s, counts = scan.multi_scan(
+        kv, kv, *cols, zero, zero.reshape(1, 1),
+        torch.tensor([[[[1, 0]]]], dtype=torch.int32), 0, 0, 0xFFFFFFFF, 0,
+        0xFFFFFFFF, verdicts=v[0])
+    assert counts.tolist() == [3, 4]
+    s, counts = scan.scan_single(
+        kv, kv, *cols, zero, torch.tensor([[[1, 0]]], dtype=torch.int32), 0,
+        0, 0xFFFFFFFF, 0, 0xFFFFFFFF, verdicts=v[0])
+    assert counts.tolist() == [3, 4]
+    s, qc, ins = scan.coalesced_scan(
+        kv, kv, *cols, zero, zero.reshape(1, 1, 1),
+        torch.tensor([[[[[1, 0]]]]], dtype=torch.int32),
+        torch.tensor([[False]]), zero, u32, zero, u32, verdicts=v)
+    assert qc.tolist() == [3] and int(ins) == 4
+    assert [c.n for c in counters] == [0] * len(counters)
