@@ -5,7 +5,7 @@
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
       --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
       --hc-packed-blocks 2 --st-blocks 4 \\
-      --st-traces-per-block 16384                    # a quick check
+      --st-traces-per-block 16384 --agg-blocks 8     # a quick check
 
 What it does, in order, failing (exit code != 0, no result line) on any
 error:
@@ -70,8 +70,31 @@ error:
    canonical bucket, through a second TempoDB with stacking and
    bucketing on and through the first (off), every response equal to
    the serial one; then an unpacked and a packed TempoDB over the first
-   4 blocks, every packed response equal to the unpacked one;
-7. prints the kernels line, the card's name and power limit, and as the
+   4 blocks, every packed response equal to the unpacked one. The
+   cell's database also answers one ``?agg=red`` request with the desc
+   plan (K6, K1 with its verdicts, K7), equal to the CPU path's;
+7. the RED cell (``?agg=red``, kernels K7 and K8): the tag cell's
+   corpus with error=true on 1 trace in 50 (C = 9), no root service on 1
+   in 100 (the "" series) and durations log-uniform over 1-60,000 ms, 1
+   in 8 exactly on an MS_BUCKETS edge or one past it; 128 blocks x
+   65,536 traces (``--agg-blocks``), two 4,096-page groups, so the
+   aggregate merges across groups, through a TempoDB with
+   ``search_analytics_enabled``: red_all (a whole-tenant RED panel),
+   red_svc, red_slow, red_500_window, red_all at limit 1 and red_svc's
+   plain twin, each cold then timed, with launches, device time and idle
+   share; red_all's aggregate equal to a count on the host (numpy) and
+   to limit 1's; the ingest count (``analytics.dense_counts``, K8) on
+   two micro-batches made from the corpus (8,192 rows x 64 series,
+   1,048,576 x 4,096), equal to the host's count; every response equal
+   to the CPU path's; K7 ([1, N] and [8, N] at K = 3,840: the
+   shared-memory route; K = 30,720: the global-atomic one) and K8 (K =
+   960, shared; 61,440, global) against their plain versions, timed,
+   with bound and torch.bincount times; a packed TempoDB over the first
+   64 blocks (``AGG_PACKED_BLOCKS``) through ``search_blocks``, each
+   response equal to the unpacked database's; then the concurrent phase
+   with 8 svc-00i agg requests and with 4 agg and 4 plain, every fused
+   dispatch all agg or all plain;
+8. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 The concurrent phase: 8 client threads, barrier-started, send one
@@ -129,7 +152,8 @@ KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "multi_scan_packed_hits", "scan_single_packed",
            "coalesced_scan_packed", "coalesced_scan_packed_hits",
            "pack_mask_words", "structural_mask", "multi_scan_verdicts",
-           "scan_single_verdicts", "coalesced_scan_verdicts")
+           "scan_single_verdicts", "coalesced_scan_verdicts", "agg_counts",
+           "agg_counts_rows", "analytics_count")
 CLIENTS = 8                     # concurrent clients
 # the concurrent clients' predicates: one service each, AND status 500
 CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
@@ -173,21 +197,29 @@ def hc_requests() -> dict:
 
 
 def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
-               long_every: int = 0, spans: bool = False):
+               long_every: int = 0, spans: bool = False, red: bool = False):
     """Block b's columns, from the seed, as the port's ColumnarPages. With
     `sessions`, every trace also carries session.id "session-%08d", unique
     across blocks of n traces, in a seeded order. With `long_every`, one
     trace in that many (seeded) lasts 60,000-3,600,000 ms instead of
     under 60,000. With `spans`, every trace also carries span rows
-    (``span_segment``)."""
+    (``span_segment``). With `red` (the RED cell), from a second seeded
+    stream: error=true on 1 trace in 50 (a last kv slot, C = 9), no root
+    service on 1 in 100, and durations log-uniform over 1-60,000 ms, 1
+    in 8 of them exactly on an ``MS_BUCKETS`` edge or one past it."""
     import numpy as np
 
     from tempo_tpu_torch.search.columnar import ColumnarPages
 
     rng = np.random.default_rng([seed, b])
     base_vals = sorted({v for vs in KEYS.values() for v in vs}
-                       | (set(SPAN_OPS) if spans else set()))
-    key_dict = sorted(list(KEYS) + ([SESSION_KEY] if sessions else []))
+                       | (set(SPAN_OPS) if spans else set())
+                       | ({"true"} if red else set()))
+    key_dict = sorted(list(KEYS) + ([SESSION_KEY] if sessions else [])
+                      + (["error"] if red else []))
+    # kv slot c holds key cols[c]: the keys in order, the error key last
+    cols = [k for k in key_dict if k != "error"] + (["error"] if red
+                                                    else [])
     # no base value starts with "session-", so the sessions (zero-padded,
     # numeric order = string order) form one run of the sorted dictionary
     lo = bisect.bisect_left(base_vals, "session-")
@@ -200,11 +232,12 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
             for i, v in enumerate(base_vals)}
     P = -(-n // E)
     C = len(key_dict)
-    kv_key = np.broadcast_to(np.arange(C, dtype=np.int32), (P, E, C)).copy()
+    kv_key = np.broadcast_to(np.asarray([key_dict.index(k) for k in cols],
+                                        dtype=np.int32), (P, E, C)).copy()
     kv_val = np.empty((P, E, C), dtype=np.int32)
     for k in KEYS:
         ids = np.asarray([vidx[v] for v in KEYS[k]], dtype=np.int32)
-        kv_val[:, :, key_dict.index(k)] = ids[
+        kv_val[:, :, cols.index(k)] = ids[
             rng.integers(0, len(ids), size=(P, E))]
     start = (BASE_S + b * BLOCK_SPAN_S
              + rng.integers(0, BLOCK_SPAN_S, size=(P, E))).astype(np.uint32)
@@ -217,14 +250,31 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
     if sessions:
         col = np.full(P * E, -1, dtype=np.int32)
         col[:n] = lo + rng.permutation(n).astype(np.int32)
-        kv_val[:, :, key_dict.index(SESSION_KEY)] = col.reshape(P, E)
+        kv_val[:, :, cols.index(SESSION_KEY)] = col.reshape(P, E)
+    svc = kv_val[:, :, cols.index("service.name")].copy()
+    if red:
+        from tempo_tpu_torch.search.analytics import MS_BUCKETS
+
+        rr = np.random.default_rng([seed, b, 1])
+        err = rr.integers(0, 50, size=(P, E)) == 0
+        kv_key[:, :, C - 1] = np.where(err, key_dict.index("error"), -1)
+        kv_val[:, :, C - 1] = np.where(err, vidx["true"], -1)
+        svc[rr.integers(0, 100, size=(P, E)) == 0] = -1
+        dur = np.clip(np.exp(rr.uniform(0, np.log(60_000), size=(P, E))),
+                      1, 60_000).astype(np.uint32)
+        edges = np.asarray([e + d for e in MS_BUCKETS for d in (0, 1)],
+                           dtype=np.uint32)
+        on_edge = rr.integers(0, 8, size=(P, E)) == 0
+        dur[on_edge] = edges[rr.integers(0, edges.size,
+                                         size=int(on_edge.sum()))]
+        end = (start + dur // 1000).astype(np.uint32)
     kv_key[~valid] = -1
     kv_val[~valid] = -1
+    svc[~valid] = -1
     start[~valid] = end[~valid] = dur[~valid] = 0
     trace_ids = np.frombuffer(rng.bytes(P * E * 16),
                               dtype=np.uint8).reshape(P, E, 16)
-    svc = kv_val[:, :, key_dict.index("service.name")]
-    name = kv_val[:, :, key_dict.index("name")]
+    name = kv_val[:, :, cols.index("name")]
     return ColumnarPages.from_arrays(
         key_dict, val_dict, kv_key, kv_val, start, end, dur, valid, svc,
         name, trace_ids,
@@ -274,7 +324,8 @@ def block_id(b: int) -> str:
 
 def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
                  seed: int, sessions: bool = False,
-                 long_every: int = 0, spans: bool = False) -> int:
+                 long_every: int = 0, spans: bool = False,
+                 red: bool = False) -> int:
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.backend.types import BlockMeta
     from tempo_tpu_torch.search.backend_search_block import \
@@ -283,7 +334,7 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
     be = LocalBackend(root)
 
     def one(b):
-        pages = make_block(seed, b, n, E, sessions, long_every, spans)
+        pages = make_block(seed, b, n, E, sessions, long_every, spans, red)
         meta = BlockMeta(tenant_id=tenant, block_id=block_id(b),
                          start_time=int(pages.header["min_start_s"]),
                          end_time=int(pages.header["max_end_s"]),
@@ -296,7 +347,7 @@ def write_corpus(root: str, tenant: str, blocks: int, n: int, E: int,
 
 
 def counters() -> dict:
-    from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
+    from tempo_tpu_torch.search.kernels import agg, pack, probe, scan, topk
     from tempo_tpu_torch.search.kernels import structural as k6
 
     return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
@@ -315,7 +366,9 @@ def counters() -> dict:
             "structural_mask": k6.LAUNCHES,
             "multi_scan_verdicts": scan.VERDICT_LAUNCHES,
             "scan_single_verdicts": scan.SINGLE_VERDICT_LAUNCHES,
-            "coalesced_scan_verdicts": scan.COALESCED_VERDICT_LAUNCHES}
+            "coalesced_scan_verdicts": scan.COALESCED_VERDICT_LAUNCHES,
+            "agg_counts": agg.LAUNCHES, "agg_counts_rows": agg.ROW_LAUNCHES,
+            "analytics_count": agg.COUNT_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -401,9 +454,12 @@ def run_queries(db, tenant: str, reqs: dict, reps: int) -> dict:
     return out
 
 
-def check_response(name: str, resp, tags: dict, kw: dict, n_total: int):
+def check_response(name: str, resp, tags: dict, kw: dict, n_total: int,
+                   rootless: bool = False):
     """Every returned trace satisfies the request, the order is newest
-    first, and the metrics are consistent."""
+    first, and the metrics are consistent. With `rootless` (a corpus with
+    traces that have no root service) a result's root service is checked
+    against the service.name term only where it has one."""
     m = resp.metrics
     if m.inspected_traces > n_total or m.inspected_traces < 0:
         raise AssertionError(f"{name}: inspected {m.inspected_traces}")
@@ -421,7 +477,8 @@ def check_response(name: str, resp, tags: dict, kw: dict, n_total: int):
         if (lo and t.duration_ms < lo) or (hi and t.duration_ms > hi):
             raise AssertionError(f"{name}: duration {t.duration_ms}")
         svc = tags.get("service.name")
-        if svc and svc not in t.root_service_name:
+        if svc and svc not in t.root_service_name \
+                and not (rootless and not t.root_service_name):
             raise AssertionError(f"{name}: root service "
                                  f"{t.root_service_name}")
     if tags.get("x-dbg-exhaustive") is not None and m.inspected_traces \
@@ -430,15 +487,47 @@ def check_response(name: str, resp, tags: dict, kw: dict, n_total: int):
                              f"{m.inspected_traces} of {n_total}")
 
 
-def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
-    """Device time per request from torch.profiler (kernels and copies on
-    the card, summed) over `reps` warm runs of each named request. A
-    profiler that records no device activity gives None ("not
-    measured"), never a number taken from the host."""
+def profiled(fn, reps: int):
+    """torch.profiler's key averages over `reps` calls of fn (after one
+    warm call), CPU and CUDA activities. acc_events=True keeps the records
+    of every cycle: without it the profiler drops those of earlier cycles
+    in a long run (it kept 3 of 20 kernel records in one), and a sum over
+    the records read low."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def device_events(averages) -> list:
+    """The device-side events (kernels, copies, sets): a CPU op's self
+    device time counts its kernels a second time."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def records(averages, symbol: str) -> int:
+    """Launch records kept of the kernels whose name holds `symbol`."""
+    return sum(e.count for e in device_events(averages) if symbol in e.key)
+
+
+def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
+    """Device time per request from torch.profiler (kernels and copies on
+    the card, summed) over `reps` warm runs of each named request, and
+    the check that the profiler kept every record: its records of the
+    top-k's last kernel (one a K2 or K2r call) against the calls the
+    launch counters saw. A profiler that records no device activity, or
+    dropped records, gives None ("not measured"), never a number taken
+    from the host."""
     from tempo_tpu_torch.model.types import SearchRequest
 
     out = {}
@@ -446,23 +535,18 @@ def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
         tags, kw = reqs[name]
         req = SearchRequest(tags=dict(tags), **kw)
         db.search(tenant, req)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                db.search(tenant, req)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.key_averages():
-            # device-side events only (kernels, copies, sets): a CPU op's
-            # self device time counts its kernels a second time
-            if e.device_type != DeviceType.CUDA \
-                    or getattr(e, "is_user_annotation", False):
-                continue
-            if e.self_device_time_total > 0:
-                by_name[e.key] = e.self_device_time_total / reps / 1e3
+        reset_counts()
+        avg = profiled(lambda: db.search(tenant, req), reps)
+        n = read_counts()
+        calls = (n["topk"] + n["topk_rows"]) * reps // (reps + 1)
+        kept = records(avg, "unpack_kernel")
+        by_name = {e.key: e.self_device_time_total / reps / 1e3
+                   for e in device_events(avg)
+                   if e.self_device_time_total > 0}
         total = sum(by_name.values())
-        out[name] = {"device_ms": total if total > 0 else None,
+        out[name] = {"device_ms": (total if total > 0 and kept == calls
+                                   else None),
+                     "records_kept": kept, "records_expected": calls,
                      "by_kernel_ms": by_name}
     return out
 
@@ -471,12 +555,14 @@ def print_busy(busy: dict, lat_report: dict) -> None:
     for name, b in busy.items():
         p50 = lat_report[name]["p50_ms"]
         if b["device_ms"] is None:
-            print(f"device busy {name}: not measured (the profiler "
-                  "recorded no device activity)", flush=True)
+            print(f"device busy {name}: not measured (the profiler kept "
+                  f"{b['records_kept']} of {b['records_expected']} top-k "
+                  "records)", flush=True)
             continue
         b["idle_share_of_p50"] = max(0.0, 1 - b["device_ms"] / p50)
         print(f"device busy {name}: {b['device_ms']:.3f} ms per request "
-              f"(profiler) of {p50:.3f} ms p50, idle share "
+              f"(profiler, {b['records_kept']} of {b['records_expected']} "
+              f"top-k records kept) of {p50:.3f} ms p50, idle share "
               f"{b['idle_share_of_p50']:.2f}", flush=True)
 
 
@@ -724,47 +810,38 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
     return err
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """Device time per call of fn (torch.profiler: the device-side
-    events of `reps` calls, its kernels and the zeroing of its outputs,
-    summed), free of the host time that bounds a small kernel's CUDA-event
-    time when its calls run back to back. None when the profiler records
-    no device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the CUDA kernel each wrapper launches once a call (the top-k chain's
+# last one for K2 and K2r), by kernels-line name prefix
+KERNEL_SYMBOLS = {"multi_scan": "scan_kernel", "scan_single": "scan_kernel",
+                  "coalesced_scan": "coalesced_kernel",
+                  "topk": "unpack_kernel", "dict_probe": "probe_kernel",
+                  "pack_mask_words": "pack_kernel",
+                  "structural_mask": "structural_kernel",
+                  "agg_counts": "agg_rows_kernel",
+                  "analytics_count": "count_kernel"}
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    return total / reps / 1e3 if total > 0 else None
+
+def device_ms(fn, reps: int, symbol: str) -> tuple:
+    """(device ms per call of fn, launch records kept of its kernel
+    `symbol`, where it came from): torch.profiler's device-side events of
+    `reps` calls, its kernels and the zeroing of its outputs, summed, free
+    of the host time that bounds a small kernel's CUDA-event time when
+    its calls run back to back. When the profiler kept fewer than `reps`
+    records of the kernel, or none at all, the sum would read low: the
+    CUDA-event time of `reps` calls stands in for it."""
+    avg = profiled(fn, reps)
+    kept = records(avg, symbol)
+    total = sum(e.self_device_time_total for e in device_events(avg))
+    if kept == reps and total > 0:
+        return total / reps / 1e3, kept, "profiler"
+    return cuda_ms(fn, reps), kept, "cuda_events"
 
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> tuple:
     """(device ms per launch, launch records kept) of the kernel whose
     name holds `kernel`, over `reps` calls of fn: the mean of the records
-    torch.profiler kept, so that a record it drops (late in a long run
-    it kept about a quarter of K6's) does not read as time saved."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    torch.profiler kept."""
+    ev = [e for e in device_events(profiled(fn, reps)) if kernel in e.key]
     n = sum(e.count for e in ev)
     total = sum(e.self_device_time_total for e in ev)
     return (total / n / 1e3 if n else None), n
@@ -773,9 +850,14 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> tuple:
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
                bound_bytes, library_ms, shape, fn=None) -> dict:
     """A kernels-line row; with `fn` (one call of the kernel's wrapper)
-    the report's shape also gets its profiler device time."""
+    the report's shape also gets its device time (``device_ms``) with
+    the profiler records kept of 20 calls."""
     if fn is not None:
-        shape["device_ms"] = device_ms(fn, 20)
+        symbol = next(v for k, v in sorted(KERNEL_SYMBOLS.items(),
+                                           key=lambda kv: -len(kv[0]))
+                      if name.startswith(k))
+        (shape["device_ms"], shape["device_records"],
+         shape["device_source"]) = device_ms(fn, 20, symbol)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2148,6 +2230,7 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
     v_desc, err, ms, dev, plain, need = k6_measure(
         db, batch, mq_desc.structural.lanes())
     shape["device_ms"], shape["device_records"] = dev
+    shape["device_source"] = "profiler, mean of the records kept"
     shape["desc"] = {"verdicts": int(v_desc.sum()), "bytes_needed": need}
     _v, e2, q_ms, q_dev, q_plain, q_need = k6_measure(
         db, batch, mq_q.structural.lanes())
@@ -2322,7 +2405,8 @@ def structural_cell(args, work: str, report: dict, dbs: list,
           f"{report['st_corpus']['write_s']:.1f} s", flush=True)
     be = LocalBackend(root)
     cfg = TempoDBConfig(search_max_batch_pages=4096,
-                        search_structural_enabled=True)
+                        search_structural_enabled=True,
+                        search_analytics_enabled=True)
     gpu = TempoDB(be, cfg, device="cuda")
     dbs.append(gpu)
     gpu.poll()
@@ -2391,6 +2475,22 @@ def structural_cell(args, work: str, report: dict, dbs: list,
     report["st_cpu_check_s"] = time.perf_counter() - t0
     print(f"structural cpu check: {len(res)} responses identical "
           f"({report['st_cpu_check_s']:.1f} s)", flush=True)
+    # an ?agg=red request with the desc plan: K6, K1 with its verdicts,
+    # then K7 over K1's scores; the card's answer equals the CPU path's
+    areq = {"st_desc_agg": (dict(st_tag(ST_PLANS["desc"], False), **AGG),
+                            {"limit": 20})}
+    ares = run_queries(gpu, "st", areq, args.reps)
+    apath = ares["st_desc_agg"]["launches"]
+    require_launched("structural agg search", apath,
+                     ("structural_mask", "multi_scan_verdicts",
+                      "agg_counts"), ())
+    add_counts(launches, apath)
+    want = run_queries(cpu, "st", areq, 0)["st_desc_agg"]["resp"]
+    got = ares["st_desc_agg"]["resp"]
+    if got != want or not got.metrics.agg_json:
+        raise AssertionError("st_desc_agg: card and CPU responses differ")
+    report["st_agg"] = latency_row(ares["st_desc_agg"], got)
+    print_row("st_desc_agg", report["st_agg"])
     cpu.close()
     dbs.remove(cpu)
     del cpu, cres
@@ -2470,6 +2570,511 @@ def structural_cell(args, work: str, report: dict, dbs: list,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the RED cell (?agg=red aggregates, kernels K7 and K8)
+
+AGG = {"x-agg-q": "red"}        # the tag analytics.attach_agg(req, "red") sets
+RED_TENANT = "red"
+AGG_PACKED_BLOCKS = 64          # blocks of the RED corpus in its packed phase
+
+
+def red_requests(blocks: int) -> dict:
+    """The RED cell's requests, in the order they run: five ask for the
+    aggregate, the last is red_svc's plain twin. red_all (a whole-tenant
+    RED panel) runs first and stages every group."""
+    mid = BASE_S + (blocks // 2) * BLOCK_SPAN_S
+    svc = {"service.name": "svc-007"}
+    return {
+        "red_all": (dict(AGG), {"limit": 20}),
+        "red_svc": (dict(AGG, **svc), {"limit": 20}),
+        "red_slow": (dict(AGG), {"min_duration_ms": 1000, "limit": 20}),
+        "red_500_window": (dict(AGG, **{"http.status_code": "500"}),
+                           {"start": BASE_S, "end": mid, "limit": 20}),
+        "red_all_limit_1": (dict(AGG), {"limit": 1}),
+        "red_svc_plain": (dict(svc), {"limit": 20}),
+    }
+
+
+def corpus_blocks(db) -> list:
+    """The containers of every block staged by `db`, each once."""
+    out = {}
+    for c in db.batcher._cache.values():
+        for b in c.batch.blocks:
+            out[id(b)] = b
+    return list(out.values())
+
+
+def red_host_series(blocks: list) -> dict:
+    """red_all's series computed on the host with numpy alone, from the
+    containers: per root service name ("" for none), calls, the traces
+    carrying the exact pair error=true, and the bisect_left bins of the
+    duration on MS_BUCKETS."""
+    import numpy as np
+
+    from tempo_tpu_torch.search.analytics import MS_BUCKETS
+
+    nb1 = len(MS_BUCKETS) + 1
+    acc: dict = {}
+    for b in blocks:
+        v = b.entry_valid
+        names = list(b.val_dict) + [""]            # id -1 -> ""
+        svc = np.where(b.entry_root_svc[v] < 0, len(b.val_dict),
+                       b.entry_root_svc[v])
+        bins = np.searchsorted(np.asarray(MS_BUCKETS),
+                               b.entry_dur[v].astype(np.int64), side="left")
+        kid = b.key_dict.index("error")
+        vid = b.val_dict.index("true")
+        err = ((b.kv_key == kid) & (b.kv_val == vid)).any(-1)[v]
+        ids, inv = np.unique(svc, return_inverse=True)
+        hist = np.bincount(inv * nb1 + bins, minlength=len(ids) * nb1
+                           ).reshape(len(ids), nb1)
+        errs = np.bincount(inv, weights=err, minlength=len(ids))
+        for j, i in enumerate(ids.tolist()):
+            d = acc.setdefault(names[i], {"calls": 0, "errors": 0,
+                                          "hist": [0] * nb1})
+            d["calls"] += int(hist[j].sum())
+            d["errors"] += int(errs[j])
+            d["hist"] = [x + int(y) for x, y in zip(d["hist"], hist[j])]
+    return acc
+
+
+def red_ingest_batches(blocks: list, seed: int) -> dict:
+    """Two micro-batches of the ingest side's count made from the
+    corpus's traces: 8,192 rows by root service (64 series) and
+    1,048,576 rows by (service, operation, status 500 or not) (4,096
+    series; fewer where the corpus is smaller); durations in
+    nanoseconds (ms x 1e6 plus a seeded sub-millisecond part, the first
+    rows on every threshold and one either side of it). route -> (series
+    ids int32, durations int64, n_keys)."""
+    import numpy as np
+
+    from tempo_tpu_torch.search.analytics import (LATENCY_BUCKETS_S,
+                                                  _dur_thresholds_full)
+
+    rng = np.random.default_rng([seed, 8])
+    want = min(1_048_576, sum(int(b.entry_valid.sum()) for b in blocks))
+    cols = {k: [] for k in ("svc", "name", "s500", "dur")}
+    have = 0
+    for b in blocks:
+        v = b.entry_valid
+        for col, key, vals in (("svc", "service.name",
+                                KEYS["service.name"]),
+                               ("name", "name", KEYS["name"]),
+                               ("s500", "http.status_code", ["500"])):
+            kid = b.key_dict.index(key)
+            slot = int(np.flatnonzero(b.kv_key[0, 0] == kid)[0])
+            lut = np.full(len(b.val_dict) + 1, -1, dtype=np.int64)
+            for i, x in enumerate(vals):
+                lut[b.val_dict.index(x)] = i
+            cols[col].append(lut[b.kv_val[:, :, slot][v]])
+        cols["dur"].append(b.entry_dur[v].astype(np.int64) * 1_000_000)
+        have += int(v.sum())
+        if have >= want:
+            break
+    c = {k: np.concatenate(x)[:want] for k, x in cols.items()}
+    dur = c["dur"] + rng.integers(0, 1_000_000, size=want)
+    edges = np.asarray([t + d for t in
+                        _dur_thresholds_full(LATENCY_BUCKETS_S)
+                        for d in (-1, 0, 1)], dtype=np.int64)
+    dur[:edges.size] = edges
+    s500 = (c["s500"] == 0).astype(np.int64)
+    return {"shared": (c["svc"][:8192].astype(np.int32), dur[:8192].copy(),
+                       64),
+            "global": (((c["svc"] * 32 + c["name"]) * 2 + s500)
+                       .astype(np.int32), dur, 4096)}
+
+
+def host_dense_counts(sidx, dur, n_keys: int):
+    """The ingest count on the host: bisect by the whole-nanosecond
+    thresholds, bincount the composite keys."""
+    import numpy as np
+
+    from tempo_tpu_torch.search.analytics import (LATENCY_BUCKETS_S,
+                                                  _dur_thresholds_full)
+
+    thr = np.asarray(_dur_thresholds_full(LATENCY_BUCKETS_S), dtype=np.int64)
+    b = np.searchsorted(thr, dur, side="right")
+    K = n_keys * (thr.size + 1)
+    return np.bincount(sidx.astype(np.int64) * (thr.size + 1) + b,
+                       minlength=K)[:K]
+
+
+def red_scores(db, batch, reqs: list):
+    """The score rows K1 (one request) or K4 (several) write over `batch`
+    for (tags, fields) requests compiled as the engine compiles them."""
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.multiblock import compile_multi, \
+        stack_queries
+
+    eng = db.batcher.engine
+    d = batch.device
+    mqs = [compile_multi(list(batch.blocks),
+                         SearchRequest(tags=dict(t), **kw), memo=batch.memo,
+                         cache=eng.compile_cache,
+                         staged_dicts=batch.staged_dicts, packed=eng.packed)
+           for t, kw in reqs]
+    page = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+            d["entry_dur"], d["entry_valid"], d["page_block"])
+    layout = (batch.widths, d.get("entry_dur_res"))
+    if len(mqs) == 1:
+        mq = mqs[0]
+        bg = (None if mq.block_group is None
+              else torch.from_numpy(mq.block_group).to(db.device))
+        scores, _c = scan.multi_scan(
+            *page, torch.from_numpy(mq.term_keys).to(db.device),
+            torch.from_numpy(mq.val_ranges).to(db.device), mq.n_terms,
+            mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
+            min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg, *layout)
+        return scores
+    cq = stack_queries(mqs)
+    scores, _c, _i = scan.coalesced_scan(*page, *eng.coalesced_tables(cq),
+                                         *layout)
+    return scores
+
+
+def k7_measure(label: str, scores, keys, K: int) -> dict:
+    """K7 on score rows [Q, N] against its plain version, its CUDA-event
+    time, the plain version's and torch.bincount's (over torch.where(
+    scores >= 0, keys, K), one call for all rows with a row offset), and
+    its bound: the score rows read, the keys of the entries some row
+    accepts (32-byte sectors) and the counts written."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import agg
+
+    Q, n = scores.shape
+    if Q == 1:
+        def fn():
+            return agg.agg_counts(scores[0], keys, K)[None]
+    else:
+        def fn():
+            return agg.agg_counts_rows(scores, keys, K)
+    out = fn()
+    err = require_equal(f"K7 ({label})", (out,),
+                        (agg.agg_counts_rows_plain(scores, keys, K),))
+    off = (torch.arange(Q, device=scores.device, dtype=torch.int64)
+           * (K + 1))[:, None]
+
+    def lib():
+        return torch.bincount(
+            (torch.where(scores >= 0, keys, K) + off).reshape(-1),
+            minlength=Q * (K + 1)).reshape(Q, K + 1)[:, :K]
+
+    if not torch.equal(lib().to(torch.int32), out):
+        raise AssertionError(f"K7 ({label}) differs from torch.bincount")
+    need = (Q * n * 4 + sector_bytes((scores >= 0).any(dim=0), 4)
+            + Q * K * 4)
+    return {"fn": fn, "err": err, "ms": cuda_ms(fn, 50),
+            "plain_ms": cuda_ms(
+                lambda: agg.agg_counts_rows_plain(scores, keys, K), 5),
+            "library_ms": cuda_ms(lib, 50), "bytes_needed": need,
+            "bound_ms": need / HBM_BYTES_PER_S * 1e3,
+            "shape": {"Q": Q, "N": n, "K": K,
+                      "route": ("shared" if K <= agg.shared_bins()
+                                else "global"),
+                      "counted": int(out.sum())}}
+
+
+def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
+    """K8 on one micro-batch against its plain version and the host's
+    count, its CUDA-event time, the plain version's and torch.bucketize +
+    torch.bincount's, and its bound: series ids and durations read,
+    thresholds read, counts written."""
+    import torch
+
+    from tempo_tpu_torch.search.analytics import (LATENCY_BUCKETS_S,
+                                                  thresholds_tensor)
+    from tempo_tpu_torch.search.kernels import agg
+
+    thr = thresholds_tensor(LATENCY_BUCKETS_S, device)
+    s = torch.from_numpy(sidx).to(device)
+    d = torch.from_numpy(dur).to(device)
+    nb1 = thr.numel() + 1
+    K = n_keys * nb1
+
+    def fn():
+        return agg.analytics_count(s, d, thr, n_keys)
+
+    out = fn()
+    err = require_equal(f"K8 ({label})", (out,),
+                        (agg.analytics_count_plain(s, d, thr, n_keys),))
+    s64 = s.to(torch.int64)
+
+    def lib():
+        return torch.bincount(s64 * nb1 + torch.bucketize(d, thr, right=True),
+                              minlength=K)[:K]
+
+    import numpy as np
+
+    if not np.array_equal(out.cpu().numpy(),
+                          host_dense_counts(sidx, dur, n_keys)) \
+            or not torch.equal(lib().to(torch.int32), out):
+        raise AssertionError(f"K8 ({label}) differs from the host's count "
+                             "or torch.bincount")
+    need = s.numel() * 12 + thr.numel() * 8 + K * 4
+    return {"fn": fn, "err": err, "ms": cuda_ms(fn, 50),
+            "plain_ms": cuda_ms(
+                lambda: agg.analytics_count_plain(s, d, thr, n_keys), 5),
+            "library_ms": cuda_ms(lib, 50), "bytes_needed": need,
+            "bound_ms": need / HBM_BYTES_PER_S * 1e3,
+            "shape": {"rows": s.numel(), "series": n_keys, "K": K,
+                      "route": ("shared" if K <= agg.shared_bins()
+                                else "global")}}
+
+
+def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
+    """K7 and K8 against their plain versions on the card, timed, with
+    bound and library times: K7 over red_all's K1 scores on the largest
+    staged group ([1, N], K = 3,840 at full size, the shared route), over
+    the same scores with keys spread to 1,024 services (K = 30,720, the
+    global route), and over K4's rows of 8 svc-00i requests ([8, N]); K8
+    on the two ingest micro-batches (K = 960, shared; K = 61,440,
+    global)."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import agg
+
+    batch = largest_batch(db)
+    stage = batch.agg_stage
+    keys = stage.device(db.device).reshape(-1)
+    K = stage.n_keys
+    s1 = red_scores(db, batch, [({}, {"limit": 20})])[None]
+    one = k7_measure("[1, N]", s1, keys, K)
+    idx = torch.arange(keys.numel(), device=keys.device, dtype=torch.int32)
+    keys30 = (((keys // 30) * 16 + idx % 16) % 1024 * 30
+              + keys % 30).to(torch.int32)
+    glob = k7_measure("[1, N], 1,024 services", s1, keys30, 1024 * 30)
+    s8 = red_scores(db, batch, [({"service.name": f"svc-00{i}"},
+                                 {"limit": 20}) for i in range(CLIENTS)])
+    rows8 = k7_measure("[8, N]", s8, keys, K)
+    k8 = {name: k8_measure(name, sidx, dur, nk, db.device)
+          for name, (sidx, dur, nk) in ingest.items()}
+    if not (one["shape"]["route"] == rows8["shape"]["route"] == "shared"
+            and glob["shape"]["route"] == "global"
+            and k8["shared"]["shape"]["route"] == "shared"
+            and k8["global"]["shape"]["route"] == "global"):
+        raise AssertionError("the kernel phases missed a route of K7 or K8")
+    for label, m in (("K7 [1, N]", one), ("K7 global", glob),
+                     ("K7 [8, N]", rows8)) + tuple(
+            (f"K8 {k}", v) for k, v in k8.items()):
+        print(f"{label}: {m['shape']}, equal to its plain version; "
+              f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.3f} ms, library {m['library_ms']:.4f} ms",
+              flush=True)
+
+    def row(name, m, also=None):
+        shape = dict(m["shape"], bytes_needed=m["bytes_needed"])
+        err = m["err"]
+        if also is not None:
+            label, a = also
+            shape[label] = {k: a[k] for k in ("ms", "plain_ms",
+                                              "library_ms", "bound_ms",
+                                              "bytes_needed", "shape")}
+            err = max(err, a["err"])
+        return kernel_row(name, "tempo_tpu_torch/csrc/agg.cu",
+                          ("tempo_tpu/search/multiblock.py:838"
+                           if name.startswith("agg") else
+                           "tempo_tpu/search/analytics.py:123"),
+                          launches, err, m["ms"], m["plain_ms"],
+                          m["bytes_needed"], m["library_ms"], shape, m["fn"])
+
+    return [row("agg_counts", one, ("global_route", glob)),
+            row("agg_counts_rows", rows8),
+            row("analytics_count", k8["global"],
+                ("shared_route", k8["shared"]))]
+
+
+def red_cell(args, work: str, report: dict, dbs: list,
+             launches: dict) -> list:
+    """The RED cell (step 7 of the module docstring). Returns its kernel
+    rows."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import (BlockSearchJob, SearchRequest,
+                                             SearchBlocksRequest)
+    from tempo_tpu_torch.search import analytics, batcher
+
+    n_per = args.traces_per_block
+    n_total = args.agg_blocks * n_per
+    reqs = red_requests(args.agg_blocks)
+    root = os.path.join(work, "red_blocks")
+    t0 = time.perf_counter()
+    nbytes = write_corpus(root, RED_TENANT, args.agg_blocks, n_per,
+                          ENTRIES_PER_PAGE, args.seed + 5, red=True)
+    report["red_corpus"] = {"blocks": args.agg_blocks, "traces": n_total,
+                            "compressed_bytes": nbytes,
+                            "write_s": time.perf_counter() - t0}
+    print(f"RED corpus: {args.agg_blocks} blocks, {n_total} traces, "
+          f"{nbytes / 1e6:.1f} MB zlib, "
+          f"{report['red_corpus']['write_s']:.1f} s", flush=True)
+    be = LocalBackend(root)
+    cfg = TempoDBConfig(search_max_batch_pages=4096,
+                        search_analytics_enabled=True)
+    gpu = TempoDB(be, cfg, device="cuda")
+    dbs.append(gpu)
+    gpu.poll()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_queries(gpu, RED_TENANT, reqs, args.reps)   # the main path
+    path = {}
+    for r in res.values():
+        add_counts(path, r["launches"])
+    require_launched("RED search", path, ("multi_scan", "agg_counts",
+                                          "topk"), ("dict_probe",))
+    add_counts(launches, path)
+    report["red_launches"] = path
+    report["red_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    report["red_staged"] = gpu.batcher.debug_stats()["cache"]
+    lat = {}
+    for name, r in res.items():
+        tags, kw = reqs[name]
+        check_response(name, r["resp"], tags, kw, n_total, rootless=True)
+        lat[name] = latency_row(r, r["resp"])
+        print_row(name, lat[name])
+    report["red_search"] = lat
+    blocks = corpus_blocks(gpu)
+    agg = {n: r["resp"].metrics.agg_json for n, r in res.items()}
+    want = json.dumps(analytics.agg_response(red_host_series(blocks)),
+                      sort_keys=True)
+    if agg["red_all"] != want or agg["red_all_limit_1"] != want \
+            or len(res["red_all_limit_1"]["resp"].traces) != 1 \
+            or agg["red_svc_plain"] != "" \
+            or not all(agg[n] for n in reqs if n != "red_svc_plain"):
+        raise AssertionError("RED: an aggregate differs from the host's "
+                             "count, or limit 1's from limit 20's")
+    series = json.loads(agg["red_all"])["series"]
+    groups = [len(c.batch.blocks) for c in gpu.batcher._cache.values()]
+    errors = sum(s["errors"] for s in series.values())
+    print(f"RED groups: {groups} blocks; red_all = the host's count over "
+          f"{len(blocks)} blocks ({len(series)} series, {errors} errors, "
+          f"'' series {series.get('', {}).get('calls')} calls); limit 1 "
+          f"gives the same aggregate; staged "
+          f"{json.dumps(report['red_staged'])}", flush=True)
+    busy = device_busy(gpu, RED_TENANT, reqs, ("red_all", "red_svc",
+                                               "red_svc_plain"), args.reps)
+    report["red_device_busy"] = busy
+    print_busy(busy, lat)
+
+    # the ingest side's count on its micro-batches (K8's main path)
+    ingest = red_ingest_batches(blocks, args.seed)
+    reset_counts()
+    for name, (sidx, dur, nk) in ingest.items():
+        got = analytics.dense_counts(sidx, dur, nk, device=gpu.device)
+        if not np.array_equal(got, host_dense_counts(sidx, dur, nk)):
+            raise AssertionError(f"dense_counts {name} differs from the "
+                                 "host's count")
+    ipath = read_counts()
+    require_launched("ingest count", ipath, ("analytics_count",), ())
+    add_counts(launches, ipath)
+    print(f"ingest count: {', '.join(ingest)} equal to the host's count; "
+          f"launches {json.dumps(ipath)}", flush=True)
+
+    t0 = time.perf_counter()
+    cpu = TempoDB(be, cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    cres = run_queries(cpu, RED_TENANT, reqs, 0)
+    for name in reqs:
+        if cres[name]["resp"] != res[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    report["red_cpu_check_s"] = time.perf_counter() - t0
+    print(f"RED cpu check: {len(reqs)} responses identical "
+          f"({report['red_cpu_check_s']:.1f} s)", flush=True)
+    cpu.close()
+    dbs.remove(cpu)
+    del cpu, cres
+    gc.collect()
+
+    rows = red_kernel_phase(gpu, ingest, launches)
+    del ingest
+
+    # packed: the first blocks through search_blocks, a packed database
+    # against the unpacked one
+    k = min(AGG_PACKED_BLOCKS, args.agg_blocks)
+    metas = sorted(gpu.blocklist.metas(RED_TENANT),
+                   key=lambda m: m.block_id)[:k]
+    jobs = [BlockSearchJob(block_id=m.block_id, encoding=m.encoding,
+                           version=m.version, data_encoding=m.data_encoding,
+                           start_time=m.start_time, end_time=m.end_time)
+            for m in metas]
+    packed = TempoDB(be, TempoDBConfig(search_max_batch_pages=4096,
+                                       search_analytics_enabled=True,
+                                       search_packed_residency=True),
+                     device="cuda")
+    dbs.append(packed)
+    packed.poll()
+    ppath, plat = {}, {}
+    for name, (tags, kw) in reqs.items():
+        breq = SearchBlocksRequest(
+            search_req=SearchRequest(tags=dict(tags), **kw),
+            tenant_id=RED_TENANT, jobs=jobs)
+        want = gpu.search_blocks(breq).response()
+        r = drive(lambda: packed.search_blocks(breq), args.reps, True)
+        if r["resp"] != want:
+            raise AssertionError(f"packed {name}: the packed database's "
+                                 "response differs from the unpacked one's")
+        add_counts(ppath, r["launches"])
+        plat[name] = latency_row(r, r["resp"])
+        print_row(f"packed {k} blocks {name}", plat[name])
+    require_launched("packed RED search", ppath,
+                     ("multi_scan_packed", "agg_counts"), ("multi_scan",))
+    add_counts(launches, ppath)
+    report["red_packed"] = {"blocks": k, "launches": ppath, "search": plat,
+                            "staged": packed.batcher.debug_stats()["cache"]}
+    print(f"packed RED search: {len(reqs)} responses over {k} blocks equal "
+          f"the unpacked database's; staged "
+          f"{json.dumps(report['red_packed']['staged'])}", flush=True)
+    packed.close()
+    dbs.remove(packed)
+
+    # 8 clients: svc-00i with the aggregate, then 4 agg + 4 plain; agg
+    # members never share a fused dispatch with plain ones
+    serial = TempoDB(be, TempoDBConfig(search_max_batch_pages=4096,
+                                       search_analytics_enabled=True,
+                                       search_coalesce_max_queries=1),
+                     device="cuda")
+    dbs.append(serial)
+    serial.poll()
+    serial.search(RED_TENANT, SearchRequest(tags=dict(AGG), limit=20))
+    svc = [{"service.name": f"svc-00{i}"} for i in range(CLIENTS)]
+    mixed = []
+    real_stack = batcher.stack_queries
+
+    def spy(mqs, *a):
+        mixed.append(sorted({mq.agg_stage is not None for mq in mqs}))
+        return real_stack(mqs, *a)
+
+    batcher.stack_queries = spy
+    try:
+        conc = concurrent_phase(
+            "RED", gpu, serial, RED_TENANT,
+            {"svc_agg": [(dict(t, **AGG), {"limit": 20}) for t in svc],
+             "mixed": [(dict(t, **AGG) if i % 2 else dict(t),
+                        {"limit": 20}) for i, t in enumerate(svc)]},
+            args.rounds, launches)
+    finally:
+        batcher.stack_queries = real_stack
+    report["red_concurrent"] = conc
+    require_fusion(conc["svc_agg/coalescing"], "agg_counts_rows")
+    if any(len(m) != 1 for m in mixed) or [True] not in mixed:
+        raise AssertionError(f"a fused RED dispatch mixed agg and plain "
+                             f"members, or none fused: {mixed}")
+    print(f"RED fused dispatches: {len(mixed)}, each all agg or all plain",
+          flush=True)
+    for db in (gpu, serial):
+        db.close()
+        dbs.remove(db)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -2487,6 +3092,9 @@ def main(argv=None) -> int:
     ap.add_argument("--st-packed-blocks", type=int, default=4,
                     help="blocks of the structural corpus in its packed "
                          "phase")
+    ap.add_argument("--agg-blocks", type=int, default=128,
+                    help="blocks of the RED cell's corpus (traces per "
+                         "block as --traces-per-block)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -2523,6 +3131,7 @@ def main(argv=None) -> int:
         rows += hc_cell(args, work, report, dbs, launches)
         rows += packed_hc_cell(args, work, report, dbs, launches)
         rows += structural_cell(args, work, report, dbs, launches)
+        rows += red_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()
@@ -2541,7 +3150,9 @@ def main(argv=None) -> int:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms a call back to back "
               f"(CUDA events), "
               + ("device time not measured" if dm is None else
-                 f"{dm:.4f} ms device time (profiler)")
+                 f"{dm:.4f} ms device time ({r['shape']['device_source']}, "
+                 f"{r['shape']['device_records']} of 20 profiler records "
+                 "kept)")
               + f", bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f}"
               f" ms, {r['launches']} launches on the main path", flush=True)
 

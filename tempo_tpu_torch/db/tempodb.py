@@ -3,7 +3,8 @@
 Counterpart of the search half of the reference's ``db/tempodb.py``:
 ``poll`` of the blocklist from the backend, ``search`` of a tenant's
 blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
-list of them, all through the batched device engine. Writing trace
+list of them, all through the batched device engine, each answering an
+``?agg=`` aggregate when the database's analytics gate is on. Writing trace
 blocks, trace-by-id lookup, compaction and retention are later slices;
 the search blocks this reads are written by
 ``search.backend_search_block.write_search_block`` (or by the reference,
@@ -64,6 +65,12 @@ class TempoDBConfig:
     search_structural_stack_enabled: bool = False
     search_structural_bucket_enabled: bool = False
     search_structural_bucket_max_nodes: int = 16
+    # aggregate analytics (search/analytics.py): a request carrying the
+    # ?agg= tag (analytics.attach_agg) gets its group-by-service calls,
+    # errors and latency histogram in metrics.agg_json; off, the tag is
+    # ignored (no aggregate, and still no early quit). Per database here;
+    # the reference's gate is process-wide.
+    search_analytics_enabled: bool = False
     pool_workers: int = 50                # concurrent meta reads per poll
 
     def structural(self) -> StructuralConfig:
@@ -96,7 +103,8 @@ class TempoDB:
             coalesce_window_s=self.cfg.search_coalesce_window_s,
             coalesce_max_queries=self.cfg.search_coalesce_max_queries,
             packed=self.cfg.search_packed_residency,
-            structural_cfg=self.cfg.structural())
+            structural_cfg=self.cfg.structural(),
+            analytics_enabled=self.cfg.search_analytics_enabled)
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()

@@ -81,6 +81,9 @@ class SearchMetrics:
     inspected_blocks: int = 0
     skipped_blocks: int = 0
     truncated_entries: int = 0
+    # the ?agg= answer as canonical JSON (search/analytics.py), "" when
+    # the request asked for none or its gate is off
+    agg_json: str = ""
 
 
 @dataclass

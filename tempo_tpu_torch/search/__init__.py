@@ -14,7 +14,9 @@ compilation, and the batched scan over hand-written CUDA kernels.
   results.py     result collection: dedupe, limit, metrics, ordering
   engine.py      the single-block engine (kernels K1s + K2), top-k sizing
                  and the one-sync fetch of scan outputs
-  kernels/       the CUDA kernels (K1-K6), their plain PyTorch versions,
+  analytics.py   ?agg=red: the staged composite keys, decode and merge of
+                 the aggregate, the ingest side's dense count (kernel K8)
+  kernels/       the CUDA kernels (K1-K8), their plain PyTorch versions,
                  the build
   multiblock.py  stacking blocks into one batch, per-block query tables,
                  the batched scan (kernels K1 + K2) and result rendering

@@ -10,7 +10,9 @@ container. Blocks written here are read by the reference and vice versa.
 prune, compile against its dictionaries (through the device probe when
 its value dictionary was staged), kernels K1s and K2 on the device (K6
 first for a structural request). It has no host route: the reference's
-breaker fallback (``host_scan_single``) is not part of the port.
+breaker fallback (``host_scan_single``) is not part of the port. Like the
+reference's single-block engine it has no aggregate stage: an ``?agg=``
+request is answered without ``agg_json``, its tag no term.
 """
 
 from __future__ import annotations

@@ -32,13 +32,23 @@ the two kernels. What the grouping keeps from the reference:
   In the coalescer a structural query dispatches alone at once unless
   stacking is on; then it groups with same-plan peers, or with
   same-bucket peers when bucketing is on too (K6 over the members'
-  lanes, then K4).
+  lanes, then K4);
+- **aggregates** (``analytics.py``, the database's gate on): a request
+  carrying the ``?agg=`` tag gets the batch's staged composite keys on its
+  own copy of the memoized query, kernel K7 counts them over the scan's
+  accepted entries, the counts come back on the dispatch's one copy and
+  fold into the results group by group. In the coalescer agg queries
+  group apart from plain ones;
+- **deterministic release**: a staging lookahead hands its batch to the
+  search and keeps nothing of it, and a flush thread drops the batch and
+  its members' queries before it publishes their outputs, so a batch the
+  budget evicted is freed once the searches holding it return.
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
 breaker's host route and ``host_scan``, the dispatch watchdog, HBM
 ownership and hedging, per-query stats and profiling (and the
-coalescer's attribution of a fused dispatch's cost), the ``?agg=``
-members of a fused group, and the host-RAM tier of the staged cache.
+coalescer's attribution of a fused dispatch's cost), and the host-RAM
+tier of the staged cache.
 Nothing here falls back to the CPU: a batch is staged on the engine's
 device and scanned there, and a fused dispatch that raises fails every
 member.
@@ -56,6 +66,7 @@ from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
 from . import structural
+from .analytics import agg_requested, stage_for_batch
 from .engine import (DEFAULT_TOP_K, fetch_coalesced_out, fetch_scan_out,
                      resolve_top_k)
 from .kernels.scan import MAX_QUERIES
@@ -156,7 +167,7 @@ class _FusedOut:
 
 class _FusedSlice:
     """One member's view of a _FusedOut: iterates as the host
-    (count, inspected, scores, idx) of a solo dispatch."""
+    (count, inspected, scores, idx[, agg]) of a solo dispatch."""
 
     __slots__ = ("_shared", "_qi")
 
@@ -165,9 +176,38 @@ class _FusedSlice:
         self._qi = qi
 
     def __iter__(self):
-        counts, inspected, scores, idx = self._shared.host()
+        counts, inspected, scores, idx, *agg = self._shared.host()
         qi = self._qi
-        return iter((int(counts[qi]), inspected, scores[qi], idx[qi]))
+        return iter((int(counts[qi]), inspected, scores[qi], idx[qi])
+                    + tuple(a[qi] for a in agg))
+
+
+class _Lookahead:
+    """One group staged in the background for a search. The staging
+    thread keeps nothing of the batch once it signals: the search takes
+    the entry over (``take``), so when the search lets go of a batch the
+    budget evicted, nothing else holds it."""
+
+    __slots__ = ("_entry", "_exc", "_done")
+
+    def __init__(self):
+        self._entry = self._exc = None
+        self._done = threading.Event()
+
+    def run(self, stage, group) -> None:
+        try:
+            self._entry = stage(group)
+        except BaseException as e:  # noqa: BLE001 -- raised by take()
+            self._exc = e
+        finally:
+            self._done.set()
+
+    def take(self):
+        self._done.wait()
+        if self._exc is not None:
+            raise self._exc
+        entry, self._entry = self._entry, None
+        return entry
 
 
 class QueryCoalescer:
@@ -189,7 +229,9 @@ class QueryCoalescer:
     A structural query groups by the engine's structural gate
     (``StructuralConfig.stack_group_key``): with stacking off it
     dispatches alone at once; with it on it waits with same-plan peers
-    (same-bucket peers with bucketing), apart from plain queries."""
+    (same-bucket peers with bucketing), apart from plain queries. A query
+    asking for an aggregate waits only with others that do: a fused
+    group runs K7 for every member or for none."""
 
     def __init__(self, engine: MultiBlockEngine, window_s: float = 0.003,
                  max_queries: int = 8, active_fn=None):
@@ -233,6 +275,8 @@ class QueryCoalescer:
                 self._run(grp)
                 return fut
             key = skey
+        if mq.agg_stage is not None:
+            key = key + ("agg",)
         flush_now = None
         with self._lock:
             if self._closed:
@@ -292,35 +336,44 @@ class QueryCoalescer:
             self._flush_pool.submit(self._run, grp)
 
     def _run(self, grp: _PendingCoalesce) -> None:
-        items = grp.items
+        """Dispatch a group and publish each member's outputs. The
+        dispatch runs in a frame of its own that empties the group first,
+        so once a member sees its outputs this thread holds nothing of
+        the batch or the members' queries."""
+        futs = [fut for _mq, _k, fut in grp.items]
         try:
-            sts = [mq.structural for mq, _k, _f in items]
-            with self._lock:
-                self.dispatches += 1
-                self.queries += len(items)
-                if len(items) > 1:
-                    self.fused += 1
-                if sts[0] is not None:
-                    self.structural_queries += len(items)
-                    if len(items) > 1:
-                        self.structural_stacked += len(items)
-                        if any(st.plan != sts[0].plan for st in sts[1:]):
-                            self.structural_bucketed += len(items)
-            if len(items) == 1:
-                mq, _k, fut = items[0]
-                fut.set_result(self.engine.scan_async(grp.batch, mq))
-                return
-            cq = stack_queries([mq for mq, _k, _f in items],
-                               self.engine.structural_cfg.bucket_max_nodes)
-            k = max(k for _mq, k, _f in items)
-            shared = _FusedOut(
-                self.engine.coalesced_scan_async(grp.batch, cq, k))
-            for qi, (_mq, _k, fut) in enumerate(items):
-                fut.set_result(_FusedSlice(shared, qi))
+            outs = self._dispatch(grp)
         except BaseException as e:  # noqa: BLE001 -- set on every member
-            for _mq, _k, fut in items:
+            for fut in futs:
                 if not fut.done():
                     fut.set_exception(e)
+            return
+        for fut, out in zip(futs, outs):
+            fut.set_result(out)
+
+    def _dispatch(self, grp: _PendingCoalesce) -> list:
+        """The group's dispatch, solo or fused: each member's outputs."""
+        batch, items = grp.batch, grp.items
+        grp.batch, grp.items = None, []
+        sts = [mq.structural for mq, _k, _f in items]
+        with self._lock:
+            self.dispatches += 1
+            self.queries += len(items)
+            if len(items) > 1:
+                self.fused += 1
+            if sts[0] is not None:
+                self.structural_queries += len(items)
+                if len(items) > 1:
+                    self.structural_stacked += len(items)
+                    if any(st.plan != sts[0].plan for st in sts[1:]):
+                        self.structural_bucketed += len(items)
+        if len(items) == 1:
+            return [self.engine.scan_async(batch, items[0][0])]
+        cq = stack_queries([mq for mq, _k, _f in items],
+                           self.engine.structural_cfg.bucket_max_nodes)
+        k = max(k for _mq, k, _f in items)
+        shared = _FusedOut(self.engine.coalesced_scan_async(batch, cq, k))
+        return [_FusedSlice(shared, qi) for qi in range(len(items))]
 
     def stats(self) -> dict:
         with self._lock:
@@ -369,11 +422,14 @@ class BlockBatcher:
                  coalesce_window_s: float = 0.003,
                  coalesce_max_queries: int = 8,
                  packed: bool = False,
-                 structural_cfg: structural.StructuralConfig = structural.OFF):
+                 structural_cfg: structural.StructuralConfig = structural.OFF,
+                 analytics_enabled: bool = False):
         """`coalesce_max_queries` <= 1 disables coalescing: every
         dispatch runs at once, on the caller's thread. `packed` stages
         batches in the packed layout (packing.py). `structural_cfg`: the
-        database's structural gate and stacking knobs."""
+        database's structural gate and stacking knobs.
+        `analytics_enabled`: the database's ?agg= gate (analytics.py);
+        off, the tag is ignored."""
         self.engine = MultiBlockEngine(
             device, top_k=top_k, device_probe_min_vals=device_probe_min_vals,
             packed=packed, structural_cfg=structural_cfg)
@@ -406,6 +462,7 @@ class BlockBatcher:
                 self.engine, window_s=coalesce_window_s,
                 max_queries=coalesce_max_queries)
         self.last_dispatches = 0   # dispatch submits of the last search
+        self.analytics_enabled = analytics_enabled
 
     def close(self) -> None:
         """Stop the staging threads (pending lookaheads are cancelled) and
@@ -417,13 +474,19 @@ class BlockBatcher:
     def debug_stats(self) -> dict:
         """The coalescer's counters, the peer counters and the staged
         cache's bytes: physical (charged to the budget) and logical (the
-        unpacked layout's equivalent; equal when not packed)."""
+        unpacked layout's equivalent; equal when not packed), and the
+        ?agg= keys staged on the cached batches (not charged: a batch
+        stages them at its first agg request)."""
         with self._lock:
             peers = {"interest": dict(self._interest),
                      "unplanned": self._unplanned}
             cache = {"bytes": self._cache_total,
                      "logical_bytes": self._cache_logical,
-                     "dict_bytes": self._probe_dict_total}
+                     "dict_bytes": self._probe_dict_total,
+                     "agg_bytes": sum(
+                         c.batch.agg_stage.device_nbytes
+                         for c in self._cache.values()
+                         if c.batch.agg_stage is not None)}
         return {"coalesce": (self.coalescer.stats()
                              if self.coalescer is not None else None),
                 "peers": peers, "cache": cache}
@@ -585,6 +648,7 @@ class BlockBatcher:
                      pinned, interest, planned) -> SearchResults:
         results = results or SearchResults.for_request(req)
         exhaustive = is_exhaustive(req)
+        want_agg = self.analytics_enabled and agg_requested(req)
         if groups is None:
             groups = self._plan_for(jobs, plan_key)
         # the plan is final: declare the groups this search will scan, so
@@ -606,9 +670,9 @@ class BlockBatcher:
             if isinstance(out, concurrent.futures.Future):
                 out = out.result()
             if isinstance(out, _FusedSlice):
-                count, inspected, scores, idx = out
+                count, inspected, scores, idx, *agg = out
             else:
-                count, inspected, scores, idx = fetch_scan_out(out)
+                count, inspected, scores, idx, *agg = fetch_scan_out(out)
             # the dispatch has run (on a window's flush thread, perhaps):
             # keep its uploaded tables for the next request of this
             # predicate over this batch. A fused dispatch uploads stacked
@@ -625,6 +689,8 @@ class BlockBatcher:
             m.inspected_traces += max(0, inspected)
             for meta in self.engine.results(cached.batch, mq, scores, idx):
                 results.add(meta)
+            if agg:
+                results.add_agg(mq.agg_stage.decode(agg[0]))
 
         def prepare(group, batch, skip) -> dict:
             """Predicate work over one group, memoized per (batch,
@@ -677,7 +743,7 @@ class BlockBatcher:
                         self._prune_cache.popitem(last=False)
             return reasons
 
-        prefetched: dict = {}
+        prefetched: dict = {}   # group key -> (_Lookahead, its future)
 
         def submit_prefetch(from_idx):
             """Stage the next live group in the background while this
@@ -689,7 +755,9 @@ class BlockBatcher:
                 with self._lock:
                     resident = k in self._cache
                 if not resident and k not in prefetched:
-                    prefetched[k] = self._prefetcher.submit(self._staged, g)
+                    ahead = _Lookahead()
+                    prefetched[k] = (ahead, self._prefetcher.submit(
+                        ahead.run, self._staged, g))
                 return
 
         # resident groups dispatch first: a cold group's staging then
@@ -708,8 +776,9 @@ class BlockBatcher:
             if all(hdr_reasons):
                 results.metrics.skipped_blocks += len(group)
                 continue
-            fut = prefetched.pop(gkey, None)
-            cached = fut.result() if fut is not None else self._staged(group)
+            ahead = prefetched.pop(gkey, None)
+            cached = (ahead[0].take() if ahead is not None
+                      else self._staged(group))
             with self._lock:
                 cached.pins += 1
             pinned.append(cached)
@@ -729,11 +798,14 @@ class BlockBatcher:
             if pre["all_skip"]:
                 continue
             base = pre["mq"]
-            # the limit is per request; the tables (and their device
-            # copies, made at the first dispatch) are shared through `pre`
+            # the limit and the aggregate are per request; the tables (and
+            # their device copies, made at the first dispatch) are shared
+            # through `pre`
             mq = dataclasses.replace(
                 base, limit=req.limit or 20,
-                device_tables=pre.get("device_tables"))
+                device_tables=pre.get("device_tables"),
+                agg_stage=(stage_for_batch(cached.batch) if want_agg
+                           else None))
             if self.coalescer is not None:
                 with self._lock:
                     peers = self._interest.get(gkey, 1) + self._unplanned
@@ -758,7 +830,7 @@ class BlockBatcher:
             drain_one()
         # an early quit leaves a lookahead pending: cancel it if it has
         # not started (a running one completes into the cache)
-        for f in prefetched.values():
+        for _ahead, f in prefetched.values():
             f.cancel()
         self.last_dispatches = dispatches
         return results

@@ -48,30 +48,39 @@ def resolve_top_k(base: int, limit: int) -> int:
 
 
 def fetch_scan_out(out) -> tuple:
-    """(counts [2], scores [k], idx [k]) device tensors -> host
-    (count, inspected, scores, idx) with a single device-to-host copy,
-    which is also the one synchronisation point of the dispatch."""
-    counts, scores, idx = out
+    """(counts [2], scores [k], idx [k][, agg [K]]) device tensors -> host
+    (count, inspected, scores, idx[, agg]) with a single device-to-host
+    copy, which is also the one synchronisation point of the dispatch;
+    the ?agg= counts (K7's, when the query asked for them) ride along."""
+    counts, scores, idx, *agg = out
     k = int(scores.numel())
-    host = torch.cat([counts, scores, idx]).cpu().numpy()
-    return (int(host[0]), int(host[1]), np.ascontiguousarray(host[2:2 + k]),
-            np.ascontiguousarray(host[2 + k:]))
+    host = torch.cat([counts, scores, idx, *agg]).cpu().numpy()
+    res = (int(host[0]), int(host[1]), np.ascontiguousarray(host[2:2 + k]),
+           np.ascontiguousarray(host[2 + k:2 + 2 * k]))
+    if agg:
+        res += (np.ascontiguousarray(host[2 + 2 * k:]),)
+    return res
 
 
 def fetch_coalesced_out(out) -> tuple:
     """Query-axis variant of fetch_scan_out: (counts [Q], inspected,
-    scores [Q, k], idx [Q, k]) device tensors -> host (counts [Q],
-    inspected, scores [Q, k], idx [Q, k]) with a single device-to-host
-    copy, the one synchronisation point of the fused dispatch; members
-    then slice their rows of the host arrays."""
-    counts, inspected, scores, idx = out
+    scores [Q, k], idx [Q, k][, agg [Qn, K]]) device tensors -> host
+    (counts [Q], inspected, scores [Q, k], idx [Q, k][, agg [Qn, K]])
+    with a single device-to-host copy, the one synchronisation point of
+    the fused dispatch; members then slice their rows of the host
+    arrays."""
+    counts, inspected, scores, idx, *agg = out
     q, k = scores.shape
     host = torch.cat([counts, inspected.reshape(1), scores.reshape(-1),
-                      idx.reshape(-1)]).cpu().numpy()
+                      idx.reshape(-1), *(a.reshape(-1) for a in agg)]
+                     ).cpu().numpy()
     body = host[q + 1:]
-    return (np.ascontiguousarray(host[:q]), int(host[q]),
-            np.ascontiguousarray(body[:q * k].reshape(q, k)),
-            np.ascontiguousarray(body[q * k:].reshape(q, k)))
+    res = (np.ascontiguousarray(host[:q]), int(host[q]),
+           np.ascontiguousarray(body[:q * k].reshape(q, k)),
+           np.ascontiguousarray(body[q * k:2 * q * k].reshape(q, k)))
+    if agg:
+        res += (np.ascontiguousarray(body[2 * q * k:].reshape(agg[0].shape)),)
+    return res
 
 
 @dataclass

@@ -9,12 +9,17 @@
   K5  ``pack.pack_mask_words`` (csrc/pack.cu)  <- tempo_tpu packing.pack_mask_words
   K6  ``structural.structural_mask`` (csrc/structural.cu)
                                <- tempo_tpu structural.structural_entry_mask
+  K7  ``agg.agg_counts``, ``agg.agg_counts_rows`` (csrc/agg.cu)
+                               <- tempo_tpu multiblock.agg_entry_counts
+  K8  ``agg.analytics_count``  (csrc/agg.cu)
+                               <- tempo_tpu analytics.analytics_count_kernel
 
 K1, K1s and K4 also read batches staged in the packed layout
 (``search/packing.py``): the scan half of the reference's packing
 functions runs inside them; K6 reads the same layouts through the shared
 readers of ``csrc/scan_common.cuh``. K1, K1s and K4 take K6's verdicts
-as an optional input.
+as an optional input. K7 runs after K1 or K4 over the scores they
+write.
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. Each kernel and mode keeps
@@ -28,7 +33,9 @@ with u16 / bucketed durations), ``PACKED_HIT_LAUNCHES``,
 ``COALESCED_PACKED_HIT_LAUNCHES``, and with verdicts (any layout and
 hit mode) ``VERDICT_LAUNCHES``, ``SINGLE_VERDICT_LAUNCHES`` and
 ``COALESCED_VERDICT_LAUNCHES``; ``topk.LAUNCHES``, ``topk.ROW_LAUNCHES``,
-``probe.LAUNCHES``, ``pack.LAUNCHES`` and ``structural.LAUNCHES``.
+``probe.LAUNCHES``, ``pack.LAUNCHES``, ``structural.LAUNCHES``, and
+``agg.LAUNCHES`` / ``agg.ROW_LAUNCHES`` (K7, one row / a query axis) and
+``agg.COUNT_LAUNCHES`` (K8).
 """
 
 import threading

@@ -24,7 +24,10 @@ structural gate is on (``structural.StructuralConfig``) stages the
 blocks' span segments with each batch (``HostBatch.span_cat``); a query
 carrying a compiled structural predicate (``MultiQuery.structural``)
 runs K6 (``kernels.structural.structural_mask``) first and hands its
-verdicts to K1, or, stacked, to K4.
+verdicts to K1, or, stacked, to K4. A query asking for an ``?agg=``
+aggregate (``MultiQuery.agg_stage``, the batch's staged composite keys of
+``analytics.py``) runs K7 (``kernels.agg``) over K1's scores, or over
+K4's rows, before the top-k.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..model.types import TraceSearchMetadata
 from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
+from .kernels.agg import agg_counts, agg_counts_rows
 from .kernels.scan import coalesced_scan, multi_scan
 from .kernels.structural import structural_mask
 from .kernels.topk import topk, topk_rows
@@ -91,6 +95,9 @@ class BlockBatch:
     # and the most spans of any page (K6's scratch length)
     span_device: dict | None = None
     span_max_run: int = 0
+    # the ?agg= composite keys (analytics.AggStage), staged at the first
+    # agg request over the batch (analytics.stage_for_batch)
+    agg_stage: object = None
 
     @property
     def n_pages(self) -> int:
@@ -310,6 +317,10 @@ class MultiQuery:
     # the request's structural predicate compiled against this batch
     # (structural.CompiledStructural), or None
     structural: object = None
+    # the batch's analytics.AggStage when the request asks for an ?agg=
+    # aggregate: set on the batcher's per-request copy, never on the
+    # memoized query an agg and a plain twin share
+    agg_stage: object = None
 
 
 def _dict_groups(blocks: list[ColumnarPages], memo: dict | None = None):
@@ -440,22 +451,24 @@ class CoalescedQuery:
     # the members' structural predicates, one K6 lane each
     # (structural.StackedStructural or BucketedStructural), or None
     structural: object = None
+    # the batch's analytics.AggStage when a member asks for an aggregate
+    # (K7 then counts a row per real member)
+    agg_stage: object = None
 
 
 def stack_queries(mqs: list[MultiQuery],
                   bucket_max_nodes: int = 16) -> CoalescedQuery:
     """Stack compiled queries over the same block batch along the query
-    axis, the reference's ``multiblock.stack_queries`` without its
-    ``?agg=`` branch. Q, T and R pad to powers of two. A real query's
+    axis, the reference's ``multiblock.stack_queries``. Q, T and R pad
+    to powers of two. A real query's
     extra terms are inactive (neutral-true in the AND); a pad query gets
     the empty duration range dur_lo 1 > dur_hi 0, so it matches nothing.
     dur_hi and win_end clamp to uint32. Structural members stack when
     every member carries one and all share one plan, or all canonicalize
     into one bucket of at most `bucket_max_nodes` slots
-    (``structural.stack_members``); a mixed group raises."""
-    if any(getattr(mq, "agg_stage", None) is not None for mq in mqs):
-        # the request tag that needs it is refused at compile time
-        raise ValueError("?agg= queries do not coalesce in the port")
+    (``structural.stack_members``); a mixed group raises. Members share
+    one batch, so an aggregate member's AggStage is the batch's, and any
+    member asking for one turns K7 on for the group."""
     sts = [mq.structural for mq in mqs]
     stacked_st = None
     if any(st is not None for st in sts):
@@ -495,11 +508,12 @@ def stack_queries(mqs: list[MultiQuery],
         for qi, mq in enumerate(mqs):
             if mq.val_hits is not None:
                 block_group[qi] = mq.block_group
+    aggs = [mq.agg_stage for mq in mqs if mq.agg_stage is not None]
     return CoalescedQuery(
         term_keys=term_keys, val_ranges=val_ranges, term_active=term_active,
         dur_lo=dur_lo, dur_hi=dur_hi, win_start=win_start, win_end=win_end,
         n_terms=T, n_queries=Qn, val_hits=val_hits, block_group=block_group,
-        structural=stacked_st)
+        structural=stacked_st, agg_stage=aggs[0] if aggs else None)
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
@@ -566,9 +580,10 @@ class MultiBlockEngine:
 
     def scan_async(self, batch: BlockBatch, mq: MultiQuery):
         """One dispatch, K1 then K2 on the current stream (K6 first for a
-        structural query, its verdicts into K1), without a device-to-host
-        sync. Returns device tensors (counts [2] = (match count,
-        inspected), top-k scores, top-k flat indices)."""
+        structural query, its verdicts into K1; K7 over K1's scores before
+        K2 for an agg query), without a device-to-host sync. Returns
+        device tensors (counts [2] = (match count, inspected), top-k
+        scores, top-k flat indices[, agg counts [K]])."""
         if mq.device_tables is None:
             mq.device_tables = (
                 torch.from_numpy(mq.term_keys).to(self.device),
@@ -587,9 +602,20 @@ class MultiBlockEngine:
             mq.n_terms, mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
             min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg, batch.widths,
             d.get("entry_dur_res"), verdicts)
+        agg = self._agg(mq.agg_stage, scores)
         top_scores, top_idx = topk(scores,
                                    resolve_top_k(self.top_k, mq.limit))
-        return counts, top_scores, top_idx
+        return (counts, top_scores, top_idx) + agg
+
+    def _agg(self, stage, scores) -> tuple:
+        """K7 over a score column [N] or the members' rows [Qn, N]: (agg
+        counts,), or () without a stage."""
+        if stage is None:
+            return ()
+        keys = stage.device(self.device).reshape(-1)
+        if scores.dim() == 1:
+            return (agg_counts(scores, keys, stage.n_keys),)
+        return (agg_counts_rows(scores, keys, stage.n_keys),)
 
     def scan(self, batch: BlockBatch, mq: MultiQuery) -> tuple:
         return fetch_scan_out(self.scan_async(batch, mq))
@@ -613,9 +639,10 @@ class MultiBlockEngine:
         """One fused dispatch for the stacked queries: the tables go up
         once, then (K6 over the structural members' lanes) K4 and K2r run
         on the current stream, without a device-to-host sync. `top_k` is
-        the group's k, the largest of its members'. Returns device tensors
+        the group's k, the largest of its members'. With an agg stage, K7
+        counts the real members' rows before K2r. Returns device tensors
         (counts [Q], inspected, top-k scores [Q, k], top-k flat indices
-        [Q, k])."""
+        [Q, k][, agg counts [Qn, K]])."""
         d = batch.device
         verdicts = None
         if cq.structural is not None:
@@ -625,8 +652,9 @@ class MultiBlockEngine:
             d["entry_dur"], d["entry_valid"], d["page_block"],
             *self.coalesced_tables(cq), batch.widths,
             d.get("entry_dur_res"), verdicts)
+        agg = self._agg(cq.agg_stage, scores[:cq.n_queries])
         top_scores, top_idx = topk_rows(scores, top_k)
-        return counts, inspected, top_scores, top_idx
+        return (counts, inspected, top_scores, top_idx) + agg
 
     def results(self, batch: BlockBatch, mq: MultiQuery,
                 scores: np.ndarray, idx: np.ndarray) -> list:

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import dict_probe, packing
+from .analytics import AGG_QUERY_TAG
 from .structural import STRUCTURAL_QUERY_TAG
 
 UINT32_MAX = 0xFFFFFFFF
@@ -36,11 +37,9 @@ UINT32_MAX = 0xFFFFFFFF
 # in-band flags, never tag predicates. A request carrying this one scans
 # every page of every block (no pruning, no early quit); the other tag
 # predicates still apply. The structural tag carries a structural query
-# (search/structural.py), compiled on its own.
+# (search/structural.py), compiled on its own; the ?agg= tag asks for an
+# aggregate (search/analytics.py), staged per batch, never per predicate.
 EXHAUSTIVE_SEARCH_TAG = "x-dbg-exhaustive"
-# the reference's ?agg= tag: its engine is not ported yet, so a request
-# carrying it is refused rather than answered without it
-AGG_QUERY_TAG = "x-agg-q"
 _RESERVED_TAGS = (EXHAUSTIVE_SEARCH_TAG, STRUCTURAL_QUERY_TAG, AGG_QUERY_TAG)
 
 
@@ -50,11 +49,7 @@ def is_exhaustive(req) -> bool:
 
 def request_terms(req) -> list:
     """Sorted (key, value) tag predicates of a request: every tag but the
-    in-band flags. Raises ValueError for the ?agg= tag, which the port
-    does not serve yet."""
-    if AGG_QUERY_TAG in req.tags:
-        raise ValueError(f"{AGG_QUERY_TAG!r} queries are not supported by "
-                         "the torch port yet")
+    in-band flags."""
     return sorted((k, v) for k, v in req.tags.items()
                   if k not in _RESERVED_TAGS)
 
@@ -198,7 +193,8 @@ def dict_fingerprint(cache_on, key_dict: list, val_dict: list) -> bytes:
 
 def tags_sig(req) -> tuple:
     """Cache key of the dictionary-probe part of compilation: only the tag
-    terms and the exhaustive flag touch the dictionaries."""
+    terms and the exhaustive flag touch the dictionaries, so a request and
+    its ?agg= or structural twin share one entry."""
     return tuple(request_terms(req)), is_exhaustive(req)
 
 

@@ -920,13 +920,20 @@ def test_id_past_a_members_table_clamps_to_its_own_last_entry():
 
 
 def test_stack_queries_refuses_structural_and_agg_members():
+    """A group mixing structural and plain members is refused. Agg
+    members are served now: the group shares the batch's stage, as the
+    reference's stack_queries does."""
     mq = port_multiblock.MultiQuery(
         term_keys=np.zeros((1, 1), np.int32),
         val_ranges=np.zeros((1, 1, 1, 2), np.int32), dur_lo=0, dur_hi=1,
         win_start=0, win_end=1, limit=1, n_terms=1)
-    stack_queries([mq, mq])
-    for attr in ("structural", "agg_stage"):
-        bad = port_multiblock.MultiQuery(**vars(mq))
-        setattr(bad, attr, object())
-        with pytest.raises(ValueError):
-            stack_queries([mq, bad])
+    assert stack_queries([mq, mq]).agg_stage is None
+    bad = port_multiblock.MultiQuery(**vars(mq))
+    bad.structural = object()
+    with pytest.raises(ValueError):
+        stack_queries([mq, bad])
+    stage = object()
+    agg = port_multiblock.MultiQuery(**vars(mq))
+    agg.agg_stage = stage
+    assert stack_queries([agg, agg]).agg_stage is stage
+    assert stack_queries([mq, agg]).agg_stage is stage

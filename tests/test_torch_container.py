@@ -160,17 +160,25 @@ def test_ids_to_ranges_identical():
 
 
 def test_reserved_tags_are_refused():
-    """The ?agg= tag is refused at compile time; the structural tag only
-    where the database's structural gate is off (it is not a tag term
-    either way)."""
+    """The ?agg= tag is answered now: it is no tag term, so a request
+    carrying it compiles as its plain twin does. The structural tag is
+    refused only where the database's structural gate is off (it is not
+    a tag term either way)."""
     from tempo_tpu_torch.search import ir
     from tempo_tpu_torch.search.structural import StructuralConfig, \
         structural_query
 
     pages = ColumnarPages.build(_entries(7, 10, data), PageGeometry(8, 4))
-    with pytest.raises(ValueError):
-        compile_query(pages.key_dict, pages.val_dict,
-                      SearchRequest(tags={"x-agg-q": "1"}))
+    assert compile_query(pages.key_dict, pages.val_dict,
+                         SearchRequest(tags={"x-agg-q": "red"})).n_terms == 0
+    tags = dict(_REQS[1][0])
+    twin = compile_query(pages.key_dict, pages.val_dict,
+                         SearchRequest(tags=tags))
+    agg = compile_query(pages.key_dict, pages.val_dict,
+                        SearchRequest(tags=dict(tags, **{"x-agg-q": "red"})))
+    assert twin.n_terms == agg.n_terms == 2
+    np.testing.assert_array_equal(agg.term_keys, twin.term_keys)
+    np.testing.assert_array_equal(agg.val_ranges, twin.val_ranges)
     req = SearchRequest(tags={"x-structural-q":
                               ir.quote('{"exists": {"kind": 2}}')})
     with pytest.raises(ValueError):

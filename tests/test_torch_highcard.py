@@ -42,8 +42,10 @@ from tempo_tpu.search.data import SearchData as RefSearchData
 from tempo_tpu_torch.backend.local import LocalBackend
 from tempo_tpu_torch.db import TempoDB, TempoDBConfig
 from tempo_tpu_torch.model.types import SearchBlockRequest, SearchRequest
+from tempo_tpu_torch.search import batcher as port_batcher
 from tempo_tpu_torch.search import engine as port_engine
 from tempo_tpu_torch.search import multiblock as port_multiblock
+from tempo_tpu_torch.search.analytics import attach_agg
 from tempo_tpu_torch.search.backend_search_block import BackendSearchBlock
 from tempo_tpu_torch.search.kernels import probe as probe_k
 
@@ -89,7 +91,8 @@ def _block_entries(rng, b: int, n: int, first_session: int,
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     """14 blocks written by the reference: 9 with unique session ids, 5
-    with low-cardinality tags only."""
+    with low-cardinality tags only. Block b's id sorts b-th, so group
+    planning (jobs in block-id order) is the same in every run."""
     root = tmp_path_factory.mktemp("torch_highcard")
     be = RefLocalBackend(str(root / "blocks"))
     rng = np.random.default_rng(20261018)
@@ -99,8 +102,10 @@ def corpus(tmp_path_factory):
         n = int(rng.integers(90, 200))
         entries = _block_entries(rng, b, n, first, sessions=b % 3 != 1)
         first += n
-        ref_write_search_block(be, RefBlockMeta(tenant_id=TENANT), entries,
-                               geometry=geometry, encoding="zlib")
+        meta = RefBlockMeta(tenant_id=TENANT,
+                            block_id=f"00000000-0000-4000-8000-{b:012d}")
+        ref_write_search_block(be, meta, entries, geometry=geometry,
+                               encoding="zlib")
     return root
 
 
@@ -360,15 +365,21 @@ def test_probe_threshold_zero_keeps_every_probe_on_the_host(corpus, spy):
 def test_evicted_batch_frees_its_dictionaries(corpus):
     """With a budget of about one batch, staging the next group evicts the
     last; once the search is done nothing holds the evicted batches'
-    staged dictionaries any more, and the budget accounting holds them."""
+    staged dictionaries or ?agg= keys any more (the staging lookahead and
+    the coalescer keep no reference to a batch once its outputs are
+    handed over), and the budget accounting holds them. The group that
+    stays resident is the first in plan order, which holds block 0, a
+    session block: its dictionary stays staged."""
     port = TempoDB(LocalBackend(str(corpus / "blocks")),
                    TempoDBConfig(search_max_batch_pages=MAX_PAGES,
                                  search_device_probe_min_vals=PROBE_MIN,
-                                 search_batch_cache_bytes=1),
+                                 search_batch_cache_bytes=1,
+                                 search_analytics_enabled=True),
                    device="cpu")
+    real_stage = port_batcher.stage_for_batch
     try:
         port.poll()
-        seen = []
+        seen, seen_agg = [], []
         real = port.batcher._staged
 
         def staged(group):
@@ -377,9 +388,18 @@ def test_evicted_batch_frees_its_dictionaries(corpus):
                         for d in entry.batch.staged_dicts.values())
             return entry
 
+        def stage_for_batch(batch):
+            st = real_stage(batch)
+            seen_agg.extend((weakref.ref(st),
+                             weakref.ref(st.device(port.device))))
+            return st
+
         port.batcher._staged = staged
+        port_batcher.stage_for_batch = stage_for_batch
         tags, kw = _requests()["exhaustive_scattered"]
-        port.search(TENANT, SearchRequest(tags=dict(tags), **kw))
+        req = SearchRequest(tags=dict(tags), **kw)
+        attach_agg(req, "red")
+        assert port.search(TENANT, req).response().metrics.agg_json
         gc.collect()
         assert len(port.batcher._cache) == 1
         resident = {id(d) for c in port.batcher._cache.values()
@@ -387,9 +407,14 @@ def test_evicted_batch_frees_its_dictionaries(corpus):
         alive = [r() for r in seen if r() is not None]
         assert len(seen) > len(alive) > 0
         assert {id(d) for d in alive} == resident
+        st = next(iter(port.batcher._cache.values())).batch.agg_stage
+        alive_agg = {id(r()) for r in seen_agg if r() is not None}
+        assert len(seen_agg) > 2
+        assert alive_agg == {id(st), id(st.device(port.device))}
         assert port.batcher._probe_dict_total == sum(
             c.batch.dict_nbytes for c in port.batcher._cache.values())
         assert port.batcher._cache_total == sum(
             c.nbytes for c in port.batcher._cache.values())
     finally:
+        port_batcher.stage_for_batch = real_stage
         port.close()

@@ -82,6 +82,8 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.search.ir\n"
         "import tempo_tpu_torch.search.structural\n"
         "import tempo_tpu_torch.search.kernels.structural\n"
+        "import tempo_tpu_torch.search.analytics\n"
+        "import tempo_tpu_torch.search.kernels.agg\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -118,7 +120,7 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
     """On CPU tensors the wrappers run the plain versions and count no
     launch; the launch counters move only where a kernel launches."""
     from tempo_tpu_torch.search import packing
-    from tempo_tpu_torch.search.kernels import pack, probe, scan, topk
+    from tempo_tpu_torch.search.kernels import agg, pack, probe, scan, topk
     from tempo_tpu_torch.search.kernels import structural as k6
 
     counters = (scan.LAUNCHES, scan.HIT_LAUNCHES, scan.SINGLE_LAUNCHES,
@@ -129,7 +131,8 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
                 scan.COALESCED_PACKED_LAUNCHES,
                 scan.COALESCED_PACKED_HIT_LAUNCHES, k6.LAUNCHES,
                 scan.VERDICT_LAUNCHES, scan.SINGLE_VERDICT_LAUNCHES,
-                scan.COALESCED_VERDICT_LAUNCHES)
+                scan.COALESCED_VERDICT_LAUNCHES, agg.LAUNCHES,
+                agg.ROW_LAUNCHES, agg.COUNT_LAUNCHES)
     for c in counters:
         c.reset()
     s, counts = scan.multi_scan(
@@ -245,4 +248,12 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         torch.tensor([[[[[1, 0]]]]], dtype=torch.int32),
         torch.tensor([[False]]), zero, u32, zero, u32, verdicts=v)
     assert qc.tolist() == [3] and int(ins) == 4
+    # K7 over those scores (one row, then the query axis) and K8
+    keys = torch.tensor([0, 1, 1, 5], dtype=torch.int32)
+    assert agg.agg_counts(s[0], keys, 4).tolist() == [1, 1, 0, 0]
+    assert agg.agg_counts_rows(s, keys, 2).tolist() == [[1, 1]]
+    assert agg.analytics_count(
+        torch.tensor([0, 1, 2], dtype=torch.int32),
+        torch.tensor([5, 20, 0], dtype=torch.int64),
+        torch.tensor([10], dtype=torch.int64), 2).tolist() == [1, 0, 0, 1]
     assert [c.n for c in counters] == [0] * len(counters)
