@@ -5,7 +5,8 @@
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
       --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
       --hc-packed-blocks 2 --st-blocks 4 \\
-      --st-traces-per-block 16384 --agg-blocks 8     # a quick check
+      --st-traces-per-block 16384 --agg-blocks 8 \\
+      --wal-traces 16384                               # a quick check
 
 What it does, in order, failing (exit code != 0, no result line) on any
 error:
@@ -94,7 +95,29 @@ error:
    response equal to the unpacked database's; then the concurrent phase
    with 8 svc-00i agg requests and with 4 agg and 4 plain, every fused
    dispatch all agg or all plain;
-8. prints the kernels line, the card's name and power limit, and as the
+8. the live cell (kernel B9, ``kernels/live.py`` ``hot_scan``: K1s and
+   K2 over a stage's live pages, K6 first for a structural request),
+   through a TempoDB with ``search_live_tier_enabled`` and
+   ``search_structural_enabled``: one tenant's live stage of
+   ``--live-traces`` (4,096, the default ``search_live_tier_max_entries``:
+   4 pages, tier 4) traces with the 8 tags and 1-31 span rows each,
+   absorbed as encoded SearchData in push batches of 64; seven requests
+   (bench, substring, duration, window, exhaustive, one the dictionaries
+   prune, the desc plan), each cold then timed, with launches (one B9
+   call, K1s and K2, per search, none for the pruned one, K6 for the
+   plan) and device time, every response equal to a CPU LiveTier's;
+   then ``--rounds`` push rounds (cut the oldest 64, absorb 64 new,
+   search for the newest 64, which must be the new batch): total, host
+   build, copy and device time; a cut of half the stage (responses
+   equal to the CPU path's), and B9 against its plain version on the
+   stage from before the cut, whose pages past the live count hold
+   valid entries; a second tenant one trace past max_entries, which the
+   tier declines with no launch; and the WAL head: a
+   ``StreamingSearchBlock`` of ``--wal-traces`` (262,144: 256 pages)
+   traces appended to its sidecar file, replayed by ``rescan``, two
+   requests cold then timed, responses equal to the CPU path's, and B9
+   held against its plain version there and timed;
+9. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 The concurrent phase: 8 client threads, barrier-started, send one
@@ -153,7 +176,7 @@ KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "coalesced_scan_packed", "coalesced_scan_packed_hits",
            "pack_mask_words", "structural_mask", "multi_scan_verdicts",
            "scan_single_verdicts", "coalesced_scan_verdicts", "agg_counts",
-           "agg_counts_rows", "analytics_count")
+           "agg_counts_rows", "analytics_count", "hot_scan")
 CLIENTS = 8                     # concurrent clients
 # the concurrent clients' predicates: one service each, AND status 500
 CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
@@ -368,7 +391,8 @@ def counters() -> dict:
             "scan_single_verdicts": scan.SINGLE_VERDICT_LAUNCHES,
             "coalesced_scan_verdicts": scan.COALESCED_VERDICT_LAUNCHES,
             "agg_counts": agg.LAUNCHES, "agg_counts_rows": agg.ROW_LAUNCHES,
-            "analytics_count": agg.COUNT_LAUNCHES}
+            "analytics_count": agg.COUNT_LAUNCHES,
+            "hot_scan": scan.HOT_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -520,34 +544,36 @@ def records(averages, symbol: str) -> int:
     return sum(e.count for e in device_events(averages) if symbol in e.key)
 
 
+def call_busy(fn, reps: int) -> dict:
+    """Device time per call of fn from torch.profiler (kernels and copies
+    on the card, summed) over `reps` warm calls, and the check that the
+    profiler kept every record: its records of the top-k's last kernel
+    (one a K2 or K2r call) against the calls the launch counters saw. A
+    profiler that records no device activity, or dropped records, gives
+    None ("not measured"), never a number taken from the host."""
+    fn()
+    reset_counts()
+    avg = profiled(fn, reps)
+    n = read_counts()
+    calls = (n["topk"] + n["topk_rows"]) * reps // (reps + 1)
+    kept = records(avg, "unpack_kernel")
+    by_name = {e.key: e.self_device_time_total / reps / 1e3
+               for e in device_events(avg) if e.self_device_time_total > 0}
+    total = sum(by_name.values())
+    return {"device_ms": total if total > 0 and kept == calls else None,
+            "records_kept": kept, "records_expected": calls,
+            "by_kernel_ms": by_name}
+
+
 def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
-    """Device time per request from torch.profiler (kernels and copies on
-    the card, summed) over `reps` warm runs of each named request, and
-    the check that the profiler kept every record: its records of the
-    top-k's last kernel (one a K2 or K2r call) against the calls the
-    launch counters saw. A profiler that records no device activity, or
-    dropped records, gives None ("not measured"), never a number taken
-    from the host."""
+    """call_busy of each named request through ``db.search``."""
     from tempo_tpu_torch.model.types import SearchRequest
 
     out = {}
     for name in names:
         tags, kw = reqs[name]
         req = SearchRequest(tags=dict(tags), **kw)
-        db.search(tenant, req)
-        reset_counts()
-        avg = profiled(lambda: db.search(tenant, req), reps)
-        n = read_counts()
-        calls = (n["topk"] + n["topk_rows"]) * reps // (reps + 1)
-        kept = records(avg, "unpack_kernel")
-        by_name = {e.key: e.self_device_time_total / reps / 1e3
-                   for e in device_events(avg)
-                   if e.self_device_time_total > 0}
-        total = sum(by_name.values())
-        out[name] = {"device_ms": (total if total > 0 and kept == calls
-                                   else None),
-                     "records_kept": kept, "records_expected": calls,
-                     "by_kernel_ms": by_name}
+        out[name] = call_busy(lambda: db.search(tenant, req), reps)
     return out
 
 
@@ -818,7 +844,8 @@ KERNEL_SYMBOLS = {"multi_scan": "scan_kernel", "scan_single": "scan_kernel",
                   "pack_mask_words": "pack_kernel",
                   "structural_mask": "structural_kernel",
                   "agg_counts": "agg_rows_kernel",
-                  "analytics_count": "count_kernel"}
+                  "analytics_count": "count_kernel",
+                  "hot_scan": "scan_kernel"}
 
 
 def device_ms(fn, reps: int, symbol: str) -> tuple:
@@ -3075,6 +3102,438 @@ def red_cell(args, work: str, report: dict, dbs: list,
     return rows
 
 
+LIVE_TENANT = "live"
+LIVE_BASE_S = BASE_S + 86_400   # live traces start a day after the corpora
+LIVE_PER_S = 64                 # live traces a second, one push batch
+LIVE_BATCH = 64                 # traces per push micro-batch
+
+
+def live_tid(j: int) -> bytes:
+    """Trace j's id: an odd multiplier mod 2^128 is a bijection, so ids
+    are distinct and their order is not arrival order."""
+    return (j * 0x9E3779B97F4A7C15F39CC0605CEDC835 % (1 << 128)).to_bytes(
+        16, "big")
+
+
+def trace_data(seed: int, first: int, n: int, spans: bool) -> list:
+    """(trace id, SearchData) of traces first .. first+n-1 from the seed:
+    the tag cell's 8 tags, one value each (2,135 values over the keys),
+    root service and name from the tags, LIVE_PER_S traces a second from
+    LIVE_BASE_S, durations 1-59,999 ms; with `spans`, 1-31 span rows as
+    ``span_segment`` makes them (span 0 the root, each later span's
+    parent an earlier one or, 1 in 20, none; service.name, name op-0..
+    op-15, http.status_code; 1-2,000 ms; kind 0-5)."""
+    import numpy as np
+
+    from tempo_tpu_torch.search.data import SearchData, SpanData
+
+    rng = np.random.default_rng([seed, first, n])
+    keys = sorted(KEYS)
+    pick = {k: rng.integers(0, len(KEYS[k]), size=n).tolist() for k in keys}
+    dur = rng.integers(1, 60_000, size=n).tolist()
+    n_spans = rng.integers(1, 32, size=n).tolist() if spans else [0] * n
+    out = []
+    for i in range(n):
+        j = first + i
+        kvs = {k: {KEYS[k][pick[k][i]]} for k in keys}
+        start = LIVE_BASE_S + j // LIVE_PER_S
+        sd = SearchData(trace_id=live_tid(j), start_s=start,
+                        end_s=start + dur[i] // 1000, dur_ms=dur[i],
+                        root_service=KEYS["service.name"][
+                            pick["service.name"][i]],
+                        root_name=KEYS["name"][pick["name"][i]], kvs=kvs)
+        c = n_spans[i]
+        if c:
+            par = rng.random(c)
+            lost = rng.random(c) < 0.05
+            svc = rng.integers(0, len(KEYS["service.name"]), size=c)
+            op = rng.integers(0, len(SPAN_OPS), size=c)
+            code = rng.integers(0, len(KEYS["http.status_code"]), size=c)
+            sdur = rng.integers(1, 2001, size=c)
+            kind = rng.integers(0, 6, size=c)
+            sd.spans = [SpanData(
+                parent=-1 if s == 0 or lost[s] else int(par[s] * s),
+                dur_ms=int(sdur[s]), kind=int(kind[s]),
+                kvs={"service.name": {KEYS["service.name"][svc[s]]},
+                     "name": {SPAN_OPS[op[s]]},
+                     "http.status_code": {KEYS["http.status_code"][
+                         code[s]]}}) for s in range(c)]
+        out.append((sd.trace_id, sd))
+    return out
+
+
+def live_members(seed: int, first: int, n: int, spans: bool) -> list:
+    """trace_data as push members: (trace id, encoded SearchData)."""
+    from tempo_tpu_torch.search.data import encode_search_data
+
+    return [(tid, encode_search_data(sd))
+            for tid, sd in trace_data(seed, first, n, spans)]
+
+
+def live_requests() -> dict:
+    """The live stage's requests: the tag cell's kinds over the live
+    traces' second range, a request its dictionaries prune, and the
+    structural cell's desc plan."""
+    return {
+        "live_bench": (BENCH, {"limit": 20}),
+        "live_substring": ({"host.name": "host-01"}, {"limit": 20}),
+        "live_duration": ({}, {"min_duration_ms": 59_000,
+                               "max_duration_ms": 59_999, "limit": 20}),
+        "live_window": ({}, {"start": LIVE_BASE_S + 16,
+                             "end": LIVE_BASE_S + 32, "limit": 20}),
+        "live_exhaustive": (dict(BENCH, **EXHAUSTIVE), {"limit": 20}),
+        "live_pruned": ({"service.name": "svc-999"}, {"limit": 20}),
+        "live_desc": (st_tag(ST_PLANS["desc"], False), {"limit": 20}),
+    }
+
+
+WAL_REQUESTS = {
+    "wal_exhaustive": (dict(BENCH, **EXHAUSTIVE), {"limit": 20}),
+    "wal_bench": (BENCH, {"limit": 20}),
+}
+
+
+def answer(search, tags: dict, kw: dict):
+    """A call answering one request through `search(req, results)`,
+    which must return True or None (the live tier's decline is an
+    error here)."""
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.results import SearchResults
+
+    req = SearchRequest(tags=dict(tags), **kw)
+
+    def call():
+        res = SearchResults.for_request(req)
+        if search(req, res) is False:
+            raise AssertionError(f"the live tier declined {tags} {kw}")
+        return res
+    return call
+
+
+def live_path(label: str, calls: dict, reqs: dict, n_total: int,
+              reps: int, launches: dict, pruned=()) -> tuple:
+    """Each call cold then `reps` warm (drive), its launches required:
+    one B9 call (K1s and K2) per search, none for a pruned request, K6
+    before K1s for a structural one. Returns (results, latency rows)."""
+    res, lat, path = {}, {}, {}
+    for name, call in calls.items():
+        r = res[name] = drive(call, reps, True)
+        n = r["launches"]
+        tags, kw = reqs[name]
+        want = 0 if name in pruned else reps + 1
+        st = any(k.startswith("x-structural") for k in tags)
+        k1s = n["scan_single_verdicts" if st else "scan_single"]
+        if n["hot_scan"] != want or k1s != want or n["topk"] != want \
+                or n["structural_mask"] != (want if st else 0) \
+                or n["multi_scan"] or n["dict_probe"]:
+            raise AssertionError(f"{label} {name}: launches {n}, want "
+                                 f"{want} B9 calls")
+        check_response(name, r["resp"], tags, kw, n_total)
+        lat[name] = latency_row(r, r["resp"])
+        print_row(f"{label} {name}", lat[name])
+        add_counts(path, n)
+    add_counts(launches, path)
+    return res, lat, path
+
+
+def hot_scan_row(lt, rec, tags: dict, launches: dict) -> dict:
+    """B9 (``kernels.live.hot_scan``: K1s then K2 over the live prefix)
+    against its plain version on a stage record, with the request
+    compiled as the live tier compiles it; exact equality of the counts
+    and of the kernel's top-k rows with the plain version's first rows.
+    Bound: K1s's bytes on the prefix (k1_bytes) less its score column
+    (an intermediate of B9) plus the top-k written."""
+    import torch
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.kernels import live
+    from tempo_tpu_torch.search.kernels.scan import scan_single
+    from tempo_tpu_torch.search.pipeline import compile_query
+
+    eng = lt.engine
+    pages = rec.pages
+    n = pages.n_pages
+    cq = compile_query(pages.key_dict, pages.val_dict,
+                       SearchRequest(tags=dict(tags), limit=20),
+                       cache_on=pages, cache=eng.compile_cache)
+    got = live.hot_scan(eng, rec.staged, n, cq)
+    want = live.hot_scan_plain(eng, rec.staged, n, cq)
+    k = got[1].numel()
+    err = require_equal("hot_scan", got, (want[0], want[1][:k],
+                                          want[2][:k]))
+    view = live.live_prefix(rec.staged, n).device
+    tk, vr = eng._tables(cq)
+    as_multi = (view["kv_key"], view["kv_val"], view["entry_start"],
+                view["entry_end"], view["entry_dur"], view["entry_valid"],
+                torch.zeros(n, dtype=torch.int32, device=eng.device),
+                tk[None], vr[None], cq.n_terms, cq.dur_lo,
+                min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
+                min(cq.win_end, 0xFFFFFFFF))
+    scores, _ = scan_single(*as_multi[:6], tk, vr, *as_multi[9:])
+    need = k1_bytes(as_multi, scores, single=True) - 4 * scores.numel() \
+        + 8 * k
+    ms = cuda_ms(lambda: live.hot_scan(eng, rec.staged, n, cq), 50)
+    plain = cuda_ms(lambda: live.hot_scan_plain(eng, rec.staged, n, cq), 3)
+    shape = {"pages": n, "tier": rec.tier, "entries": n * ENTRIES_PER_PAGE,
+             "C": int(view["kv_key"].shape[2]), "n_terms": cq.n_terms,
+             "k": k, "match_count": int(got[0][0]),
+             "inspected": int(got[0][1]), "bytes_needed": need,
+             "cuda_sources": ["tempo_tpu_torch/csrc/scan.cu",
+                              "tempo_tpu_torch/csrc/topk.cu"]}
+    return kernel_row("hot_scan", "tempo_tpu_torch/search/kernels/live.py",
+                      "tempo_tpu/search/live_tier.py:83", launches, err, ms,
+                      plain, need, None, shape,
+                      lambda: live.hot_scan(eng, rec.staged, n, cq))
+
+
+def stale_check(lt, rec, n_live: int, reqs: dict) -> dict:
+    """B9's kernel route against its plain version on a stage record of
+    more pages than `n_live`: the pages past it hold valid entries (a
+    stage from before a cut), which both must ignore. The plain version
+    over every page must count more for the match-all request."""
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search import structural
+    from tempo_tpu_torch.search.kernels import live
+    from tempo_tpu_torch.search.pipeline import compile_query
+
+    eng = lt.engine
+    pages = rec.pages
+    out = {}
+    for name, (tags, kw) in reqs.items():
+        req = SearchRequest(tags=dict(tags), **kw)
+        cq = compile_query(pages.key_dict, pages.val_dict, req,
+                           cache_on=pages, cache=eng.compile_cache)
+        expr = structural.structural_query(req, lt.structural_cfg)
+        if expr is not None:
+            cq.structural = structural.compile_structural(expr, [pages])
+        got = live.hot_scan(eng, rec.staged, n_live, cq)
+        want = live.hot_scan_plain(eng, rec.staged, n_live, cq)
+        every = live.hot_scan_plain(eng, rec.staged, pages.n_pages, cq)
+        k = got[1].numel()
+        require_equal(f"stale {name}", got, (want[0], want[1][:k],
+                                             want[2][:k]))
+        out[name] = {"live_pages": n_live, "stage_pages": pages.n_pages,
+                     "count": int(got[0][0]),
+                     "inspected": int(got[0][1]),
+                     "count_all_pages": int(every[0][0])}
+    if out["all"]["count_all_pages"] <= out["all"]["count"]:
+        raise AssertionError(f"stale check: the pages past the live count "
+                             f"hold no match: {out}")
+    return out
+
+
+def live_cell(args, work: str, report: dict, dbs: list,
+              launches: dict) -> list:
+    """The live cell (step 8 of the module docstring). Returns its kernel
+    row."""
+    import collections
+
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.search.live_tier import (LiveTier, _HotStage,
+                                                  scan_search_data)
+    from tempo_tpu_torch.search.streaming import StreamingSearchBlock
+
+    n_live = args.live_traces
+    cfg = TempoDBConfig(search_live_tier_enabled=True,
+                        search_structural_enabled=True)
+    gpu = TempoDB(LocalBackend(os.path.join(work, "live_blocks")), cfg,
+                  device="cuda")
+    dbs.append(gpu)
+    lt = gpu.live_tier
+    cpu = LiveTier("cpu", cfg.structural(), enabled=True,
+                   max_entries=cfg.search_live_tier_max_entries)
+    out: dict = {"traces": n_live, "max_entries": lt.max_entries}
+    t0 = time.perf_counter()
+    members = live_members(args.seed, 0, n_live, spans=True)
+    out["make_s"] = time.perf_counter() - t0
+    arrived = collections.deque()
+    t0 = time.perf_counter()
+    for b in range(0, n_live, LIVE_BATCH):
+        for tid, raw in members[b:b + LIVE_BATCH]:
+            lt.absorb(LIVE_TENANT, tid, raw)
+            arrived.append(tid)
+    out["absorb_s"] = time.perf_counter() - t0
+    for tid, raw in members:
+        cpu.absorb(LIVE_TENANT, tid, raw)
+    print(f"live stage: {n_live} traces with spans absorbed in "
+          f"{n_live // LIVE_BATCH} push batches of {LIVE_BATCH} "
+          f"({out['absorb_s']:.2f} s; made in {out['make_s']:.2f} s)",
+          flush=True)
+
+    # quiet stage: each request cold (the first builds the stage) and warm
+    reqs = live_requests()
+    calls = {name: answer(lambda q, r: lt.search(LIVE_TENANT, q, r), *rq)
+             for name, rq in reqs.items()}
+    res, lat, path = live_path("live", calls, reqs, n_live, args.reps,
+                               launches, pruned=("live_pruned",))
+    rec = lt.stage_record(LIVE_TENANT)
+    out.update(search=lat, launches=path, pages=rec.pages.n_pages,
+               tier=rec.tier, build_s=rec.build_s, copy_s=rec.copy_s)
+    busy = {n: call_busy(calls[n], args.reps)
+            for n in ("live_bench", "live_exhaustive", "live_desc")}
+    print_busy(busy, lat)
+    out["device_busy"] = busy
+    t0 = time.perf_counter()
+    for name, rq in reqs.items():
+        c = answer(lambda q, r: cpu.search(LIVE_TENANT, q, r), *rq)()
+        if c.response() != res[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    out["cpu_check_s"] = time.perf_counter() - t0
+    print(f"live stage: {rec.pages.n_pages} pages, tier {rec.tier}, built "
+          f"in {rec.build_s * 1e3:.1f} ms, copied in "
+          f"{rec.copy_s * 1e3:.2f} ms; {len(reqs)} responses equal the "
+          f"CPU path's ({out['cpu_check_s']:.1f} s)", flush=True)
+
+    # push -> searchable: cut the oldest batch, absorb a new one, search
+    newest = answer(lambda q, r: lt.search(LIVE_TENANT, q, r), {},
+                    {"limit": LIVE_BATCH})
+    fresh = live_members(args.seed, n_live, (args.rounds + 1) * LIVE_BATCH,
+                         spans=True)
+    rounds = []
+    for i in range(args.rounds + 1):
+        batch = fresh[i * LIVE_BATCH:(i + 1) * LIVE_BATCH]
+        cut = [arrived.popleft() for _ in range(LIVE_BATCH)]
+        reset_counts()
+        t0 = time.perf_counter()
+        lt.mark_cut(LIVE_TENANT, cut)
+        for tid, raw in batch:
+            lt.absorb(LIVE_TENANT, tid, raw)
+        t1 = time.perf_counter()
+        got = newest()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n = read_counts()
+        arrived.extend(tid for tid, _ in batch)
+        cpu.mark_cut(LIVE_TENANT, cut)
+        for tid, raw in batch:
+            cpu.absorb(LIVE_TENANT, tid, raw)
+        ids = {m.trace_id for m in got.response().traces}
+        if ids != {tid.hex() for tid, _ in batch} or n["hot_scan"] != 1:
+            raise AssertionError(f"push round {i}: the new batch is not "
+                                 f"the newest answer, or launches {n}")
+        r = lt.stage_record(LIVE_TENANT)
+        if i:                                # the first is a warm-up
+            rounds.append({
+                "total_ms": (t2 - t0) * 1e3, "absorb_ms": (t1 - t0) * 1e3,
+                "search_ms": (t2 - t1) * 1e3, "build_ms": r.build_s * 1e3,
+                "copy_ms": r.copy_s * 1e3,
+                "device_ms": call_busy(newest, 1)["device_ms"]})
+    out["push_rounds"] = rounds
+
+    def p50(key):
+        xs = sorted(x[key] for x in rounds if x[key] is not None)
+        return xs[len(xs) // 2] if xs else None
+
+    out["push_p50_ms"] = {k: p50(k) for k in rounds[0]}
+    print("push to searchable, p50 of " + str(len(rounds)) + " rounds: "
+          + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not "
+                      "measured" for k, v in out["push_p50_ms"].items()),
+          flush=True)
+
+    # a cut that leaves pages past the live count: responses against the
+    # CPU path, then B9 on the stage from before the cut
+    desc = reqs["live_desc"]
+    answer(lambda q, r: lt.search(LIVE_TENANT, q, r), *desc)()
+    before = lt.stage_record(LIVE_TENANT)
+    half = [arrived.popleft() for _ in range(n_live // 2)]
+    lt.mark_cut(LIVE_TENANT, half)
+    cpu.mark_cut(LIVE_TENANT, half)
+    for name in ("live_bench", "live_exhaustive", "live_desc"):
+        tags, kw = reqs[name]
+        g = answer(lambda q, r: lt.search(LIVE_TENANT, q, r), tags, kw)()
+        c = answer(lambda q, r: cpu.search(LIVE_TENANT, q, r), tags, kw)()
+        if g.response() != c.response() \
+                or g.metrics.inspected_traces != n_live - len(half):
+            raise AssertionError(f"after the cut, {name}: card and CPU "
+                                 "responses differ")
+    after = lt.stage_record(LIVE_TENANT)
+    out["stale"] = stale_check(
+        lt, before, after.pages.n_pages,
+        {"all": ({}, {"limit": 20}), "live_bench": reqs["live_bench"],
+         "live_desc": desc})
+    print(f"cut of {len(half)}: {after.pages.n_pages} of "
+          f"{before.pages.n_pages} pages live; responses equal the CPU "
+          f"path's; B9 on the stage from before the cut equals its plain "
+          f"version: {json.dumps(out['stale'])}", flush=True)
+
+    # a tenant past max_entries: the tier declines, nothing launches
+    over = live_members(args.seed + 1, 0, lt.max_entries + 1, spans=False)
+    for tid, raw in over:
+        lt.absorb("live-overflow", tid, raw)
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search.results import SearchResults
+
+    reset_counts()
+    declined = not lt.search("live-overflow", SearchRequest(limit=20),
+                             SearchResults())
+    n = read_counts()
+    stats = lt.stats()
+    if not declined or n["hot_scan"] or n["scan_single"] \
+            or stats.get('live_tier_scans{result="fallback_overflow"}') != 1:
+        raise AssertionError(f"overflow: declined {declined}, launches "
+                             f"{n}, stats {stats}")
+    lt.drop_tenant("live-overflow")
+    out["stats"] = stats
+    print(f"overflow: {len(over)} traces > {lt.max_entries}, the tier "
+          f"declines with no launch; stats {json.dumps(stats)}", flush=True)
+
+    # the WAL head: appended to its sidecar file, replayed, searched
+    path = os.path.join(work, "wal-head.search")
+    n_wal = args.wal_traces
+    blk = StreamingSearchBlock(path, live=lt)
+    t0 = time.perf_counter()
+    chunk = 16_384
+    for first in range(0, n_wal, chunk):
+        for tid, sd in trace_data(args.seed + 2, first,
+                                  min(chunk, n_wal - first), spans=False):
+            blk.append(tid, sd)
+    blk.close()
+    t1 = time.perf_counter()
+    blk = StreamingSearchBlock.rescan(path, live=lt)
+    t2 = time.perf_counter()
+    if len(blk) != n_wal:
+        raise AssertionError(f"rescan found {len(blk)} of {n_wal} traces")
+    wal = {"traces": n_wal, "sidecar_bytes": os.path.getsize(path),
+           "append_s": t1 - t0, "rescan_s": t2 - t1}
+    calls = {name: answer(blk.search, *rq)
+             for name, rq in WAL_REQUESTS.items()}
+    wres, wlat, wpath = live_path("wal", calls, WAL_REQUESTS, n_wal,
+                                  args.reps, launches)
+    wrec = blk._stage.record
+    wal.update(search=wlat, launches=wpath, pages=wrec.pages.n_pages,
+               tier=wrec.tier, build_s=wrec.build_s, copy_s=wrec.copy_s)
+    wbusy = {n: call_busy(c, args.reps) for n, c in calls.items()}
+    print_busy(wbusy, wlat)
+    wal["device_busy"] = wbusy
+    t0 = time.perf_counter()
+    cstage = _HotStage()
+    for name, rq in WAL_REQUESTS.items():
+        c = answer(lambda q, r: scan_search_data(
+            blk.entries(), q, r, cstage, 0, cpu), *rq)()
+        if c.response() != wres[name]["resp"]:
+            raise AssertionError(f"{name}: card and CPU responses differ")
+    wal["cpu_check_s"] = time.perf_counter() - t0
+    print(f"WAL head: {n_wal} traces, sidecar "
+          f"{wal['sidecar_bytes'] / 1e6:.1f} MB (append {wal['append_s']:.1f}"
+          f" s, rescan {wal['rescan_s']:.1f} s); {wrec.pages.n_pages} pages,"
+          f" tier {wrec.tier}, built in {wrec.build_s:.2f} s, copied in "
+          f"{wrec.copy_s * 1e3:.1f} ms; responses equal the CPU path's "
+          f"({wal['cpu_check_s']:.1f} s)", flush=True)
+    out["wal"] = wal
+    row = hot_scan_row(lt, wrec, BENCH, launches)
+    blk.clear()
+    report["live"] = out
+    gpu.close()
+    dbs.remove(gpu)
+    del blk, wrec, before, after, cstage
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -3095,6 +3554,11 @@ def main(argv=None) -> int:
     ap.add_argument("--agg-blocks", type=int, default=128,
                     help="blocks of the RED cell's corpus (traces per "
                          "block as --traces-per-block)")
+    ap.add_argument("--live-traces", type=int, default=4096,
+                    help="traces of the live cell's stage (the default "
+                         "search_live_tier_max_entries)")
+    ap.add_argument("--wal-traces", type=int, default=262_144,
+                    help="traces of the live cell's WAL head")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -3132,6 +3596,7 @@ def main(argv=None) -> int:
         rows += packed_hc_cell(args, work, report, dbs, launches)
         rows += structural_cell(args, work, report, dbs, launches)
         rows += red_cell(args, work, report, dbs, launches)
+        rows += live_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()

@@ -1,7 +1,8 @@
 """TempoDB facade for the port: the backend search read path.
 
 Counterpart of the search half of the reference's ``db/tempodb.py``:
-``poll`` of the blocklist from the backend, ``search`` of a tenant's
+``poll`` of the blocklist from the backend (which also tells the live
+tier, ``live_tier``, what became visible), ``search`` of a tenant's
 blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
 list of them, all through the batched device engine, each answering an
 ``?agg=`` aggregate when the database's analytics gate is on. Writing trace
@@ -25,6 +26,7 @@ from ..backend.types import NAME_SEARCH_HEADER, BlockMeta
 from ..device import resolve_device
 from ..search.backend_search_block import BackendSearchBlock
 from ..search.batcher import BlockBatcher, ScanJob
+from ..search.live_tier import LiveTier
 from ..search.results import SearchResults
 from ..search.structural import StructuralConfig
 from .blocklist import Blocklist
@@ -71,6 +73,15 @@ class TempoDBConfig:
     # ignored (no aggregate, and still no early quit). Per database here;
     # the reference's gate is process-wide.
     search_analytics_enabled: bool = False
+    # the live tier (search/live_tier.py): tenants' in-flight traces and
+    # the WAL head searched on the device (B9) before they reach a
+    # backend block; past max_entries live traces a tenant's live search
+    # declines, and a tenant holds at most max_subscriptions standing
+    # tail queries. Per database here; the reference's gate is
+    # process-wide.
+    search_live_tier_enabled: bool = False
+    search_live_tier_max_entries: int = 4096
+    search_live_tail_max_subscriptions: int = 16
     pool_workers: int = 50                # concurrent meta reads per poll
 
     def structural(self) -> StructuralConfig:
@@ -105,6 +116,11 @@ class TempoDB:
             packed=self.cfg.search_packed_residency,
             structural_cfg=self.cfg.structural(),
             analytics_enabled=self.cfg.search_analytics_enabled)
+        self.live_tier = LiveTier(
+            self.device, self.cfg.structural(),
+            enabled=self.cfg.search_live_tier_enabled,
+            max_entries=self.cfg.search_live_tier_max_entries,
+            max_subscriptions=self.cfg.search_live_tail_max_subscriptions)
         self._search_blocks: OrderedDict[str, BackendSearchBlock] = \
             OrderedDict()
         self._headers: OrderedDict[str, dict] = OrderedDict()
@@ -126,6 +142,8 @@ class TempoDB:
         drop cached state of blocks that are gone."""
         metas = self.poller.poll()
         self.blocklist.apply_poll_results(metas)
+        if self.live_tier.enabled:
+            self.live_tier.mark_poll_visible(metas)
         live = {m.block_id for ms in metas.values() for m in ms}
         with self._lock:
             for bid in [b for b in self._search_blocks if b not in live]:

@@ -81,6 +81,9 @@ class SearchMetrics:
     inspected_blocks: int = 0
     skipped_blocks: int = 0
     truncated_entries: int = 0
+    # the request's deadline expired before the search was done
+    # (robustness/deadline.py)
+    partial: bool = False
     # the ?agg= answer as canonical JSON (search/analytics.py), "" when
     # the request asked for none or its gate is off
     agg_json: str = ""

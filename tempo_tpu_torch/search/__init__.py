@@ -22,6 +22,10 @@ compilation, and the batched scan over hand-written CUDA kernels.
                  the batched scan (kernels K1 + K2) and result rendering
   backend_search_block.py  container write/read, single-block search
   batcher.py     group planning, staged cache, pipelined dispatch
+  live_tier.py   the live tier: per-tenant rolling stages of in-flight
+                 traces scanned on the device (B9), tail subscriptions
+  streaming.py   the WAL head's search block: sidecar file, replay, and
+                 search through the live tier's scan or the host walk
 """
 
 from .columnar import ColumnarPages, PageGeometry

@@ -1,7 +1,10 @@
 """Per-trace search data and its wire codec.
 
 Counterpart of the reference's ``search/data.py`` without the proto
-extraction (the port reads search blocks; it does not ingest traces).
+extraction (the port does not ingest traces from OTLP yet): the codec,
+the merge of a trace's micro-batches (``SearchData.merge``,
+``clone_search_data``) and the host predicate ``search_data_matches``
+that the WAL head's walk and the tail subscriptions evaluate.
 Wire format, little-endian, length-prefixed:
 
   | u32 start_s | u32 end_s | u32 dur_ms | u16 root_svc_len | root_svc
@@ -48,6 +51,76 @@ class SearchData:
     root_name: str = ""
     kvs: dict = field(default_factory=dict)  # str -> set[str]
     spans: list = field(default_factory=list)  # list[SpanData]
+
+    @property
+    def start_ns(self) -> int:
+        # the columnar format keeps seconds; results carry start_s * 1e9
+        return self.start_s * 1_000_000_000
+
+    def merge(self, other: "SearchData") -> None:
+        """Fold a later micro-batch of the same trace in: earliest start,
+        latest end, longest duration, the first root names, the union of
+        the tag values, and the span rows appended with their parents
+        shifted by the rows already here (a parent in another batch is
+        not known from the summaries: it stays -1)."""
+        if other.start_s and (not self.start_s
+                              or other.start_s < self.start_s):
+            self.start_s = other.start_s
+        if other.end_s > self.end_s:
+            self.end_s = other.end_s
+        self.dur_ms = max(self.dur_ms, other.dur_ms)
+        if not self.root_service and other.root_service:
+            self.root_service = other.root_service
+            self.root_name = other.root_name
+        for k, vs in other.kvs.items():
+            self.kvs.setdefault(k, set()).update(vs)
+        base = len(self.spans)
+        for sp in other.spans:
+            self.spans.append(SpanData(
+                parent=sp.parent + base if sp.parent >= 0 else -1,
+                dur_ms=sp.dur_ms, kind=sp.kind,
+                kvs={k: set(vs) for k, vs in sp.kvs.items()}))
+
+
+def clone_search_data(sd: SearchData) -> SearchData:
+    """Copy-on-write clone for the merge-on-append stores (live tier, WAL
+    head): the store replaces its entry with a merged clone, so an entry
+    once published never changes and a reader may build from a snapshot
+    of references outside the store's lock. Span rows are shared (a merge
+    appends rows, it never changes one)."""
+    return SearchData(
+        trace_id=sd.trace_id, start_s=sd.start_s, end_s=sd.end_s,
+        dur_ms=sd.dur_ms, root_service=sd.root_service,
+        root_name=sd.root_name,
+        kvs={k: set(v) for k, v in sd.kvs.items()}, spans=list(sd.spans))
+
+
+def search_data_matches(sd: SearchData, req, cfg) -> bool:
+    """The host predicate over one trace's search data, the kernels'
+    semantics: durations in ms, the window in seconds, tag values as
+    substrings; the in-band tags (exhaustive, structural, agg) are no
+    predicates. A structural request is evaluated by
+    ``structural.eval_host`` under the database's StructuralConfig `cfg`
+    (ValueError when its gate is off)."""
+    if req.min_duration_ms and sd.dur_ms < req.min_duration_ms:
+        return False
+    if req.max_duration_ms and sd.dur_ms > req.max_duration_ms:
+        return False
+    if req.start and sd.end_s < req.start:
+        return False
+    if req.end and sd.start_s > req.end:
+        return False
+    from . import structural
+    from .pipeline import request_terms
+
+    for k, v in request_terms(req):
+        vs = sd.kvs.get(k)
+        if not vs:
+            return False
+        if v and not any(v in x for x in vs):
+            return False
+    expr = structural.structural_query(req, cfg)
+    return expr is None or structural.eval_host(expr, sd)
 
 
 def _put_kvs(out: bytearray, kvs: dict) -> None:

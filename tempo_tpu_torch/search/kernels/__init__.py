@@ -13,6 +13,8 @@
                                <- tempo_tpu multiblock.agg_entry_counts
   K8  ``agg.analytics_count``  (csrc/agg.cu)
                                <- tempo_tpu analytics.analytics_count_kernel
+  B9  ``live.hot_scan``        (K1s + K2, K6 first, over a live prefix)
+                               <- tempo_tpu live_tier.hot_scan_kernel
 
 K1, K1s and K4 also read batches staged in the packed layout
 (``search/packing.py``): the scan half of the reference's packing
@@ -34,8 +36,9 @@ with u16 / bucketed durations), ``PACKED_HIT_LAUNCHES``,
 hit mode) ``VERDICT_LAUNCHES``, ``SINGLE_VERDICT_LAUNCHES`` and
 ``COALESCED_VERDICT_LAUNCHES``; ``topk.LAUNCHES``, ``topk.ROW_LAUNCHES``,
 ``probe.LAUNCHES``, ``pack.LAUNCHES``, ``structural.LAUNCHES``, and
-``agg.LAUNCHES`` / ``agg.ROW_LAUNCHES`` (K7, one row / a query axis) and
-``agg.COUNT_LAUNCHES`` (K8).
+``agg.LAUNCHES`` / ``agg.ROW_LAUNCHES`` (K7, one row / a query axis),
+``agg.COUNT_LAUNCHES`` (K8) and ``scan.HOT_LAUNCHES`` (B9, a chain
+whose K1s, K2 and K6 launches count in their own counters too).
 """
 
 import threading

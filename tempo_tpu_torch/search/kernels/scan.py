@@ -76,6 +76,9 @@ from .build import check, load
 LAUNCHES = LaunchCount()         # K1 launches in range mode
 HIT_LAUNCHES = LaunchCount()     # K1 launches in hit-mask mode
 SINGLE_LAUNCHES = LaunchCount()  # K1s launches (either mode)
+# B9 (``kernels/live.py`` ``hot_scan``): K1s and K2 over a live stage's
+# live prefix; each such call also counts in K1s's and K2's counters
+HOT_LAUNCHES = LaunchCount()
 COALESCED_LAUNCHES = LaunchCount()      # K4 launches in range mode
 COALESCED_HIT_LAUNCHES = LaunchCount()  # K4 launches in hit-mask mode
 # packed layout

@@ -84,6 +84,11 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.search.kernels.structural\n"
         "import tempo_tpu_torch.search.analytics\n"
         "import tempo_tpu_torch.search.kernels.agg\n"
+        "import tempo_tpu_torch.search.kernels.live\n"
+        "import tempo_tpu_torch.search.live_tier\n"
+        "import tempo_tpu_torch.search.streaming\n"
+        "import tempo_tpu_torch.encoding.v2.objects\n"
+        "import tempo_tpu_torch.robustness.deadline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -132,7 +137,7 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
                 scan.COALESCED_PACKED_HIT_LAUNCHES, k6.LAUNCHES,
                 scan.VERDICT_LAUNCHES, scan.SINGLE_VERDICT_LAUNCHES,
                 scan.COALESCED_VERDICT_LAUNCHES, agg.LAUNCHES,
-                agg.ROW_LAUNCHES, agg.COUNT_LAUNCHES)
+                agg.ROW_LAUNCHES, agg.COUNT_LAUNCHES, scan.HOT_LAUNCHES)
     for c in counters:
         c.reset()
     s, counts = scan.multi_scan(
@@ -256,4 +261,23 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         torch.tensor([0, 1, 2], dtype=torch.int32),
         torch.tensor([5, 20, 0], dtype=torch.int64),
         torch.tensor([10], dtype=torch.int64), 2).tolist() == [1, 0, 0, 1]
+    # B9 over a two-page stage with one live page
+    from tempo_tpu_torch.search.engine import ScanEngine, StagedPages
+    from tempo_tpu_torch.search.kernels import live
+    from tempo_tpu_torch.search.pipeline import CompiledQuery
+
+    two = {"kv_key": kv.repeat(2, 1, 1), "kv_val": kv.repeat(2, 1, 1),
+           "entry_start": cols[0].repeat(2, 1),
+           "entry_end": cols[1].repeat(2, 1),
+           "entry_dur": cols[2].repeat(2, 1),
+           "entry_valid": cols[3].repeat(2, 1)}
+    cq = CompiledQuery(term_keys=torch.zeros(0, dtype=torch.int32).numpy(),
+                       val_ranges=torch.zeros((0, 1, 2),
+                                              dtype=torch.int32).numpy(),
+                       dur_lo=0, dur_hi=0xFFFFFFFF, win_start=0,
+                       win_end=0xFFFFFFFF, limit=2)
+    counts, top_s, top_i = live.hot_scan(
+        ScanEngine(torch.device("cpu")), StagedPages(device=two, pages=None),
+        1, cq)
+    assert counts.tolist() == [4, 4] and top_i.tolist()[:2] == [3, 2]
     assert [c.n for c in counters] == [0] * len(counters)
