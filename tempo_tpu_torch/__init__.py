@@ -11,6 +11,9 @@ The slices ported so far are backend tag search over search blocks:
 and the single-block ``search.backend_search_block.BackendSearchBlock
 .search`` -> ``search.engine.ScanEngine``, over the hand-written CUDA
 kernels in ``csrc/`` (``scan.cu``, ``topk.cu``, and ``probe.cu`` for value
-dictionaries large enough to probe on the device). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; see ``device.py``.
+dictionaries large enough to probe on the device). Given a mesh
+(``parallel/``), ``TempoDB`` shards every batch over ranks on
+``torch.distributed`` and merges their top-k with ``csrc/dist.cu``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+see ``device.py``.
 """

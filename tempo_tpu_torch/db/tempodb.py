@@ -5,8 +5,13 @@ Counterpart of the search half of the reference's ``db/tempodb.py``:
 tier, ``live_tier``, what became visible), ``search`` of a tenant's
 blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
 list of them, all through the batched device engine, each answering an
-``?agg=`` aggregate when the database's analytics gate is on. Writing trace
-blocks, trace-by-id lookup, compaction and retention are later slices;
+``?agg=`` aggregate when the database's analytics gate is on. Given a
+mesh (``parallel.mesh.make_mesh``), or with ``auto_mesh`` once
+``torch.distributed`` is initialized with more than one rank, the three
+shard every batch over the mesh's ranks (one rank per device; B10's
+chains and K9); the live tier stays on the rank's own device, unsharded.
+Writing trace blocks, trace-by-id lookup, compaction and retention are
+later slices;
 the search blocks this reads are written by
 ``search.backend_search_block.write_search_block`` (or by the reference,
 which writes the same bytes).
@@ -67,6 +72,11 @@ class TempoDBConfig:
     search_structural_stack_enabled: bool = False
     search_structural_bucket_enabled: bool = False
     search_structural_bucket_max_nodes: int = 16
+    # on a mesh: the span segment reshards so each rank holds only its
+    # pages' spans (structural.shard_span_segment), and the page axis pads
+    # to the least multiple of the shard count (structural.remainder_pad)
+    search_structural_shard_spans: bool = False
+    search_structural_remainder_pages: bool = False
     # aggregate analytics (search/analytics.py): a request carrying the
     # ?agg= tag (analytics.attach_agg) gets its group-by-service calls,
     # errors and latency histogram in metrics.agg_json; off, the tag is
@@ -83,23 +93,38 @@ class TempoDBConfig:
     search_live_tier_max_entries: int = 4096
     search_live_tail_max_subscriptions: int = 16
     pool_workers: int = 50                # concurrent meta reads per poll
+    # bounded wait on the process-wide collective dispatch lock
+    # (parallel.mesh.dispatch_lock); a timeout raises DispatchLockTimeout.
+    # <= 0 waits forever
+    search_dispatch_lock_timeout_s: float = 60.0
+    # shard batches over make_mesh() when torch.distributed is initialized
+    # with more than one rank (resolved at the first search); a mesh given
+    # to TempoDB wins, at any world size
+    auto_mesh: bool = True
 
     def structural(self) -> StructuralConfig:
         return StructuralConfig(
             enabled=self.search_structural_enabled,
             stack_enabled=self.search_structural_stack_enabled,
             bucket_enabled=self.search_structural_bucket_enabled,
-            bucket_max_nodes=max(2, self.search_structural_bucket_max_nodes))
+            bucket_max_nodes=max(2, self.search_structural_bucket_max_nodes),
+            shard_spans=self.search_structural_shard_spans,
+            remainder_pages=self.search_structural_remainder_pages)
 
 
 class TempoDB:
-    """The search reader over one backend, on one device."""
+    """The search reader over one backend, on one device, or on one rank
+    of a mesh."""
 
     def __init__(self, backend: RawBackend, cfg: TempoDBConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         """`device`: where staged batches live and the kernels run —
         ``cuda`` by default; ``cpu`` runs the kernels' plain versions.
-        Raises when CUDA is asked for (or defaulted to) and absent."""
+        Raises when CUDA is asked for (or defaulted to) and absent.
+        `mesh`: a ``parallel.mesh.make_mesh`` DeviceMesh to shard batched
+        scans over, this process one of its ranks; its process group must
+        carry `device`'s tensors (NCCL for CUDA, gloo for the CPU), or
+        this raises ValueError."""
         self.backend = backend
         self.cfg = cfg or TempoDBConfig()
         self.device = resolve_device(device)
@@ -116,6 +141,11 @@ class TempoDB:
             packed=self.cfg.search_packed_residency,
             structural_cfg=self.cfg.structural(),
             analytics_enabled=self.cfg.search_analytics_enabled)
+        self.mesh = None
+        # auto_mesh resolves at the first search (_ensure_mesh)
+        self._mesh_resolved = mesh is not None
+        if mesh is not None:
+            self._use_mesh(mesh)
         self.live_tier = LiveTier(
             self.device, self.cfg.structural(),
             enabled=self.cfg.search_live_tier_enabled,
@@ -133,6 +163,33 @@ class TempoDB:
     def close(self) -> None:
         """Stop the batcher's staging and coalescing threads."""
         self.batcher.close()
+
+    def _use_mesh(self, mesh) -> None:
+        from ..parallel.mesh import ShardExchange
+
+        self.batcher.set_exchange(ShardExchange(
+            mesh, self.device, self.cfg.search_dispatch_lock_timeout_s))
+        self.mesh = mesh
+
+    def _ensure_mesh(self) -> None:
+        """auto_mesh: shard over make_mesh() when torch.distributed is
+        initialized at the first search with more than one rank (as the
+        reference shards only over more than one device); the flag is set
+        last, under the lock, so no search sees a half-configured
+        batcher."""
+        if self._mesh_resolved:
+            return
+        with self._lock:
+            if self._mesh_resolved:
+                return
+            import torch.distributed as dist
+
+            if self.cfg.auto_mesh and dist.is_available() \
+                    and dist.is_initialized() and dist.get_world_size() > 1:
+                from ..parallel.mesh import make_mesh
+
+                self._use_mesh(make_mesh())
+            self._mesh_resolved = True
 
     # ------------------------------------------------------------------
     # blocklist
@@ -244,6 +301,7 @@ class TempoDB:
                results: SearchResults | None = None) -> SearchResults:
         """Search all blocks of a tenant through the batched device engine,
         stopping early at the result limit."""
+        self._ensure_mesh()
         results = results or SearchResults.for_request(req)
         epoch = self.blocklist.epoch()
         jobs = self._jobs(tenant, epoch)
@@ -261,6 +319,7 @@ class TempoDB:
             encoding=req.encoding or "zstd", version=req.version or "vT1",
             data_encoding=req.data_encoding or "v2",
             start_time=req.start_time, end_time=req.end_time)
+        self._ensure_mesh()
         results = SearchResults.for_request(req.search_req)
         try:
             job = self._scan_job(meta, req.start_page,
@@ -277,6 +336,7 @@ class TempoDB:
         and their plan are memoized per job list and blocklist epoch.
         Zero-page jobs (a stale meta, a start past the container) are
         dropped."""
+        self._ensure_mesh()
         req = breq.search_req
         results = SearchResults.for_request(req)
         sig = (breq.tenant_id,

@@ -138,23 +138,31 @@ class AggStage:
         self.services = services
         self.n_keys = _pow2(max(1, len(services))) * _NB1Q * 2
         self.host = host
-        self._device = None
+        self._device: dict = {}
         self._lock = threading.Lock()
 
-    def device(self, dev: torch.device) -> torch.Tensor:
+    def device(self, dev: torch.device, part: tuple | None = None) \
+            -> torch.Tensor:
         """The key column on the batch's device `dev` (int32 [P, E]),
-        placed at the first call."""
+        placed at the first call; with `part` = (rank, world) only that
+        page shard's rows (a mesh rank's slice, [P / world, E])."""
         with self._lock:
-            if self._device is None:
-                self._device = torch.from_numpy(self.host).to(dev)
-            return self._device
+            t = self._device.get(part)
+            if t is None:
+                rows = self.host
+                if part is not None:
+                    pp = rows.shape[0] // part[1]
+                    rows = rows[part[0] * pp:(part[0] + 1) * pp]
+                t = self._device[part] = torch.from_numpy(
+                    np.ascontiguousarray(rows)).to(dev)
+            return t
 
     @property
     def device_nbytes(self) -> int:
-        """Bytes of the key column placed on the device (0 before the
+        """Bytes of the key columns placed on the device (0 before the
         first agg dispatch over the batch)."""
-        t = self._device
-        return 0 if t is None else t.numel() * t.element_size()
+        return sum(t.numel() * t.element_size()
+                   for t in list(self._device.values()))
 
     def decode(self, counts) -> dict:
         """Dense [n_keys] counts -> {service: {calls, errors, hist}}, the
@@ -257,7 +265,8 @@ _STAGE_LOCK = threading.Lock()
 
 
 def stage_for_batch(batch) -> AggStage:
-    """The batch's AggStage (a multiblock.BlockBatch), built at the first
+    """The batch's AggStage (a multiblock.BlockBatch or ShardedBatch: the
+    whole batch's keys; a mesh rank places its slice), built at the first
     agg request over it and kept on it: repeat requests reuse it, and an
     evicted batch frees it with its arrays. Two first requests racing
     build it twice and keep one."""

@@ -42,7 +42,17 @@ the two kernels. What the grouping keeps from the reference:
 - **deterministic release**: a staging lookahead hands its batch to the
   search and keeps nothing of it, and a flush thread drops the batch and
   its members' queries before it publishes their outputs, so a batch the
-  budget evicted is freed once the searches holding it return.
+  budget evicted is freed once the searches holding it return;
+- **sharded over a mesh** (an exchange, ``parallel/mesh.py``): each rank
+  stages its page shard of every batch and every dispatch runs the B10
+  chains, whose collectives every rank must issue in one order. So each
+  decision that leads to a collective reads only what is equal on every
+  rank: the request, the host batch (the cache charges a batch's whole
+  bytes, not the rank's share) and the merged outputs (early quit). With
+  more than one rank the coalescer is off, the staging lookahead too, and
+  the batcher serves one search at a time, because a wall-clock window or
+  a background thread could order them differently on two ranks; at
+  world size 1 the coalescer fuses through the dist coalesced chain.
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
 breaker's host route and ``host_scan``, the dispatch watchdog, HBM
@@ -62,6 +72,7 @@ import heapq
 import threading
 import time
 import zlib
+import contextlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
@@ -429,7 +440,8 @@ class BlockBatcher:
         batches in the packed layout (packing.py). `structural_cfg`: the
         database's structural gate and stacking knobs.
         `analytics_enabled`: the database's ?agg= gate (analytics.py);
-        off, the tag is ignored."""
+        off, the tag is ignored. ``set_exchange`` shards it over a
+        mesh."""
         self.engine = MultiBlockEngine(
             device, top_k=top_k, device_probe_min_vals=device_probe_min_vals,
             packed=packed, structural_cfg=structural_cfg)
@@ -463,6 +475,21 @@ class BlockBatcher:
                 max_queries=coalesce_max_queries)
         self.last_dispatches = 0   # dispatch submits of the last search
         self.analytics_enabled = analytics_enabled
+        # more than one rank: one search at a time, no lookahead, no
+        # coalescer (set_exchange)
+        self._serial = False
+        self._search_lock = threading.Lock()
+
+    def set_exchange(self, exchange) -> None:
+        """Shard this batcher's batches over `exchange`'s ranks
+        (``parallel.mesh.ShardExchange``); before the first search. With
+        more than one rank the coalescer goes and searches run one at a
+        time."""
+        self.engine.exchange = exchange
+        self._serial = exchange.world > 1
+        if self._serial and self.coalescer is not None:
+            self.coalescer.close()
+            self.coalescer = None
 
     def close(self) -> None:
         """Stop the staging threads (pending lookaheads are cancelled) and
@@ -603,24 +630,26 @@ class BlockBatcher:
         structural request is refused (ValueError) when the gate is
         off."""
         expr = structural.structural_query(req, self.engine.structural_cfg)
-        with self._lock:
-            self._unplanned += 1
-        pinned: list[_CachedBatch] = []
-        interest: list[tuple] = []    # group keys not yet dispatched
-        planned = [False]
-        try:
-            return self._search_impl(jobs, req, expr, results, plan_key,
-                                     groups, pinned, interest, planned)
-        finally:
+        with (self._search_lock if self._serial
+              else contextlib.nullcontext()):
             with self._lock:
-                if planned[0]:
-                    for k in interest:
-                        self._release_locked(k)
-                else:
-                    self._unplanned -= 1
-                for c in pinned:
-                    c.pins -= 1
-                self._evict_locked()
+                self._unplanned += 1
+            pinned: list[_CachedBatch] = []
+            interest: list[tuple] = []    # group keys not yet dispatched
+            planned = [False]
+            try:
+                return self._search_impl(jobs, req, expr, results, plan_key,
+                                         groups, pinned, interest, planned)
+            finally:
+                with self._lock:
+                    if planned[0]:
+                        for k in interest:
+                            self._release_locked(k)
+                    else:
+                        self._unplanned -= 1
+                    for c in pinned:
+                        c.pins -= 1
+                    self._evict_locked()
 
     def _release_locked(self, gkey) -> None:
         n = self._interest.get(gkey, 0) - 1
@@ -747,7 +776,11 @@ class BlockBatcher:
 
         def submit_prefetch(from_idx):
             """Stage the next live group in the background while this
-            group's kernels run (host-to-device overlaps compute)."""
+            group's kernels run (host-to-device overlaps compute); not
+            with more than one rank, where the cache must change in the
+            same order on every rank."""
+            if self._serial:
+                return
             for g in groups[from_idx:]:
                 if all(hdr_reasons_for(g)):
                     continue

@@ -17,8 +17,17 @@ Layout, packed once per dictionary and memoized on the block's container:
 The reference also stages a position map (4 bytes per dictionary byte)
 and pads both axes to powers of two; its kernel needs the first and its
 jit cache the second. K3 walks each value's own byte range, so neither is
-staged here. The value-axis shard split of the reference (its mesh path)
-is a later slice: one device holds the whole dictionary.
+staged here.
+
+On a mesh (``parallel/mesh.py``) the value axis splits over the ranks,
+the reference's ``dist_probe_kernel``: ``pack_device_dict(val_dict,
+n_shards)`` gives rank r the contiguous value range ``[r*vs, (r+1)*vs)``
+(``PackedDeviceDict.shard``; ``vs`` is a multiple of 32, so a gathered
+mask packs into words that never straddle two ranks), each rank runs K3
+over its range, and the ``[T, vs]`` masks are ``all_gather``ed into one
+``[T, S*vs]`` mask (a layout copy) from which ``any_hits`` is taken
+(``ShardedDeviceDict``, ``probe_value_hits``). Ids at or past V are pad
+values no column holds.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from . import packing
+from .kernels import dist as dist_k
 from .kernels import probe as probe_k
 
 # Dictionaries below this many distinct values keep the exact host path:
@@ -48,10 +58,31 @@ class PackedDeviceDict:
     n_vals: int
     buf: np.ndarray        # uint8 [N]
     off: np.ndarray        # int32 [V+1]
+    # value-axis shards on a mesh (1: one device holds every value)
+    n_shards: int = 1
 
     @property
     def nbytes(self) -> int:
         return int(self.buf.nbytes + self.off.nbytes)
+
+    @property
+    def vs(self) -> int:
+        """Values a shard holds: ceil(V / n_shards) rounded up to a
+        multiple of 32 on a mesh, V on one device."""
+        if self.n_shards <= 1:
+            return self.n_vals
+        return -(-max(1, -(-self.n_vals // self.n_shards)) // 32) * 32
+
+    def shard(self, rank: int) -> "PackedDeviceDict":
+        """Rank `rank`'s value range [rank*vs, (rank+1)*vs), offsets from
+        0, padded to vs values with empty ones."""
+        vs = self.vs
+        lo = min(rank * vs, self.n_vals)
+        hi = min(lo + vs, self.n_vals)
+        b0, b1 = int(self.off[lo]), int(self.off[hi])
+        off = np.full(vs + 1, b1 - b0, dtype=np.int32)
+        off[:hi - lo + 1] = self.off[lo:hi + 1] - b0
+        return PackedDeviceDict(n_vals=vs, buf=self.buf[b0:b1], off=off)
 
 
 @dataclass
@@ -76,9 +107,34 @@ class DeviceDict:
                    + self.off.numel() * self.off.element_size())
 
 
-def pack_device_dict(val_dict: list) -> PackedDeviceDict:
+@dataclass
+class ShardedDeviceDict:
+    """A dictionary split over a mesh's value axis: the shards of the
+    ranks this process runs (one on a ShardExchange, every rank on a
+    LocalExchange), each a DeviceDict of `vs` values."""
+    packed: PackedDeviceDict      # the whole dictionary, n_shards set
+    shards: tuple
+    exchange: object
+
+    @property
+    def n_vals(self) -> int:
+        return self.packed.n_vals
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def nbytes(self) -> int:
+        """The whole dictionary's bytes, equal on every rank."""
+        return self.packed.nbytes
+
+
+def pack_device_dict(val_dict: list, n_shards: int = 1) -> PackedDeviceDict:
     """Concatenate a sorted value dictionary's UTF-8 bytes and record each
-    value's offset. Raises ValueError past int32 byte addressing."""
+    value's offset; `n_shards` > 1 splits it over a mesh's value axis
+    (``PackedDeviceDict.shard``). Raises ValueError past int32 byte
+    addressing."""
     blobs = [v.encode("utf-8") for v in val_dict]
     off = np.zeros(len(blobs) + 1, dtype=np.int64)
     np.cumsum(np.fromiter(map(len, blobs), dtype=np.int64,
@@ -87,7 +143,7 @@ def pack_device_dict(val_dict: list) -> PackedDeviceDict:
         raise ValueError("dictionary exceeds int32 byte addressing")
     buf = np.frombuffer(b"".join(blobs), dtype=np.uint8)
     return PackedDeviceDict(n_vals=len(blobs), buf=buf,
-                            off=off.astype(np.int32))
+                            off=off.astype(np.int32), n_shards=n_shards)
 
 
 def place_device_dict(packed: PackedDeviceDict,
@@ -119,17 +175,31 @@ def stage_val_dict(val_dict: list, device: torch.device,
     return place_device_dict(packed, device)
 
 
-def probe_value_hits(ddev: DeviceDict, needles: list):
+def probe_value_hits(ddev, needles: list):
     """Run K3 for a list of UTF-8 needles against a staged dictionary.
     A needle of None stands for a term that must match nothing (its key
     is absent from the block). Returns (hits bool [T, V], any_hits bool
-    [T]) on the dictionary's device; nothing synchronizes here.
+    [T]) on the dictionary's device; nothing synchronizes here. A
+    ShardedDeviceDict answers through the mesh: K3 over each local
+    rank's range, then the all_gather, under the collective lock; its
+    hits are [T, S*vs].
 
     Raises ValueError for an empty list or a needle longer than
     MAX_NEEDLE_BYTES: callers route such queries to the host path before
     they get here."""
     arr, lens = needle_tensors(needles, ddev.device)
-    return probe_k.dict_probe(ddev.buf, ddev.off, arr, lens)
+    if not isinstance(ddev, ShardedDeviceDict):
+        return probe_k.dict_probe(ddev.buf, ddev.off, arr, lens)
+    ex = ddev.exchange
+    with ex.locked():
+        gathered = ex.all_gather(
+            [probe_k.dict_probe(d.buf, d.off, arr, lens)[0]
+             for d in ddev.shards])                     # [S, T, vs]
+    S, T, vs = gathered.shape
+    hits = gathered.permute(1, 0, 2).reshape(T, S * vs)
+    if hits.device.type == "cuda":
+        dist_k.PROBE_LAUNCHES.bump()
+    return hits, hits.any(dim=1)
 
 
 def needle_tensors(needles: list, device: torch.device):

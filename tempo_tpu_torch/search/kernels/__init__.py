@@ -15,6 +15,8 @@
                                <- tempo_tpu analytics.analytics_count_kernel
   B9  ``live.hot_scan``        (K1s + K2, K6 first, over a live prefix)
                                <- tempo_tpu live_tier.hot_scan_kernel
+  K9  ``dist.shard_topk``      (csrc/dist.cu)  <- the global top-k tail of
+                               tempo_tpu's mesh kernels (B10)
 
 K1, K1s and K4 also read batches staged in the packed layout
 (``search/packing.py``): the scan half of the reference's packing
@@ -37,8 +39,10 @@ hit mode) ``VERDICT_LAUNCHES``, ``SINGLE_VERDICT_LAUNCHES`` and
 ``COALESCED_VERDICT_LAUNCHES``; ``topk.LAUNCHES``, ``topk.ROW_LAUNCHES``,
 ``probe.LAUNCHES``, ``pack.LAUNCHES``, ``structural.LAUNCHES``, and
 ``agg.LAUNCHES`` / ``agg.ROW_LAUNCHES`` (K7, one row / a query axis),
-``agg.COUNT_LAUNCHES`` (K8) and ``scan.HOT_LAUNCHES`` (B9, a chain
-whose K1s, K2 and K6 launches count in their own counters too).
+``agg.COUNT_LAUNCHES`` (K8), ``scan.HOT_LAUNCHES`` (B9, a chain
+whose K1s, K2 and K6 launches count in their own counters too),
+``dist.LAUNCHES`` (K9) and the B10 chains' ``dist.MULTI_LAUNCHES``,
+``COALESCED_LAUNCHES``, ``SINGLE_LAUNCHES`` and ``PROBE_LAUNCHES``.
 """
 
 import threading

@@ -28,10 +28,22 @@ verdicts to K1, or, stacked, to K4. A query asking for an ``?agg=``
 aggregate (``MultiQuery.agg_stage``, the batch's staged composite keys of
 ``analytics.py``) runs K7 (``kernels.agg``) over K1's scores, or over
 K4's rows, before the top-k.
+
+An engine given an exchange (``parallel/mesh.py``) runs the reference's
+mesh kernels ``dist_multi_scan_kernel`` and ``dist_coalesced_scan_kernel``
+(TPU kernel family B10) as per-shard chains: its batches pad the page
+axis as the reference's mesh staging does (``stage_host``) and stage
+only the pages of the ranks this process runs (``shard_host``,
+``ShardedBatch``); a dispatch runs the local chain (K6, K1 or K4, K7,
+K2 or K2r) over each local shard, then the exchange (``all_reduce`` of
+counts, inspected and aggregates, ``all_gather`` of the top-k
+candidates), then K9 (``kernels.dist.shard_topk``), the merge, which
+gives the single-device answer exactly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,6 +53,7 @@ from ..model.types import TraceSearchMetadata
 from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
+from .kernels import dist as dist_k
 from .kernels.agg import agg_counts, agg_counts_rows
 from .kernels.scan import coalesced_scan, multi_scan
 from .kernels.structural import structural_mask
@@ -76,6 +89,31 @@ class HostBatch:
     # the blocks' span segments (structural.stack_spans), staged when the
     # engine's structural gate is on and some block carries spans
     span_cat: dict | None = None
+    # span_cat is in shard_span_segment's per-shard layout
+    span_sharded: bool = False
+
+    @property
+    def nbytes(self) -> int:
+        """What placing the whole batch on one device pins: the stacked
+        arrays, the span segment and the probe dictionaries."""
+        return int(sum(v.nbytes for v in self.cat.values())) \
+            + self._side_nbytes
+
+    @property
+    def logical_nbytes(self) -> int:
+        """`nbytes` in the unpacked layout."""
+        if self.widths is None:
+            return self.nbytes
+        return self.cat_logical_nbytes + self._side_nbytes
+
+    @property
+    def dict_nbytes(self) -> int:
+        return int(sum(d.nbytes for d in self.packed_dicts.values()))
+
+    @property
+    def _side_nbytes(self) -> int:
+        return self.dict_nbytes + int(sum(
+            v.nbytes for v in (self.span_cat or {}).values()))
 
 
 @dataclass
@@ -147,11 +185,12 @@ def _narrow(n: int):
 
 
 def pack_batch_dicts(blocks: list[ColumnarPages],
-                     probe_min_vals: int | None) -> dict:
+                     probe_min_vals: int | None, n_shards: int = 1) -> dict:
     """fp -> PackedDeviceDict for every distinct value dictionary with at
     least `probe_min_vals` values (None = dict_probe's default; <= 0
-    disables). The packing memoizes on the immutable block container, so
-    an evicted batch re-stacked from the same blocks packs nothing."""
+    disables), split over `n_shards` value shards. The packing memoizes
+    on the immutable block container, so an evicted batch re-stacked from
+    the same blocks packs nothing."""
     mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
           else probe_min_vals)
     out: dict = {}
@@ -162,14 +201,16 @@ def pack_batch_dicts(blocks: list[ColumnarPages],
             continue
         fp = dict_fingerprint(b, b.key_dict, b.val_dict)
         if fp not in out:
-            out[fp] = dict_probe.packed_for(b)
+            out[fp] = dataclasses.replace(dict_probe.packed_for(b),
+                                          n_shards=n_shards)
     return out
 
 
 def stack_host(blocks: list[ColumnarPages],
                pad_to: int | None = None,
                probe_min_vals: int | None = 0,
-               packed: bool = False, spans: bool = False) -> HostBatch:
+               packed: bool = False, spans: bool = False,
+               n_shards: int = 1) -> HostBatch:
     """Concatenate blocks of one entries-per-page along the page axis.
 
     The kv columns narrow to the smallest dtype the group's largest
@@ -187,7 +228,9 @@ def stack_host(blocks: list[ColumnarPages],
     pages with code 0. Unsigned 16 and 32-bit columns (the entry columns'
     u32 in either layout) hold their bits in int16/int32 arrays
     (``packing.device_view``). With `spans` (the structural gate on), the
-    blocks' span segments stack too (``structural.stack_spans``)."""
+    blocks' span segments stack too (``structural.stack_spans``).
+    `n_shards` splits the probe dictionaries over a mesh's value axis
+    (``dict_probe.PackedDeviceDict.shard``)."""
     E = blocks[0].geometry.entries_per_page
     C = C0 = max(b.geometry.kv_per_entry for b in blocks)
     n_keys = max(len(b.key_dict) for b in blocks)
@@ -256,7 +299,8 @@ def stack_host(blocks: list[ColumnarPages],
                 if spans else None)
     return HostBatch(cat=cat, page_block=page_block, blocks=blocks,
                      page_offset=page_offset,
-                     packed_dicts=pack_batch_dicts(blocks, probe_min_vals),
+                     packed_dicts=pack_batch_dicts(blocks, probe_min_vals,
+                                                   n_shards),
                      widths=widths, cat_logical_nbytes=logical,
                      span_cat=span_cat)
 
@@ -291,6 +335,93 @@ def place_spans(span_cat: dict | None, device: torch.device) -> tuple:
     return ({k: _to_device(packing.device_view(v), device)
              for k, v in span_cat.items()},
             structural.max_page_run(span_cat))
+
+
+def rank_share(cols: dict, span_cat: dict | None, span_sharded: bool,
+               E: int, rank: int, world: int) -> tuple:
+    """Rank `rank`'s share of page-major columns stacked for `world` page
+    shards (the page count a multiple of `world`): (its contiguous page
+    slice of every column, its span columns by ``structural.rank_spans``
+    or None without spans)."""
+    P = int(next(iter(cols.values())).shape[0])
+    if P % world:
+        raise ValueError(f"{P} pages do not split over {world} shards")
+    pp = P // world
+    rows = slice(rank * pp, (rank + 1) * pp)
+    spans = None if span_cat is None else structural.rank_spans(
+        span_cat, rank, world, span_sharded, E)
+    return {k: v[rows] for k, v in cols.items()}, spans
+
+
+def shard_host(host: HostBatch, rank: int, world: int) -> HostBatch:
+    """Rank `rank`'s share of a batch stacked for `world` page shards (the
+    page count a multiple of `world`): its contiguous page slice of the
+    stacked columns (kv and entry columns, page_block), its value range
+    of each probe dictionary, and its span columns
+    (``structural.rank_spans``). The blocks, their page offsets and every
+    per-block table stay global: a page's block index is the same on
+    every rank."""
+    cat, spans = rank_share(host.cat, host.span_cat, host.span_sharded,
+                            host.blocks[0].geometry.entries_per_page, rank,
+                            world)
+    return dataclasses.replace(
+        host, cat=cat, page_block=cat["page_block"], span_cat=spans,
+        packed_dicts={fp: pd.shard(rank)
+                      for fp, pd in host.packed_dicts.items()})
+
+
+@dataclass
+class ShardedBatch:
+    """A batch staged over a mesh: the BlockBatch of each page shard this
+    process runs (one on a ShardExchange, every rank's on a
+    LocalExchange), beside the host facts every rank holds alike. Its
+    byte sizes are the whole batch's (``HostBatch.nbytes``), equal on
+    every rank, so the staged cache evicts alike on every rank."""
+    shards: list                    # BlockBatch per local rank
+    ranks: tuple                    # their ranks
+    exchange: object
+    page_block: np.ndarray          # global [P]
+    blocks: list
+    page_offset: list
+    local_flat: int                 # entries a shard holds
+    staged_dicts: dict              # fp -> dict_probe.ShardedDeviceDict
+    widths: tuple | None
+    nbytes: int
+    logical_nbytes: int
+    dict_nbytes: int
+    span_sharded: bool = False
+    memo: dict = field(default_factory=dict)
+    agg_stage: object = None
+
+    @property
+    def n_pages(self) -> int:
+        return int(self.page_block.shape[0])
+
+    @property
+    def world(self) -> int:
+        return self.exchange.world
+
+
+def place_sharded(host: HostBatch, exchange, device: torch.device) \
+        -> ShardedBatch:
+    """Host-to-device copy of the local ranks' shares of a batch stacked
+    for ``exchange.world`` shards."""
+    world = exchange.world
+    shards = [place_batch(shard_host(host, r, world), device)
+              for r in exchange.ranks]
+    staged = {fp: dict_probe.ShardedDeviceDict(
+                  packed=pd, exchange=exchange,
+                  shards=tuple(b.staged_dicts[fp] for b in shards))
+              for fp, pd in host.packed_dicts.items()}
+    E = host.blocks[0].geometry.entries_per_page
+    return ShardedBatch(
+        shards=shards, ranks=tuple(exchange.ranks), exchange=exchange,
+        page_block=host.page_block, blocks=host.blocks,
+        page_offset=host.page_offset,
+        local_flat=int(host.page_block.shape[0]) // world * E,
+        staged_dicts=staged, widths=host.widths, nbytes=host.nbytes,
+        logical_nbytes=host.logical_nbytes, dict_nbytes=host.dict_nbytes,
+        span_sharded=host.span_sharded)
 
 
 @dataclass
@@ -536,37 +667,69 @@ def _upload(arrays: list, device: torch.device) -> list:
 
 
 class MultiBlockEngine:
-    """Batched scan over many blocks in one dispatch on one device."""
+    """Batched scan over many blocks in one dispatch on one device, or,
+    given an exchange, over a mesh's page shards."""
 
     def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
                  device_probe_min_vals: int | None = None,
                  packed: bool = False,
-                 structural_cfg: structural.StructuralConfig = structural.OFF):
+                 structural_cfg: structural.StructuralConfig = structural.OFF,
+                 exchange=None):
         """`device_probe_min_vals`: value-dictionary size at which a
         batch stages the dictionary for the device probe (None =
         dict_probe.DEVICE_PROBE_MIN_VALS; <= 0 keeps every probe on the
         host). `packed`: stage batches in the packed layout and keep probe
         products as word masks (packing.py). `structural_cfg`: the
-        database's structural gate; on, batches stage span segments."""
+        database's structural gate; on, batches stage span segments.
+        `exchange` (``parallel.mesh.ShardExchange`` or ``LocalExchange``):
+        batches shard over its ranks and dispatches run the B10 chains."""
         self.device = device
         self.top_k = top_k
         self.device_probe_min_vals = device_probe_min_vals
         self.packed = packed
         self.structural_cfg = structural_cfg
+        self.exchange = exchange
         self.compile_cache = CompileCache()
 
     def stage_host(self, blocks: list[ColumnarPages]) -> HostBatch:
         """Stack a batch on the host with its page count padded to a power
         of two (the reference buckets shapes this way to bound recompiles;
-        the port keeps the layout so both scan the same padded batch)."""
-        return stack_host(blocks,
-                          pad_to=_pow2(sum(b.n_pages for b in blocks)),
+        the port keeps the layout so both scan the same padded batch). On
+        a mesh of S shards, the reference's mesh staging: the page count
+        doubles from S (or, with ``structural_cfg.remainder_pages``, is the
+        least multiple of S), the probe dictionaries split over S value
+        shards, and with ``shard_spans`` the span segment takes
+        ``structural.shard_span_segment``'s layout."""
+        total = sum(b.n_pages for b in blocks)
+        if self.exchange is None:
+            return stack_host(blocks, pad_to=_pow2(total),
+                              probe_min_vals=self.device_probe_min_vals,
+                              packed=self.packed,
+                              spans=self.structural_cfg.enabled)
+        S = self.exchange.world
+        pad_to = structural.remainder_pad(self.structural_cfg, total, S)
+        if pad_to is None:
+            pad_to = S
+            while pad_to < total:
+                pad_to *= 2
+        host = stack_host(blocks, pad_to=pad_to,
                           probe_min_vals=self.device_probe_min_vals,
                           packed=self.packed,
-                          spans=self.structural_cfg.enabled)
+                          spans=self.structural_cfg.enabled, n_shards=S)
+        if host.span_cat is not None:
+            sh = structural.shard_span_segment(
+                self.structural_cfg, host.span_cat, S, pad_to,
+                blocks[0].geometry.entries_per_page)
+            if sh is not None:
+                host.span_cat, host.span_sharded = sh, True
+        return host
 
-    def place(self, host: HostBatch) -> BlockBatch:
-        return place_batch(host, self.device)
+    def place(self, host: HostBatch):
+        """A BlockBatch, or on a mesh the ShardedBatch of the local
+        ranks."""
+        if self.exchange is None:
+            return place_batch(host, self.device)
+        return place_sharded(host, self.exchange, self.device)
 
     def structural_verdicts(self, batch: BlockBatch,
                             lanes: structural.Lanes):
@@ -578,12 +741,39 @@ class MultiBlockEngine:
             lanes.device(self.device), lanes.val_hits, batch.widths,
             d.get("entry_dur_res"))
 
-    def scan_async(self, batch: BlockBatch, mq: MultiQuery):
+    def scan_async(self, batch, mq: MultiQuery):
         """One dispatch, K1 then K2 on the current stream (K6 first for a
         structural query, its verdicts into K1; K7 over K1's scores before
         K2 for an agg query), without a device-to-host sync. Returns
         device tensors (counts [2] = (match count, inspected), top-k
-        scores, top-k flat indices[, agg counts [K]])."""
+        scores, top-k flat indices[, agg counts [K]]). A ShardedBatch
+        runs ``dist_scan_async``."""
+        if isinstance(batch, ShardedBatch):
+            return self.dist_scan_async(batch, mq)
+        return self._local_scan(batch, mq,
+                                resolve_top_k(self.top_k, mq.limit))
+
+    def dist_scan_async(self, batch: ShardedBatch, mq: MultiQuery):
+        """The reference's ``dist_multi_scan_kernel`` as a chain: the
+        local dispatch over each local shard (top-k k' = min(k, local
+        entries), equal on every rank), one all_reduce of the counts and
+        aggregate, one all_gather of the candidates [S, 2, k'], then K9.
+        The same outputs as ``scan_async`` on one device."""
+        k = resolve_top_k(self.top_k, mq.limit)
+        outs, red, top_s, top_i = dist_k.exchange_merge(
+            batch.exchange, batch.shards, batch.ranks,
+            lambda b, r: self._local_scan(b, mq, k, (r, batch.world)),
+            lambda o: (o[0],) + o[3:], lambda o: torch.stack(o[1:3])[:, None],
+            batch.local_flat, k, dist_k.MULTI_LAUNCHES)
+        head = outs[0]
+        agg = () if len(head) < 4 else (red[2:].to(head[3].dtype),)
+        return (red[:2].to(head[0].dtype), top_s[0], top_i[0]) + agg
+
+    def _local_scan(self, batch: BlockBatch, mq: MultiQuery, k: int,
+                    part: tuple | None = None):
+        """scan_async's chain over one BlockBatch with top-k `k`; `part`
+        (rank, world) names a page shard, for its slice of the agg
+        keys."""
         if mq.device_tables is None:
             mq.device_tables = (
                 torch.from_numpy(mq.term_keys).to(self.device),
@@ -602,17 +792,16 @@ class MultiBlockEngine:
             mq.n_terms, mq.dur_lo, min(mq.dur_hi, 0xFFFFFFFF), mq.win_start,
             min(mq.win_end, 0xFFFFFFFF), mq.val_hits, bg, batch.widths,
             d.get("entry_dur_res"), verdicts)
-        agg = self._agg(mq.agg_stage, scores)
-        top_scores, top_idx = topk(scores,
-                                   resolve_top_k(self.top_k, mq.limit))
+        agg = self._agg(mq.agg_stage, scores, part)
+        top_scores, top_idx = topk(scores, k)
         return (counts, top_scores, top_idx) + agg
 
-    def _agg(self, stage, scores) -> tuple:
+    def _agg(self, stage, scores, part: tuple | None = None) -> tuple:
         """K7 over a score column [N] or the members' rows [Qn, N]: (agg
-        counts,), or () without a stage."""
+        counts,), or () without a stage. `part`: as in _local_scan."""
         if stage is None:
             return ()
-        keys = stage.device(self.device).reshape(-1)
+        keys = stage.device(self.device, part).reshape(-1)
         if scores.dim() == 1:
             return (agg_counts(scores, keys, stage.n_keys),)
         return (agg_counts_rows(scores, keys, stage.n_keys),)
@@ -634,25 +823,55 @@ class MultiBlockEngine:
         return (tk, vr, ta, dlo, dhi, ws, we, cq.val_hits,
                 bg[0] if bg else None)
 
-    def coalesced_scan_async(self, batch: BlockBatch, cq: CoalescedQuery,
-                             top_k: int):
+    def coalesced_scan_async(self, batch, cq: CoalescedQuery, top_k: int):
         """One fused dispatch for the stacked queries: the tables go up
         once, then (K6 over the structural members' lanes) K4 and K2r run
         on the current stream, without a device-to-host sync. `top_k` is
         the group's k, the largest of its members'. With an agg stage, K7
         counts the real members' rows before K2r. Returns device tensors
         (counts [Q], inspected, top-k scores [Q, k], top-k flat indices
-        [Q, k][, agg counts [Qn, K]])."""
+        [Q, k][, agg counts [Qn, K]]). A ShardedBatch runs
+        ``dist_coalesced_scan_async``."""
+        if isinstance(batch, ShardedBatch):
+            return self.dist_coalesced_scan_async(batch, cq, top_k)
+        return self._local_coalesced(batch, cq, self.coalesced_tables(cq),
+                                     top_k)
+
+    def dist_coalesced_scan_async(self, batch: ShardedBatch,
+                                  cq: CoalescedQuery, top_k: int):
+        """The reference's ``dist_coalesced_scan_kernel`` as a chain: the
+        fused local dispatch over each local shard, one all_reduce of the
+        counts, inspected and aggregates, one all_gather of the candidates
+        [S, 2, Q, k'], then K9 over the query rows. The same outputs as
+        ``coalesced_scan_async`` on one device."""
+        tables = self.coalesced_tables(cq)
+        outs, red, top_s, top_i = dist_k.exchange_merge(
+            batch.exchange, batch.shards, batch.ranks,
+            lambda b, r: self._local_coalesced(b, cq, tables, top_k,
+                                               (r, batch.world)),
+            lambda o: o[:2] + o[4:], lambda o: torch.stack(o[2:4]),
+            batch.local_flat, top_k, dist_k.COALESCED_LAUNCHES)
+        head = outs[0]
+        Q = int(head[0].shape[0])
+        agg = () if len(head) < 5 else (
+            red[Q + 1:].reshape(head[4].shape).to(head[4].dtype),)
+        return (red[:Q].to(head[0].dtype), red[Q].to(head[1].dtype),
+                top_s, top_i) + agg
+
+    def _local_coalesced(self, batch: BlockBatch, cq: CoalescedQuery,
+                         tables: tuple, top_k: int,
+                         part: tuple | None = None):
+        """coalesced_scan_async's chain over one BlockBatch, given the
+        uploaded `tables`; `part` as in _local_scan."""
         d = batch.device
         verdicts = None
         if cq.structural is not None:
             verdicts = self.structural_verdicts(batch, cq.structural.lanes)
         scores, counts, inspected = coalesced_scan(
             d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
-            d["entry_dur"], d["entry_valid"], d["page_block"],
-            *self.coalesced_tables(cq), batch.widths,
-            d.get("entry_dur_res"), verdicts)
-        agg = self._agg(cq.agg_stage, scores[:cq.n_queries])
+            d["entry_dur"], d["entry_valid"], d["page_block"], *tables,
+            batch.widths, d.get("entry_dur_res"), verdicts)
+        agg = self._agg(cq.agg_stage, scores[:cq.n_queries], part)
         top_scores, top_idx = topk_rows(scores, top_k)
         return (counts, inspected, top_scores, top_idx) + agg
 

@@ -1,7 +1,7 @@
 """Structural query engine, host half: gate, compile, stacking, staging.
 
-Counterpart of the reference's ``search/structural.py`` without its mesh
-knobs and explain tree. A structural request carries an IR tree
+Counterpart of the reference's ``search/structural.py`` without its
+explain tree. A structural request carries an IR tree
 (``search/ir.py``) in the reserved tag ``x-structural-q``. Per staged
 batch the tree compiles (``compile_structural``) into
 
@@ -56,7 +56,7 @@ def _pow2(n: int) -> int:
 class StructuralConfig:
     """One database's structural gate and knobs
     (TempoDBConfig.search_structural_enabled, _stack_enabled,
-    _bucket_enabled, _bucket_max_nodes)."""
+    _bucket_enabled, _bucket_max_nodes, _shard_spans, _remainder_pages)."""
     enabled: bool = False
     # concurrent structural queries with one plan descriptor stack into
     # one fused dispatch; off, a structural query dispatches alone at once
@@ -66,6 +66,15 @@ class StructuralConfig:
     bucket_enabled: bool = False
     # a plan with more flattened slots than this stays exact-plan
     bucket_max_nodes: int = 16
+    # on a mesh (TempoDBConfig.search_structural_shard_spans): the span
+    # segment reshards so each rank holds only its pages' spans, rebased
+    # to its chunk (shard_span_segment); off, every rank holds the whole
+    # span axis
+    shard_spans: bool = False
+    # on a mesh (TempoDBConfig.search_structural_remainder_pages): the page
+    # axis pads to the least multiple of the shard count (remainder_pad)
+    # instead of doubling from it
+    remainder_pages: bool = False
 
     def stack_group_key(self, batch, st) -> tuple | None:
         """The coalescer's group key of a structural query, or None (it
@@ -222,6 +231,114 @@ def max_page_run(cols: dict) -> int:
     hi = np.where(live, beg + cnt, 0).max(axis=1)
     lo = np.where(live, beg, np.iinfo(np.int64).max).min(axis=1)
     return int(np.where(live.any(axis=1), hi - lo, 0).max())
+
+
+def remainder_pad(cfg: StructuralConfig, total: int,
+                  n_shards: int) -> int | None:
+    """The remainder-shard layout's page count for a mesh staging, the
+    least multiple of `n_shards` holding `total` pages (the last shard
+    owns the ragged tail of pad pages), or None when
+    ``cfg.remainder_pages`` is off (the caller doubles from `n_shards`).
+    The reference's ``StructuralGate.remainder_pad``."""
+    if not cfg.remainder_pages:
+        return None
+    n = max(1, int(n_shards))
+    return max(n, -(-int(total) // n) * n)
+
+
+def shard_span_segment(cfg: StructuralConfig, span_cat: dict, n_shards: int,
+                       pad_pages: int, E: int) -> dict | None:
+    """A stacked span segment (``stack_spans``) resharded so that shard s's
+    chunk of one uniform power-of-two length holds exactly the spans of
+    the traces on its pages, in shard-local coordinates: span_trace to
+    the local entry flat index, span_parent and entry_span_begin to chunk
+    positions. None when ``cfg.shard_spans`` is off, or the page axis does
+    not split evenly (the caller keeps the whole span axis). The same
+    bytes as the reference's ``StructuralGate.shard_span_segment``."""
+    if not cfg.shard_spans:
+        return None
+    if n_shards <= 1 or pad_pages % n_shards:
+        return None
+    S_old = int(span_cat["span_trace"].shape[0])
+    pp = pad_pages // n_shards
+    trace = span_cat["span_trace"]
+    live = trace >= 0
+    shard_of = np.where(live, trace // (pp * E), -1)
+    per_shard = _pow2(max(
+        1, int(np.bincount(shard_of[live], minlength=n_shards).max()
+               if live.any() else 1)))
+    S_new = n_shards * per_shard
+    Cs = span_cat["span_kv_key"].shape[1]
+    out = {
+        "span_trace": np.full(S_new, -1, dtype=np.int32),
+        "span_parent": np.full(S_new, -1, dtype=np.int32),
+        "span_block": np.zeros(S_new, dtype=np.int32),
+        "span_dur": np.zeros(S_new, dtype=np.uint32),
+        "span_kind": np.zeros(S_new, dtype=np.int8),
+        "span_kv_key": np.full((S_new, Cs), -1, dtype=np.int32),
+        "span_kv_val": np.full((S_new, Cs), -1, dtype=np.int32),
+    }
+    # old span index -> position in its chunk; -1 for padding rows
+    local_of = np.full(S_old, -1, dtype=np.int64)
+    for s in range(n_shards):
+        idx = np.flatnonzero(shard_of == s)
+        n = len(idx)
+        if not n:
+            continue
+        local_of[idx] = np.arange(n)
+        dst = slice(s * per_shard, s * per_shard + n)
+        out["span_trace"][dst] = trace[idx] - s * pp * E
+        par = span_cat["span_parent"][idx]
+        safe = np.clip(par, 0, S_old - 1)
+        # a parent lies in its span's trace, hence on its shard; a pointer
+        # to another shard maps to -1 (no parent)
+        out["span_parent"][dst] = np.where(
+            (par >= 0) & (shard_of[safe] == s) & (local_of[safe] >= 0),
+            local_of[safe], -1).astype(np.int32)
+        for name in ("span_block", "span_dur", "span_kind", "span_kv_key",
+                     "span_kv_val"):
+            out[name][dst] = span_cat[name][idx]
+    begin = span_cat["entry_span_begin"]
+    count = span_cat["entry_span_count"]
+    safe_b = np.clip(begin, 0, S_old - 1)
+    out["entry_span_begin"] = np.where(
+        count > 0, local_of[safe_b], 0).astype(np.int32)
+    out["entry_span_count"] = count
+    return out
+
+
+def rank_spans(span_cat: dict, rank: int, world: int, sharded: bool,
+               E: int) -> dict:
+    """Rank `rank`'s span columns of a staged segment, its pages' entry
+    runs and:
+
+    - `sharded` (``shard_span_segment``'s layout): its chunk of the span
+      axis, already in local coordinates;
+    - else the whole span axis, the run begins and parents in global span
+      positions, and span_trace rebased to the rank's local entry flat
+      index, -1 for the spans of other ranks' traces (K6's bounded
+      ancestor walk reads the entry run count at span_trace; a rank never
+      visits another rank's spans)."""
+    pp = span_cat["entry_span_begin"].shape[0] // world
+    rows = slice(rank * pp, (rank + 1) * pp)
+    out = {"entry_span_begin": span_cat["entry_span_begin"][rows],
+           "entry_span_count": span_cat["entry_span_count"][rows]}
+    if sharded:
+        per = span_cat["span_trace"].shape[0] // world
+        chunk = slice(rank * per, (rank + 1) * per)
+        for name in _SPAN_AXIS_NAMES:
+            out[name] = span_cat[name][chunk]
+        return out
+    for name in _SPAN_AXIS_NAMES:
+        out[name] = span_cat[name]
+    t = span_cat["span_trace"].astype(np.int64) - rank * pp * E
+    out["span_trace"] = np.where((t >= 0) & (t < pp * E), t,
+                                 -1).astype(np.int32)
+    return out
+
+
+_SPAN_AXIS_NAMES = ("span_trace", "span_parent", "span_block", "span_dur",
+                    "span_kind", "span_kv_key", "span_kv_val")
 
 
 # ---------------------------------------------------------------------------

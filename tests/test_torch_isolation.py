@@ -89,6 +89,11 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.search.streaming\n"
         "import tempo_tpu_torch.encoding.v2.objects\n"
         "import tempo_tpu_torch.robustness.deadline\n"
+        "import tempo_tpu_torch.parallel.mesh\n"
+        "import tempo_tpu_torch.parallel.multihost\n"
+        "import tempo_tpu_torch.parallel.dist_search\n"
+        "import tempo_tpu_torch.parallel.multihost_dryrun\n"
+        "import tempo_tpu_torch.search.kernels.dist\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'tempo_tpu' or m.startswith('tempo_tpu.'))\n"
         "print(bad)\n"
@@ -280,4 +285,29 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
         ScanEngine(torch.device("cpu")), StagedPages(device=two, pages=None),
         1, cq)
     assert counts.tolist() == [4, 4] and top_i.tolist()[:2] == [3, 2]
+    assert [c.n for c in counters] == [0] * len(counters)
+
+
+def test_dist_wrappers_take_plain_path_only_on_cpu():
+    """K9 and the B10 chains on CPU tensors run the plain versions and
+    count nothing; a LocalExchange issues no collective."""
+    from tempo_tpu_torch.parallel import mesh
+    from tempo_tpu_torch.search.kernels import dist
+
+    counters = (dist.LAUNCHES, dist.MULTI_LAUNCHES, dist.COALESCED_LAUNCHES,
+                dist.SINGLE_LAUNCHES, dist.PROBE_LAUNCHES, mesh.COLLECTIVES)
+    for c in counters:
+        c.reset()
+    # two shards of 4 entries: shard 1's best ties shard 0's on score 7
+    scores = torch.tensor([[[7, 3, -1]], [[7, 5, 2]]], dtype=torch.int32)
+    idx = torch.tensor([[[1, 0, 2]], [[3, 0, 1]]], dtype=torch.int32)
+    s, i = dist.shard_topk(scores, idx, 4, 4)
+    assert s.tolist() == [[7, 7, 5, 3]] and i.tolist() == [[1, 7, 4, 0]]
+    s, i = dist.shard_topk(scores, idx, 4, 100)
+    assert s.shape == (1, 6) and i.tolist()[0][-1] == 2
+    ex = mesh.LocalExchange(2)
+    assert ex.all_gather([torch.tensor([1]), torch.tensor([2])]).tolist() \
+        == [[1], [2]]
+    assert ex.all_reduce([torch.tensor([1], dtype=torch.int32),
+                          torch.tensor([2], dtype=torch.int32)]).tolist() == [3]
     assert [c.n for c in counters] == [0] * len(counters)
