@@ -26,8 +26,14 @@ error:
    again through a ``TempoDB`` on the CPU (the kernels' plain versions)
    and requires identical responses; then holds K1 (multi_scan, range
    mode) and K2 (topk) against their plain versions on the card and times
-   them; then K4 (coalesced_scan, range mode) on 8 stacked requests and
-   K2r (topk_rows) at k = 128 and 1024, and a fused dispatch against the
+   them, K2 also on adversarial columns (``topk_columns``: all -1, all
+   equal, the narrow window, uniform over int31, INT32_MAX scores, fewer
+   matches than k, k = n, k > n, n = 1), printing the CUDA kernels and
+   memsets the profiler saw per call (at most 3 for k <= 4,096) and the
+   wrapper's host microseconds; then K4 (coalesced_scan, range mode) on
+   8 stacked requests and K2r (topk_rows) at k = 128 and 1024, on K4's
+   rows and on rows of the adversarial columns that stop on different
+   passes, and a fused dispatch against the
    members' solo dispatches; then the concurrent phase (below) with 8
    bench requests and with 8 exhaustive ones, and the bench request alone
    once more; then the packed tag cell: a second TempoDB with
@@ -137,8 +143,11 @@ error:
    group's aggregates; the single-block engine), every dispatch equal to
    the single-device one exactly, indices included; K9 against its plain
    version and K2 at [S, Q, k'] = [1, 1, 128] (the main path's),
-   [8, 8, 1024] and [4, 1, 128], timed beside torch.topk over the
-   gathered scores, the world-1 NCCL collectives timed, and the four B10
+   [8, 8, 1024] and [4, 1, 128], and with ties across shards at S = 3, 8
+   and 1, through the gathered entry the exchange calls (one kernel a
+   call, no copy, by the profiler) and the two-tensor form, timed beside
+   torch.topk over the gathered scores with the wrapper's host
+   microseconds, the world-1 NCCL collectives timed, and the four B10
    chains against their plain versions;
 10. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
@@ -580,7 +589,8 @@ def call_busy(fn, reps: int) -> dict:
     """Device time per call of fn from torch.profiler (kernels and copies
     on the card, summed) over `reps` warm calls, and the check that the
     profiler kept every record: its records of the top-k's last kernel
-    (one a K2 or K2r call) against the calls the launch counters saw. A
+    (``TOPK_LAST``: one a K2 or K2r call) against the calls the launch
+    counters saw. A
     profiler that records no device activity, or dropped records, gives
     None ("not measured"), never a number taken from the host."""
     fn()
@@ -588,7 +598,7 @@ def call_busy(fn, reps: int) -> dict:
     avg = profiled(fn, reps)
     n = read_counts()
     calls = (n["topk"] + n["topk_rows"]) * reps // (reps + 1)
-    kept = records(avg, "unpack_kernel")
+    kept = sum(records(avg, sym) for sym in TOPK_LAST)
     by_name = {e.key: e.self_device_time_total / reps / 1e3
                for e in device_events(avg) if e.self_device_time_total > 0}
     total = sum(by_name.values())
@@ -868,17 +878,53 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
     return err
 
 
-# the CUDA kernel each wrapper launches once a call (the top-k chain's
-# last one for K2 and K2r), by kernels-line name prefix
+# the CUDA kernel each wrapper launches once a call (for K2 and K2r the
+# cooperative launch, k <= 4,096), by kernels-line name prefix
 KERNEL_SYMBOLS = {"multi_scan": "scan_kernel", "scan_single": "scan_kernel",
                   "coalesced_scan": "coalesced_kernel",
-                  "topk": "unpack_kernel", "dict_probe": "probe_kernel",
+                  "topk": "topk_radix_kernel", "dict_probe": "probe_kernel",
                   "pack_mask_words": "pack_kernel",
                   "structural_mask": "structural_kernel",
                   "agg_counts": "agg_rows_kernel",
                   "analytics_count": "count_kernel",
                   "hot_scan": "scan_kernel",
                   "shard_topk": "shard_topk_kernel"}
+
+
+# the last kernel of a K2/K2r call, one record a call: the cooperative
+# launch (k <= 4,096) or the longer route's unpack (past it)
+TOPK_LAST = ("topk_radix_kernel", "unpack_kernel")
+
+
+def kernels_per_call(fn, reps: int = 5) -> dict:
+    """The CUDA kernels, memsets and copies torch.profiler saw per call of
+    fn (short name -> count a call). The profiler sometimes keeps no
+    launch record late in a long run, so it profiles up to three times;
+    {} means that none kept one (not measured)."""
+    for _ in range(3):
+        out: dict = {}
+        for e in device_events(profiled(fn, reps)):
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.strip() or e.key[:40]
+            out[name] = out.get(name, 0) + e.count / reps
+        if out:
+            return out
+    return {}
+
+
+def host_us(fn, reps: int = 1000) -> float:
+    """Host microseconds a call of fn takes to issue (time.perf_counter
+    over `reps` calls, no synchronise between them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def device_ms(fn, reps: int, symbol: str) -> tuple:
@@ -1043,10 +1089,72 @@ def k1s_row(bsb, name: str, replaces: str, launches: dict) -> dict:
                       lambda: scan.scan_single(*s_args))
 
 
+def topk_columns(n: int, dev) -> list:
+    """(name, int32 column, k) adversarial K2 inputs on the card, made from
+    a seed: all -1 (no match), all equal, the tag cell's narrow window
+    (1 in 50 a match, block b's starts in [b * 600, b * 600 + 600) after
+    BASE_S) at k = 128, 1,024 and 4,096 and past the cooperative route,
+    every entry a match, uniform over int31, INT32_MAX scores among
+    uniform ones, fewer matches than k, k = n, k > n, n = 1 and n one
+    past the cooperative sort's smallest capacity (2,049)."""
+    import torch
+
+    g = torch.Generator().manual_seed(9)
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, size, generator=g)
+
+    start = BASE_S + (torch.arange(n) // 65_536) * BLOCK_SPAN_S \
+        + ints(0, BLOCK_SPAN_S, (n,))
+    narrow = torch.where(ints(0, 50, (n,)) == 0, start,
+                         torch.full_like(start, -1))
+    uniform = ints(0, 2**31 - 1, (n,))
+    top = torch.where(torch.rand(n, generator=g) < 0.001,
+                      torch.full_like(uniform, 2**31 - 1), uniform)
+    few = torch.full((n,), -1, dtype=torch.int64)
+    few[ints(0, n, (50,))] = start[:50]
+
+    def c(t):
+        return t.to(torch.int32).to(dev)
+
+    return [("all -1", c(torch.full((n,), -1)), 128),
+            ("all -1", c(torch.full((n,), -1)), 1024),
+            ("all equal", c(torch.full((n,), BASE_S)), 128),
+            ("narrow window", c(narrow), 128),
+            ("narrow window", c(narrow), 1024),
+            ("narrow window", c(narrow), 4096),
+            ("narrow window, past the cooperative route", c(narrow), 8192),
+            ("every entry a match", c(start), 128),
+            ("uniform over int31", c(uniform), 128),
+            ("INT32_MAX scores", c(top), 128),
+            ("fewer matches than k", c(few), 128),
+            ("k = n", c(narrow[:3000]), 3000),
+            ("k > n", c(narrow[:3000]), 4096),
+            ("n = 1", c(start[:1]), 128),
+            ("n = 2,049", c(narrow[:2049]), 128)]
+
+
+def topk_check(what: str, fn, plain, k_eff: int) -> tuple:
+    """A K2/K2r call against its plain version, exactly, and the CUDA
+    kernels and memsets the profiler saw per call (at most 3 for k_eff
+    <= 4,096, the cooperative route). Returns (max abs err, per call)."""
+    from tempo_tpu_torch.search.kernels import topk
+
+    err = require_equal(what, fn(), plain())
+    per = kernels_per_call(fn)
+    if k_eff <= topk.COOP_MAX_K and sum(per.values()) > 3:
+        raise AssertionError(f"{what}: {per} a call, more than 3 launches")
+    print(f"{what}: equal to its plain version; per call "
+          + (json.dumps(per) if per else "not measured (the profiler kept "
+             "no launch record)"), flush=True)
+    return err, per
+
+
 def kernel_phase(db, reqs: dict, launches: dict) -> list:
     """K1 (range mode) and K2 against their plain versions on one staged
     batch of the tag-search cell (the largest), at the main path's
-    shapes; exact equality."""
+    shapes and on the adversarial columns of ``topk_columns``; exact
+    equality, indices included."""
     import torch
 
     from tempo_tpu_torch.search.engine import resolve_top_k
@@ -1061,25 +1169,39 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
     # the main path's k, a limit-1000 request's k, a k past the shared-
     # memory sort (global bitonic stages), and k > N on a short column
     short = scores[:1000].contiguous()
-    for col, kk in ((scores, k), (scores, 1024), (scores, 8192),
-                    (short, 4096)):
-        s, i = topk.topk(col, kk)
-        k2_err = max(k2_err, require_equal(
-            f"K2 (n={col.numel()}, k={kk})", (s, i),
-            topk.topk_plain(col, kk)))
+    cases = [("the tag batch", scores, k), ("the tag batch", scores, 1024),
+             ("the tag batch", scores, 8192),
+             ("its first 1,000 scores", short, 4096)]
+    checked = []
+    for name, col, kk in cases + topk_columns(scores.numel(),
+                                              scores.device):
+        what = f"K2 {name} (n={col.numel()}, k={kk})"
+        err, per = topk_check(what, lambda: topk.topk(col, kk),
+                              lambda: topk.topk_plain(col, kk),
+                              min(kk, col.numel()))
+        k2_err = max(k2_err, err)
+        checked.append({"column": name, "n": col.numel(), "k": kk,
+                        "kernels_per_call": per})
+        s, _i = topk.topk(col, kk)
         ls, _li = torch.topk(col, min(kk, col.numel()))
         if not torch.equal(torch.sort(ls).values, torch.sort(s).values):
-            raise AssertionError(f"K2 (n={col.numel()}, k={kk}) scores "
-                                 "differ from torch.topk's")
+            raise AssertionError(f"{what}: scores differ from torch.topk's")
     n = scores.numel()
     k2_bytes = n * 4 + k * 8                       # scores read, top-k written
     k2_ms = cuda_ms(lambda: topk.topk(scores, k), 50)
     k2_plain = cuda_ms(lambda: topk.topk_plain(scores, k), 10)
     k2_lib = cuda_ms(lambda: torch.topk(scores, k), 50)
+    k2_host = host_us(lambda: topk.topk(scores, k))
+    print(f"K2 (n={n}, k={k}): {k2_ms:.4f} ms a call back to back, "
+          f"torch.topk {k2_lib:.4f} ({k2_ms / k2_lib:.2f}x), wrapper host "
+          f"{k2_host:.1f} us a call", flush=True)
     return [k1, kernel_row("topk", "tempo_tpu_torch/csrc/topk.cu",
                            "tempo_tpu/search/engine.py:295", launches,
                            k2_err, k2_ms, k2_plain, k2_bytes, k2_lib,
-                           {"n": n, "k": k},
+                           {"n": n, "k": k, "host_us": k2_host,
+                            "kernels_per_call": checked[0][
+                                "kernels_per_call"],
+                            "checked": checked},
                            lambda: topk.topk(scores, k))]
 
 
@@ -1240,22 +1362,43 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
     if not with_rows:
         return rows
     r_err = 0
-    for kk in (k, 1024):
-        s2, i2 = topk.topk_rows(scores, kk)
-        r_err = max(r_err, require_equal(f"K2r (k={kk})", (s2, i2),
-                                         topk.topk_rows_plain(scores, kk)))
-        ls = torch.topk(scores, kk, dim=1).values
+    # K4's rows, and rows that stop on different passes: the first of
+    # K4's rows beside the adversarial columns at full width
+    by_name = {name: col for name, col, _k in topk_columns(n, scores.device)
+               if col.numel() == n}
+    mixed = torch.stack([scores[0]] + [by_name[c] for c in (
+        "all -1", "all equal", "narrow window", "every entry a match",
+        "uniform over int31", "INT32_MAX scores", "fewer matches than k")])
+    checked = []
+    for what, mat, kk in (("K4's rows", scores, k),
+                          ("K4's rows", scores, 1024),
+                          ("mixed rows", mixed, k),
+                          ("mixed rows", mixed, 1024),
+                          ("mixed rows", mixed, 4096)):
+        label = f"K2r {what} ({list(mat.shape)}, k={kk})"
+        err, per = topk_check(label, lambda: topk.topk_rows(mat, kk),
+                              lambda: topk.topk_rows_plain(mat, kk),
+                              min(kk, n))
+        r_err = max(r_err, err)
+        checked.append({"rows": what, "shape": list(mat.shape), "k": kk,
+                        "kernels_per_call": per})
+        s2, _i2 = topk.topk_rows(mat, kk)
+        ls = torch.topk(mat, kk, dim=1).values
         if not torch.equal(torch.sort(ls, dim=1).values,
                            torch.sort(s2, dim=1).values):
-            raise AssertionError(f"K2r (k={kk}) scores differ from "
-                                 "torch.topk's")
+            raise AssertionError(f"{label}: scores differ from torch.topk's")
     r_ms = cuda_ms(lambda: topk.topk_rows(scores, k), 50)
     r_plain = cuda_ms(lambda: topk.topk_rows_plain(scores, k), 5)
     r_lib = cuda_ms(lambda: torch.topk(scores, k, dim=1), 50)
+    print(f"K2r ({Q} x {n}, k={k}): {r_ms:.4f} ms a call back to back, "
+          f"torch.topk(dim=1) {r_lib:.4f} ({r_ms / r_lib:.2f}x)", flush=True)
     rows.append(kernel_row("topk_rows", "tempo_tpu_torch/csrc/topk.cu",
                            "tempo_tpu/search/multiblock.py:1084", launches,
                            r_err, r_ms, r_plain, Q * n * 4 + Q * k * 8,
-                           r_lib, {"rows": Q, "n": n, "k": k},
+                           r_lib, {"rows": Q, "n": n, "k": k,
+                                   "kernels_per_call": checked[0][
+                                       "kernels_per_call"],
+                                   "checked": checked},
                            lambda: topk.topk_rows(scores, k)))
     return rows
 
@@ -3736,11 +3879,18 @@ def emulated_phase(label: str, blocks: list, cfg, reqs: list, S: int,
     return out
 
 
-def k9_measure(S: int, Q: int, kp: int, local: int, seed: int) -> dict:
+def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
+               top: int = 1000) -> dict:
     """K9 against its plain version and the single-device K2 at
-    [S, Q, kp]: per-shard K2r outputs of random scores with ties, then
-    CUDA-event times of K9, its plain version and torch.topk over the
-    gathered [Q, S * kp] scores."""
+    [S, Q, kp]: per-shard K2r outputs of random scores in [-1, top) (ties
+    within and across shards), gathered as the exchange gathers them
+    ([S, 2, Q, kp]); the gathered entry (the main path's) and the
+    two-tensor form over the gathered halves (strided views, read in
+    place) equal the plain version exactly, the gathered entry launches
+    K9 alone (no copy first: the profiler's kernels per call); then
+    CUDA-event times of the gathered entry, its plain version and
+    torch.topk over the gathered [Q, S * kp] scores, and the wrapper's
+    host microseconds a call."""
     import torch
 
     from tempo_tpu_torch.device import resolve_device
@@ -3749,25 +3899,46 @@ def k9_measure(S: int, Q: int, kp: int, local: int, seed: int) -> dict:
 
     g = torch.Generator().manual_seed(seed)
     dev = resolve_device("cuda")
-    scores = torch.randint(-1, 1000, (S, Q, local), dtype=torch.int32,
+    scores = torch.randint(-1, top, (S, Q, local), dtype=torch.int32,
                            generator=g).to(dev)
     parts = [topk.topk_rows(scores[s].contiguous(), kp) for s in range(S)]
-    sc = torch.stack([p[0] for p in parts])
-    ix = torch.stack([p[1] for p in parts])
-    got = dist_k.shard_topk(sc, ix, local, kp)
-    err = require_equal(f"K9 [{S}, {Q}, {kp}]", got,
-                        dist_k.shard_topk_plain(sc, ix, local, kp))
-    require_equal(f"K9 [{S}, {Q}, {kp}] vs K2", got, topk.topk_rows(
+    cand = torch.stack([torch.stack(p) for p in parts])
+    want = dist_k.shard_topk_plain(cand[:, 0].contiguous(),
+                                   cand[:, 1].contiguous(), local, kp)
+    what = f"K9 [{S}, {Q}, {kp}]"
+    got = dist_k.shard_topk_gathered(cand, local, kp)
+    err = require_equal(what, got, want)
+    require_equal(f"{what} two-tensor form", dist_k.shard_topk(
+        cand[:, 0], cand[:, 1], local, kp), want)
+    require_equal(f"{what} vs K2", got, topk.topk_rows(
         scores.permute(1, 0, 2).reshape(Q, S * local).contiguous(), kp))
-    flat = sc.permute(1, 0, 2).reshape(Q, S * kp).contiguous()
+
+    def fn():
+        return dist_k.shard_topk_gathered(cand, local, kp)
+
+    per = kernels_per_call(fn)
+    # the profiler may keep fewer records than calls (a count below 1),
+    # never more: any other kernel, or more than one K9 a call, fails
+    if per and (set(per) != {"shard_topk_kernel"}
+                or per["shard_topk_kernel"] > 1):
+        raise AssertionError(f"{what}: the gathered entry launched {per}, "
+                             "not K9 alone")
+    flat = cand[:, 0].permute(1, 0, 2).reshape(Q, S * kp).contiguous()
     kk = min(kp, S * kp)
-    return {"S": S, "Q": Q, "kp": kp, "err": err,
-            "ms": cuda_ms(lambda: dist_k.shard_topk(sc, ix, local, kp), 200),
-            "plain_ms": cuda_ms(
-                lambda: dist_k.shard_topk_plain(sc, ix, local, kp), 50),
-            "library_ms": cuda_ms(lambda: torch.topk(flat, kk, dim=1), 200),
-            "bytes": 8 * S * Q * kp + 8 * Q * kk,
-            "fn": lambda: dist_k.shard_topk(sc, ix, local, kp)}
+    out = {"S": S, "Q": Q, "kp": kp, "err": err, "kernels_per_call": per,
+           "ms": cuda_ms(fn, 200),
+           "plain_ms": cuda_ms(
+               lambda: dist_k.shard_topk_plain(cand[:, 0], cand[:, 1],
+                                               local, kp), 50),
+           "library_ms": cuda_ms(lambda: torch.topk(flat, kk, dim=1), 200),
+           "host_us": host_us(fn),
+           "bytes": 8 * S * Q * kp + 8 * Q * kk, "fn": fn}
+    print(f"{what}: equal to its plain version and K2, per call "
+          f"{json.dumps(per) if per else 'not measured'}; "
+          f"{out['ms']:.4f} ms back to back, torch.topk "
+          f"{out['library_ms']:.4f} ({out['ms'] / out['library_ms']:.2f}x), "
+          f"wrapper host {out['host_us']:.1f} us a call", flush=True)
+    return out
 
 
 def nccl_times(ex, k: int) -> dict:
@@ -4053,7 +4224,10 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
         # 4. K9 and the collectives, timed
         k9 = [k9_measure(1, 1, 128, 65_536 * 16, 1),
               k9_measure(8, 8, 1024, 8192, 2),
-              k9_measure(4, 1, 128, 4096, 3)]
+              k9_measure(4, 1, 128, 4096, 3),
+              k9_measure(3, 3, 1024, 4096, 4, top=20),
+              k9_measure(8, 3, 128, 1024, 5, top=4),
+              k9_measure(1, 3, 128, 4096, 6, top=4)]
         out["k9"] = [{k: v for k, v in r.items() if k != "fn"} for r in k9]
         out["nccl"] = nccl_times(mesh.ShardExchange(m, dev), 128)
         print("K9 " + json.dumps(out["k9"]) + "; NCCL world 1 "
@@ -4065,6 +4239,8 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
                            main["plain_ms"], main["bytes"],
                            main["library_ms"],
                            {"S": 1, "Q": 1, "kp": 128,
+                            "host_us": main["host_us"],
+                            "kernels_per_call": main["kernels_per_call"],
                             "also": out["k9"][1:]}, main["fn"])]
         rows += chain_rows(tag_db, hc_db, pages, m, launches)
         for db in (tag_db, hc_db, st_db, red_db):

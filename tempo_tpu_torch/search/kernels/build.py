@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -91,6 +93,32 @@ def load(name: str) -> ctypes.CDLL:
                 _libs[n] = ctypes.CDLL(str(p))
             lib = _libs[name]
         return lib
+
+
+def on_device(dev, fn, *args):
+    """``fn(*args, stream)``, the stream being `dev`'s current one as a raw
+    handle: a lean launch path for wrappers whose host time matters. It
+    enters ``torch.cuda.device(dev)`` only when `dev` is not the current
+    device already."""
+    idx = dev.index
+    if idx == _current_device():
+        return fn(*args, _raw_stream(idx))
+    with torch.cuda.device(dev):
+        return fn(*args, _raw_stream(idx))
+
+
+# the current stream's handle as an int, without building a Stream object,
+# and the current device without torch.cuda's lazy-init check (a CUDA
+# tensor exists, so CUDA is up)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice",
+                          torch.cuda.current_device)
+
+
+def _raw_stream(idx: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(idx)
+    return torch.cuda.current_stream(idx).cuda_stream
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -13,8 +13,11 @@ flat indices ``[Q, kk]``): highest score first, lowest global index first
 among equal scores, K2's order. Shards own contiguous page ranges, so the
 answer equals the single-device K2 answer exactly, indices included. The
 CUDA kernel (``csrc/dist.cu``) ranks every candidate by binary searches
-in the other sorted lists in one launch; ``shard_topk_plain`` sorts the
-same unique 63-bit keys K2's plain version sorts.
+in the other sorted lists, over keys it builds once into shared memory, in
+one launch; ``shard_topk_plain`` sorts the same unique 63-bit keys K2's
+plain version sorts. ``shard_topk_gathered`` takes the gathered
+``[S, 2, Q, k']`` tensor itself, as ``exchange_merge`` holds it, and the
+kernel reads both halves in place.
 
 ``exchange_merge`` is the exchange-and-merge tail of the page-sharded
 chains. The B10 chains count here too, one per dispatch that runs on the
@@ -29,11 +32,13 @@ counters as well): ``MULTI_LAUNCHES`` (``dist_multi_scan_kernel``),
 from __future__ import annotations
 
 import ctypes
+import struct
+import threading
 
 import torch
 
 from . import LaunchCount
-from .build import check, load
+from .build import check, load, on_device
 
 LAUNCHES = LaunchCount()             # K9
 MULTI_LAUNCHES = LaunchCount()       # B10 dist_multi_scan chains
@@ -41,34 +46,68 @@ COALESCED_LAUNCHES = LaunchCount()   # B10 dist_coalesced_scan chains
 SINGLE_LAUNCHES = LaunchCount()      # B10 DistributedScanEngine chains
 PROBE_LAUNCHES = LaunchCount()       # B10 dist_probe chains
 
+SMEM_KEYS_MAX = 200 * 1024   # csrc/dist.cu kSmemKeysMax: keys in shared memory
+
+
+def _check_values(t: torch.Tensor, local_flat: int, k: int) -> None:
+    if t.dtype != torch.int32:
+        raise ValueError("shard_topk takes int32 scores and indices")
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    if t.shape[0] * int(local_flat) >= 2**31:
+        raise ValueError("global flat indices must stay below 2^31")
+
 
 def _check(scores: torch.Tensor, idx: torch.Tensor, local_flat: int,
            k: int) -> None:
     if scores.dim() != 3 or scores.shape != idx.shape:
         raise ValueError("shard_topk takes scores and indices [S, Q, k']")
-    if scores.dtype != torch.int32 or idx.dtype != torch.int32:
+    if idx.dtype != torch.int32:
         raise ValueError("shard_topk takes int32 scores and indices")
     if scores.device != idx.device:
         raise ValueError("shard_topk's inputs must share one device")
-    if k < 1:
-        raise ValueError("k must be >= 1")
-    if scores.shape[0] * int(local_flat) >= 2**31:
-        raise ValueError("global flat indices must stay below 2^31")
+    _check_values(scores, local_flat, k)
 
 
 def shard_topk(scores: torch.Tensor, idx: torch.Tensor, local_flat: int,
                k: int):
     """(top scores [Q, kk], global flat indices [Q, kk]) of the gathered
     shard lists — the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors. The kernel reads both tensors in place when they have
+    the same strides and unit stride along k' (two contiguous tensors, or
+    the two halves of one gathered ``[S, 2, Q, k']`` tensor); otherwise
+    the wrapper first makes one contiguous copy of each."""
     _check(scores, idx, local_flat, k)
     if scores.device.type == "cpu":
         return shard_topk_plain(scores, idx, local_flat, k)
-    out = _shard_topk_cuda(scores.contiguous(), idx.contiguous(),
-                           int(local_flat), int(k))
-    if out[0].numel():
-        LAUNCHES.bump()
-    return out
+    if scores.stride() != idx.stride() or (scores.shape[2] > 1
+                                           and scores.stride(2) != 1):
+        scores, idx = scores.contiguous(), idx.contiguous()
+    S, Q, kp = scores.shape
+    ss, sq, _ = scores.stride()
+    return _shard_topk_cuda(scores, scores.data_ptr(), idx.data_ptr(), S, Q,
+                            kp, ss, sq, int(local_flat), int(k))
+
+
+def shard_topk_gathered(cand: torch.Tensor, local_flat: int, k: int):
+    """K9 over the gathered candidates ``[S, 2, Q, k']`` (axis 1: scores,
+    then local flat indices), as the all_gather returns them: the same
+    function as ``shard_topk(cand[:, 0], cand[:, 1], ...)``; on the card
+    the kernel reads both halves in place, with no copy and no view made.
+    Refuses a tensor whose k' axis is not of unit stride."""
+    if cand.dim() != 4 or cand.shape[1] != 2:
+        raise ValueError("shard_topk_gathered takes candidates "
+                         "[S, 2, Q, k']")
+    S, _, Q, kp = cand.shape
+    ss, sc, sq, sj = cand.stride()
+    if kp > 1 and sj != 1:
+        raise ValueError("shard_topk_gathered needs unit stride along k'")
+    _check_values(cand, local_flat, k)
+    if cand.device.type == "cpu":
+        return shard_topk_plain(cand[:, 0], cand[:, 1], local_flat, k)
+    ptr = cand.data_ptr()
+    return _shard_topk_cuda(cand, ptr, ptr + 4 * sc, S, Q, kp, ss, sq,
+                            int(local_flat), int(k))
 
 
 def shard_topk_plain(scores: torch.Tensor, idx: torch.Tensor,
@@ -94,49 +133,69 @@ def exchange_merge(ex, shards, ranks, step, reduce_parts, candidates,
     over each local shard, one all_reduce of the int64 concatenation of
     `reduce_parts(out)` (tensors, flattened), one all_gather of
     `candidates(out)` (int32 [2, Q, k']: scores, then local flat
-    indices), then K9. `chain` counts the dispatch when it ran on the
-    card. Returns (the local outputs, the sum [n], top scores [Q, kk],
-    global flat indices [Q, kk])."""
+    indices), then K9 over the gathered tensor as it lies. `chain`
+    counts the dispatch when it ran on the card. Returns (the local
+    outputs, the sum [n], top scores [Q, kk], global flat indices
+    [Q, kk])."""
     with ex.locked():
         outs = [step(s, r) for s, r in zip(shards, ranks)]
         red = ex.all_reduce([torch.cat([t.reshape(-1).to(torch.int64)
                                         for t in reduce_parts(o)])
                              for o in outs])
         cand = ex.all_gather([candidates(o) for o in outs])
-        top_s, top_i = shard_topk(cand[:, 0], cand[:, 1], local_flat, k)
+        top_s, top_i = shard_topk_gathered(cand, local_flat, k)
     if top_s.device.type == "cuda":
         chain.bump()
     return outs, red, top_s, top_i
 
 
-def _lib():
-    lib = load("dist")
-    if not getattr(lib, "_tt_typed", False):
-        p = ctypes.c_void_p
-        i32 = ctypes.c_int
-        lib.tt_shard_topk.restype = i32
-        lib.tt_shard_topk.argtypes = [p, p, i32, i32, i32, ctypes.c_longlong,
-                                      i32, p, p, p]
-        lib._tt_typed = True
-    return lib
+_LIB = None
+_FN = None
+# tt_shard_topk_packed's twelve int64 arguments, one buffer a thread
+_PACK = struct.Struct("12q")
 
 
-def _shard_topk_cuda(scores: torch.Tensor, idx: torch.Tensor,
+class _ArgBuf(threading.local):
+    def __init__(self):
+        self.buf = (ctypes.c_longlong * 12)()
+
+
+_ARGS = _ArgBuf()
+
+
+def _fn():
+    global _LIB, _FN
+    if _FN is None:
+        lib = load("dist")
+        fn = lib.tt_shard_topk_packed
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        _LIB, _FN = lib, fn
+    return _FN
+
+
+def _shard_topk_cuda(like: torch.Tensor, scores_ptr: int, idx_ptr: int,
+                     S: int, Q: int, kp: int, ss: int, sq: int,
                      local_flat: int, k: int):
-    S, Q, kp = scores.shape
-    if S * kp >= 2**31:
+    """Launch K9 over the int32 lists at `scores_ptr` and `idx_ptr`
+    (element (s, q, j) at s * ss + q * sq + j, in `like`'s storage) and
+    count the launch: one output allocation, no view of the inputs, a
+    device context only when `like`'s device is not the current one."""
+    n = S * kp
+    if n >= 2**31:
         raise ValueError("shard_topk supports fewer than 2^31 candidates")
-    kk = min(k, S * kp)
-    dev = scores.device
-    out_s = torch.empty((Q, kk), dtype=torch.int32, device=dev)
-    out_i = torch.empty((Q, kk), dtype=torch.int32, device=dev)
-    if Q == 0 or kk == 0:
-        return out_s, out_i
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_shard_topk(scores.data_ptr(), idx.data_ptr(), S, Q, kp,
-                               local_flat, kk, out_s.data_ptr(),
-                               out_i.data_ptr(), stream)
-    check(lib, rc, "shard_topk")
-    return out_s, out_i
+    kk = min(k, n)
+    out = like.new_empty((2, Q, kk))
+    if Q and kk:
+        keys = (like.new_empty((Q, n), dtype=torch.int64)
+                if S > 1 and n * 8 > SMEM_KEYS_MAX else None)
+        op = out.data_ptr()
+        args = _ARGS.buf
+        _PACK.pack_into(args, 0, scores_ptr, idx_ptr, S, Q, kp, ss, sq,
+                        local_flat, kk, op, op + 4 * Q * kk,
+                        0 if keys is None else keys.data_ptr())
+        rc = on_device(like.device, _fn(), args)
+        if rc:
+            check(_LIB, rc, "shard_topk")
+        LAUNCHES.bump()
+    return out.unbind(0)

@@ -21,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from tempo_tpu.search.engine import masked_topk as ref_masked_topk
 from tempo_tpu.search.multiblock import multi_scan_kernel
 
 from tempo_tpu_torch.search.kernels.scan import multi_scan
-from tempo_tpu_torch.search.kernels.topk import topk, topk_plain
+from tempo_tpu_torch.search.kernels import topk as topk_mod
+from tempo_tpu_torch.search.kernels.topk import (topk, topk_plain,
+                                                 topk_rows)
 
 U32 = 0xFFFFFFFF
 _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32}
@@ -179,13 +182,141 @@ def test_unsigned_bounds_and_high_starts():
     assert (scores == -1).all()          # every duration 5 < dur_lo 6
 
 
-@pytest.mark.parametrize("n,k", [(1, 128), (50, 7), (3000, 1024),
-                                 (70_000, 128)])
-def test_topk_order_and_ties(n, k):
-    """topk = stable sort by score descending, index ascending."""
+BASE_S = 1_700_000_000
+
+
+def _column(kind: str, n: int, rng) -> np.ndarray:
+    """An int32 score column of `kind`: random ties in [-1, 20), or one of
+    the adversarial columns the card's kernel is held to (chip_smoke.py
+    ``topk_columns``), here at CPU size."""
+    if kind == "ties":
+        return rng.integers(-1, 20, size=n).astype(np.int32)
+    if kind == "all_minus_1":
+        return np.full(n, -1, dtype=np.int32)
+    if kind == "all_equal":
+        return np.full(n, BASE_S, dtype=np.int32)
+    # the tag cell's narrow window: block b's starts in [b*600, b*600+600)
+    # after one base second, 8,192 entries a block here
+    start = BASE_S + (np.arange(n) // 8192) * 600 + rng.integers(0, 600, n)
+    if kind == "narrow_window":
+        return np.where(rng.integers(0, 50, n) == 0, start,
+                        -1).astype(np.int32)
+    if kind == "every_entry_a_match":
+        return start.astype(np.int32)
+    uniform = rng.integers(0, 2**31 - 1, size=n)
+    if kind == "uniform_int31":
+        return uniform.astype(np.int32)
+    if kind == "int32_max":
+        return np.where(rng.random(n) < 0.01, 2**31 - 1,
+                        uniform).astype(np.int32)
+    if kind == "fewer_matches_than_k":
+        s = np.full(n, -1, dtype=np.int32)
+        m = min(50, n)
+        s[rng.choice(n, m, replace=False)] = start[:m]
+        return s
+    raise ValueError(kind)
+
+
+def _ref_topk(s: np.ndarray, k: int):
+    """The reference's masked_topk over a score column (score >= 0 a
+    match, its start second the score)."""
+    mask = jnp.asarray(s >= 0)
+    start = jnp.asarray(np.maximum(s, 0).astype(np.uint32))
+    rs, ri = ref_masked_topk(mask, start, k)
+    return np.asarray(rs), np.asarray(ri)
+
+
+TOPK_CASES = [
+    pytest.param(1, 128, "ties", id="1-128"),
+    pytest.param(50, 7, "ties", id="50-7"),
+    pytest.param(3000, 1024, "ties", id="3000-1024"),
+    pytest.param(70_000, 128, "ties", id="70000-128"),
+    pytest.param(20_000, 128, "all_minus_1", id="all_minus_1"),
+    pytest.param(20_000, 1024, "all_minus_1", id="all_minus_1-k1024"),
+    pytest.param(20_000, 128, "all_equal", id="all_equal"),
+    pytest.param(70_000, 128, "narrow_window", id="narrow_window"),
+    pytest.param(70_000, 4096, "narrow_window", id="narrow_window-k4096"),
+    pytest.param(20_000, 128, "every_entry_a_match",
+                 id="every_entry_a_match"),
+    pytest.param(20_000, 128, "uniform_int31", id="uniform_int31"),
+    pytest.param(20_000, 128, "int32_max", id="int32_max"),
+    pytest.param(20_000, 128, "fewer_matches_than_k",
+                 id="fewer_matches_than_k"),
+    pytest.param(3000, 3000, "narrow_window", id="k_equals_n"),
+    pytest.param(3000, 4096, "narrow_window", id="k_above_n"),
+    pytest.param(1, 128, "int32_max", id="n1_int32_max"),
+    pytest.param(2049, 128, "narrow_window", id="n2049"),
+]
+
+
+@pytest.mark.parametrize("n,k,kind", TOPK_CASES)
+def test_topk_order_and_ties(n, k, kind):
+    """topk = stable sort by score descending, index ascending, on random
+    ties and on the adversarial columns; the wrapper (here its plain
+    version) agrees, and the reference's masked_topk holds to the tie
+    contract."""
     rng = np.random.default_rng(n)
-    s = rng.integers(-1, 20, size=n).astype(np.int32)   # many ties
+    s = _column(kind, n, rng)
     got_s, got_i = topk_plain(torch.from_numpy(s), k)
     order = np.lexsort((np.arange(n), -s.astype(np.int64)))[:min(k, n)]
     np.testing.assert_array_equal(got_i.numpy(), order)
     np.testing.assert_array_equal(got_s.numpy(), s[order])
+    ws, wi = topk(torch.from_numpy(s), k)
+    assert torch.equal(ws, got_s) and torch.equal(wi, got_i)
+    _assert_topk_contract(got_s.numpy(), got_i.numpy(), *_ref_topk(s, k))
+
+
+ROW_KINDS = ["all_minus_1", "all_equal", "narrow_window",
+             "every_entry_a_match", "uniform_int31", "int32_max",
+             "fewer_matches_than_k", "ties"]
+
+
+@pytest.mark.parametrize("n,k", [(20_000, 128), (20_000, 1024),
+                                 (3000, 4096), (1, 128)])
+def test_topk_rows_order_and_ties(n, k):
+    """topk_rows (here its plain version) over rows of every adversarial
+    kind at once (rows that a radix select resolves on different passes)
+    is each row's stable sort, and holds to the tie contract against the
+    reference's masked_topk row by row."""
+    rng = np.random.default_rng(n + k)
+    s = np.stack([_column(kind, n, rng) for kind in ROW_KINDS])
+    got_s, got_i = topk_rows(torch.from_numpy(s), k)
+    assert got_s.shape == got_i.shape == (len(ROW_KINDS), min(k, n))
+    for q, row in enumerate(s):
+        order = np.lexsort((np.arange(n), -row.astype(np.int64)))[:k]
+        np.testing.assert_array_equal(got_i[q].numpy(), order)
+        np.testing.assert_array_equal(got_s[q].numpy(), row[order])
+        _assert_topk_contract(got_s[q].numpy(), got_i[q].numpy(),
+                              *_ref_topk(row, k))
+
+
+def test_topk_wrappers_refuse_bad_inputs():
+    """Both wrappers refuse, on any device, another dtype, rank or layout
+    and k < 1 (the CUDA route would misread them)."""
+    col = torch.zeros(64, dtype=torch.int32)
+    rows = torch.zeros((4, 64), dtype=torch.int32)
+    for bad in (col.long(), col.float(), rows, col[::2]):
+        with pytest.raises(ValueError):
+            topk(bad, 8)
+    for bad in (rows.long(), col, rows.t(), rows[:, ::2]):
+        with pytest.raises(ValueError):
+            topk_rows(bad, 8)
+    for k in (0, -1):
+        with pytest.raises(ValueError):
+            topk(col, k)
+        with pytest.raises(ValueError):
+            topk_rows(rows, k)
+    with pytest.raises(ValueError):
+        topk_rows(torch.zeros((65536, 1), dtype=torch.int32), 1)
+
+
+def test_topk_scratch_follows_the_route():
+    """One call's scratch: the cooperative route's per-launch rows (they
+    share it, launch after launch) at 8,192 + 32,768 keys a row; past
+    COOP_MAX_K the chain's winners are the padded k, per row."""
+    per_row = (8192 + 32768) * 8 + 3 * 2048 * 4 + 8 + 16
+    assert topk_mod.scratch_bytes(1, 128, 264) == per_row + 64
+    assert topk_mod.scratch_bytes(8, 1024, 264) == 8 * per_row + 64
+    assert topk_mod.scratch_bytes(1000, 4096, 264) == 264 * per_row + 64
+    assert topk_mod.scratch_bytes(2, 4097, 264) == 2 * (8192 * 8 + 40
+                                                        + 2048 * 4)

@@ -61,7 +61,7 @@ from tempo_tpu_torch.search import analytics, dict_probe, ir, packing, \
 from tempo_tpu_torch.search.backend_search_block import BackendSearchBlock
 from tempo_tpu_torch.search.engine import ScanEngine, fetch_scan_out, stage
 from tempo_tpu_torch.search.kernels import dist as dist_k
-from tempo_tpu_torch.search.kernels.topk import topk_rows_plain
+from tempo_tpu_torch.search.kernels.topk import topk_plain, topk_rows_plain
 from tempo_tpu_torch.search.multiblock import (MultiBlockEngine,
                                                compile_multi, place_batch,
                                                stack_host, stack_queries)
@@ -235,6 +235,70 @@ def test_shard_topk_checks_its_inputs():
         dist_k.shard_topk(s, s, 2**30, 2)
     with pytest.raises(ValueError):
         dist_k.shard_topk(s, s, 4, 0)
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+def test_shard_topk_gathered_equals_plain_on_copies(S):
+    """K9's gathered entry over [S, 2, Q, k'] (as the all_gather returns
+    it) equals shard_topk_plain on contiguous copies of its halves, and
+    the two-tensor form over the strided halves does too; ties within
+    and across shards, every list of k' = min(k, local) entries."""
+    rng = np.random.default_rng(1000 + S)
+    Q, local_n, k = 3, 64, 40
+    col = torch.from_numpy(
+        rng.integers(-1, 4, size=(Q, S * local_n)).astype(np.int32))
+    parts = [topk_rows_plain(col[:, s * local_n:(s + 1) * local_n], k)
+             for s in range(S)]
+    cand = torch.stack([torch.stack(p) for p in parts])
+    assert cand.shape == (S, 2, Q, k)
+    want = dist_k.shard_topk_plain(cand[:, 0].contiguous(),
+                                   cand[:, 1].contiguous(), local_n, k)
+    got = dist_k.shard_topk_gathered(cand, local_n, k)
+    two = dist_k.shard_topk(cand[:, 0], cand[:, 1], local_n, k)
+    glob = topk_rows_plain(col, k)
+    for a, b, c, d in zip(got, want, two, glob):
+        assert torch.equal(a, b) and torch.equal(c, b) and torch.equal(d, b)
+
+
+def test_exchange_merge_over_local_exchange_equals_one_device():
+    """exchange_merge through LocalExchange(3): each rank's K2 over its
+    third of the column, the summed counts and K9 over the gathered
+    candidates equal one device's K2 and count over the whole column."""
+    rng = np.random.default_rng(3)
+    S, local_n, k = 3, 500, 128
+    col = torch.from_numpy(rng.integers(-1, 30, size=S * local_n)
+                           .astype(np.int32))
+    shards = [col[s * local_n:(s + 1) * local_n] for s in range(S)]
+
+    def step(shard, rank):
+        s, i = topk_plain(shard, k)
+        return (torch.stack([(shard >= 0).sum()]), s, i)
+
+    outs, red, top_s, top_i = dist_k.exchange_merge(
+        mesh.LocalExchange(S), shards, range(S), step, lambda o: o[:1],
+        lambda o: torch.stack(o[1:3])[:, None], local_n, k,
+        dist_k.MULTI_LAUNCHES)
+    assert len(outs) == S and int(red[0]) == int((col >= 0).sum())
+    want_s, want_i = topk_plain(col, k)
+    assert torch.equal(top_s[0], want_s) and torch.equal(top_i[0], want_i)
+
+
+def test_shard_topk_gathered_checks_its_inputs():
+    """The gathered entry refuses another rank or middle axis, another
+    dtype, a k' axis of other than unit stride, k < 1 and global indices
+    past 2^31."""
+    cand = torch.zeros((2, 2, 1, 4), dtype=torch.int32)
+    for bad in (cand[:, 0], torch.zeros((2, 3, 1, 4), dtype=torch.int32),
+                cand.long(), torch.zeros((2, 2, 1, 8),
+                                         dtype=torch.int32)[..., ::2]):
+        with pytest.raises(ValueError):
+            dist_k.shard_topk_gathered(bad, 4, 2)
+    with pytest.raises(ValueError):
+        dist_k.shard_topk_gathered(cand, 4, 0)
+    with pytest.raises(ValueError):
+        dist_k.shard_topk_gathered(cand, 2**30, 2)
+    with pytest.raises(ValueError):     # the two-tensor form, likewise
+        dist_k.shard_topk(cand[:, 0], cand[:, 1, :, :3], 4, 2)
 
 
 # ---------------------------------------------------------------------------
