@@ -74,9 +74,14 @@ error:
    through ``TempoDB.search``, ``search_block`` and
    ``BackendSearchBlock.search`` (block 0), each cold then timed; the
    CPU path's responses required; K6 (structural_mask: an exact desc
-   plan, an exact quantile plan, 8 bucketed plans) and K1, K4 and K1s
+   plan, an exact quantile plan, 8 bucketed plans; its device time the
+   median of 20 single calls between CUDA events) and K1, K4 and K1s
    with its verdicts against their plain versions, the fused dispatch
-   against the solo ones; 8 barrier-started clients with 8 plans of one
+   against the solo ones; K6 also exact on runs out of entry order and
+   at its design's edges (``k6_edges``: parent cycles, runs longer than
+   a tile, no spans, packed, bool and word hit tables, a 2-rank mesh's
+   rebased and sharded spans, pad pages and invalid entries; Q = 1, 8
+   and 40); 8 barrier-started clients with 8 plans of one
    canonical bucket, through a second TempoDB with stacking and
    bucketing on and through the first (off), every response equal to
    the serial one; then an unpacked and a packed TempoDB over the first
@@ -254,7 +259,8 @@ def hc_requests() -> dict:
 
 
 def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
-               long_every: int = 0, spans: bool = False, red: bool = False):
+               long_every: int = 0, spans: bool = False, red: bool = False,
+               counts=None, cycles: bool = False):
     """Block b's columns, from the seed, as the port's ColumnarPages. With
     `sessions`, every trace also carries session.id "session-%08d", unique
     across blocks of n traces, in a seeded order. With `long_every`, one
@@ -263,7 +269,8 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
     (``span_segment``). With `red` (the RED cell), from a second seeded
     stream: error=true on 1 trace in 50 (a last kv slot, C = 9), no root
     service on 1 in 100, and durations log-uniform over 1-60,000 ms, 1
-    in 8 of them exactly on an ``MS_BUCKETS`` edge or one past it."""
+    in 8 of them exactly on an ``MS_BUCKETS`` edge or one past it.
+    `counts` and `cycles` go to ``span_segment``."""
     import numpy as np
 
     from tempo_tpu_torch.search.columnar import ColumnarPages
@@ -335,25 +342,36 @@ def make_block(seed: int, b: int, n: int, E: int, sessions: bool = False,
     return ColumnarPages.from_arrays(
         key_dict, val_dict, kv_key, kv_val, start, end, dur, valid, svc,
         name, trace_ids,
-        spans=span_segment(rng, n, P, E, key_dict, vidx) if spans else None)
+        spans=(span_segment(rng, n, P, E, key_dict, vidx, counts, cycles)
+               if spans else None))
 
 
 def span_segment(rng, n: int, P: int, E: int, key_dict: list,
-                 vidx: dict) -> dict:
+                 vidx: dict, counts=None, cycles: bool = False) -> dict:
     """The span rows of n traces laid out as the container's span segment:
-    1-31 spans a trace (uniform), span 0 the root, each later span's
-    parent a random earlier span of its trace or, 1 in 20, none;
-    service.name, name (op-0..op-15) and http.status_code per span (Cs =
-    4 slots, the last a pad), 1-2,000 ms, kind 0-5."""
+    1-31 spans a trace (uniform; or `counts`), span 0 the root, each later
+    span's parent a random earlier span of its trace or, 1 in 20, none;
+    a trace of more than 64 spans chains every span to the one before it;
+    with `cycles`, every trace of 3+ spans has a self-parent (span 0) and
+    an A -> B -> A pair (spans 1 and 2); service.name, name (op-0..op-15)
+    and http.status_code per span (Cs = 4 slots, the last a pad),
+    1-2,000 ms, kind 0-5."""
     import numpy as np
 
-    counts = rng.integers(1, 32, size=n)
+    if counts is None:
+        counts = rng.integers(1, 32, size=n)
+    counts = np.asarray(counts, dtype=np.int64)
     S = int(counts.sum())
     first = np.repeat(np.cumsum(counts) - counts, counts)
     local = np.arange(S) - first
     parent = np.where(local > 0, first + (rng.random(S) * local)
                       .astype(np.int64), -1)
     parent[(local > 0) & (rng.random(S) < 0.05)] = -1
+    chain = (np.repeat(counts, counts) > 64) & (local > 0)
+    parent[chain] = np.arange(S)[chain] - 1
+    if cycles:
+        f = (np.cumsum(counts) - counts)[counts >= 3]
+        parent[f], parent[f + 1], parent[f + 2] = f, f + 2, f + 1
     cols = ("http.status_code", "name", "service.name")   # sorted keys
     kv_key = np.full((S, 4), -1, dtype=np.int32)
     kv_val = np.full((S, 4), -1, dtype=np.int32)
@@ -947,16 +965,6 @@ def device_ms(fn, reps: int, symbol: str) -> tuple:
             return total / reps / 1e3, n, "profiler"
         kept = max(kept, n)
     return cuda_ms(fn, reps), kept, "cuda_events"
-
-
-def kernel_device_ms(fn, reps: int, kernel: str) -> tuple:
-    """(device ms per launch, launch records kept) of the kernel whose
-    name holds `kernel`, over `reps` calls of fn: the mean of the records
-    torch.profiler kept."""
-    ev = [e for e in device_events(profiled(fn, reps)) if kernel in e.key]
-    n = sum(e.count for e in ev)
-    total = sum(e.self_device_time_total for e in ev)
-    return (total / n / 1e3 if n else None), n
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
@@ -2328,23 +2336,23 @@ def st_compile(db, batch, plans: list):
 
 def k6_measure(db, batch, lanes) -> tuple:
     """K6 over `lanes` on `batch` against its plain version: (verdicts,
-    max abs err, card ms, (device ms per launch, profiler records
-    kept), plain ms, bound bytes); see ``kernel_device_ms``."""
+    max abs err, card ms, device ms (``event_ms``: the median of 20
+    single calls), plain ms, bound bytes, the kernel's builds launched)."""
     from tempo_tpu_torch.search.kernels import structural as k6
+    from tempo_tpu_torch.search.kernels.bench_structural import event_ms
 
     d = batch.device
     args = (d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"],
             d["page_block"], batch.span_device, batch.span_max_run,
             lanes.device(db.device), lanes.val_hits, batch.widths,
             d.get("entry_dur_res"))
-    v = k6.structural_mask(*args)
+    v, builds = k6_variants(lambda: k6.structural_mask(*args))
     err = require_equal("K6", (v,), (k6.structural_mask_plain(*args),))
     ms = cuda_ms(lambda: k6.structural_mask(*args), 20)
-    dev = kernel_device_ms(lambda: k6.structural_mask(*args), 20,
-                           "structural_kernel")
+    dev = event_ms(lambda: k6.structural_mask(*args))
     plain = cuda_ms(lambda: k6.structural_mask_plain(*args), 3)
     need = k6_bytes(d, batch.span_device, lanes, v.numel())
-    return v, err, ms, dev, plain, need
+    return v, err, ms, dev, plain, need, builds
 
 
 def shuffle_span_runs(b, seed: int) -> None:
@@ -2382,9 +2390,17 @@ def k6_out_of_order(eng, pages) -> tuple:
     from tempo_tpu_torch.search.kernels import structural as k6
     from tempo_tpu_torch.search.multiblock import place_batch
 
+    import numpy as np
+
     blk = pages.slice_pages(0, 8)
     n_in_order = int(blk.entry_span_count.sum(axis=1).max())
     shuffle_span_runs(blk, 7)
+    cnt = blk.entry_span_count.astype(np.int64)
+    beg = blk.entry_span_begin.astype(np.int64)
+    live = cnt > 0
+    widest = int((np.where(live, beg + cnt, 0).max(axis=1)
+                  - np.where(live, beg, np.iinfo(np.int64).max).min(axis=1)
+                  )[live.any(axis=1)].max())
     batch = place_batch(eng.stage_host([blk]), eng.device)
     d = batch.device
     err, hits = 0, {}
@@ -2401,13 +2417,225 @@ def k6_out_of_order(eng, pages) -> tuple:
         err = max(err, require_equal(f"K6 out of order ({name})", (v,),
                                      (k6.structural_mask_plain(*args),)))
         hits[name] = int(v.sum())
-    if batch.span_max_run <= n_in_order:
+    if widest <= n_in_order:
         raise AssertionError("shuffled runs did not widen a page's range")
-    print(f"K6 on runs out of entry order: max_page_run "
-          f"{batch.span_max_run} (a page's spans at most {n_in_order}); "
-          f"equal to its plain version", flush=True)
-    return {"pages": batch.n_pages, "max_page_run": batch.span_max_run,
+    print(f"K6 on runs out of entry order: a page's span range up to "
+          f"{widest} (its spans at most {n_in_order}); equal to its plain "
+          "version", flush=True)
+    return {"pages": batch.n_pages, "widest_page_range": widest,
             "most_spans_of_a_page": n_in_order, "verdicts": hits}, err
+
+
+def k6_lanes(blocks: list, batch, packed: bool) -> dict:
+    """K6's lane sets over `blocks` staged as `batch`: each of the cell's
+    five plans alone (Q = 1), the eight bucket plans (Q = 8), the bucket
+    five times over (Q = 40: two launches of at most 32 lanes) and
+    ``wide_lanes``."""
+    from tempo_tpu_torch.search import ir, structural
+
+    def comp(plan):
+        return structural.compile_structural(
+            ir.parse(json.dumps(plan)), blocks,
+            staged_dicts=batch.staged_dicts, packed=packed, memo=batch.memo)
+
+    out = {name: comp(p).lanes() for name, p in ST_PLANS.items()}
+    sts = [comp(p) for p in ST_BUCKET_PLANS]
+    desc = structural.canonical_bucket(sts[0].plan, 16)
+    out["bucket Q=8"] = structural.stack_bucketed(sts, desc).lanes
+    out["bucket Q=40"] = structural.stack_bucketed(sts * 5, desc).lanes
+    out["wide NS=40 NT=140"] = wide_lanes(len(blocks))
+    for name in ("desc", "bucket Q=8", "wide NS=40 NT=140"):
+        out[f"{name}, {IN_PLACE}"] = tables_in_place(out[name])
+    return out
+
+
+# the suffix of a lane set whose tables K6 must read in place
+IN_PLACE = "tables in place"
+
+
+def tables_in_place(lanes, words: int = 1 << 16):
+    """`lanes` with inert block rows (term key -1, the empty range [1, 0],
+    block group -1) appended until one launch's lane tables take more
+    than `words` words, past what shared memory holds beside a tile, so
+    that K6 reads them in place. No page names the added rows: the
+    verdicts are those of `lanes`."""
+    import numpy as np
+
+    from tempo_tpu_torch.search import structural
+
+    Q, _B, T = lanes.term_keys.shape
+    R = lanes.val_ranges.shape[3]
+    add = words // (min(Q, 32) * T * (1 + 2 * R)) + 1
+    bg = lanes.block_group
+    return structural.Lanes(
+        span_prog=lanes.span_prog, trace_prog=lanes.trace_prog,
+        term_keys=np.concatenate(
+            [lanes.term_keys, np.full((Q, add, T), -1, np.int32)], 1),
+        val_ranges=np.concatenate(
+            [lanes.val_ranges, np.broadcast_to(
+                np.array([1, 0], np.int32), (Q, add, T, R, 2))], 1),
+        dur_params=lanes.dur_params, kind_params=lanes.kind_params,
+        agg_params=lanes.agg_params, val_hits=lanes.val_hits,
+        block_group=None if bg is None else np.concatenate(
+            [bg, np.full((Q, add), -1, np.int32)], 1))
+
+
+def k6_variants(fn):
+    """(fn's result, K6's launches by build while it ran: name -> n)."""
+    from tempo_tpu_torch.search.kernels import structural as k6
+
+    before = {v: c.n for v, c in k6.VARIANT_LAUNCHES.items()}
+    out = fn()
+    return out, {v: c.n - before[v] for v, c in k6.VARIANT_LAUNCHES.items()
+                 if c.n > before[v]}
+
+
+def wide_lanes(B: int):
+    """One lane by hand past what the IR's 64 nodes reach: 40 span slots
+    (two register words: dur leaves, and/or over them, a desc) and 140
+    trace slots (exists, count and quantile over them, then and/or/not
+    chains: five words of trace registers)."""
+    import numpy as np
+
+    from tempo_tpu_torch.search import structural
+
+    NS, NT = 40, 140
+    sp = np.zeros((1, NS, 4), dtype=np.int32)
+    for i in range(20):
+        sp[0, i] = (2, i % 2, 0, 0)
+    for i in range(20, NS - 1):
+        sp[0, i] = (5 if i % 2 else 4, i, i - 7, 0)
+    sp[0, NS - 1] = (8, 25, 30, 0)
+    tp = np.zeros((1, NT, 4), dtype=np.int32)
+    tp[0, 0] = (3, NS, 0, 0)
+    tp[0, 1] = (4, 30, 0, 1)
+    tp[0, 2] = (5, 20, 1, 3)
+    for t in range(3, NT - 1):
+        tp[0, t] = (6 + t % 3, t, t - 2, 0)
+    tp[0, NT - 1] = (7, NT - 1, NT - 2, 0)
+    return structural.Lanes(
+        span_prog=sp, trace_prog=tp,
+        term_keys=np.full((1, B, 1), -1, dtype=np.int32),
+        val_ranges=np.tile(np.array([1, 0], dtype=np.int32),
+                           (1, B, 1, 1, 1)),
+        dur_params=np.array([[[0, 600], [1500, 2000]]], dtype=np.uint32),
+        kind_params=np.zeros((1, 1), dtype=np.int32),
+        agg_params=np.array([[[3, 1, 0], [9, 10, 900]]], dtype=np.uint32))
+
+
+def k6_check(what: str, d: dict, spans, max_run: int, lanes_of: dict,
+             widths, dev) -> tuple:
+    """K6 against its plain version for every lane set on one staged
+    batch's columns (`d`, `spans`), and on the card through the build the
+    set names (its tables in place, or in shared memory; span words by
+    its program): (verdicts set and builds launched per lane set, max
+    abs err)."""
+    from tempo_tpu_torch.search.kernels import structural as k6
+
+    hits, err = {}, 0
+    for name, lanes in lanes_of.items():
+        args = (d["kv_key"], d["kv_val"], d["entry_dur"], d["entry_valid"],
+                d["page_block"], spans, max_run, lanes.device(dev),
+                lanes.val_hits, widths, d.get("entry_dur_res"))
+        v, ran = k6_variants(lambda: k6.structural_mask(*args))
+        err = max(err, require_equal(f"K6 {what} ({name})", (v,),
+                                     (k6.structural_mask_plain(*args),)))
+        words = "1 word" if lanes.span_prog.shape[1] < 32 else "8 words"
+        if v.is_cuda and (not ran or any(
+                not r.startswith(words)
+                or r.endswith(IN_PLACE) != name.endswith(IN_PLACE)
+                for r in ran)):
+            raise AssertionError(f"K6 {what} ({name}) ran {ran}")
+        hits[name] = {"verdicts": int(v.sum()), "builds": ran}
+    return hits, err
+
+
+def k6_edges(dev, seed: int) -> tuple:
+    """K6 held exactly against its plain version on the card at the edges
+    of its design, each over small batches made from the seed (3 blocks
+    of 3,000 traces: a partly filled last page, pad pages to the staged
+    power of two), every lane set of ``k6_lanes``: parent cycles (a
+    self-parent and an A -> B -> A pair in every trace of 3+ spans); a run
+    longer than a tile holds (traces of 3,000 and 1,500 chained spans,
+    through the scratch path); a batch without spans; the packed layout;
+    probed lanes with bool (unpacked) and word (packed) hit tables; and a
+    2-rank mesh's shards (whole span axis with span_trace rebased to the
+    rank, and the sharded-span layout). Each case also takes three lane
+    sets whose tables are too large for shared memory
+    (``tables_in_place``), at 1 and 8 span words: every one of the
+    kernel's four builds must have run. Returns (report, max abs err)."""
+    import numpy as np
+
+    from tempo_tpu_torch.parallel import mesh
+    from tempo_tpu_torch.search import structural
+    from tempo_tpu_torch.search.kernels import structural as k6
+    from tempo_tpu_torch.search.multiblock import (MultiBlockEngine,
+                                                   place_batch, shard_host)
+
+    E, n = ENTRIES_PER_PAGE, 3000
+    rng = np.random.default_rng([seed, 11])
+    long_counts = rng.integers(1, 32, size=n)
+    long_counts[:2] = (3000, 1500)
+    sets = {
+        "cycles": [make_block(seed, b, n, E, spans=True, cycles=True)
+                   for b in range(3)],
+        "long_run": [make_block(seed, 3, n, E, spans=True,
+                                counts=long_counts, cycles=True)],
+        "no_spans": [make_block(seed, b, n, E) for b in range(2)],
+    }
+    if int(long_counts.max()) <= k6.tile_cap(4):
+        raise AssertionError("the long runs fit a tile")
+    report, err = {}, 0
+    for what, blocks, packed, probe in (
+            ("cycles", sets["cycles"], False, 0),
+            ("long_run", sets["long_run"], False, 0),
+            ("no_spans", sets["no_spans"], False, 0),
+            ("packed", sets["cycles"], True, 0),
+            ("probed bool hits", sets["cycles"], False, 1),
+            ("probed word hits", sets["cycles"], True, 1)):
+        eng = MultiBlockEngine(dev, device_probe_min_vals=probe,
+                               packed=packed,
+                               structural_cfg=structural.StructuralConfig(
+                                   True))
+        batch = place_batch(eng.stage_host(blocks), dev)
+        lanes_of = k6_lanes(blocks, batch, packed)
+        if probe and not any(lanes.val_hits is not None
+                             for lanes in lanes_of.values()):
+            raise AssertionError(f"K6 {what}: no lane probed")
+        hits, e = k6_check(what, batch.device, batch.span_device,
+                           batch.span_max_run, lanes_of, batch.widths, dev)
+        err = max(err, e)
+        report[what] = {"pages": batch.n_pages,
+                        "max_run": batch.span_max_run, "verdicts": hits}
+    for shard_spans in (False, True):
+        cfg = structural.StructuralConfig(True, shard_spans=shard_spans)
+        eng = MultiBlockEngine(dev, structural_cfg=cfg,
+                               exchange=mesh.LocalExchange(2))
+        host = eng.stage_host(sets["cycles"])
+        lanes_of = k6_lanes(sets["cycles"], place_batch(host, dev), False)
+        what = "sharded spans" if host.span_sharded else "rebased spans"
+        for r in range(2):
+            b = place_batch(shard_host(host, r, 2), dev)
+            hits, e = k6_check(f"{what} rank {r}", b.device, b.span_device,
+                               b.span_max_run, lanes_of, b.widths, dev)
+            err = max(err, e)
+            report[f"{what} rank {r}"] = {"pages": b.n_pages,
+                                          "verdicts": hits}
+    builds = edge_builds(report)
+    if dev.type == "cuda" and builds != sorted(k6.VARIANTS):
+        raise AssertionError(f"K6 edges ran the builds {builds}, "
+                             f"not all of {k6.VARIANTS}")
+    print(f"K6 edges: {', '.join(report)}; each lane set (Q = 1, 8, 40, "
+          "40 span / 140 trace slots, and three with their tables in "
+          "place) equal to its plain version; builds run: "
+          f"{builds}", flush=True)
+    return report, err
+
+
+def edge_builds(report: dict) -> list:
+    """The K6 builds that ran over ``k6_edges``' report, sorted."""
+    return sorted({b for case in report.values()
+                   for h in case["verdicts"].values() for b in h["builds"]})
 
 
 def structural_kernel_phase(db, bsb, launches: dict) -> list:
@@ -2435,39 +2663,48 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
              int(d["kv_key"].shape[1]), "span_axis":
              int(batch.span_device["span_trace"].numel()),
              "spans": int(batch.span_device["entry_span_count"].sum()),
-             "max_page_run": batch.span_max_run, "widths": batch.widths}
-    v_desc, err, ms, dev, plain, need = k6_measure(
+             "max_run": batch.span_max_run, "widths": batch.widths}
+    v_desc, err, ms, dev, plain, need, builds = k6_measure(
         db, batch, mq_desc.structural.lanes())
-    shape["device_ms"], shape["device_records"] = dev
-    shape["device_source"] = "profiler, mean of the records kept"
-    shape["desc"] = {"verdicts": int(v_desc.sum()), "bytes_needed": need}
-    _v, e2, q_ms, q_dev, q_plain, q_need = k6_measure(
+    shape["device_ms"] = dev
+    shape["device_source"] = "cuda_events, median of 20 single calls"
+    shape["desc"] = {"verdicts": int(v_desc.sum()), "bytes_needed": need,
+                     "builds": builds}
+    _v, e2, q_ms, q_dev, q_plain, q_need, q_builds = k6_measure(
         db, batch, mq_q.structural.lanes())
     shape["quantile"] = {"ms": q_ms, "plain_ms": q_plain,
                          "bound_ms": q_need / HBM_BYTES_PER_S * 1e3,
-                         "device_ms": q_dev[0], "device_records": q_dev[1],
+                         "device_ms": q_dev,
                          "verdicts": int(_v.sum()),
-                         "bytes_needed": q_need}
+                         "bytes_needed": q_need, "builds": q_builds}
     mqs = st_compile(db, batch, ST_BUCKET_PLANS)
     cq = stack_queries(mqs, eng.structural_cfg.bucket_max_nodes)
     if not isinstance(cq.structural, structural.BucketedStructural):
         raise AssertionError("the bucket plans did not stack as a bucket")
-    v8, e3, b_ms, b_dev, b_plain, b_need = k6_measure(
+    v8, e3, b_ms, b_dev, b_plain, b_need, b_builds = k6_measure(
         db, batch, cq.structural.lanes)
     shape["bucketed"] = {"Q": int(v8.shape[0]), "desc": cq.structural.plan,
                          "ms": b_ms, "plain_ms": b_plain,
                          "bound_ms": b_need / HBM_BYTES_PER_S * 1e3,
-                         "device_ms": b_dev[0], "device_records": b_dev[1],
-                         "bytes_needed": b_need}
+                         "device_ms": b_dev,
+                         "bytes_needed": b_need, "builds": b_builds}
     shape["out_of_order"], e4 = k6_out_of_order(eng, bsb.staged().pages)
+    shape["edges"], e5 = k6_edges(db.device, 20261018)
     k6_row = kernel_row("structural_mask",
                         "tempo_tpu_torch/csrc/structural.cu",
                         "tempo_tpu/search/structural.py:1109", launches,
-                        max(err, e2, e3, e4), ms, plain, need, None, shape)
+                        max(err, e2, e3, e4, e5), ms, plain, need, None,
+                        shape)
+    # the builds each plan ran, and those the edges ran: the kernels line
+    # shows them beside K6's numbers
+    k6_row["builds"] = {"desc": builds, "quantile": q_builds,
+                        "bucketed": b_builds,
+                        "edges": edge_builds(shape["edges"])}
     print(f"K6: desc {ms:.4f} ms (bound {need / HBM_BYTES_PER_S * 1e3:.4f}),"
           f" quantile {q_ms:.4f} ms, bucketed Q = {v8.shape[0]} {b_ms:.4f} "
-          f"ms; each equal to its plain version; desc device {dev[0]} ms a "
-          f"launch over {dev[1]} profiler records of 20", flush=True)
+          f"ms; each equal to its plain version; device (median of 20 "
+          f"single calls) desc {dev:.4f}, quantile {q_dev:.4f}, bucketed "
+          f"{b_dev:.4f} ms", flush=True)
 
     # K1 with the desc plan's verdicts, as the main path launches it
     page = (d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
@@ -3879,22 +4116,18 @@ def emulated_phase(label: str, blocks: list, cfg, reqs: list, S: int,
     return out
 
 
-def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
-               top: int = 1000) -> dict:
-    """K9 against its plain version and the single-device K2 at
-    [S, Q, kp]: per-shard K2r outputs of random scores in [-1, top) (ties
-    within and across shards), gathered as the exchange gathers them
-    ([S, 2, Q, kp]); the gathered entry (the main path's) and the
-    two-tensor form over the gathered halves (strided views, read in
-    place) equal the plain version exactly, the gathered entry launches
-    K9 alone (no copy first: the profiler's kernels per call); then
-    CUDA-event times of the gathered entry, its plain version and
-    torch.topk over the gathered [Q, S * kp] scores, and the wrapper's
-    host microseconds a call."""
+# the mesh cell's K9 shapes (S, Q, k', local, seed, top)
+K9_SHAPES = ((1, 1, 128, 65_536 * 16, 1, 1000), (8, 8, 1024, 8192, 2, 1000),
+             (4, 1, 128, 4096, 3, 1000), (3, 3, 1024, 4096, 4, 20),
+             (8, 3, 128, 1024, 5, 4), (1, 3, 128, 4096, 6, 4))
+
+
+def k9_inputs(S: int, Q: int, kp: int, local: int, seed: int, top: int):
+    """(scores [S, Q, local] in [-1, top) from the seed, their per-shard
+    K2r outputs gathered as the exchange gathers them, [S, 2, Q, kp])."""
     import torch
 
     from tempo_tpu_torch.device import resolve_device
-    from tempo_tpu_torch.search.kernels import dist as dist_k
     from tempo_tpu_torch.search.kernels import topk
 
     g = torch.Generator().manual_seed(seed)
@@ -3902,7 +4135,53 @@ def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
     scores = torch.randint(-1, top, (S, Q, local), dtype=torch.int32,
                            generator=g).to(dev)
     parts = [topk.topk_rows(scores[s].contiguous(), kp) for s in range(S)]
-    cand = torch.stack([torch.stack(p) for p in parts])
+    return scores, torch.stack([torch.stack(p) for p in parts])
+
+
+def k9_early_profiles() -> dict:
+    """K9's gathered entry launches K9 alone (no copy first) at each of
+    K9_SHAPES: the profiler's kernels per call, up to three profiles each
+    (``kernels_per_call``), taken before the cells run, since late in a
+    full run the profiler may keep no device record of a whole session
+    (ROADMAP C1). A profile may keep fewer records than calls (a count
+    below 1), never more: no K9 record in three profiles, any other
+    kernel, or more than one K9 a call, fails. Returns "S,Q,k'" ->
+    kernels per call."""
+    from tempo_tpu_torch.search.kernels import dist as dist_k
+
+    out = {}
+    for S, Q, kp, local, seed, top in K9_SHAPES:
+        _scores, cand = k9_inputs(S, Q, kp, local, seed, top)
+        per = kernels_per_call(lambda cand=cand, local=local, kp=kp:
+                               dist_k.shard_topk_gathered(cand, local, kp))
+        if set(per) != {"shard_topk_kernel"} \
+                or per["shard_topk_kernel"] > 1:
+            raise AssertionError(f"K9 [{S}, {Q}, {kp}]: the gathered entry "
+                                 f"launched {per}, not K9 alone")
+        out[f"{S},{Q},{kp}"] = per
+    print(f"K9 kernels per call (profiled first): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
+               top: int = 1000) -> dict:
+    """K9 against its plain version and the single-device K2 at
+    [S, Q, kp]: per-shard K2r outputs of random scores in [-1, top) (ties
+    within and across shards), gathered as the exchange gathers them
+    ([S, 2, Q, kp]); the gathered entry (the main path's) and the
+    two-tensor form over the gathered halves (strided views, read in
+    place) equal the plain version exactly; then CUDA-event times of the
+    gathered entry, its plain version and torch.topk over the gathered
+    [Q, S * kp] scores, and the wrapper's host microseconds a call. That
+    the gathered entry launches K9 alone is ``k9_early_profiles``'
+    check."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import dist as dist_k
+    from tempo_tpu_torch.search.kernels import topk
+
+    scores, cand = k9_inputs(S, Q, kp, local, seed, top)
     want = dist_k.shard_topk_plain(cand[:, 0].contiguous(),
                                    cand[:, 1].contiguous(), local, kp)
     what = f"K9 [{S}, {Q}, {kp}]"
@@ -3916,16 +4195,9 @@ def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
     def fn():
         return dist_k.shard_topk_gathered(cand, local, kp)
 
-    per = kernels_per_call(fn)
-    # the profiler may keep fewer records than calls (a count below 1),
-    # never more: any other kernel, or more than one K9 a call, fails
-    if per and (set(per) != {"shard_topk_kernel"}
-                or per["shard_topk_kernel"] > 1):
-        raise AssertionError(f"{what}: the gathered entry launched {per}, "
-                             "not K9 alone")
     flat = cand[:, 0].permute(1, 0, 2).reshape(Q, S * kp).contiguous()
     kk = min(kp, S * kp)
-    out = {"S": S, "Q": Q, "kp": kp, "err": err, "kernels_per_call": per,
+    out = {"S": S, "Q": Q, "kp": kp, "err": err,
            "ms": cuda_ms(fn, 200),
            "plain_ms": cuda_ms(
                lambda: dist_k.shard_topk_plain(cand[:, 0], cand[:, 1],
@@ -3933,8 +4205,7 @@ def k9_measure(S: int, Q: int, kp: int, local: int, seed: int,
            "library_ms": cuda_ms(lambda: torch.topk(flat, kk, dim=1), 200),
            "host_us": host_us(fn),
            "bytes": 8 * S * Q * kp + 8 * Q * kk, "fn": fn}
-    print(f"{what}: equal to its plain version and K2, per call "
-          f"{json.dumps(per) if per else 'not measured'}; "
+    print(f"{what}: equal to its plain version and K2; "
           f"{out['ms']:.4f} ms back to back, torch.topk "
           f"{out['library_ms']:.4f} ({out['ms'] / out['library_ms']:.2f}x), "
           f"wrapper host {out['host_us']:.1f} us a call", flush=True)
@@ -4222,12 +4493,7 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
                 raise AssertionError(f"emulated single-block S={S} differs")
         out["emulated"] = emu
         # 4. K9 and the collectives, timed
-        k9 = [k9_measure(1, 1, 128, 65_536 * 16, 1),
-              k9_measure(8, 8, 1024, 8192, 2),
-              k9_measure(4, 1, 128, 4096, 3),
-              k9_measure(3, 3, 1024, 4096, 4, top=20),
-              k9_measure(8, 3, 128, 1024, 5, top=4),
-              k9_measure(1, 3, 128, 4096, 6, top=4)]
+        k9 = [k9_measure(*shape) for shape in K9_SHAPES]
         out["k9"] = [{k: v for k, v in r.items() if k != "fn"} for r in k9]
         out["nccl"] = nccl_times(mesh.ShardExchange(m, dev), 128)
         print("K9 " + json.dumps(out["k9"]) + "; NCCL world 1 "
@@ -4240,7 +4506,6 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
                            main["library_ms"],
                            {"S": 1, "Q": 1, "kp": 128,
                             "host_us": main["host_us"],
-                            "kernels_per_call": main["kernels_per_call"],
                             "also": out["k9"][1:]}, main["fn"])]
         rows += chain_rows(tag_db, hc_db, pages, m, launches)
         for db in (tag_db, hc_db, st_db, red_db):
@@ -4302,6 +4567,7 @@ def main(argv=None) -> int:
     report["build_log"] = dict(build.BUILD_LOG)
     print(f"build: {report['build_s']:.1f} s "
           f"({', '.join(sorted(build.BUILD_LOG)) or 'cached'})", flush=True)
+    report["k9_kernels_per_call"] = k9_early_profiles()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     dbs: list = []
@@ -4333,9 +4599,10 @@ def main(argv=None) -> int:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms a call back to back "
               f"(CUDA events), "
               + ("device time not measured" if dm is None else
-                 f"{dm:.4f} ms device time ({r['shape']['device_source']}, "
-                 f"{r['shape']['device_records']} of 20 profiler records "
-                 "kept)")
+                 f"{dm:.4f} ms device time ({r['shape']['device_source']}"
+                 + ("" if "device_records" not in r["shape"] else
+                    f", {r['shape']['device_records']} of 20 profiler "
+                    "records kept") + ")")
               + f", bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f}"
               f" ms, {r['launches']} launches on the main path", flush=True)
 

@@ -95,7 +95,7 @@ class StagedPages:
     # packing.py's (key, value, duration) widths; None = unpacked
     widths: tuple | None = None
     # the span segment on the device (structural gate on and the block
-    # carries spans), and the most spans of any page
+    # carries spans), and the longest entry run
     span_device: dict | None = None
     span_max_run: int = 0
 

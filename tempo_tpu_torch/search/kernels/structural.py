@@ -17,8 +17,10 @@ Inputs (all on one device, contiguous):
                    int32 [S]; span_dur int32 [S] (uint32 bits);
                    span_kind int8 [S]; span_kv_key/val int32 [S, Cs];
                    entry_span_begin/count int32 [P, E]
-  max_run          the widest page's span range (``max_page_run`` at
-                   staging); the kernel traps on a wider one
+  max_run          at least the longest entry run (``max_entry_run`` at
+                   staging): a run longer than a tile holds (``tile_cap``)
+                   goes through scratch of that length; the kernel traps
+                   on a longer one
   lanes            ``Lanes.device``'s tuple: span_prog int32 [Q, NS, 4],
                    trace_prog int32 [Q, NT, 4], term_keys int32 [Q, B, T],
                    val_ranges int32 [Q, B, T, R, 2], dur_params int32
@@ -39,11 +41,20 @@ import torch
 
 from .. import packing
 from . import LaunchCount
-from .build import check, load
-from .scan import _U32, _check_entries, _check_same_device, _hit_meta, _ptr
+from .build import check, load, on_device
+from .scan import (_U32, _check_entries, _check_hit_table,
+                   _check_same_device, _ptr)
 
 LAUNCHES = LaunchCount()
 MAX_REGS = 255          # slots per program, at most (csrc: 8 words of bits)
+TILE_SPANS = 1024       # span rows a tile holds, at most (csrc kTileSpans):
+                        # a longer run passes every tile
+# the kernel's four builds, by span words and where the lane tables sit,
+# each with the launches it took (csrc tt_structural_mask's order)
+VARIANTS = ("1 word, tables in shared memory", "1 word, tables in place",
+            "8 words, tables in shared memory", "8 words, tables in place")
+VARIANT_LAUNCHES = {v: LaunchCount() for v in VARIANTS}
+
 _SPAN_NAMES = ("span_trace", "span_parent", "span_block", "span_dur",
                "span_kind", "span_kv_key", "span_kv_val", "entry_span_begin",
                "entry_span_count")
@@ -236,22 +247,40 @@ def _lib():
         lib.tt_structural_mask.restype = i32
         lib.tt_structural_mask.argtypes = (
             [i32, i32, p, p, p, p, i32, i32, p, p, i64, i32, i32]
-            + [p] * 7 + [i32, p, p, i32, p, i32, i32] + [i32] * 9
-            + [p] * 9 + [i32, p, p])
+            + [p] * 7 + [i32, p, p, p, p, i32, i32]
+            + [i32] * 9 + [p] * 9 + [i32, p, p, p, p])
+        lib.tt_structural_cap.restype = i32
+        lib.tt_structural_cap.argtypes = [i32]
         lib._tt_typed = True
     return lib
 
 
-_GRID: dict = {}
+def tile_cap(Cs: int) -> int:
+    """Span rows a K6 tile holds for spans of `Cs` kv slots (at most
+    TILE_SPANS): the kernel's own rule, so the card's build is asked."""
+    return int(_lib().tt_structural_cap(int(Cs)))
 
 
-def _grid(dev, items: int) -> int:
-    """CTAs of a launch: a few per SM, at most one per work item."""
-    sms = _GRID.get(dev.index)
-    if sms is None:
-        sms = _GRID[dev.index] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(items, 4 * sms))
+def _hit_rows(val_hits, dev):
+    """(host int64 [Q, 3] as a ctypes array, words flag) of per-lane hit
+    tables ([G, T, V] each, all bool or all words, or None): each row is
+    (address or 0, T, row length in elements), read by the launcher into
+    the kernel's arguments."""
+    rows, formats = [], set()
+    for h in val_hits:
+        if h is None:
+            rows += (0, 0, 0)
+            continue
+        formats.add(_check_hit_table(h, 3, "each val_hits table"))
+        if h.device != dev or not h.is_contiguous():
+            raise ValueError("each val_hits table must be contiguous on the "
+                             "kernel's device")
+        rows += (h.data_ptr() if h.numel() else 0, int(h.shape[1]),
+                 int(h.shape[2]))
+    if len(formats) > 1:
+        raise ValueError("val_hits tables mix bytes and words")
+    return (ctypes.c_int64 * len(rows))(*rows), \
+        (formats.pop() if formats else 0)
 
 
 def _structural_mask_cuda(kv_key, kv_val, entry_dur, entry_valid,
@@ -282,47 +311,56 @@ def _structural_mask_cuda(kv_key, kv_val, entry_dur, entry_valid,
     if NS >= MAX_REGS or NT >= MAX_REGS:
         raise ValueError(f"programs of {NS}/{NT} slots; at most "
                          f"{MAX_REGS - 1}")
-    hit_meta = None
-    words = 0
+    hit_rows = None
+    hit_words = 0
     if (val_hits is None) != (bg is None):
         raise ValueError("val_hits and block_group go together")
     if val_hits is not None:
         if len(val_hits) != Q or tuple(bg.shape) != (Q, B):
             raise ValueError(f"val_hits: want {Q} tables and block_group "
                              f"[{Q}, {B}]")
-        hit_meta, words = _hit_meta(val_hits, dev)
+        hit_rows, hit_words = _hit_rows(val_hits, dev)
+    n = P * E
     cols = [None] * len(_SPAN_NAMES)
     Cs = 1
     if spans is not None:
-        cols = [spans[n] for n in _SPAN_NAMES]
+        cols = [spans[name] for name in _SPAN_NAMES]
         Cs = int(spans["span_kv_key"].shape[1])
         if tuple(spans["entry_span_begin"].shape) != (P, E):
             raise ValueError("entry_span_begin/count must be [P, E]")
     _check_same_device(dev, (kv_key, kv_val, entry_dur, entry_dur_res,
-                             entry_valid, page_block, *cols, *lanes,
-                             hit_meta), "structural_mask")
+                             entry_valid, page_block, *cols, *lanes),
+                       "structural_mask")
     span_words = NS // 32 + 1
-    items = P * Q
-    grid = _grid(dev, items)
-    scratch = None
-    if spans is not None:
-        scratch = torch.empty(max(1, grid * max(1, max_run) * span_words),
-                              dtype=torch.int32, device=dev)
-    verdicts = torch.empty((Q, P * E), dtype=torch.uint8, device=dev)
+    verdicts = torch.empty((Q, n), dtype=torch.uint8, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_structural_mask(
-            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
-            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
-            entry_valid.data_ptr(), page_block.data_ptr(), P, E, C,
-            *(_ptr(c) for c in cols[:7]), Cs, _ptr(cols[7]), _ptr(cols[8]),
-            int(max_run), _ptr(scratch), span_words, grid, Q, B, T, R,
-            int(dp.shape[1]), int(kp.shape[1]), int(ap.shape[1]), NS, NT,
-            sprog.data_ptr(), tprog.data_ptr(), tk.data_ptr(),
-            vr.data_ptr(), dp.data_ptr(), kp.data_ptr(), ap.data_ptr(),
-            _ptr(bg), _ptr(hit_meta), words, verdicts.data_ptr(), stream)
-    check(lib, rc, "structural_mask")
-    if items and E:
+    launched = ctypes.c_int(0)
+    by_variant = (ctypes.c_int * len(VARIANTS))()
+
+    def launch(scratch):
+        # the launcher says how much scratch its grid needs, if any, and
+        # launches nothing while `scratch` is shorter
+        words = ctypes.c_int64(0 if scratch is None else scratch.numel())
+        rc = on_device(
+            dev, lib.tt_structural_mask, kl, vl, kv_key.data_ptr(),
+            kv_val.data_ptr(), entry_dur.data_ptr(), _ptr(entry_dur_res),
+            shift, res_bytes, entry_valid.data_ptr(), page_block.data_ptr(),
+            P, E, C, *(_ptr(c) for c in cols[:7]), Cs, _ptr(cols[7]),
+            _ptr(cols[8]), _ptr(scratch), ctypes.byref(words), int(max_run),
+            span_words, Q, B, T, R, int(dp.shape[1]), int(kp.shape[1]),
+            int(ap.shape[1]), NS, NT, sprog.data_ptr(), tprog.data_ptr(),
+            tk.data_ptr(), vr.data_ptr(), dp.data_ptr(), kp.data_ptr(),
+            ap.data_ptr(), _ptr(bg), hit_rows, hit_words,
+            verdicts.data_ptr(), ctypes.byref(launched), by_variant)
+        check(lib, rc, "structural_mask")
+        return words.value
+
+    need = launch(None)
+    if launched.value == 0 and need > 0:
+        launch(torch.empty(need, dtype=torch.int32, device=dev))
+    for _ in range(launched.value):
         LAUNCHES.bump()
+    for v, k in zip(VARIANTS, by_variant):
+        for _ in range(k):
+            VARIANT_LAUNCHES[v].bump()
     return verdicts

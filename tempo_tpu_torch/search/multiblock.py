@@ -130,7 +130,8 @@ class BlockBatch:
     widths: tuple | None = None     # as HostBatch.widths
     logical_device_nbytes: int = 0  # HostBatch.cat_logical_nbytes
     # HostBatch.span_cat on the device (uint32 span_dur as int32 bits),
-    # and the most spans of any page (K6's scratch length)
+    # and the longest entry run (K6's scratch length for a run longer
+    # than its tiles hold)
     span_device: dict | None = None
     span_max_run: int = 0
     # the ?agg= composite keys (analytics.AggStage), staged at the first
@@ -328,13 +329,13 @@ def place_batch(host: HostBatch, device: torch.device) -> BlockBatch:
 
 
 def place_spans(span_cat: dict | None, device: torch.device) -> tuple:
-    """(span columns on the device, the most spans of any page), or
-    (None, 0) for a batch without spans."""
+    """(span columns on the device, the longest entry run), or (None, 0)
+    for a batch without spans."""
     if span_cat is None:
         return None, 0
     return ({k: _to_device(packing.device_view(v), device)
              for k, v in span_cat.items()},
-            structural.max_page_run(span_cat))
+            structural.max_entry_run(span_cat))
 
 
 def rank_share(cols: dict, span_cat: dict | None, span_sharded: bool,

@@ -217,20 +217,11 @@ def stage_single(pages, pad_pages: int) -> dict | None:
     return stack_spans([pages], pages.geometry.entries_per_page, pad_pages)
 
 
-def max_page_run(cols: dict) -> int:
-    """The widest page's span range, K6's per-CTA scratch length: from
-    the smallest run begin of the page's live entries to their largest
-    run end. That is the page's span count when runs are in entry order,
-    as ``stack_spans`` writes a container's; a container may order them
-    otherwise (``check_span_segment`` only asks that runs be disjoint)."""
-    cnt = cols["entry_span_count"].astype(np.int64)
-    if not cnt.size:
-        return 0
-    beg = cols["entry_span_begin"].astype(np.int64)
-    live = cnt > 0
-    hi = np.where(live, beg + cnt, 0).max(axis=1)
-    lo = np.where(live, beg, np.iinfo(np.int64).max).min(axis=1)
-    return int(np.where(live.any(axis=1), hi - lo, 0).max())
+def max_entry_run(cols: dict) -> int:
+    """The longest entry run of a staged segment: K6 takes a run longer
+    than its tiles hold through scratch of this length."""
+    cnt = cols["entry_span_count"]
+    return int(cnt.max()) if cnt.size else 0
 
 
 def remainder_pad(cfg: StructuralConfig, total: int,

@@ -60,7 +60,9 @@ from tempo_tpu_torch.model.types import (BlockSearchJob, SearchBlockRequest,
 from tempo_tpu_torch.search import data, ir, structural
 from tempo_tpu_torch.search.backend_search_block import BackendSearchBlock
 from tempo_tpu_torch.search.columnar import ColumnarPages, PageGeometry
-from tempo_tpu_torch.search.multiblock import MultiBlockEngine, place_batch
+from tempo_tpu_torch.search.kernels import structural as k6
+from tempo_tpu_torch.search.multiblock import (MultiBlockEngine, place_batch,
+                                               place_spans)
 
 TENANT = "t1"
 GEO = (16, 4)            # entries per page, kv slot cap
@@ -360,8 +362,9 @@ def test_stack_spans_matches_the_reference():
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k],
                                                                 want[k]), k
     assert structural.stack_spans(port[2:], E, pad) is None
-    assert structural.max_page_run(got) == max(
-        int(got["entry_span_count"][p].sum()) for p in range(pad))
+    trace = got["span_trace"]
+    assert structural.max_entry_run(got) == int(
+        np.bincount(trace[trace >= 0]).max())
 
 
 def test_span_segment_check_refuses_a_parent_outside_its_trace():
@@ -653,12 +656,12 @@ def shuffle_span_runs(b, seed: int) -> None:
 
 def test_k6_on_runs_out_of_entry_order():
     """A container whose runs are disjoint but not in entry order passes
-    staging; max_page_run then covers each page's whole span range (wider
-    than its span count), and K6's plain version still equals the
-    reference's ``_trace_mask`` and the in-order block's verdicts."""
+    staging (each page's span range then passes its span count, the
+    longest run staying what it was), and K6's plain version still equals
+    the reference's ``_trace_mask`` and the in-order block's verdicts."""
     port, ref = _built(50, 120, loops=True)
     eng, batch, rhost = _stage_both([port], [ref], False, 0)
-    want_run = batch.span_max_run
+    want_run = max(int(c.sum()) for c in port.entry_span_count)
     sport, sref = _built(50, 120, loops=True)
     shuffle_span_runs(sport, 51)
     shuffle_span_runs(sref, 51)
@@ -669,7 +672,8 @@ def test_k6_on_runs_out_of_entry_order():
     ranges = [int((beg[p] + cnt[p])[cnt[p] > 0].max()
                   - beg[p][cnt[p] > 0].min())
               for p in range(cnt.shape[0]) if (cnt[p] > 0).any()]
-    assert sbatch.span_max_run == max(ranges) > want_run
+    assert max(ranges) > want_run
+    assert sbatch.span_max_run == batch.span_max_run
     for expr in fixed_and_fuzz(52, 20):
         st = structural.compile_structural(expr, [sport])
         got = seng.structural_verdicts(sbatch, st.lanes())[0].numpy()
@@ -678,6 +682,79 @@ def test_k6_on_runs_out_of_entry_order():
         st0 = structural.compile_structural(expr, [port])
         assert np.array_equal(
             got, eng.structural_verdicts(batch, st0.lanes())[0].numpy())
+
+
+def _long_trace(mod, sds: list, n_spans: int, seed: int) -> None:
+    """Grow the first trace of `sds` to `n_spans` spans: half of the new
+    ones chain to the span before (deep ancestors), the rest to a random
+    earlier span."""
+    rng = random.Random(seed)
+    sd = sds[0]
+    while len(sd.spans) < n_spans:
+        s = len(sd.spans)
+        par = -1 if s == 0 else (s - 1 if rng.random() < 0.5
+                                 else rng.randrange(s))
+        sd.spans.append(mod.SpanData(
+            parent=par, dur_ms=rng.randint(1, 1000), kind=rng.randint(0, 5),
+            kvs={"service.name": {rng.choice(SVCS)},
+                 "name": {rng.choice(OPS)}}))
+
+
+def _k6_corpus(case: str):
+    """(port block, reference block) for a K6 edge case: `long_run`, one
+    trace whose run passes the tile budget of the kernel; `cycles`, parent
+    cycles and self-parents on runs out of entry order."""
+    if case == "long_run":
+        ents = entries(60, 50, data)
+        rents = entries(60, 50, ref_data)
+        n = k6.TILE_SPANS + 77
+        _long_trace(data, ents, n, 61)
+        _long_trace(ref_data, rents, n, 61)
+        return (ColumnarPages.build(ents, PageGeometry(*GEO)),
+                RefPages.build(rents, RefGeometry(*GEO)))
+    port, ref = _built(62, 90, loops=True)
+    shuffle_span_runs(port, 63)
+    shuffle_span_runs(ref, 63)
+    return port, ref
+
+
+@pytest.mark.parametrize("case", ["long_run", "cycles"])
+def test_k6_plain_matches_trace_mask_at_tile_edges(case):
+    """K6's plain version against the reference's ``_trace_mask`` on the
+    layouts the kernel's tiles meet at their edges: a run longer than a
+    tile holds (alone in its tile, through the kernel's scratch), and
+    parent cycles on runs out of entry order."""
+    port, ref = _k6_corpus(case)
+    eng, batch, rhost = _stage_both([port], [ref], False, 0)
+    cnt = rhost.span_cat["entry_span_count"].reshape(-1)
+    assert batch.span_max_run == int(cnt.max())
+    if case == "long_run":
+        assert batch.span_max_run > k6.TILE_SPANS
+    else:
+        par = port.span_parent
+        assert (par == np.arange(par.size)).any()
+    for expr in fixed_and_fuzz(64, 20):
+        st = structural.compile_structural(expr, [port])
+        got = eng.structural_verdicts(batch, st.lanes())[0].numpy()
+        want = _ref_verdicts(rhost, _as_ref_tables(st), st.plan)
+        assert np.array_equal(got.astype(bool), want), ir.to_json(expr)
+
+
+def test_place_spans_returns_the_longest_entry_run():
+    """``place_spans`` (every staging route's) returns the longest entry
+    run, K6's scratch length for a run longer than its tiles hold; the
+    shuffled runs of a block leave it as it was."""
+    port, _ref = _built(70, 200)
+    cols = structural.stack_spans([port], GEO[0], _pow2(port.n_pages))
+    dev, run = place_spans(cols, CPU)
+    trace = cols["span_trace"]
+    assert run == int(np.bincount(trace[trace >= 0]).max()) > 0
+    assert set(dev) == set(cols)
+    shuffle_span_runs(port, 71)
+    port._span_segment_checked = False
+    cols2 = structural.stack_spans([port], GEO[0], _pow2(port.n_pages))
+    assert place_spans(cols2, CPU)[1] == run
+    assert place_spans(None, CPU) == (None, 0)
 
 
 # ---------------------------------------------------------------------------
