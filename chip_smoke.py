@@ -31,7 +31,12 @@ error:
    matches than k, k = n, k > n, n = 1), printing the CUDA kernels and
    memsets the profiler saw per call (at most 3 for k <= 4,096) and the
    wrapper's host microseconds; then K4 (coalesced_scan, range mode) on
-   8 stacked requests and K2r (topk_rows) at k = 128 and 1024, on K4's
+   8 stacked requests, and K4 at its design's edges (``k4_edges``: every
+   reader pair and hit format, Q = 1 and 64, Q x T past one 64-term
+   chunk, C = 9, 10, 17 and 80, fewer verdict rows than queries, ids past
+   a member's table, pad pages; every launcher call replayed from 8
+   host threads at once; and no K4 build spilling in ptxas's report),
+   and K2r (topk_rows) at k = 128 and 1024, on K4's
    rows and on rows of the adversarial columns that stop on different
    passes, and a fused dispatch against the
    members' solo dispatches; then the concurrent phase (below) with 8
@@ -81,7 +86,8 @@ error:
    at its design's edges (``k6_edges``: parent cycles, runs longer than
    a tile, no spans, packed, bool and word hit tables, a 2-rank mesh's
    rebased and sharded spans, pad pages and invalid entries; Q = 1, 8
-   and 40); 8 barrier-started clients with 8 plans of one
+   and 40; every launcher call replayed from 8 host threads at once);
+   8 barrier-started clients with 8 plans of one
    canonical bucket, through a second TempoDB with stacking and
    bucketing on and through the first (off), every response equal to
    the serial one; then an unpacked and a packed TempoDB over the first
@@ -157,6 +163,12 @@ error:
 10. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
+Every kernel row's device ms is the median of 20 single calls, each
+between two CUDA events with a spin kernel holding the stream while the
+host issues it (``kernel_row``, ``bench_structural.event_ms``); no
+kernel row reads torch.profiler. K4's rows also carry the registers and
+spill bytes ptxas reported for the build each launched.
+
 The concurrent phase: 8 client threads, barrier-started, send one
 request each per round, one warm-up round and then ``--rounds`` timed
 ones, through a ``TempoDB`` with the default query coalescer and through
@@ -186,6 +198,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+# how every kernel row's device ms is taken (``kernel_row``)
+DEVICE_SOURCE = "cuda_events, median of 20 single calls"
 
 ENTRIES_PER_PAGE = 1024          # the reference's PageGeometry default
 BASE_S = 1_700_000_000
@@ -669,218 +683,6 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def sector_bytes(mask, item_bytes: float) -> int:
-    """Bytes of the 32-byte memory sectors holding the elements of a
-    contiguous tensor of `item_bytes` items (0.5 for a u4 code, two to a
-    byte; 1, 2 or 4: each item lies in one sector) where `mask` is
-    true."""
-    import torch
-
-    m = mask.reshape(-1)
-    per = int(32 / item_bytes)
-    if m.numel() % per:
-        m = torch.cat([m, m.new_zeros(per - m.numel() % per)])
-    return int(m.reshape(-1, per).any(dim=1).sum()) * 32
-
-
-def _item(t, w) -> float:
-    """Bytes per slot of a kv column of width `w` (None: unpacked)."""
-    return 0.5 if w == "u4" else t.element_size()
-
-
-def k1_touch(args, val_hits=None, block_group=None, widths=None,
-             res=None, verdicts=None) -> dict:
-    """What K1's function must read on these inputs, as masks over the
-    entries: `live` (whose key slots it reads, when there are terms),
-    `need_val` (the value slots whose key a term names, for entries still
-    alive at that term, up to the first that passes), `dur`/`end`/`start`
-    (the entries whose column it reads: those that passed the terms,
-    duration and window end only where the bound excludes some value),
-    `res` (bucketed durations: the entries whose bucket sits on a bound's
-    bucket, which read their residual) and `match`; plus `hit_bytes`, the
-    hit-table sectors (bytes or words) those value slots look up in
-    hit-mask mode. `args` are K1's; `widths`/`res` the packed layout's;
-    `verdicts` K6's (read for every live entry, and only the entries
-    they pass go on to the terms)."""
-    import torch
-
-    from tempo_tpu_torch.search import packing
-
-    (kv_key, kv_val, start, end, dur, valid, page_block, term_keys,
-     val_ranges, n_terms, dur_lo, dur_hi, win_start, win_end) = args
-    kw, vw, dw = widths or (None, None, None)
-    u32 = 0xFFFFFFFF
-    pb = page_block.long()
-    safe = pb.clamp(min=0)
-    live = valid & (pb >= 0)[:, None]
-    alive = live.clone()
-    if verdicts is not None:
-        alive &= verdicts.reshape(live.shape) != 0
-    kk = packing.unpack_ids(kv_key, kw)
-    vv = packing.unpack_ids(kv_val, vw)
-    need_val = torch.zeros_like(kk, dtype=torch.bool)
-    hit_sectors = 0
-    if n_terms:
-        slot = torch.arange(kk.shape[2], device=kk.device)
-        if val_hits is not None:
-            words = packing.is_packed_mask(val_hits)
-            G, Tp, Wm = val_hits.shape
-            bg = block_group.long()[safe]
-            probe_page = (bg >= 0)[:, None, None]
-            g_idx = bg.clamp(min=0)[:, None, None].expand_as(vv)
-            safe_v = vv.clamp(min=0)
-            col = (safe_v >> 5 if words else safe_v).clamp(max=Wm - 1)
-            per = 8 if words else 32
-            touched = torch.zeros(-(-G * Tp * Wm // per), dtype=torch.bool,
-                                  device=kk.device)
-        for t in range(n_terms):
-            keym = (kk == term_keys[safe, t][:, None, None]) & alive[..., None]
-            inr = torch.zeros_like(keym)
-            for r in range(val_ranges.shape[2]):
-                inr |= ((vv >= val_ranges[safe, t, r, 0][:, None, None])
-                        & (vv <= val_ranges[safe, t, r, 1][:, None, None]))
-            if val_hits is not None:
-                mh = packing.mask_select_grouped(val_hits, g_idx, t,
-                                                 safe_v) & (vv >= 0)
-                inr = torch.where(probe_page, mh, inr)
-            hit = keym & inr
-            first = torch.where(hit.any(-1), hit.int().argmax(-1),
-                                kk.shape[2])
-            need = keym & (slot <= first[..., None])
-            need_val |= need
-            if val_hits is not None:
-                look = need & probe_page & (vv >= 0)
-                flat = (g_idx * Tp + t) * Wm + col
-                touched[flat[look] // per] = True
-            alive &= hit.any(-1)
-        if val_hits is not None:
-            hit_sectors = int(touched.sum()) * 32
-    out = {"live": live, "need_val": need_val, "hit_bytes": hit_sectors,
-           "terms": bool(n_terms), "dur": None, "end": None, "res": None,
-           "C": int(kk.shape[2]),
-           "verdicts": None if verdicts is None else live.clone(),
-           "key_rows": live if verdicts is None else
-           live & (verdicts.reshape(live.shape) != 0)}
-    if dur_lo != 0 or dur_hi != u32:
-        out["dur"] = alive.clone()
-        if dw is not None and dw.startswith("q"):
-            s = packing.dur_shift(dw)
-            q = dur.long() & 0xFFFF
-            out["res"] = alive & ((q == (dur_lo >> s)) | (q == (dur_hi >> s)))
-        alive &= packing.duration_ok(dur, res, dur_lo, dur_hi, dw)
-    if win_start != 0:
-        out["end"] = alive.clone()
-        alive &= (end.long() & u32) >= win_start
-    out["start"] = alive.clone()
-    alive &= (start.long() & u32) <= win_end
-    out["match"] = alive
-    return out
-
-
-def touched_bytes(t: dict, kv_key, kv_val, widths=None, res=None) -> int:
-    """Sectors of the kv slots and entry columns a k1_touch result reads,
-    plus its hit-table sectors, at the layout's item sizes."""
-    kw, vw, _dw = widths or (None, None, None)
-    total = t["hit_bytes"]
-    if t.get("verdicts") is not None:
-        total += sector_bytes(t["verdicts"], 1)
-    if t["terms"]:
-        live = t.get("key_rows", t["live"])
-        total += sector_bytes(live[..., None].expand(*live.shape, t["C"])
-                              .contiguous(), _item(kv_key, kw))
-        total += sector_bytes(t["need_val"], _item(kv_val, vw))
-    dur_item = 4 if widths is None else 2
-    for col, item in (("dur", dur_item), ("end", 4), ("start", 4)):
-        if t[col] is not None:
-            total += sector_bytes(t[col], item)
-    if t["res"] is not None:
-        total += sector_bytes(t["res"], res.element_size())
-    return total
-
-
-def k1_bytes(args, scores, val_hits=None, block_group=None,
-             single: bool = False, widths=None, res=None,
-             verdicts=None) -> int:
-    """The bytes K1's (or, with `single`, K1s's) function must move on
-    these inputs, counted in the sectors this run's data touches: the
-    valid flags (and page ids) read and the scores and counts written,
-    all; the term tables; and what k1_touch finds. `args` are K1's (K1s's
-    are given in K1's form: page_block all 0, tables as row 0)."""
-    import torch
-
-    t = k1_touch(args, val_hits, block_group, widths, res, verdicts)
-    if not torch.equal(t["match"].reshape(-1), scores >= 0):
-        raise AssertionError("k1_bytes: its predicate differs from K1's")
-    kv_key, kv_val, valid, page_block = args[0], args[1], args[5], args[6]
-    n = valid.numel()
-    total = n + n * 4 + 8                             # valid, scores, counts
-    if not single:
-        total += page_block.numel() * 4
-    total += args[7].numel() * 4 + args[8].numel() * 4
-    if block_group is not None and not single:
-        total += block_group.numel() * 4
-    return total + touched_bytes(t, kv_key, kv_val, widths, res)
-
-
-def k4_bytes(page, tables, scores, widths=None, res=None,
-             verdicts=None) -> int:
-    """The bytes K4's function must move on these inputs: the valid flags
-    and page ids read and the Q score columns and counts written, all;
-    the stacked tables; and the union over the real queries of what
-    k1_touch finds for each (a pad query, whose duration range is empty,
-    reads no page data). `page` are K1's page arrays, `tables` K4's
-    per-query inputs, `widths`/`res` the packed layout's."""
-    import torch
-
-    tk, vr, ta, dlo, dhi, ws, we, val_hits, bg = tables
-    kv_key, kv_val, valid, page_block = page[0], page[1], page[5], page[6]
-    Q, n = scores.shape
-    u = None
-    hit_bytes = 0
-    for q in range(Q):
-        b = [int(x[q]) & 0xFFFFFFFF for x in (dlo, dhi, ws, we)]
-        if b[0] > b[1]:
-            if bool((scores[q] >= 0).any()):
-                raise AssertionError("k4_bytes: a pad query matched")
-            continue
-        act = ta[q].nonzero().flatten()
-        vh = bgq = None
-        if val_hits is not None and val_hits[q] is not None:
-            vh, bgq = val_hits[q][:, act], bg[q]
-        v = None
-        if verdicts is not None:
-            v = verdicts[q] if q < verdicts.shape[0] else \
-                torch.zeros_like(verdicts[0])
-        t = k1_touch((*page, tk[q][:, act], vr[q][:, act], int(act.numel()),
-                      *b), vh, bgq, widths, res, v)
-        if not torch.equal(t["match"].reshape(-1), scores[q] >= 0):
-            raise AssertionError(f"k4_bytes: its predicate differs from "
-                                 f"K4's for query {q}")
-        hit_bytes += t["hit_bytes"]
-        if t["verdicts"] is not None:     # each query reads its own row
-            hit_bytes += sector_bytes(t["verdicts"], 1)
-            t["verdicts"] = None
-        if u is None:
-            u = t
-            continue
-        u["terms"] |= t["terms"]
-        u["need_val"] |= t["need_val"]
-        u["key_rows"] = u["key_rows"] | t["key_rows"]
-        for col in ("dur", "end", "start", "res"):
-            if t[col] is not None:
-                u[col] = t[col] if u[col] is None else u[col] | t[col]
-    total = n + page_block.numel() * 4 + Q * n * 4 + (Q + 1) * 4
-    total += sum(x.numel() * x.element_size()
-                 for x in (tk, vr, ta, dlo, dhi, ws, we, bg)
-                 if x is not None)
-    if val_hits is not None:
-        total += Q * 24                               # the address table
-    if u is not None:
-        u["hit_bytes"] = hit_bytes
-        total += touched_bytes(u, kv_key, kv_val, widths, res)
-    return total
-
-
 def require_equal(what: str, got: tuple, want: tuple) -> int:
     """Exact equality of kernel outputs and their plain versions' on the
     card; returns the largest absolute difference (0)."""
@@ -896,17 +698,66 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
     return err
 
 
-# the CUDA kernel each wrapper launches once a call (for K2 and K2r the
-# cooperative launch, k <= 4,096), by kernels-line name prefix
-KERNEL_SYMBOLS = {"multi_scan": "scan_kernel", "scan_single": "scan_kernel",
-                  "coalesced_scan": "coalesced_kernel",
-                  "topk": "topk_radix_kernel", "dict_probe": "probe_kernel",
-                  "pack_mask_words": "pack_kernel",
-                  "structural_mask": "structural_kernel",
-                  "agg_counts": "agg_rows_kernel",
-                  "analytics_count": "count_kernel",
-                  "hot_scan": "scan_kernel",
-                  "shard_topk": "shard_topk_kernel"}
+class LauncherReplay:
+    """Records the C launcher calls that K4's and K6's wrappers make
+    between ``start`` and ``stop`` (each call's frame is kept, which keeps
+    its tensors alive), then ``replay`` calls those launchers again
+    straight from several host threads at once, without the wrappers'
+    Python between calls: a launcher that sets a kernel's shared-memory
+    allowance to its own call's size fails its launch when another
+    thread's smaller allowance lands between its set and its launch."""
+
+    def __init__(self):
+        from tempo_tpu_torch.search.kernels import scan, structural
+
+        self.mods = {"K4": scan, "K6": structural}
+        self.calls = []
+
+    def start(self):
+        for name, mod in self.mods.items():
+            mod.on_device = self._recorder(name, mod.on_device)
+        return self
+
+    def _recorder(self, name, real):
+        def on_device(dev, fn, *args):
+            self.calls.append((name, dev, fn, args, sys._getframe(1)))
+            return real(dev, fn, *args)
+        on_device.real = real
+        return on_device
+
+    def stop(self):
+        for mod in self.mods.values():
+            mod.on_device = mod.on_device.real
+
+    def replay(self, reps: int = 4000, threads: int = 8) -> dict:
+        """Each thread calls `reps` recorded launchers in turn; raises on
+        any launch error. Returns {launcher: calls}."""
+        import torch
+
+        from tempo_tpu_torch.search.kernels import build
+
+        errs, lock = {}, threading.Lock()
+        torch.cuda.synchronize()
+
+        def loop(i):
+            for r in range(reps):
+                name, dev, fn, args, _frame = self.calls[
+                    (i * 7 + r) % len(self.calls)]
+                rc = fn(*args, build._raw_stream(dev.index))
+                if rc:
+                    with lock:
+                        errs[(name, rc)] = errs.get((name, rc), 0) + 1
+
+        with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+            list(ex.map(loop, range(threads)))
+        torch.cuda.synchronize()
+        if errs:
+            raise AssertionError(
+                f"launchers called from {threads} threads at once failed: "
+                + ", ".join(f"{n} CUDA error {rc} x{k}"
+                            for (n, rc), k in sorted(errs.items())))
+        names = [c[0] for c in self.calls]
+        return {n: names.count(n) for n in sorted(set(names))}
 
 
 # the last kernel of a K2/K2r call, one record a call: the cooperative
@@ -945,39 +796,17 @@ def host_us(fn, reps: int = 1000) -> float:
     return dt / reps * 1e6
 
 
-def device_ms(fn, reps: int, symbol: str) -> tuple:
-    """(device ms per call of fn, launch records kept of its kernel
-    `symbol`, where it came from): torch.profiler's device-side events of
-    `reps` calls, its kernels and the zeroing of its outputs, summed, free
-    of the host time that bounds a small kernel's CUDA-event time when
-    its calls run back to back. The profiler sometimes keeps fewer than
-    `reps` records of the kernel late in a long run, while a profile of
-    the same calls alone keeps them all, so it profiles up to three
-    times; when no profile kept every record the sum would read low, and
-    the CUDA-event time of `reps` calls stands in for it (the records
-    kept are those of the best profile)."""
-    kept = 0
-    for _ in range(3):
-        avg = profiled(fn, reps)
-        n = records(avg, symbol)
-        total = sum(e.self_device_time_total for e in device_events(avg))
-        if n == reps and total > 0:
-            return total / reps / 1e3, n, "profiler"
-        kept = max(kept, n)
-    return cuda_ms(fn, reps), kept, "cuda_events"
-
-
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
                bound_bytes, library_ms, shape, fn=None) -> dict:
     """A kernels-line row; with `fn` (one call of the kernel's wrapper)
-    the report's shape also gets its device time (``device_ms``) with
-    the profiler records kept of 20 calls."""
+    the report's shape also gets its device time: ``event_ms``, the
+    median of 20 single synchronised calls between CUDA events (no
+    profiler record)."""
     if fn is not None:
-        symbol = next(v for k, v in sorted(KERNEL_SYMBOLS.items(),
-                                           key=lambda kv: -len(kv[0]))
-                      if name.startswith(k))
-        (shape["device_ms"], shape["device_records"],
-         shape["device_source"]) = device_ms(fn, 20, symbol)
+        from tempo_tpu_torch.search.kernels.bench_structural import event_ms
+
+        shape["device_ms"] = event_ms(fn)
+        shape["device_source"] = DEVICE_SOURCE
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1004,6 +833,7 @@ def k1_row(db, name: str, replaces: str, tags: dict, kw: dict,
 
     from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.kernels.bench_coalesced import k1_bytes
     from tempo_tpu_torch.search.multiblock import compile_multi
 
     eng = db.batcher.engine
@@ -1054,6 +884,7 @@ def k1s_row(bsb, name: str, replaces: str, launches: dict) -> dict:
 
     from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.kernels.bench_coalesced import k1_bytes
     from tempo_tpu_torch.search.pipeline import compile_query
 
     sp = bsb.staged()
@@ -1303,6 +1134,7 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
     from tempo_tpu_torch.search.engine import (fetch_coalesced_out,
                                                fetch_scan_out, resolve_top_k)
     from tempo_tpu_torch.search.kernels import scan, topk
+    from tempo_tpu_torch.search.kernels.bench_coalesced import k4_bytes
     from tempo_tpu_torch.search.multiblock import compile_multi, \
         stack_queries
 
@@ -1364,9 +1196,14 @@ def coalesced_phase(db, reqs: list, label: str, launches: dict,
     replaces = ("tempo_tpu/search/multiblock.py:1028" if not batch.widths
                 else "tempo_tpu/search/packing.py:249" if hits
                 else "tempo_tpu/search/packing.py:196")
-    rows = [kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
-                       launches, err, ms, plain, need, None, shape,
-                       lambda: scan.coalesced_scan(*page, *tables, *layout))]
+    if with_rows:
+        shape["edges"], e = k4_edges(scores.device, 20261018)
+        err = max(err, e)
+    rows = [k4_ptxas(kernel_row(
+        name, "tempo_tpu_torch/csrc/scan.cu", replaces, launches, err, ms,
+        plain, need, None, shape,
+        lambda: scan.coalesced_scan(*page, *tables, *layout)), page,
+        batch.widths, cq.val_hits)]
     if not with_rows:
         return rows
     r_err = 0
@@ -2550,6 +2387,195 @@ def k6_check(what: str, d: dict, spans, max_run: int, lanes_of: dict,
     return hits, err
 
 
+def k4_inputs(seed: int, dev, *, P: int, C: int, B: int, Q: int, T: int,
+              R: int, kv=("int8", "int16"), widths=None, hits=None,
+              v_rows=None, E: int = ENTRIES_PER_PAGE) -> tuple:
+    """Seeded K4 inputs on `dev`: (page arrays, per-query tables, the
+    layout arguments (widths, residual, verdicts)), K4's positional
+    arguments in order. Keys 0-5 and pads, value ids up to 14 (a u4
+    value column) or 120, 1 entry in 10 invalid, the last page a pad
+    page (block -1); each odd query repeats the query before it (its
+    tables and hit tables), the last query is a pad query; `hits`
+    ("bytes" or "words"): two block groups a member, member 0 compiled on
+    the host, each member's table narrower than the largest id (ids past
+    it clamp to its last element); `v_rows`: that many verdict rows. The
+    kv columns are `kv`'s dtypes, or packed at `widths` (kw, vw, dw)."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.search import packing
+
+    rng = np.random.default_rng(seed)
+    vmax = 14 if widths is not None and widths[1] == "u4" else 120
+    kk = rng.integers(-1, 6, size=(P, E, C))
+    vv = rng.integers(-1, vmax + 1, size=(P, E, C))
+    vv[kk < 0] = -1
+    valid = rng.random((P, E)) < 0.9
+    start = rng.integers(2**31 - 40, 2**31 + 40, size=(P, E)).astype(
+        np.uint32)
+    end = np.minimum(start.astype(np.int64) + rng.integers(0, 30, (P, E)),
+                     0xFFFFFFFF).astype(np.uint32)
+    dur = rng.integers(0, 60_000, size=(P, E)).astype(np.uint32)
+    page_block = rng.integers(0, B, size=P).astype(np.int32)
+    page_block[-1] = -1
+    res = None
+    if widths is None:
+        cols = [kk.astype(kv[0]), vv.astype(kv[1]), dur.view(np.int32)]
+    else:
+        q, res = packing.pack_duration(dur, widths[2])
+        cols = [packing.device_view(packing.pack_ids_array(kk, widths[0])),
+                packing.device_view(packing.pack_ids_array(vv, widths[1])),
+                packing.device_view(q)]
+        res = None if res is None else packing.device_view(res)
+    term_keys = rng.integers(0, 6, size=(Q, B, T)).astype(np.int32)
+    term_keys[rng.random((Q, B, T)) < 0.1] = -1
+    lo = rng.integers(0, vmax, size=(Q, B, T, R))
+    hi = lo + rng.integers(0, 8, size=(Q, B, T, R))
+    val_ranges = np.stack([lo, hi], axis=-1).astype(np.int32)
+    val_ranges[rng.random((Q, B, T, R)) < 0.3] = (1, 0)
+    term_active = rng.random((Q, T)) < 0.8
+    term_active[:, 0] = True
+    dur_lo = rng.integers(0, 20_000, size=Q).astype(np.uint32)
+    dur_hi = np.full(Q, 0xFFFFFFFF, dtype=np.uint32)
+    dur_hi[0] = 50_000
+    win_start = np.zeros(Q, dtype=np.uint32)
+    win_start[Q // 2] = 2**31
+    win_end = np.full(Q, 0xFFFFFFFF, dtype=np.uint32)
+    win_end[-1 if Q < 3 else 2] = 2**31 + 10
+    block_group = rng.integers(-1, 2, size=(Q, B)).astype(np.int32)
+    block_group[0] = -1
+    tables = None
+    if hits is not None:
+        tables = [torch.from_numpy(rng.random(
+            (2, T, int(rng.integers(vmax // 2, vmax)))) < 0.4)
+            for _q in range(Q)]
+        if hits == "words":
+            tables = [packing.pack_mask_words(h) for h in tables]
+    for a in (term_keys, val_ranges, term_active, dur_lo, dur_hi, win_start,
+              win_end, block_group):
+        a[1::2] = a[0:Q - 1:2]
+    if tables is not None:
+        tables[1::2] = tables[0:Q - 1:2]
+    if Q > 1:
+        dur_lo[-1], dur_hi[-1] = 1, 0
+    val_hits = bg = None
+    if tables is not None:
+        val_hits = tuple(None if (block_group[q] < 0).all()
+                         else tables[q].to(dev) for q in range(Q))
+        bg = torch.from_numpy(block_group).to(dev)
+    verdicts = None
+    if v_rows is not None:
+        verdicts = torch.from_numpy(
+            (rng.random((v_rows, P * E)) < 0.7).astype(np.uint8)).to(dev)
+
+    def t(a):
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    page = (t(cols[0]), t(cols[1]), t(start), t(end), t(cols[2]), t(valid),
+            t(page_block))
+    tabs = (t(term_keys), t(val_ranges), t(term_active), t(dur_lo),
+            t(dur_hi), t(win_start), t(win_end), val_hits, bg)
+    return page, tabs, (widths, None if res is None else t(res), verdicts)
+
+
+def k4_edges(dev, seed: int) -> tuple:
+    """K4 held exactly against its plain version on the card at the edges
+    of its design, over ``k4_inputs``: every reader pair (the 9 unpacked
+    at C = 9, the 16 packed at C = 10, one with q6 durations and a
+    residual) in range mode and with byte and word hit tables; Q = 1;
+    Q = 64 (T = 2: two chunks of distinct terms); Q x T = 256 (Q = 32,
+    T = 8); T = 16 (queries that need more than 7 terms of a chunk: the
+    per-query test); C = 17; C = 80 (its tile past shared memory: the
+    slots read in place); R = 512 (the endpoint tables past their cap: the
+    ranges tested in place); pages of 100 entries; fewer verdict rows
+    than queries. Every case holds repeated
+    members, ids past a member's hit table, a pad page and a pad query.
+    Every case's launcher call is then replayed from 8 host threads at
+    once (``LauncherReplay``). Then ptxas's report: no build of K4's two
+    kernels may spill. Returns (report, max abs err)."""
+    from tempo_tpu_torch.search.kernels import build, scan
+    from tempo_tpu_torch.search.kernels.bench_coalesced import k4_usage
+
+    ids = ("int8", "int16", "int32")
+    codes = ("u4", "u8", "u16", "u32")
+    base = dict(P=6, B=3, Q=8, T=2, R=4)
+    cases = []
+    for kd in ids:
+        for vd in ids:
+            cases += [(f"{kd}/{vd} {h or 'ranges'}",
+                       dict(base, C=9, kv=(kd, vd), hits=h))
+                      for h in (None, "bytes", "words")]
+    for kw in codes:
+        for vw in codes:
+            dw = "q6" if (kw, vw) == ("u4", "u16") else "u16"
+            cases += [(f"{kw}/{vw}/{dw} {h or 'ranges'}",
+                       dict(base, C=10, widths=(kw, vw, dw), hits=h))
+                      for h in (None, "bytes", "words")]
+    cases += [
+        ("Q=1", dict(base, C=8, Q=1, hits="bytes")),
+        ("Q=64", dict(base, C=8, Q=64, hits="bytes")),
+        ("Q=64 ranges", dict(base, C=8, Q=64)),
+        ("Q=32 T=8", dict(base, C=9, Q=32, T=8, kv=("int16", "int32"),
+                          hits="words")),
+        ("T=16", dict(base, C=12, Q=4, T=16, hits="bytes")),
+        ("C=17", dict(base, C=17, kv=("int32", "int32"), hits="bytes")),
+        ("C=80", dict(base, P=3, C=80, kv=("int32", "int32"))),
+        ("R=512", dict(base, P=3, C=8, R=512)),
+        ("E=100", dict(base, C=9, E=100, hits="words")),
+        ("verdicts", dict(base, C=8, v_rows=5, hits="bytes")),
+        ("verdicts Q=64", dict(base, C=8, Q=64, v_rows=40)),
+    ]
+    report, err = {}, 0
+    replay = LauncherReplay().start()
+    for i, (what, kw_) in enumerate(cases):
+        page, tabs, layout = k4_inputs(seed + i, dev, **kw_)
+        got = scan.coalesced_scan(*page, *tabs, *layout)
+        err = max(err, require_equal(f"K4 edge {what}", got,
+                                     scan.coalesced_scan_plain(
+                                         *page, *tabs, *layout)))
+        report[what] = {"Q": int(got[0].shape[0]),
+                        "counts": got[1].tolist(),
+                        "inspected": int(got[2])}
+    replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
+    usage = k4_usage(build.BUILD_LOG.get("scan", ""))
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"K4 builds spill: {spills}")
+    print(f"K4 edges: {len(cases)} cases, each equal to its plain version "
+          f"({replayed.get('K4', 0)} launcher calls replayed from 8 "
+          "threads); "
+          f"{len(usage)} K4 builds in ptxas's report, none spills, "
+          "registers "
+          f"{sorted({v.get('registers') for v in usage.values()})}",
+          flush=True)
+    return report, err
+
+
+def k4_ptxas(row: dict, page, widths, val_hits) -> dict:
+    """A K4 row of the kernels line gains the ptxas registers and spill
+    bytes (stores + loads) of the build its call launched (None when this
+    process built no kernel)."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import build
+    from tempo_tpu_torch.search.kernels.bench_coalesced import (k4_build,
+                                                                k4_usage)
+
+    words = None if val_hits is None else next(
+        (int(h.dtype == torch.int32) for h in val_hits if h is not None), 0)
+    name = k4_build(page[0], page[1], widths, words)
+    use = k4_usage(build.BUILD_LOG.get("scan", "")).get(name, {})
+    row["build"] = name
+    row["registers"] = use.get("registers")
+    row["spill_bytes"] = (None if "spill_stores" not in use
+                          else use["spill_stores"] + use["spill_loads"])
+    return row
+
+
 def k6_edges(dev, seed: int) -> tuple:
     """K6 held exactly against its plain version on the card at the edges
     of its design, each over small batches made from the seed (3 blocks
@@ -2563,7 +2589,9 @@ def k6_edges(dev, seed: int) -> tuple:
     rank, and the sharded-span layout). Each case also takes three lane
     sets whose tables are too large for shared memory
     (``tables_in_place``), at 1 and 8 span words: every one of the
-    kernel's four builds must have run. Returns (report, max abs err)."""
+    kernel's four builds must have run. Every launcher call is then
+    replayed from 8 host threads at once (``LauncherReplay``). Returns
+    (report, max abs err)."""
     import numpy as np
 
     from tempo_tpu_torch.parallel import mesh
@@ -2586,6 +2614,7 @@ def k6_edges(dev, seed: int) -> tuple:
     if int(long_counts.max()) <= k6.tile_cap(4):
         raise AssertionError("the long runs fit a tile")
     report, err = {}, 0
+    replay = LauncherReplay().start()
     for what, blocks, packed, probe in (
             ("cycles", sets["cycles"], False, 0),
             ("long_run", sets["long_run"], False, 0),
@@ -2621,6 +2650,8 @@ def k6_edges(dev, seed: int) -> tuple:
             err = max(err, e)
             report[f"{what} rank {r}"] = {"pages": b.n_pages,
                                           "verdicts": hits}
+    replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
     builds = edge_builds(report)
     if dev.type == "cuda" and builds != sorted(k6.VARIANTS):
         raise AssertionError(f"K6 edges ran the builds {builds}, "
@@ -2628,7 +2659,8 @@ def k6_edges(dev, seed: int) -> tuple:
     print(f"K6 edges: {', '.join(report)}; each lane set (Q = 1, 8, 40, "
           "40 span / 140 trace slots, and three with their tables in "
           "place) equal to its plain version; builds run: "
-          f"{builds}", flush=True)
+          f"{builds}; {replayed.get('K6', 0)} launcher calls replayed "
+          "from 8 threads", flush=True)
     return report, err
 
 
@@ -2650,6 +2682,8 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
     from tempo_tpu_torch.search.engine import (fetch_coalesced_out,
                                                fetch_scan_out, resolve_top_k)
     from tempo_tpu_torch.search.kernels import scan
+    from tempo_tpu_torch.search.kernels.bench_coalesced import (k1_bytes,
+                                                                k4_bytes)
     from tempo_tpu_torch.search.multiblock import stack_queries
     from tempo_tpu_torch.search.pipeline import compile_query
 
@@ -2667,7 +2701,7 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
     v_desc, err, ms, dev, plain, need, builds = k6_measure(
         db, batch, mq_desc.structural.lanes())
     shape["device_ms"] = dev
-    shape["device_source"] = "cuda_events, median of 20 single calls"
+    shape["device_source"] = DEVICE_SOURCE
     shape["desc"] = {"verdicts": int(v_desc.sum()), "bytes_needed": need,
                      "builds": builds}
     _v, e2, q_ms, q_dev, q_plain, q_need, q_builds = k6_measure(
@@ -2750,7 +2784,7 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
             raise AssertionError(f"structural fused member {qi} differs "
                                  "from its solo dispatch")
     need4 = k4_bytes(page, tables, s4, batch.widths, res, v8)
-    k4_row = kernel_row(
+    k4_row = k4_ptxas(kernel_row(
         "coalesced_scan_verdicts", "tempo_tpu_torch/csrc/scan.cu",
         "tempo_tpu/search/multiblock.py:1060", launches, err4,
         cuda_ms(lambda: scan.coalesced_scan(*page, *tables, batch.widths,
@@ -2760,7 +2794,8 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
         need4, None, {"Q": int(s4.shape[0]), "members": cq.n_queries,
                       "entries": int(s4.shape[1]), "counts": c4.tolist(),
                       "bytes_needed": need4, "fused_equals_solo": True},
-        lambda: scan.coalesced_scan(*page, *tables, batch.widths, res, v8))
+        lambda: scan.coalesced_scan(*page, *tables, batch.widths, res, v8)),
+        page, batch.widths, cq.val_hits)
 
     # K1s with verdicts on the single-block path's block
     sp = bsb.staged()
@@ -3190,6 +3225,7 @@ def k7_measure(label: str, scores, keys, K: int) -> dict:
     import torch
 
     from tempo_tpu_torch.search.kernels import agg
+    from tempo_tpu_torch.search.kernels.bench_coalesced import sector_bytes
 
     Q, n = scores.shape
     if Q == 1:
@@ -3666,6 +3702,7 @@ def hot_scan_row(lt, rec, tags: dict, launches: dict) -> dict:
 
     from tempo_tpu_torch.model.types import SearchRequest
     from tempo_tpu_torch.search.kernels import live
+    from tempo_tpu_torch.search.kernels.bench_coalesced import k1_bytes
     from tempo_tpu_torch.search.kernels.scan import scan_single
     from tempo_tpu_torch.search.pipeline import compile_query
 
@@ -4246,6 +4283,8 @@ def chain_rows(tag_db, hc_db, pages, mesh_obj, launches: dict) -> list:
     from tempo_tpu_torch.search import dict_probe
     from tempo_tpu_torch.search.engine import resolve_top_k
     from tempo_tpu_torch.search.kernels import probe, scan, topk
+    from tempo_tpu_torch.search.kernels.bench_coalesced import (k1_bytes,
+                                                                k4_bytes)
     from tempo_tpu_torch.search.multiblock import stack_queries
 
     dev = tag_db.device
@@ -4599,10 +4638,8 @@ def main(argv=None) -> int:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms a call back to back "
               f"(CUDA events), "
               + ("device time not measured" if dm is None else
-                 f"{dm:.4f} ms device time ({r['shape']['device_source']}"
-                 + ("" if "device_records" not in r["shape"] else
-                    f", {r['shape']['device_records']} of 20 profiler "
-                    "records kept") + ")")
+                 f"{dm:.4f} ms device time "
+                 f"({r['shape']['device_source']})")
               + f", bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f}"
               f" ms, {r['launches']} launches on the main path", flush=True)
 

@@ -73,8 +73,7 @@ __device__ __forceinline__ const void* hit_row(const void* base, int64_t row,
 // One kv slot against one term: key equality, then value membership --
 // a lookup in the term's hit row `h` (hit-mask mode), or the range test
 // over `rg` [R][2]. A value id < 0 never hits. `kk`/`vv` are readers of
-// the entry's slots in device memory, or its slots in registers (K4); the
-// value slot is read only when the key matches.
+// the entry's slots; the value slot is read only when the key matches.
 template <typename KP, typename VP>
 __device__ __forceinline__ bool slot_hit(const KP& kk, const VP& vv, int c,
                                          int32_t key, const int32_t* rg,

@@ -909,8 +909,11 @@ int plan_of(const K6Args& a, int64_t table_words, Plan& p) {
   p.variant = 2 * (SW != 1) + (tw == 0);
   p.table_words = tw;
   p.smem = L.total;
+  // always the whole allowance, never this plan's size: dispatches on
+  // other host threads launch the same kernel, and a smaller allowance set
+  // between their set and their launch would fail it
   cudaError_t e = cudaFuncSetAttribute(
-      p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+      p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -1045,12 +1048,9 @@ int tt_structural_mask(
       a.hit[k] = hit_meta != nullptr && k < a.Q * 3 ? hit_meta[q * 3 + k]
                                                     : 0;
     a.verdicts = (uint8_t*)verdicts + q * a.n;
-    // a later plan of the same kernel may have set a smaller allowance
-    cudaError_t e = cudaFuncSetAttribute(
-        p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (e != cudaSuccess) return (int)e;
     p.kernel<<<p.grid, kThreads, p.smem, (cudaStream_t)stream>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     ++*launches;
     ++variant_launches[p.variant];
   }

@@ -54,7 +54,11 @@ sequence of Q hit tables ([G_q, T_q, V_q], all bool or all words, or
 None for a query compiled on the host), with block_group int32 [Q, B];
 optionally ``verdicts`` uint8 [V, P*E], K6's verdicts of the first V
 queries (a query past them matches nothing). Outputs: scores int32
-[Q, P*E], counts int32 [Q] and inspected, an int32 scalar.
+[Q, P*E], counts int32 [Q] and inspected, an int32 scalar. The CUDA
+kernel matches keys first, over each block's distinct terms;
+``k4_terms`` is that reduction and ``coalesced_scan_keyfirst`` that rule
+in PyTorch, which the CPU tests hold against ``coalesced_scan_plain``
+and the reference.
 
 A launch with verdicts counts in ``VERDICT_LAUNCHES`` (K1),
 ``SINGLE_VERDICT_LAUNCHES`` (K1s) or ``COALESCED_VERDICT_LAUNCHES`` (K4),
@@ -70,7 +74,7 @@ import torch
 
 from .. import packing
 from . import LaunchCount
-from .build import check, load
+from .build import check, load, on_device
 
 # unpacked layout
 LAUNCHES = LaunchCount()         # K1 launches in range mode
@@ -243,6 +247,186 @@ def coalesced_scan_plain(kv_key, kv_val, entry_start, entry_end,
     return torch.stack(rows), torch.stack(counts), inspected
 
 
+def k4_terms(term_keys, val_ranges, term_active, dur_lo, dur_hi, b: int,
+             val_hits=None, block_group=None, v_rows=None) -> dict:
+    """Block b's term table as K4 builds it in each CTA (``csrc/scan.cu``
+    ``build_terms``), from K4's per-query inputs. A (query, term) pair is
+    active when its query can match (its duration range is not empty and,
+    with verdicts, it has a verdict row: q < `v_rows`) and its term is. An
+    active pair tests its key and either its member's hit row (block
+    group g >= 0 and a table) or its ranges up to the last non-empty one.
+    Pairs of the same key and test are one distinct term. Distinct terms
+    are ordered by key (keys in order of their first pair), then hit rows
+    before ranges, then pair, and cut into chunks of 64. Returns:
+      terms      [{"key", "ranges": int64 [n, 2] or None, "row": the hit
+                  row (bool [V] or int32 words) or None}], in that order
+      need       need[k][q], a 64-bit mask: bit u says that query q needs
+                 distinct term 64k + u
+      segments   [(key, first term, first range term, end)]: each key's
+                 terms within a chunk
+      intervals  per segment, its range terms' endpoints (each range's lo
+                 and hi + 1) sorted, and per endpoint the mask of the
+                 terms whose ranges hold it: a value v passes the terms of
+                 the last endpoint <= v (the kernel's binary search; it
+                 tests the ranges in place when the tables would not fit)
+      chunk_segs the first segment of each chunk, then the segment count
+      queries    the mask of queries that can match at all."""
+    Q, _B, T = term_keys.shape
+    elig = 0
+    for q in range(Q):
+        if int(dur_lo[q]) & _U32 <= int(dur_hi[q]) & _U32 \
+                and (v_rows is None or q < v_rows):
+            elig |= 1 << q
+    pairs = []          # per pair: (key, signature, term) or None
+    for q in range(Q):
+        h = g = None
+        if val_hits is not None and val_hits[q] is not None \
+                and val_hits[q].numel() and int(block_group[q, b]) >= 0:
+            h, g = val_hits[q], int(block_group[q, b])
+        for t in range(T):
+            if not (elig >> q & 1 and bool(term_active[q, t])):
+                pairs.append(None)
+                continue
+            key = int(term_keys[q, b, t])
+            if h is not None:
+                n = int(h.shape[2])
+                row = g * int(h.shape[1]) + t
+                sig = ("row", h.data_ptr() + row * n * h.element_size(), n)
+                term = {"key": key, "ranges": None,
+                        "row": h.reshape(-1, n)[row]}
+            else:
+                rg = val_ranges[q, b, t].to(torch.int64)
+                r = int(rg.shape[0])
+                while r and int(rg[r - 1, 0]) > int(rg[r - 1, 1]):
+                    r -= 1
+                sig = ("ranges", tuple(rg[:r].flatten().tolist()))
+                term = {"key": key, "ranges": rg[:r], "row": None}
+            pairs.append((key, sig, term))
+    first_key: dict = {}
+    leaders: dict = {}
+    order = []          # (first pair of the key, kind, pair) of leaders
+    for j, p in enumerate(pairs):
+        if p is None:
+            continue
+        key, sig, term = p
+        fk = first_key.setdefault(key, j)
+        if (key, sig) not in leaders:
+            leaders[(key, sig)] = j
+            order.append((fk, term["row"] is None, j))
+    order.sort()
+    pos = {j: u for u, (_fk, _kind, j) in enumerate(order)}
+    terms = [pairs[j][2] for _fk, _kind, j in order]
+    U = len(terms)
+    need = [[0] * Q for _ in range(-(-U // 64))]
+    for j, p in enumerate(pairs):
+        if p is not None:
+            u = pos[leaders[(p[0], p[1])]]
+            need[u >> 6][j // T] |= 1 << (u & 63)
+    segments, chunk_segs = [], []
+    for u in range(U):
+        if u % 64 == 0:
+            chunk_segs.append(len(segments))
+        if u % 64 == 0 or terms[u]["key"] != terms[u - 1]["key"]:
+            segments.append([terms[u]["key"], u, u, u + 1])
+        else:
+            segments[-1][3] = u + 1
+        if terms[u]["row"] is not None:
+            segments[-1][2] = u + 1
+    chunk_segs.append(len(segments))
+    intervals = []
+    for _key, _beg, mid, end in segments:
+        ranges = [(int(lo), int(hi), u) for u in range(mid, end)
+                  for lo, hi in terms[u]["ranges"].tolist()]
+        bnd = sorted(x for lo, hi, _u in ranges for x in (lo, hi + 1))
+        intervals.append((bnd, [
+            sum(1 << (u & 63) for u in {u for lo, hi, u in ranges
+                                        if lo <= x <= hi})
+            for x in bnd]))
+    return {"terms": terms, "need": need,
+            "segments": [tuple(s) for s in segments],
+            "intervals": intervals, "chunk_segs": chunk_segs,
+            "queries": elig}
+
+
+def _row_hits(row: torch.Tensor, vv: torch.Tensor) -> torch.Tensor:
+    """A hit row's value test over value ids `vv`."""
+    if not row.numel():
+        return torch.zeros_like(vv, dtype=torch.bool)
+    return packing.mask_select(row, vv.clamp(min=0)) & (vv >= 0)
+
+
+def _interval_masks(bnd: list, masks: list, vv: torch.Tensor):
+    """The term mask of the last endpoint <= each value id (0 below the
+    first), as int64 bits."""
+    if not bnd:
+        return torch.zeros_like(vv)
+    b = torch.tensor(bnd, dtype=torch.int64)
+    m = torch.tensor([x - (1 << 64) if x >> 63 else x for x in masks] + [0],
+                     dtype=torch.int64)
+    k = torch.searchsorted(b, vv.contiguous(), right=True) - 1
+    return m[torch.where(k >= 0, k, len(bnd))]
+
+
+def coalesced_scan_keyfirst(kv_key, kv_val, entry_start, entry_end,
+                            entry_dur, entry_valid, page_block, term_keys,
+                            val_ranges, term_active, dur_lo, dur_hi,
+                            win_start, win_end, val_hits=None,
+                            block_group=None, widths=None,
+                            entry_dur_res=None, verdicts=None):
+    """K4's function by K4's own rule, in plain PyTorch ops: per block,
+    ``k4_terms``; per chunk, a slot whose key equals a segment's key sets
+    the bits of that segment's terms its value passes (hit rows one by
+    one, ranges through the endpoint tables), and query q keeps
+    its terms while its need mask lies inside those bits; then K1's
+    bounds and score per query. The same inputs and outputs as
+    ``coalesced_scan_plain``, which it must equal."""
+    kk, vv = _unpack_kv(kv_key, kv_val, widths)
+    pb = page_block.to(torch.int64)
+    live = entry_valid & (pb >= 0)[:, None]
+    Q = term_keys.shape[0]
+    v_rows = None if verdicts is None else int(verdicts.shape[0])
+    passed = torch.zeros((Q,) + tuple(live.shape), dtype=torch.bool)
+    for b in sorted(set(pb[pb >= 0].tolist())):
+        sel = pb == b
+        tab = k4_terms(term_keys, val_ranges, term_active, dur_lo, dur_hi,
+                       b, val_hits, block_group, v_rows)
+        kb, vb = kk[sel], vv[sel]
+        p = torch.zeros((Q,) + tuple(kb.shape[:2]), dtype=torch.bool)
+        for q in range(Q):
+            if tab["queries"] >> q & 1:
+                p[q] = live[sel]
+                if verdicts is not None:
+                    p[q] &= verdicts[q].reshape(live.shape)[sel] != 0
+        for k, need in enumerate(tab["need"]):
+            tm = torch.zeros(tuple(kb.shape[:2]) + (64,), dtype=torch.bool)
+            for s in range(tab["chunk_segs"][k], tab["chunk_segs"][k + 1]):
+                key, beg, mid, end = tab["segments"][s]
+                keym = kb == key
+                for u in range(beg, mid):
+                    tm[..., u - 64 * k] = (keym & _row_hits(
+                        tab["terms"][u]["row"], vb)).any(dim=-1)
+                bits = _interval_masks(*tab["intervals"][s], vb)
+                for u in range(mid, end):
+                    tm[..., u - 64 * k] = (
+                        keym & ((bits >> (u & 63)) & 1).bool()).any(dim=-1)
+            for q in range(Q):
+                for bit in range(64):
+                    if need[q] >> bit & 1:
+                        p[q] &= tm[..., bit]
+        passed[:, sel] = p
+    rows, counts = [], []
+    inspected = None
+    for q in range(Q):
+        s, c = _finish(passed[q], live, entry_start, entry_end, entry_dur,
+                       entry_dur_res, widths,
+                       *(int(x[q]) & _U32 for x in (
+                           dur_lo, dur_hi, win_start, win_end)))
+        rows.append(s)
+        counts.append(c[0])
+        inspected = c[1]
+    return torch.stack(rows), torch.stack(counts), inspected
+
+
 def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms: int,
                       dur_lo: int, dur_hi: int, win_start: int,
@@ -290,7 +474,10 @@ def _lib():
             + [p, p, p, p])
         lib.tt_coalesced_scan.restype = i32
         lib.tt_coalesced_scan.argtypes = (
-            cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, i32, p, p, p])
+            cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, i32, p, i64, p,
+                                                        p, p])
+        lib.tt_coalesced_table_bytes.restype = i64
+        lib.tt_coalesced_table_bytes.argtypes = [i32] * 4
         lib._tt_typed = True
     return lib
 
@@ -365,10 +552,11 @@ def _check_hit_table(h, dims: int, what: str) -> int:
 
 
 def _hit_meta(val_hits, dev) -> tuple:
-    """(address table int64 [Q, 3] on `dev`, words flag) of per-query hit
-    tables ([G, T, V] each, all bool or all words, or None): each row is
-    (address or 0, T, row length in elements), so a kernel finds every
-    query's own table without a stacked copy."""
+    """(address table int64 [Q, 3] on the host, words flag) of per-query
+    hit tables ([G, T, V] each on `dev`, all bool or all words, or None):
+    each row is (address or 0, T, row length in elements), so a kernel
+    finds every query's own table without a stacked copy. K4's launcher
+    passes the rows to its kernel by value."""
     meta, formats = [], set()
     for h in val_hits:
         if h is None:
@@ -382,7 +570,8 @@ def _hit_meta(val_hits, dev) -> tuple:
                      int(h.shape[2])))
     if len(formats) > 1:
         raise ValueError("val_hits tables mix bytes and words")
-    return (torch.tensor(meta, dtype=torch.int64).to(dev),
+    flat = [x for row in meta for x in row]
+    return ((ctypes.c_int64 * len(flat))(*flat),
             formats.pop() if formats else 0)
 
 
@@ -598,25 +787,29 @@ def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
     _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
                              entry_dur, entry_dur_res, entry_valid,
                              page_block, term_keys, val_ranges, term_active,
-                             *bounds, block_group, hit_meta),
-                       "coalesced_scan")
+                             *bounds, block_group), "coalesced_scan")
     _check_verdicts(verdicts, (Q, P * E), dev, "coalesced_scan")
-    scores = torch.empty((Q, P * E), dtype=torch.int32, device=dev)
-    counts = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
+    R = int(val_ranges.shape[3])
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_coalesced_scan(
-            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
-            entry_start.data_ptr(), entry_end.data_ptr(),
-            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
-            entry_valid.data_ptr(), page_block.data_ptr(),
-            term_keys.data_ptr(), val_ranges.data_ptr(),
-            term_active.data_ptr(), *(b.data_ptr() for b in bounds),
-            _ptr(block_group), _ptr(hit_meta), words, P, E, C, Q, B, T,
-            int(val_ranges.shape[3]), _ptr(verdicts),
-            0 if verdicts is None else int(verdicts.shape[0]),
-            scores.data_ptr(), counts.data_ptr(), stream)
+    # scratch for the kernel's per-block term tables
+    table_bytes = lib.tt_coalesced_table_bytes(Q, T, R, B)
+    if table_bytes < 0:
+        raise ValueError(f"coalesced_scan: no term tables for Q={Q}, T={T}, "
+                         f"R={R}")
+    tables = torch.empty(max(1, table_bytes), dtype=torch.uint8, device=dev)
+    scores = torch.empty((Q, P * E), dtype=torch.int32, device=dev)
+    counts = torch.empty(Q + 1, dtype=torch.int32, device=dev)  # zeroed there
+    rc = on_device(
+        dev, lib.tt_coalesced_scan, kl, vl, kv_key.data_ptr(),
+        kv_val.data_ptr(), entry_start.data_ptr(), entry_end.data_ptr(),
+        entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
+        entry_valid.data_ptr(), page_block.data_ptr(),
+        term_keys.data_ptr(), val_ranges.data_ptr(),
+        term_active.data_ptr(), *(b.data_ptr() for b in bounds),
+        _ptr(block_group), hit_meta, words, P, E, C, Q, B, T, R,
+        _ptr(verdicts), 0 if verdicts is None else int(verdicts.shape[0]),
+        tables.data_ptr(), table_bytes, scores.data_ptr(),
+        counts.data_ptr())
     check(lib, rc, "coalesced_scan")
     if P * E:
         (COALESCED_VERDICT_LAUNCHES if verdicts is not None

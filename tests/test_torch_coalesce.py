@@ -347,11 +347,15 @@ def test_coalesced_function_matches_reference(staged):
 U32 = 0xFFFFFFFF
 
 
-def _synthetic(seed, *, P, C, B, Q, T, R, V):
+def _synthetic(seed, *, P, C, B, Q, T, R, V, dup=False, p_active=0.7,
+               all_pad=False):
     """Staged arrays and stacked tables from a seed, with pad pages, -1
     keys, inactive terms, a pad query, uint32 edge columns and bounds,
     and, per query, a hit table of one width V (so the reference's
-    stacking pads nothing) or none."""
+    stacking pads nothing) or none. With `dup`, every odd query repeats
+    the query before it (its terms, tables and hit rows); with
+    `all_pad`, every query is a pad query; `p_active` is the share of
+    active terms."""
     rng = np.random.default_rng(seed)
     n_keys = 5
     kv_key = rng.integers(-1, n_keys, size=(P, E, C)).astype(np.int8)
@@ -372,7 +376,7 @@ def _synthetic(seed, *, P, C, B, Q, T, R, V):
     hi = lo + rng.integers(0, V // 2, size=(Q, B, T, R))
     val_ranges = np.stack([lo, hi], axis=-1).astype(np.int32)
     val_ranges[rng.random((Q, B, T, R)) < 0.3] = (1, 0)
-    term_active = rng.random((Q, T)) < 0.7
+    term_active = rng.random((Q, T)) < p_active
     term_active[:, 0] = True
     term_active[Q - 2] = False          # a query with no active term
     dur_lo = rng.integers(0, 20_000, size=Q).astype(np.uint32)
@@ -388,6 +392,11 @@ def _synthetic(seed, *, P, C, B, Q, T, R, V):
     hits = rng.random((Q, G, T, V)) < 0.3
     block_group = rng.integers(-1, G, size=(Q, B)).astype(np.int32)
     block_group[0] = -1                 # a host-compiled member
+    if dup:
+        for a in (term_keys, val_ranges, term_active, hits, block_group):
+            a[1::2] = a[0:Q - 1:2]
+    if all_pad:
+        dur_lo[:], dur_hi[:] = 1, 0
     return dict(kv_key=kv_key, kv_val=kv_val, entry_start=start,
                 entry_end=end, entry_dur=dur, entry_valid=valid,
                 page_block=page_block, term_keys=term_keys,
@@ -401,12 +410,22 @@ def _synthetic(seed, *, P, C, B, Q, T, R, V):
     (1, dict(P=4, C=4, B=2, Q=4, T=2, R=2, V=90)),
     (2, dict(P=8, C=8, B=3, Q=8, T=4, R=4, V=200)),
     (3, dict(P=6, C=20, B=4, Q=4, T=1, R=1, V=60)),
-])
+    (4, dict(P=3, C=9, B=2, Q=64, T=1, R=2, V=50)),
+    (5, dict(P=3, C=10, B=3, Q=32, T=4, R=2, V=70)),
+    (6, dict(P=4, C=8, B=2, Q=8, T=2, R=2, V=40, dup=True)),
+    (7, dict(P=4, C=6, B=3, Q=8, T=4, R=2, V=40, p_active=0.3)),
+    (8, dict(P=3, C=5, B=2, Q=4, T=2, R=2, V=40, all_pad=True)),
+], ids=["q4", "q8", "c20", "q64", "qt128", "dup", "inactive", "all_pad"])
 def test_coalesced_function_on_synthetic_edges(seed, shape, hit_mode):
     """K4's plain version and K2r's against the reference on seeded
     arrays with the edges real corpora rarely hold: ids past the hit
     table (they clamp to its last entry) and below 0, starts around 2^31,
-    C past the 16 slots K4 keeps in registers."""
+    C = 20; Q = 64, Q x T = 128 (two chunks of distinct terms), members
+    with identical terms, mostly inactive terms, a dispatch of pad
+    queries only; in hit mode, probed and range rows in one dispatch.
+    K4's own rule in PyTorch (``coalesced_scan_keyfirst`` over
+    ``k4_terms``) equals both, and each block's reduction holds one
+    term per distinct (key, test) of its active pairs."""
     c = _synthetic(seed, **shape)
     Q = shape["Q"]
     page = [c[n] for n in ("kv_key", "kv_val", "entry_start", "entry_end",
@@ -417,8 +436,11 @@ def test_coalesced_function_on_synthetic_edges(seed, shape, hit_mode):
     if hit_mode:
         ref_hits = jnp.asarray(c["hits"])
         ref_bg = jnp.asarray(c["block_group"])
-        vh = tuple(None if (c["block_group"][q] < 0).all()
-                   else torch.from_numpy(c["hits"][q]) for q in range(Q))
+        vh = [None if (c["block_group"][q] < 0).all()
+              else torch.from_numpy(c["hits"][q]) for q in range(Q)]
+        if shape.get("dup"):        # a repeated member shares its tables
+            vh[1::2] = vh[0:Q - 1:2]
+        vh = tuple(vh)
         bg = torch.from_numpy(c["block_group"])
     k = 64
     counts, inspected, scores, idx = coalesced_scan_kernel(
@@ -430,7 +452,8 @@ def test_coalesced_function_on_synthetic_edges(seed, shape, hit_mode):
             a = a.view(np.int32)
         return torch.from_numpy(np.ascontiguousarray(a))
 
-    s, cnt, ins = coalesced_scan_plain(*[t(a) for a in page + tabs], vh, bg)
+    args = [t(a) for a in page + tabs]
+    s, cnt, ins = coalesced_scan_plain(*args, vh, bg)
     ts, ti = topk_rows_plain(s, k)
     assert int(ins) == int(inspected)
     assert cnt.tolist() == np.asarray(counts).tolist()
@@ -438,6 +461,48 @@ def test_coalesced_function_on_synthetic_edges(seed, shape, hit_mode):
     for q in range(Q):
         _assert_topk_contract(ts[q].numpy(), ti[q].numpy(), scores[q],
                               idx[q], f"query {q}")
+    s2, cnt2, ins2 = scan_k.coalesced_scan_keyfirst(*args, vh, bg)
+    assert torch.equal(s2, s) and torch.equal(cnt2, cnt)
+    assert int(ins2) == int(ins)
+    _assert_k4_terms(args[7:12], vh, bg, shape)
+
+
+def _assert_k4_terms(tabs, vh, bg, shape):
+    """k4_terms per block: one term per distinct (key, test) of the
+    active pairs, grouped by key into segments of one chunk each, and
+    need masks naming, per query, exactly its active terms."""
+    term_keys, val_ranges, term_active, dur_lo, dur_hi = tabs
+    Q, B, T = term_keys.shape
+    for b in range(B):
+        tab = scan_k.k4_terms(term_keys, val_ranges, term_active, dur_lo,
+                              dur_hi, b, vh, bg)
+        terms, need = tab["terms"], tab["need"]
+        sigs = [(u["key"], None if u["ranges"] is None
+                 else tuple(u["ranges"].flatten().tolist()),
+                 None if u["row"] is None else u["row"].data_ptr())
+                for u in terms]
+        assert len(set(sigs)) == len(sigs)
+        live_q = [q for q in range(Q) if tab["queries"] >> q & 1]
+        active = [(q, t) for q in live_q for t in range(T)
+                  if term_active[q, t]]
+        assert len(terms) <= len(active)
+        assert len(need) == -(-len(terms) // 64)
+        keys = [u["key"] for u in terms]
+        assert {int(term_keys[q, b, t]) for q, t in active} == set(keys)
+        for key, beg, mid, end in tab["segments"]:
+            assert beg // 64 == (end - 1) // 64 and beg <= mid <= end
+            assert all(kk == key for kk in keys[beg:end])
+            assert all((u["row"] is None) == (p >= mid)
+                       for p, u in enumerate(terms[beg:end], beg))
+        for q in range(Q):
+            bits = sum(bin(m[q]).count("1") for m in need)
+            n_act = sum(1 for qq, _t in active if qq == q)
+            assert (bits == 0) == (n_act == 0) and bits <= n_act
+        if shape.get("dup"):
+            for q in range(1, Q, 2):
+                assert all(m[q] == m[q - 1] for m in need)
+        if shape.get("all_pad"):
+            assert not terms and tab["queries"] == 0
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (50, 7), (50, 64), (300, 128)])
