@@ -21,12 +21,16 @@ error:
    temporary LocalBackend, by default 256 blocks x 65,536 traces = 16.8M
    traces, 1,024 entries per page, 8 tags per trace; answers six requests
    through ``TempoDB.search`` on the card (launch counters set to 0 just
-   before, read just after), each once warm and then timed; profiles three
-   of them (torch.profiler) for device time and idle share; answers them
+   before, read just after), each once warm and then timed; times three
+   of them on the device (``KernelTimer``) for idle share; answers them
    again through a ``TempoDB`` on the CPU (the kernels' plain versions)
    and requires identical responses; then holds K1 (multi_scan, range
    mode) and K2 (topk) against their plain versions on the card and times
-   them, K2 also on adversarial columns (``topk_columns``: all -1, all
+   them, K1 and K1s also at their design's edges (``k1_edges``: every
+   reader pair and hit format, C = 8, 9, 10, 17 and 80, T = 0, 16 and 40,
+   keys past the key table, runs of many tiles a CTA, verdicts; every
+   launcher call replayed from 8 host threads at once; no K1 build
+   spilling), K2 also on adversarial columns (``topk_columns``: all -1, all
    equal, the narrow window, uniform over int31, INT32_MAX scores, fewer
    matches than k, k = n, k > n, n = 1), printing the CUDA kernels and
    memsets the profiler saw per call (at most 3 for k <= 4,096) and the
@@ -59,7 +63,8 @@ error:
    four requests through ``TempoDB.search``, one through
    ``TempoDB.search_block`` and two through ``BackendSearchBlock.search``
    (the single-block engine), each cold then 10 times warm, with launch
-   counts per request; profiles three; requires the CPU path's responses;
+   counts per request; times three on the device; requires the CPU
+   path's responses;
    then holds K3 (dict_probe), K1 in hit-mask mode and K1s (scan_single)
    against their plain versions on the card and times them; then K4 in
    hit-mask mode on 6 probed and 2 host-compiled requests, with the fused
@@ -165,9 +170,12 @@ error:
 
 Every kernel row's device ms is the median of 20 single calls, each
 between two CUDA events with a spin kernel holding the stream while the
-host issues it (``kernel_row``, ``bench_structural.event_ms``); no
-kernel row reads torch.profiler. K4's rows also carry the registers and
-spill bytes ptxas reported for the build each launched.
+host issues it (``kernel_row``, ``bench_structural.event_ms``); a
+request's or a round's device ms sums its kernel launches, each between
+CUDA events behind such a spin (``KernelTimer``). No device time reads
+torch.profiler; it only counts K2's and K9's launches a call. K1's,
+K1s's and K4's rows also carry the registers and spill bytes ptxas
+reported for the build each launched.
 
 The concurrent phase: 8 client threads, barrier-started, send one
 request each per round, one warm-up round and then ``--rounds`` timed
@@ -175,8 +183,9 @@ ones, through a ``TempoDB`` with the default query coalescer and through
 a second one over the same blocks with coalescing off
 (``search_coalesce_max_queries=1``). Every response must equal the
 serial response of the same request. It prints round and request
-latencies, launches per kernel and the coalescer's queries per
-dispatch.
+latencies, launches per kernel, the coalescer's queries per dispatch,
+and a round's device ms and idle share (3 more rounds with each dispatch
+timed).
 
 It imports nothing of JAX and nothing of the tempo_tpu package.
 """
@@ -200,6 +209,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 # how every kernel row's device ms is taken (``kernel_row``)
 DEVICE_SOURCE = "cuda_events, median of 20 single calls"
+# how every request's and round's device ms is taken (``KernelTimer``)
+REQUEST_DEVICE_SOURCE = ("cuda_events around each kernel launch behind a "
+                         "spin, summed a call, median of the calls")
 
 ENTRIES_PER_PAGE = 1024          # the reference's PageGeometry default
 BASE_S = 1_700_000_000
@@ -231,6 +243,7 @@ KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "dist_multi_scan", "dist_coalesced_scan", "dist_scan_single",
            "dist_probe")
 CLIENTS = 8                     # concurrent clients
+BUSY_ROUNDS = 3                 # rounds a concurrent row's device ms takes
 # the concurrent clients' predicates: one service each, AND status 500
 CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
                    for i in range(CLIENTS)]
@@ -612,31 +625,146 @@ def device_events(averages) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def records(averages, symbol: str) -> int:
-    """Launch records kept of the kernels whose name holds `symbol`."""
-    return sum(e.count for e in device_events(averages) if symbol in e.key)
+class KernelTimer:
+    """Device milliseconds of the kernels that requests launch, from CUDA
+    events (C1: torch.profiler lost launch records late in full runs).
+    While it is on, every C launcher of the port's kernels (each loaded
+    library's ``tt_*`` launch functions, and the ones ``topk`` and
+    ``dist`` keep) runs as: an event, a hold kernel, an event, the
+    launch, an event, and then the host releases the hold (``csrc/
+    timing.cu``: the hold spins until a counter in pinned memory reaches
+    this launch's number). The last two events thus bracket the kernel
+    alone, however long the host took to issue it: a fixed spin does not
+    hold when other client threads keep the interpreter past it. A
+    request's device ms is the sum over its launches: its kernels, not
+    the copies of its tables and results (a few KB) nor NCCL's
+    collectives. A hold that ran out (~50 ms) before its release is
+    counted as uncovered. Threads take turns (one lock), so pairs on one
+    stream never interleave; the batcher's result fetches take the same
+    turns."""
+
+    HOLD_CYCLES = 100_000_000       # the hold's limit: ~50 ms at ~1.9 GHz
+    # the C functions that launch kernels, by library
+    LAUNCHERS = {"scan": ("tt_scan_k1", "tt_coalesced_scan"),
+                 "structural": ("tt_structural_mask",),
+                 "pack": ("tt_pack_mask_words",),
+                 "probe": ("tt_dict_probe",),
+                 "agg": ("tt_agg_counts", "tt_analytics_count")}
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._saved: list = []
+        self.pairs: list = []
+        self._hold = None
+        self._counter = None
+        self._n = 0
+
+    def __enter__(self):
+        import ctypes
+
+        import torch
+
+        from tempo_tpu_torch.search.kernels import build, dist, topk
+
+        lib = build.load("timing")
+        self._hold = lib.tt_wait_host
+        self._hold.restype = ctypes.c_int
+        self._hold.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_longlong, ctypes.c_void_p]
+        self._counter = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+        self._n = 0
+        topk._fn()
+        dist._fn()
+        for name, fns in self.LAUNCHERS.items():
+            lib = build.load(name)
+            for fn in fns:
+                real = getattr(lib, fn)
+                self._saved.append((lib, fn, real))
+                setattr(lib, fn, self._timed(real, fn))
+        for mod in (topk, dist):
+            self._saved.append((mod, "_FN", mod._FN))
+            mod._FN = self._timed(mod._FN, mod._FN.__name__)
+        # a client thread's result fetch waits for the stream and, while it
+        # waits, keeps other threads from issuing a launch; taken in turn
+        # with the timed launches, it never waits behind a hold
+        from tempo_tpu_torch.search import batcher
+        for name in ("fetch_scan_out", "fetch_coalesced_out"):
+            real = getattr(batcher, name)
+            self._saved.append((batcher, name, real))
+            setattr(batcher, name, self._in_turn(real))
+        return self
+
+    def _in_turn(self, real):
+        timer = self
+
+        def in_turn(*a):
+            with timer._lock:
+                return real(*a)
+        return in_turn
+
+    def __exit__(self, *exc):
+        for obj, name, real in reversed(self._saved):
+            setattr(obj, name, real)
+        self._saved.clear()
+
+    def _timed(self, real, name):
+        import torch
+
+        from tempo_tpu_torch.search.kernels import build
+
+        timer = self
+        counter = self._counter.numpy()
+
+        def timed(*a):
+            with timer._lock:
+                timer._n += 1
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(3)]
+                stream = build._raw_stream(torch.cuda.current_device())
+                ev[0].record()
+                rc = timer._hold(timer._counter.data_ptr(), timer._n,
+                                 timer.HOLD_CYCLES, stream)
+                ev[1].record()
+                try:
+                    if rc == 0:
+                        rc = real(*a)
+                    ev[2].record()
+                finally:
+                    counter[0] = timer._n       # release the hold
+                timer.pairs.append(ev)
+            return rc
+        timed.__name__ = name
+        return timed
+
+    def take(self) -> dict:
+        """The device ms of the launches timed since the last take, their
+        count and the uncovered ones; clears them."""
+        import torch
+
+        torch.cuda.synchronize()
+        with self._lock:
+            pairs, self.pairs = self.pairs, []
+        ms = sum(ev[1].elapsed_time(ev[2]) for ev in pairs)
+        # a hold that ran to its limit (~50 ms) was not released in time
+        uncovered = sum(ev[0].elapsed_time(ev[1]) > 40.0 for ev in pairs)
+        return {"device_ms": ms, "launches": len(pairs),
+                "uncovered": uncovered}
 
 
 def call_busy(fn, reps: int) -> dict:
-    """Device time per call of fn from torch.profiler (kernels and copies
-    on the card, summed) over `reps` warm calls, and the check that the
-    profiler kept every record: its records of the top-k's last kernel
-    (``TOPK_LAST``: one a K2 or K2r call) against the calls the launch
-    counters saw. A
-    profiler that records no device activity, or dropped records, gives
-    None ("not measured"), never a number taken from the host."""
+    """Device time a call of fn: the median over `reps` warm calls of its
+    kernels' device ms (``KernelTimer``), after one warm call."""
     fn()
-    reset_counts()
-    avg = profiled(fn, reps)
-    n = read_counts()
-    calls = (n["topk"] + n["topk_rows"]) * reps // (reps + 1)
-    kept = sum(records(avg, sym) for sym in TOPK_LAST)
-    by_name = {e.key: e.self_device_time_total / reps / 1e3
-               for e in device_events(avg) if e.self_device_time_total > 0}
-    total = sum(by_name.values())
-    return {"device_ms": total if total > 0 and kept == calls else None,
-            "records_kept": kept, "records_expected": calls,
-            "by_kernel_ms": by_name}
+    runs = []
+    with KernelTimer() as timer:
+        for _ in range(reps):
+            fn()
+            runs.append(timer.take())
+    ms = sorted(r["device_ms"] for r in runs)
+    return {"device_ms": ms[len(ms) // 2],
+            "launches": max(r["launches"] for r in runs),
+            "uncovered": sum(r["uncovered"] for r in runs),
+            "source": REQUEST_DEVICE_SOURCE}
 
 
 def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
@@ -654,16 +782,11 @@ def device_busy(db, tenant: str, reqs: dict, names, reps: int) -> dict:
 def print_busy(busy: dict, lat_report: dict) -> None:
     for name, b in busy.items():
         p50 = lat_report[name]["p50_ms"]
-        if b["device_ms"] is None:
-            print(f"device busy {name}: not measured (the profiler kept "
-                  f"{b['records_kept']} of {b['records_expected']} top-k "
-                  "records)", flush=True)
-            continue
         b["idle_share_of_p50"] = max(0.0, 1 - b["device_ms"] / p50)
         print(f"device busy {name}: {b['device_ms']:.3f} ms per request "
-              f"(profiler, {b['records_kept']} of {b['records_expected']} "
-              f"top-k records kept) of {p50:.3f} ms p50, idle share "
-              f"{b['idle_share_of_p50']:.2f}", flush=True)
+              f"(CUDA events, {b['launches']} launches, "
+              f"{b['uncovered']} uncovered) of {p50:.3f} ms p50, idle "
+              f"share {b['idle_share_of_p50']:.2f}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -699,34 +822,41 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
 
 
 class LauncherReplay:
-    """Records the C launcher calls that K4's and K6's wrappers make
-    between ``start`` and ``stop`` (each call's frame is kept, which keeps
-    its tensors alive), then ``replay`` calls those launchers again
-    straight from several host threads at once, without the wrappers'
-    Python between calls: a launcher that sets a kernel's shared-memory
-    allowance to its own call's size fails its launch when another
-    thread's smaller allowance lands between its set and its launch."""
+    """Records the C launcher calls that K1's, K1s's, K4's and K6's
+    wrappers make between ``start`` and ``stop`` (each call's frame is
+    kept, which keeps its tensors alive), then ``replay`` calls those
+    launchers again straight from several host threads at once, without
+    the wrappers' Python between calls: a launcher that sets a kernel's
+    shared-memory allowance to its own call's size fails its launch when
+    another thread's smaller allowance lands between its set and its
+    launch, and one whose cached occupancy or per-batch state another
+    thread changes launches a wrong grid."""
+
+    # each C launcher by the kernels it launches
+    NAMES = {"tt_scan_k1": "K1", "tt_coalesced_scan": "K4",
+             "tt_structural_mask": "K6"}
 
     def __init__(self):
         from tempo_tpu_torch.search.kernels import scan, structural
 
-        self.mods = {"K4": scan, "K6": structural}
+        self.mods = (scan, structural)
         self.calls = []
 
     def start(self):
-        for name, mod in self.mods.items():
-            mod.on_device = self._recorder(name, mod.on_device)
+        for mod in self.mods:
+            mod.on_device = self._recorder(mod.on_device)
         return self
 
-    def _recorder(self, name, real):
+    def _recorder(self, real):
         def on_device(dev, fn, *args):
+            name = self.NAMES.get(getattr(fn, "__name__", ""), "other")
             self.calls.append((name, dev, fn, args, sys._getframe(1)))
             return real(dev, fn, *args)
         on_device.real = real
         return on_device
 
     def stop(self):
-        for mod in self.mods.values():
+        for mod in self.mods:
             mod.on_device = mod.on_device.real
 
     def replay(self, reps: int = 4000, threads: int = 8) -> dict:
@@ -758,11 +888,6 @@ class LauncherReplay:
                             for (n, rc), k in sorted(errs.items())))
         names = [c[0] for c in self.calls]
         return {n: names.count(n) for n in sorted(set(names))}
-
-
-# the last kernel of a K2/K2r call, one record a call: the cooperative
-# launch (k <= 4,096) or the longer route's unpack (past it)
-TOPK_LAST = ("topk_radix_kernel", "unpack_kernel")
 
 
 def kernels_per_call(fn, reps: int = 5) -> dict:
@@ -871,9 +996,12 @@ def k1_row(db, name: str, replaces: str, tags: dict, kw: dict,
                           [list(mq.val_hits.shape), str(mq.val_hits.dtype)]),
              "match_count": int(counts[0]), "inspected": int(counts[1]),
              "bytes_needed": need}
-    return (kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
-                       launches, err, ms, plain, need, None, shape,
-                       lambda: scan.multi_scan(*args, *extra)), scores)
+    return (k1_ptxas(kernel_row(name, "tempo_tpu_torch/csrc/scan.cu",
+                                replaces, launches, err, ms, plain, need,
+                                None, shape,
+                                lambda: scan.multi_scan(*args, *extra)),
+                     d["kv_key"], d["kv_val"], batch.widths,
+                     mq.n_terms > 0), scores)
 
 
 def k1s_row(bsb, name: str, replaces: str, launches: dict) -> dict:
@@ -923,9 +1051,11 @@ def k1s_row(bsb, name: str, replaces: str, launches: dict) -> dict:
              "val_hits": [list(cq.val_hits.shape), str(cq.val_hits.dtype)],
              "match_count": int(s_counts[0]),
              "inspected": int(s_counts[1]), "bytes_needed": need}
-    return kernel_row(name, "tempo_tpu_torch/csrc/scan.cu", replaces,
-                      launches, err, ms, plain, need, None, shape,
-                      lambda: scan.scan_single(*s_args))
+    return k1_ptxas(kernel_row(name, "tempo_tpu_torch/csrc/scan.cu",
+                               replaces, launches, err, ms, plain, need,
+                               None, shape,
+                               lambda: scan.scan_single(*s_args)),
+                    sd["kv_key"], sd["kv_val"], sp.widths, cq.n_terms > 0)
 
 
 def topk_columns(n: int, dev) -> list:
@@ -1003,6 +1133,8 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
     k1, scores = k1_row(db, "multi_scan",
                         "tempo_tpu/search/multiblock.py:855", tags, kw,
                         launches, False)
+    k1["shape"]["edges"], e = k1_edges(scores.device, 20261018)
+    k1["max_abs_err"] = max(k1["max_abs_err"], e)
     k2_err = 0
     k = resolve_top_k(128, kw["limit"])
     # the main path's k, a limit-1000 request's k, a k past the shared-
@@ -1259,7 +1391,9 @@ def concurrent_rounds(db, tenant: str, reqs: list, rounds: int,
     warm-up round, then `rounds` timed ones. Every response must equal
     `serial` (the same requests answered one at a time). Launch counters
     set to 0 just before the first round and read after the last; the
-    coalescer's counters over the timed rounds."""
+    coalescer's counters over the timed rounds. Then BUSY_ROUNDS more
+    rounds give a round's device ms (the median of their sums over
+    ``KernelTimer``'s launches) and its idle share of the round p50."""
     from tempo_tpu_torch.model.types import SearchRequest
 
     requests = [SearchRequest(tags=dict(t), **kw) for t, kw in reqs]
@@ -1291,12 +1425,30 @@ def concurrent_rounds(db, tenant: str, reqs: list, rounds: int,
             if r:
                 walls.append(wall * 1e3)
                 lat += [dt * 1e3 for dt, _ in outs]
+        st1 = None if co is None else co.stats()
+        counts = read_counts()
+        # the device time of a round: BUSY_ROUNDS more rounds with each
+        # kernel between CUDA events (``KernelTimer``)
+        busy = []
+        with KernelTimer() as timer:
+            for _r in range(BUSY_ROUNDS):
+                futs = [ex.submit(one, i) for i in range(len(requests))]
+                for i, f in enumerate(futs):
+                    if f.result(timeout=600)[1] != serial[i]:
+                        raise AssertionError(f"concurrent request {i} "
+                                             "differs from its serial "
+                                             "response (timed dispatches)")
+                busy.append(timer.take())
+    round_p50 = pct(walls, 0.5)
+    dev_ms = sorted(b["device_ms"] for b in busy)[len(busy) // 2]
     row = {"round_ms": sorted(walls), "lat_ms": sorted(lat),
-           "round_p50_ms": pct(walls, 0.5), "round_p95_ms": pct(walls, 0.95),
+           "round_p50_ms": round_p50, "round_p95_ms": pct(walls, 0.95),
            "lat_p50_ms": pct(lat, 0.5), "lat_p95_ms": pct(lat, 0.95),
-           "launches": read_counts(), "coalesce": None}
+           "launches": counts, "coalesce": None,
+           "device_ms": dev_ms,
+           "idle_share_of_round_p50": max(0.0, 1 - dev_ms / round_p50),
+           "device_rounds": busy, "device_source": REQUEST_DEVICE_SOURCE}
     if co is not None:
-        st1 = co.stats()
         disp = st1["dispatches"] - st0["dispatches"]
         queries = st1["queries"] - st0["queries"]
         row["coalesce"] = {
@@ -1305,6 +1457,11 @@ def concurrent_rounds(db, tenant: str, reqs: list, rounds: int,
             - st0["fused_dispatches"],
             "queries_per_dispatch": queries / max(1, disp),
             "pending": st1["pending"], "window_ms": st1["window_ms"]}
+    print(f"  device per round: {dev_ms:.3f} ms (CUDA events, "
+          f"{[b['launches'] for b in busy]} launches, "
+          f"{sum(b['uncovered'] for b in busy)} uncovered) of "
+          f"{round_p50:.3f} ms round p50, idle share "
+          f"{row['idle_share_of_round_p50']:.2f}", flush=True)
     return row
 
 
@@ -2576,6 +2733,132 @@ def k4_ptxas(row: dict, page, widths, val_hits) -> dict:
     return row
 
 
+def k1_edges(dev, seed: int) -> tuple:
+    """K1 and K1s held exactly against their plain versions on the card at
+    the edges of their design, over one member of ``k4_inputs`` (its own
+    tables, hit tables narrower than the largest id, a window bound, a
+    pad page): every unpacked reader pair at C = 9 in range mode and with
+    byte and word hit tables; every packed pair at C = 10 (q6 durations
+    with a residual on u4/u16); C = 8, 17 and 80 (the kv runs too wide
+    for the stages: read in place); T = 0, 16 and 40 (terms past the key
+    table's 32); term keys past the table's ids (int16 keys of 300-305);
+    R = 512; pages of 100 entries; 3,000 pages of 64 entries over 7
+    blocks (runs of many tiles a CTA, the key table rebuilt on most); a
+    verdict row. K1s takes each case's first block alone wherever its
+    layout allows (int32 ids or packed). Every launcher call is then
+    replayed from 8 host threads at once (``LauncherReplay``), and no K1
+    build may spill in ptxas's report. Returns (report, max abs err)."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import build, scan
+    from tempo_tpu_torch.search.kernels.bench_scan import k1_usage
+
+    ids = ("int8", "int16", "int32")
+    codes = ("u4", "u8", "u16", "u32")
+    base = dict(P=6, B=3, Q=4, T=2, R=4)
+    cases = []
+    for kd in ids:
+        for vd in ids:
+            cases += [(f"{kd}/{vd} {h or 'ranges'}",
+                       dict(base, C=9, kv=(kd, vd), hits=h))
+                      for h in (None, "bytes", "words")]
+    for i, kw in enumerate(codes):
+        for j, vw in enumerate(codes):
+            dw = "q6" if (kw, vw) == ("u4", "u16") else "u16"
+            h = (None, "bytes", "words")[(i + j) % 3]
+            cases.append((f"{kw}/{vw}/{dw} {h or 'ranges'}",
+                          dict(base, C=10, widths=(kw, vw, dw), hits=h)))
+    cases += [
+        ("C=8", dict(base, C=8, hits="bytes")),
+        ("C=17", dict(base, C=17, kv=("int32", "int32"), hits="words")),
+        ("C=80", dict(base, P=3, C=80, kv=("int32", "int32"),
+                      hits="bytes")),
+        ("T=0", dict(base, C=8, T=0)),
+        ("T=16", dict(base, C=12, T=16)),
+        ("T=40", dict(base, C=12, T=40)),
+        ("keys past the table", dict(base, C=9, kv=("int16", "int16"))),
+        ("R=512", dict(base, P=3, C=8, R=512)),
+        ("E=100", dict(base, C=9, E=100, hits="words")),
+        ("3,000 pages of 64", dict(base, P=3000, B=7, C=9, E=64,
+                                   kv=("int32", "int32"), hits="bytes")),
+        ("verdicts", dict(base, C=8, v_rows=3, hits="bytes")),
+    ]
+    report, err, q = {}, 0, 2
+    replay = LauncherReplay().start()
+    for i, (what, kw_) in enumerate(cases):
+        T = kw_["T"]
+        page, tabs, (widths, res, verdicts) = k4_inputs(
+            seed + i, dev, **dict(kw_, T=max(1, T)))
+        tk, vr = tabs[0][q].contiguous(), tabs[1][q].contiguous()
+        if T > 8:           # terms that entries can meet all at once
+            tk[:] = torch.arange(T, dtype=tk.dtype, device=dev) % 3
+            vr[:, :, 0, 0], vr[:, :, 0, 1] = 0, 120
+        if what == "keys past the table":
+            kk = page[0].clone()
+            kk[:, :, :6] = torch.arange(300, 306, dtype=kk.dtype,
+                                        device=dev)
+            page = (kk,) + page[1:]
+            tk[:, 0] = 301
+            vr[:, 0, 0, 0], vr[:, 0, 0, 1] = 0, 120
+        bounds = [int(x[q]) & 0xFFFFFFFF for x in tabs[3:7]]
+        vh = None if tabs[7] is None else tabs[7][q]
+        bg = None if vh is None else tabs[8][q].contiguous()
+        v = None if verdicts is None else verdicts[q].contiguous()
+        args = (*page, tk, vr, T, *bounds, vh, bg, widths, res, v)
+        got = scan.multi_scan(*args)
+        err = max(err, require_equal(f"K1 edge {what}", got,
+                                     scan.multi_scan_plain(*args)))
+        report[what] = {"counts": got[1].tolist()}
+        if widths is not None or page[0].dtype == torch.int32 == \
+                page[1].dtype:
+            g = -1 if bg is None else int(bg[0])
+            s_args = (*page[:6], tk[0].contiguous(), vr[0].contiguous(), T,
+                      *bounds, None if g < 0 else vh[g].contiguous(),
+                      widths, res, v)
+            got = scan.scan_single(*s_args)
+            err = max(err, require_equal(f"K1s edge {what}", got,
+                                         scan.scan_single_plain(*s_args)))
+            report[what]["single"] = got[1].tolist()
+    replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
+    usage = k1_usage(build.BUILD_LOG.get("scan", ""))
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"K1 builds spill: {spills}")
+    print(f"K1 edges: {len(cases)} cases, K1 and K1s each equal to its "
+          f"plain version ({replayed.get('K1', 0)} launcher calls replayed "
+          f"from 8 threads); {len(usage)} K1 builds in ptxas's report, none "
+          "spills, registers "
+          f"{sorted({v.get('registers') for v in usage.values()})}",
+          flush=True)
+    return report, err
+
+
+def k1_ptxas(row: dict, kv_key, kv_val, widths, terms: bool) -> dict:
+    """A K1/K1s row of the kernels line gains the ptxas registers and
+    spill bytes (stores + loads) of the build its call launched (None when
+    this process built no kernel): ``k1_kernel`` for the row's layouts
+    when its request has terms, else the vector build of
+    ``k1_cols_kernel``."""
+    from tempo_tpu_torch.search.kernels import build
+    from tempo_tpu_torch.search.kernels.bench_coalesced import READERS
+    from tempo_tpu_torch.search.kernels.bench_scan import k1_usage
+
+    kw, vw = (None, None) if widths is None else widths[:2]
+    name = (f"k1_kernel<{READERS[kw or str(kv_key.dtype).split('.')[-1]]}, "
+            f"{READERS[vw or str(kv_val.dtype).split('.')[-1]]}>"
+            if terms else "k1_cols_kernel<true>")
+    usage = {k.replace(" ", ""): v
+             for k, v in k1_usage(build.BUILD_LOG.get("scan", "")).items()}
+    use = usage.get(name.replace(" ", ""), {})
+    row["build"] = name
+    row["registers"] = use.get("registers")
+    row["spill_bytes"] = (None if "spill_stores" not in use
+                          else use["spill_stores"] + use["spill_loads"])
+    return row
+
+
 def k6_edges(dev, seed: int) -> tuple:
     """K6 held exactly against its plain version on the card at the edges
     of its design, each over small batches made from the seed (3 blocks
@@ -2756,7 +3039,7 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
                          scan.multi_scan_plain(*args, *extra))
     need1 = k1_bytes(args, s1, mq_desc.val_hits, bg, widths=batch.widths,
                      res=res, verdicts=vrow)
-    k1_row_ = kernel_row(
+    k1_row_ = k1_ptxas(kernel_row(
         "multi_scan_verdicts", "tempo_tpu_torch/csrc/scan.cu",
         "tempo_tpu/search/multiblock.py:870", launches, err1,
         cuda_ms(lambda: scan.multi_scan(*args, *extra), 50),
@@ -2764,7 +3047,8 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
         None, {"pages": batch.n_pages, "entries": s1.numel(),
                "match_count": int(c1[0]), "inspected": int(c1[1]),
                "bytes_needed": need1},
-        lambda: scan.multi_scan(*args, *extra))
+        lambda: scan.multi_scan(*args, *extra)), d["kv_key"], d["kv_val"],
+        batch.widths, mq_desc.n_terms > 0)
 
     # K4 with the bucketed group's verdicts; fused against solo
     tables = eng.coalesced_tables(cq)
@@ -2827,13 +3111,14 @@ def structural_kernel_phase(db, bsb, launches: dict) -> list:
                 tk[None], vr[None], cq1.n_terms, *bounds)
     needs = k1_bytes(as_multi, ss, single=True, widths=sp.widths,
                      res=sd.get("entry_dur_res"), verdicts=vs)
-    k1s_row = kernel_row(
+    k1s_row = k1_ptxas(kernel_row(
         "scan_single_verdicts", "tempo_tpu_torch/csrc/scan.cu",
         "tempo_tpu/search/engine.py:351", launches, errs,
         cuda_ms(lambda: scan.scan_single(*s_args), 50),
         cuda_ms(lambda: scan.scan_single_plain(*s_args), 3), needs, None,
         {"pages": P, "entries": ss.numel(), "match_count": int(sc[0]),
-         "bytes_needed": needs}, lambda: scan.scan_single(*s_args))
+         "bytes_needed": needs}, lambda: scan.scan_single(*s_args)),
+        sd["kv_key"], sd["kv_val"], sp.widths, cq1.n_terms > 0)
     return [k6_row, k1_row_, k4_row, k1s_row]
 
 

@@ -78,15 +78,51 @@
 // non-trivial bound needs (start always, for the score). That is ~15-50
 // bytes per entry for a handful of integer compares, far below the card's
 // compute ridge; the bound is the 32-byte sectors those reads and writes
-// touch, over 3.35 TB/s. Design: one thread per entry (adjacent threads
-// on adjacent entries, so the column reads coalesce); the term tables are
-// tiny and are read through the read-only cache; the score is written
-// even for non-matches, so the top-k (K2) needs no separate mask array;
-// count and inspected reduce per warp with ballots, per block in shared
-// memory, then with one integer atomic per block, which is exact in any
-// order. K1 and K1s are one body (the single-block form is a template
-// parameter). K1 and K1s test a slot with `slot_hit`, and K1, K1s and K4
-// test a duration with `dur_ok`, so they cannot drift apart.
+// touch, over 3.35 TB/s.
+//
+// K1 and K1s share their kernels (K1s: no page_block, every page block 0,
+// its hit table on every page). The first design, one thread an entry in
+// 16K short CTAs, ran range mode at 2.9x that bound at 4,096 pages (0.105
+// ms on an H100 80GB HBM3 at 700 W): per entry it divided by E for the
+// page, read its keys a byte at a time and again for every term, and the
+// wrapper zeroed the counts with a launch of its own. The design now:
+//   - A request with terms runs `k1_kernel`: a persistent cooperative grid
+//     (5 CTAs an SM, 48 registers) walks runs of tiles, 256 entries of
+//     one page, so a tile's block and hit row are read once and no entry
+//     divides. Each thread loads its entry's valid flag, key run and, when
+//     it is up to 16 bytes, value run in one batch of aligned vector loads
+//     (a warp's runs are contiguous). The key test is SWAR: each 32-bit
+//     word of the key run is compared with a term's lane value at once,
+//     4, 8, 16 or 32 bits a lane (zero_lanes), so each slot's key is read
+//     once and no loop searches the slots; only a lane whose key names
+//     the term has its value tested, and an entry stops at its first term
+//     that fails (most fail the first). A range block's terms test a value
+//     by one bit of a per-block bitmap of ids 0..8,191 in shared memory
+//     (built from the ranges when the page's block changes, the CTA's only
+//     barrier), a probed block's by its hit row.
+//   - A request without terms (a duration or window bound, or structural
+//     verdicts alone) reads no kv slot: `k1_cols_kernel` streams the
+//     valid flags, verdicts, durations and ends, 4 entries a thread in
+//     16-byte vectors, and reads a start only where the bounds pass.
+//   - Counts: each CTA writes its pair of partial counts, and after one
+//     grid barrier CTA 0 sums them into counts; the wrapper allocates
+//     scores, counts and partials in one buffer, and no launch zeroes
+//     them. (Many short CTAs adding into one address serialize at L2.)
+//   - The host path: kernels/scan.py checks a staged batch's arrays and a
+//     predicate's tables once and keeps the call's descriptor for as long
+//     as those tensors live unchanged; a call passes that descriptor, the
+//     verdicts and one output buffer.
+// Tried on the card and not kept (PERF.md, PR 13): tiles staged through
+// shared memory by cp.async (3 stages a CTA, or a warp's own): the copies
+// alone ran range mode at ~0.05 ms, but reading keys, a key table and
+// values back from shared memory made it 0.09-0.15 ms; a key-id lookup
+// table instead of SWAR; 6-8 CTAs an SM (spills). The hit modes stay
+// behind the first design's: their random hit-table lookups want the
+// warps that 26 registers an entry gave it.
+// The score is written even for non-matches, so the top-k (K2) needs no
+// separate mask array. K1, K1s and K6 test a value with `value_ok`, and
+// K1, K1s and K4 test a duration with `dur_ok`, so they cannot drift
+// apart. `kernels/scan.py` `scan_tiled` is this rule in PyTorch.
 //
 // K4 is bound by the same reads, made once for all Q queries, plus Q
 // score columns written. Its work per entry would grow as Q x T x C if
@@ -125,10 +161,14 @@
 // branches they doubled the registers); K1's are runtime-uniform
 // branches.
 
+#include <cooperative_groups.h>
+
 #include <atomic>
 #include <type_traits>
 
 #include "scan_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -137,158 +177,6 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int32_t score_of(uint32_t start) {
   return (int32_t)min(start, 0x7FFFFFFFu);
 }
-
-struct ScanArgs {
-  const void* kv_key;            // [P, E, C] in the key layout
-  const void* kv_val;            // [P, E, C] in the value layout
-  const uint32_t* entry_start;   // [P, E]
-  const uint32_t* entry_end;
-  DurCol dur;
-  const bool* entry_valid;
-  const int32_t* page_block;     // [P]; unused by K1s
-  const int32_t* term_keys;      // [B, t_stride]
-  const int32_t* val_ranges;     // [B, t_stride, R, 2]
-  const void* val_hits;          // [G, t_stride, n_vals] (K1s: G = 1)
-  const int32_t* block_group;    // [B]; K1 hit-mask mode only
-  const uint8_t* verdicts;       // [P * E] or null
-  int64_t n_entries;
-  int E, C, n_terms, t_stride, R;
-  int64_t n_vals;                // hit row length, in elements
-  int hit_words;                 // the hit table holds words
-  uint32_t dur_lo, dur_hi, win_start, win_end;
-  int32_t* scores;               // [P * E]
-  int32_t* counts;               // [2], zeroed by the caller
-};
-
-template <typename KR, typename VR, bool kSingle>
-__global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  bool live = false;
-  bool match = false;
-  if (i < a.n_entries) {
-    int32_t b = 0;
-    if (kSingle) {
-      live = a.entry_valid[i];
-    } else {
-      b = __ldg(a.page_block + i / a.E);
-      live = a.entry_valid[i] && b >= 0;
-    }
-    match = live;
-    if (match && a.verdicts != nullptr) match = a.verdicts[i] != 0;
-    if (match && a.n_terms > 0) {
-      KR kk;
-      VR vv;
-      kk.at(a.kv_key, i, a.C);
-      vv.at(a.kv_val, i, a.C);
-      const bool words = a.hit_words != 0;
-      // this entry's block's hit table (first row), or null for the
-      // range test
-      int64_t hrow = -1;
-      if (a.val_hits != nullptr) {
-        if (kSingle) {
-          hrow = 0;
-        } else {
-          const int32_t g = __ldg(a.block_group + b);
-          if (g >= 0) hrow = (int64_t)g * a.t_stride;
-        }
-      }
-      for (int t = 0; t < a.n_terms && match; ++t) {
-        const int64_t row = (int64_t)b * a.t_stride + t;
-        const int32_t key = __ldg(a.term_keys + row);
-        const int32_t* rg = a.val_ranges + row * a.R * 2;
-        const void* h = hrow >= 0
-                            ? hit_row(a.val_hits, hrow + t, a.n_vals, words)
-                            : nullptr;
-        bool hit = false;
-        for (int c = 0; c < a.C && !hit; ++c)
-          hit = slot_hit(kk, vv, c, key, rg, a.R, h, a.n_vals, words);
-        match = hit;
-      }
-    }
-    // the entry columns are read only for entries that passed the terms,
-    // and a bound that admits every value reads no column
-    int32_t score = -1;
-    if (match && (a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu))
-      match = dur_ok(a.dur, i, dur_raw(a.dur, i), a.dur_lo, a.dur_hi);
-    if (match && a.win_start != 0u) match = a.entry_end[i] >= a.win_start;
-    if (match) {
-      const uint32_t start = a.entry_start[i];
-      match = start <= a.win_end;
-      if (match) score = score_of(start);
-    }
-    a.scores[i] = score;
-  }
-  // every lane of every warp reaches the ballots (kThreads % 32 == 0)
-  const unsigned m_bal = __ballot_sync(0xffffffffu, match);
-  const unsigned l_bal = __ballot_sync(0xffffffffu, live);
-  __shared__ int s_cnt[2];
-  if (threadIdx.x == 0) {
-    s_cnt[0] = 0;
-    s_cnt[1] = 0;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&s_cnt[0], __popc(m_bal));
-    atomicAdd(&s_cnt[1], __popc(l_bal));
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (s_cnt[0]) atomicAdd(&a.counts[0], s_cnt[0]);
-    if (s_cnt[1]) atomicAdd(&a.counts[1], s_cnt[1]);
-  }
-}
-
-template <bool kSingle>
-int launch_scan(int kl, int vl, const ScanArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.n_entries + kThreads - 1) / kThreads);
-  return with_readers<kSingle>(kl, vl, [&](auto k, auto v) {
-    scan_kernel<decltype(k), decltype(v), kSingle>
-        <<<blocks, kThreads, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-  });
-}
-
-ScanArgs make_args(const void* kv_key, const void* kv_val,
-                   const void* entry_start, const void* entry_end,
-                   const void* entry_dur, const void* entry_dur_res,
-                   int dur_shift, int res_bytes, const void* entry_valid,
-                   const void* page_block, const void* term_keys,
-                   const void* val_ranges, const void* val_hits,
-                   int hit_words, const void* block_group, int64_t n_entries,
-                   int E, int C, int n_terms, int t_stride, int R,
-                   int64_t n_vals, uint32_t dur_lo, uint32_t dur_hi,
-                   uint32_t win_start, uint32_t win_end,
-                   const void* verdicts, void* scores, void* counts) {
-  ScanArgs a;
-  a.kv_key = kv_key;
-  a.kv_val = kv_val;
-  a.entry_start = (const uint32_t*)entry_start;
-  a.entry_end = (const uint32_t*)entry_end;
-  a.dur = DurCol{entry_dur, entry_dur_res, dur_shift, res_bytes};
-  a.entry_valid = (const bool*)entry_valid;
-  a.page_block = (const int32_t*)page_block;
-  a.term_keys = (const int32_t*)term_keys;
-  a.val_ranges = (const int32_t*)val_ranges;
-  a.val_hits = val_hits;
-  a.hit_words = hit_words;
-  a.block_group = (const int32_t*)block_group;
-  a.verdicts = (const uint8_t*)verdicts;
-  a.n_entries = n_entries;
-  a.E = E;
-  a.C = C;
-  a.n_terms = n_terms;
-  a.t_stride = t_stride;
-  a.R = R;
-  a.n_vals = n_vals;
-  a.dur_lo = dur_lo;
-  a.dur_hi = dur_hi;
-  a.win_start = win_start;
-  a.win_end = win_end;
-  a.scores = (int32_t*)scores;
-  a.counts = (int32_t*)counts;
-  return a;
-}
-
 
 // ---------------------------------------------------------------------
 // K4 coalesced_scan
@@ -907,69 +795,705 @@ coalesced_kernel(const CoalArgs a) {
     if (cnt[j]) atomicAdd(&a.counts[j], cnt[j]);
 }
 
+
+// ---------------------------------------------------------------------
+// K1 multi_scan and K1s scan_single (see the header)
+
+constexpr int kK1PatTerms = 32;           // terms the SWAR key test takes
+constexpr int kK1MaxGrid = 2048;          // CTAs, at most (the partials)
+constexpr int kK1Warps = kThreads / 32;
+constexpr int kK1BitTerms = 8;            // range terms with value bitmaps
+constexpr int kK1BitWords = 256;          // a bitmap's words: ids 0..8,191
+constexpr int kK1BitMaxR = 16;            // ranges a term, for bitmaps
+
+
+struct K1Args {
+  const void* kv_key;            // [P, E, C] in the key layout
+  const void* kv_val;            // [P, E, C] in the value layout
+  const uint32_t* entry_start;   // [P, E]
+  const uint32_t* entry_end;
+  DurCol dur;
+  const uint8_t* entry_valid;    // [P, E] bool
+  const int32_t* page_block;     // [P]; null for K1s (every page block 0)
+  const int32_t* term_keys;      // [B, t_stride]
+  const int32_t* val_ranges;     // [B, t_stride, R, 2]
+  const void* val_hits;          // [G, t_stride, n_vals] or null
+  const int32_t* block_group;    // [B]; null with val_hits: K1s (group 0)
+  const uint8_t* verdicts;       // [P * E] or null
+  int E, C, n_terms, t_stride, R;
+  int64_t n_vals;                // hit row length, in elements
+  int hit_words;                 // the hit table holds words
+  uint32_t dur_lo, dur_hi, win_start, win_end;
+  int te;                        // entries a tile, at most (a page's)
+  int tpp;                       // tiles a page
+  int64_t tiles;                 // P * tpp
+  int kbytes, vbytes;            // an entry's key / value slot bytes
+  int dbytes;                    // a duration's bytes (4 or 2)
+  int s_pat, s_bits, s_rng, s_red;  // shared memory: the terms' lane
+                                 // values, the value bitmaps and the
+                                 // ranges they come from, counts
+  int bits;                      // range blocks build value bitmaps
+  int32_t* scores;               // [P * E]
+  int32_t* counts;               // [2]
+  int32_t* partials;             // [2 * gridDim.x]
+};
+
+// The lanes of a key column: each slot's bits in its run (kBits: 4, 8, 16
+// or 32) and, for a key id, the lane value that holds it -- the id itself
+// (Ids), or its code id + 1 (Codes, Nibbles) -- or false when no lane of
+// the column can hold that id (then no slot matches it).
+template <typename KR>
+struct KeyLanes;
+
+template <typename T>
+struct KeyLanes<Ids<T>> {
+  static constexpr int kBits = 8 * sizeof(T);
+  __device__ static bool lane(int32_t key, uint32_t& v) {
+    if constexpr (kBits < 32) {
+      if (key < -(1 << (kBits - 1)) || key >= (1 << (kBits - 1)))
+        return false;
+      v = (uint32_t)key & ((1u << kBits) - 1u);
+    } else {
+      v = (uint32_t)key;
+    }
+    return true;
+  }
+};
+
+template <typename U>
+struct KeyLanes<Codes<U>> {
+  static constexpr int kBits = 8 * sizeof(U);
+  __device__ static bool lane(int32_t key, uint32_t& v) {
+    v = (uint32_t)key + 1u;
+    if constexpr (kBits < 32) return v < (1u << kBits);
+    return true;
+  }
+};
+
+template <>
+struct KeyLanes<Nibbles> {
+  static constexpr int kBits = 4;
+  __device__ static bool lane(int32_t key, uint32_t& v) {
+    v = (uint32_t)key + 1u;
+    return v < 16u;
+  }
+};
+
+// a lane value repeated over a 32-bit word
+template <int B>
+__device__ __forceinline__ uint32_t lane_splat(uint32_t v) {
+  if constexpr (B == 4) return v * 0x11111111u;
+  if constexpr (B == 8) return v * 0x01010101u;
+  if constexpr (B == 16) return v * 0x00010001u;
+  return v;
+}
+
+// the top bit of every B-bit lane of y that is zero, exactly (no borrow
+// crosses a lane)
+template <int B>
+__device__ __forceinline__ uint32_t zero_lanes(uint32_t y) {
+  if constexpr (B == 32) return y == 0u ? 0x80000000u : 0u;
+  constexpr uint32_t lo = B == 4 ? 0x77777777u
+                          : B == 8 ? 0x7F7F7F7Fu : 0x7FFF7FFFu;
+  return ~(((y & lo) + lo) | y | lo);
+}
+
+// The block's state a CTA keeps in shared memory while its tiles stay on
+// one block (read by every thread as broadcasts, so it holds no
+// registers): the block, each term's lane value splatted over a word, the
+// terms the key column can hold, its first hit row, and whether `bits`
+// holds the value bitmaps of its range terms.
+struct K1Block {
+  int32_t b;               // -1 before the first block
+  unsigned can;            // bit t: a lane can hold term t's key
+  int32_t use_bits;
+  int32_t pad;
+  long long hrow;          // first hit row of the block's group, or -1
+  uint32_t pat[kK1PatTerms];   // term t's lane value, splatted
+};
+
+// one term's value test for the block: its bitmap (a range term t < 8 and
+// an id below 8,192), else its hit row or its ranges
+__device__ __forceinline__ bool k1_value(const K1Args& a, const K1Block& k,
+                                         const uint32_t* bits, int t,
+                                         int32_t v) {
+  if (k.use_bits && t < kK1BitTerms &&
+      (unsigned)v < (unsigned)(kK1BitWords * 32))
+    return (bits[t * kK1BitWords + (v >> 5)] >> (v & 31)) & 1u;
+  const bool words = a.hit_words != 0;
+  return value_ok(v,
+                  a.val_ranges + ((int64_t)k.b * a.t_stride + t) * a.R * 2,
+                  a.R,
+                  k.hrow >= 0 ? hit_row(a.val_hits, k.hrow + t, a.n_vals,
+                                        words)
+                              : nullptr,
+                  a.n_vals, words);
+}
+
+// Up to 16 bytes of a run from device memory, as the 4 words of its
+// bytes [0, 16): the aligned words that hold it, loaded together, shifted
+// into place. Bytes past the run are left 0; nothing past it is read.
+struct Run16 {
+  uint32_t x[4];
+  __device__ __forceinline__ void load(const void* p, int nbytes) {
+    const uintptr_t g = (uintptr_t)p;
+    // one vector where the run is a whole aligned vector (the common
+    // widths: 16 bytes of int16/u16 values, 8 of int8 keys, 4 of u4 keys)
+    if (nbytes == 16 && (g & 15) == 0) {
+      const uint4 v = __ldg((const uint4*)p);
+      x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+      return;
+    }
+    if (nbytes == 8 && (g & 7) == 0) {
+      const uint2 v = __ldg((const uint2*)p);
+      x[0] = v.x; x[1] = v.y; x[2] = x[3] = 0u;
+      return;
+    }
+    if (nbytes == 4 && (g & 3) == 0) {
+      x[0] = __ldg((const uint32_t*)p);
+      x[1] = x[2] = x[3] = 0u;
+      return;
+    }
+    const uint32_t* w = (const uint32_t*)(g & ~(uintptr_t)3);
+    const unsigned off = (unsigned)(g & 3u);
+    const int na = (int)((off + nbytes + 3u) >> 2);   // 1..5 words
+    uint32_t r[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) r[k] = k < na ? __ldg(w + k) : 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = __funnelshift_r(r[k], r[k + 1], 8u * off);
+  }
+  // lane c of B bits (c * B < 128)
+  template <int B>
+  __device__ __forceinline__ uint32_t lane(int c) const {
+    const int bit = c * B;
+    const int q = bit >> 5;
+    const uint32_t w = q == 0 ? x[0] : q == 1 ? x[1] : q == 2 ? x[2] : x[3];
+    return B == 32 ? w : (w >> (bit & 31)) & ((1u << (B & 31)) - 1u);
+  }
+};
+
+// a value slot of a run held in registers, as its reader would read it
+template <typename VR>
+struct ValueLanes;
+template <typename T>
+struct ValueLanes<Ids<T>> {
+  static constexpr int kBits = 8 * sizeof(T);
+  __device__ static int32_t id(uint32_t lane) {
+    return kBits == 32 ? (int32_t)lane
+                       : (int32_t)(lane << (32 - kBits)) >> (32 - kBits);
+  }
+};
+template <typename U>
+struct ValueLanes<Codes<U>> {
+  static constexpr int kBits = 8 * sizeof(U);
+  __device__ static int32_t id(uint32_t lane) {
+    return (int32_t)(lane - 1u);
+  }
+};
+template <>
+struct ValueLanes<Nibbles> {
+  static constexpr int kBits = 4;
+  __device__ static int32_t id(uint32_t lane) {
+    return (int32_t)(lane - 1u);
+  }
+};
+
+// The terms of the block over entry i. Its key run is read once: up to 16
+// bytes as one batch of aligned words (Run16), a longer one a word at a
+// time through L1 (a warp's runs are contiguous). Term by term, each run
+// word's lanes are compared with the term's lane value at once (SWAR: one
+// xor and a zero-lane test per word), and only a lane whose key names the
+// term has its value tested: from the value run loaded with the keys when
+// it is up to 16 bytes, else read then. The entry stops at its first term
+// that no slot passes. Terms past the
+// first 32 (never on a request's path) take a slot loop one term at a
+// time.
+template <typename KR, typename VR>
+__device__ __forceinline__ bool k1_terms(const K1Args& a, int64_t i,
+                                         const K1Block& k,
+                                         const uint32_t* bits,
+                                         const Run16& kr, const Run16& vr) {
+  constexpr int B = KeyLanes<KR>::kBits, kLanes = 32 / B;
+  constexpr int VB = ValueLanes<VR>::kBits;
+  const int tl = min(a.n_terms, kK1PatTerms);
+  const unsigned want = tl == 32 ? ~0u : (1u << tl) - 1u;
+  if ((k.can & want) != want) return false;
+  KR kk;
+  VR vv;
+  kk.at(a.kv_key, i, a.C);
+  vv.at(a.kv_val, i, a.C);
+  const char* krun = (const char*)a.kv_key + i * a.kbytes;
+  const bool kfast = a.kbytes <= 16, vfast = a.vbytes <= 16;
+  const uintptr_t g = (uintptr_t)krun;
+  const uint32_t* w = (const uint32_t*)(g & ~(uintptr_t)3);
+  const unsigned off = (unsigned)(g & 3u);
+  const int na = (int)((off + a.kbytes + 3u) >> 2);
+  const int nw = (a.C + kLanes - 1) / kLanes;           // run words
+  // term by term, in order: an entry stops at its first term that no
+  // slot passes (most entries fail the first term, and a hit lookup or
+  // a value read is the costly part)
+  for (int t = 0; t < tl; ++t) {
+    const uint32_t pt = k.pat[t];
+    bool found = false;
+    uint32_t w0 = kfast ? 0u : __ldg(w);
+    for (int j = 0; j < nw && !found; ++j) {
+      uint32_t x;
+      if (kfast) {
+        x = j == 0 ? kr.x[0] : j == 1 ? kr.x[1] : j == 2 ? kr.x[2] : kr.x[3];
+      } else {
+        const uint32_t w1 = j + 1 < na ? __ldg(w + j + 1) : 0u;
+        x = __funnelshift_r(w0, w1, 8u * off);
+        w0 = w1;
+      }
+      const int nl = min(kLanes, a.C - j * kLanes);
+      uint32_t z = zero_lanes<B>(x ^ pt) &
+                   (nl == kLanes ? ~0u : (1u << (nl * B)) - 1u);
+      while (z) {
+        const int c = j * kLanes + (__ffs(z) - 1) / B;
+        z &= z - 1u;
+        // the value: from the run held in registers, else read now
+        const int32_t v = vfast ? ValueLanes<VR>::id(vr.lane<VB>(c)) : vv[c];
+        if (k1_value(a, k, bits, t, v)) {
+          found = true;
+          break;
+        }
+      }
+    }
+    if (!found) return false;
+  }
+  for (int t = kK1PatTerms; t < a.n_terms; ++t) {
+    const int32_t key = __ldg(a.term_keys + (int64_t)k.b * a.t_stride + t);
+    bool h = false;
+    for (int c = 0; c < a.C && !h; ++c)
+      h = kk[c] == key && k1_value(a, k, bits, t, vv[c]);
+    if (!h) return false;
+  }
+  return true;
+}
+
+// Rebuilds the block state for block b (every thread; the caller has
+// passed a barrier since the last tile read the old state): each term's
+// lane value, and for a block tested by ranges (R <= 16) a bitmap of
+// value ids 0..8,191 for each of its first 8 terms, built from the
+// block's ranges copied once into shared memory. The caller's next
+// barrier publishes it.
+template <typename KR>
+__device__ __forceinline__ void k1_rebuild(const K1Args& a, K1Block& k,
+                                           uint32_t* bits, int32_t* rng,
+                                           int32_t b) {
+  const int tid = threadIdx.x;
+  long long hrow = -1;
+  if (a.val_hits != nullptr) {
+    const int32_t g = a.block_group == nullptr ? 0
+                                               : __ldg(a.block_group + b);
+    if (g >= 0) hrow = (long long)g * a.t_stride;
+  }
+  const bool use_bits = hrow < 0 && a.bits;
+  const int tb = min(a.n_terms, kK1BitTerms);
+  const int32_t* tk = a.term_keys + (int64_t)b * a.t_stride;
+  const int32_t* rg = a.val_ranges + (int64_t)b * a.t_stride * a.R * 2;
+  if (use_bits)
+    for (int w = tid; w < tb * a.R * 2; w += kThreads) rng[w] = __ldg(rg + w);
+  bool can = true;
+  if (tid < kK1PatTerms) {
+    uint32_t v = 0u;
+    can = tid < a.n_terms && KeyLanes<KR>::lane(__ldg(tk + tid), v);
+    k.pat[tid] = lane_splat<KeyLanes<KR>::kBits>(v);
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, can);
+  if (tid == 0) {          // warp 0's lanes are the terms
+    k.b = b;
+    k.can = mask;
+    k.hrow = hrow;
+    k.use_bits = use_bits;
+  }
+  __syncthreads();         // the ranges are in
+  if (use_bits)
+    for (int w = tid; w < tb * kK1BitWords; w += kThreads) {
+      const int t = w / kK1BitWords;
+      const int32_t lo32 = (w % kK1BitWords) * 32;
+      uint32_t x = 0u;
+      for (int r = 0; r < a.R; ++r) {
+        const int32_t l = max(rng[(t * a.R + r) * 2], lo32);
+        const int32_t h = min(rng[(t * a.R + r) * 2 + 1], lo32 + 31);
+        if (l <= h) x |= (~0u >> (31 - (h - l))) << (l - lo32);
+      }
+      bits[w] = x;
+    }
+}
+
+// One entry's bounds and score, its duration and end given (read only where
+// the bound needs them); the start is read only where those pass.
+__device__ __forceinline__ bool k1_bounds(const K1Args& a, int64_t i,
+                                          uint32_t dq, uint32_t end,
+                                          int32_t& score) {
+  score = -1;
+  if ((a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu) &&
+      !dur_ok(a.dur, i, dq, a.dur_lo, a.dur_hi))
+    return false;
+  if (a.win_start != 0u && end < a.win_start) return false;
+  const uint32_t start = a.entry_start[i];
+  if (start > a.win_end) return false;
+  score = score_of(start);
+  return true;
+}
+
+// Counts: each thread's pair summed per warp, per CTA into `partials`,
+// then after one grid barrier CTA 0 sums them into `counts` (a cooperative
+// launch), so no launch zeroes them first.
+__device__ __forceinline__ void k1_counts(const K1Args& a, int* red,
+                                          int n_match, int n_live) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  n_match = __reduce_add_sync(0xffffffffu, n_match);
+  n_live = __reduce_add_sync(0xffffffffu, n_live);
+  if (lane == 0) {
+    red[2 * warp] = n_match;
+    red[2 * warp + 1] = n_live;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int m = 0, l = 0;
+    for (int w = 0; w < kK1Warps; ++w) {
+      m += red[2 * w];
+      l += red[2 * w + 1];
+    }
+    a.partials[2 * blockIdx.x] = m;
+    a.partials[2 * blockIdx.x + 1] = l;
+  }
+  cg::this_grid().sync();
+  if (blockIdx.x == 0) {
+    int m = 0, l = 0;
+    for (int k = tid; k < (int)gridDim.x; k += kThreads) {
+      m += __ldcg(a.partials + 2 * k);
+      l += __ldcg(a.partials + 2 * k + 1);
+    }
+    m = __reduce_add_sync(0xffffffffu, m);
+    l = __reduce_add_sync(0xffffffffu, l);
+    if (lane == 0) {
+      red[2 * warp] = m;
+      red[2 * warp + 1] = l;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      m = l = 0;
+      for (int w = 0; w < kK1Warps; ++w) {
+        m += red[2 * w];
+        l += red[2 * w + 1];
+      }
+      a.counts[0] = m;
+      a.counts[1] = l;
+    }
+  }
+}
+
+// A persistent cooperative grid: CTA j walks its run of tiles (256
+// entries of one page, one a thread) in page order, with no barrier a
+// tile: each thread reads its entry's valid flag, verdict and key run
+// straight from device memory (the warp's runs are contiguous, so the
+// words coalesce and L1 serves their neighbours), prefetches its value run
+// into L1, and tests the terms in registers. The CTA meets only where the
+// page's block changes, to rebuild the block state. Enough warps stay
+// resident to cover the loads' latency.
+// 5 CTAs an SM: ptxas keeps every build within 48 registers and none
+// spills (at 6 and more some spill; run I-series, PERF.md PR 13)
+template <typename KR, typename VR>
+__global__ void __launch_bounds__(kThreads, 5) k1_kernel(const K1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  K1Block& blk = *(K1Block*)(smem + a.s_pat);
+  uint32_t* bits = (uint32_t*)(smem + a.s_bits);
+  int32_t* rng = (int32_t*)(smem + a.s_rng);
+  int* red = (int*)(smem + a.s_red);          // [kK1Warps][2]
+  const int tid = threadIdx.x;
+  const int t0 = (int)((int64_t)blockIdx.x * a.tiles / gridDim.x);
+  const int t1 = (int)((int64_t)(blockIdx.x + 1) * a.tiles / gridDim.x);
+  int page = t0 / a.tpp;                      // no division past this one
+  int sub = t0 - page * a.tpp;
+  if (tid == 0) blk.b = -1;
+  __syncthreads();
+  int n_match = 0, n_live = 0;
+  for (int tile = t0; tile < t1; ++tile) {
+    const int e = sub * kThreads + tid;
+    const int64_t i = (int64_t)page * a.E + e;
+    const int32_t b = a.page_block == nullptr ? 0
+                                              : __ldg(a.page_block + page);
+    if (++sub == a.tpp) {
+      sub = 0;
+      ++page;
+    }
+    if (b >= 0 && b != blk.b) {   // the same tile in every thread
+      __syncthreads();        // no thread still reads the old state
+      k1_rebuild<KR>(a, blk, bits, rng, b);
+      __syncthreads();
+    }
+    if (e >= a.E) continue;
+    // the key and value runs of up to 16 bytes load with the valid flag,
+    // not after it: entries are nearly all live, and a latency saved here
+    // is one less in each entry's chain
+    Run16 kr, vr;
+    if (b >= 0) {
+      if (a.kbytes <= 16)
+        kr.load((const char*)a.kv_key + i * a.kbytes, a.kbytes);
+      if (a.vbytes <= 16)
+        vr.load((const char*)a.kv_val + i * a.vbytes, a.vbytes);
+    }
+    const bool live = b >= 0 && a.entry_valid[i] != 0;
+    bool match = live;
+    if (match && a.verdicts != nullptr) match = a.verdicts[i] != 0;
+    if (match)
+      match = k1_terms<KR, VR>(a, i, blk, bits, kr, vr);
+    // the entry columns are read only for entries that passed the terms,
+    // and a bound that admits every value reads no column
+    int32_t score = -1;
+    if (match)
+      match = k1_bounds(
+          a, i,
+          a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu ? dur_raw(a.dur, i) : 0u,
+          a.win_start != 0u ? a.entry_end[i] : 0u, score);
+    a.scores[i] = score;
+    n_match += match;
+    n_live += live;
+  }
+  k1_counts(a, red, n_match, n_live);
+}
+
+// K1 and K1s for a request without terms (a duration or window bound, or
+// structural verdicts alone): no kv slot is read, and every live entry
+// reads the bounds' columns, so the kernel streams them with no stage:
+// each thread takes 4 consecutive entries of a tile (1,024 entries of one
+// page), their valid flags, verdicts, durations and ends in one vector
+// load each (kVec: the page length and the columns keep 4 entries
+// aligned; else one entry at a time), and reads the starts only of the
+// entries that pass. A persistent cooperative grid of short-lived warps
+// (no barrier a tile) keeps enough loads in flight.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) k1_cols_kernel(const K1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* red = (int*)smem;                      // [kK1Warps][2]
+  const int tid = threadIdx.x;
+  const int64_t t0 = (int64_t)blockIdx.x * a.tiles / gridDim.x;
+  const int64_t t1 = (int64_t)(blockIdx.x + 1) * a.tiles / gridDim.x;
+  const bool by_dur = a.dur_lo != 0u || a.dur_hi != 0xFFFFFFFFu;
+  int64_t page = t0 / a.tpp;
+  int sub = (int)(t0 - page * a.tpp);
+  int n_match = 0, n_live = 0;
+  for (int64_t tile = t0; tile < t1; ++tile) {
+    const int e0 = sub * a.te;
+    const int ne = min(a.te, a.E - e0);
+    const int64_t base = page * a.E + e0;
+    const bool pad = a.page_block != nullptr && __ldg(a.page_block + page) < 0;
+    if (++sub == a.tpp) {
+      sub = 0;
+      ++page;
+    }
+    if (kVec) {
+      const int e = 4 * tid;
+      if (e >= ne) continue;
+      const int64_t i = base + e;
+      if (pad) {
+        *(int4*)(a.scores + i) = make_int4(-1, -1, -1, -1);
+        continue;
+      }
+      const uchar4 v4 = *(const uchar4*)(a.entry_valid + i);
+      uchar4 d4 = make_uchar4(1, 1, 1, 1);
+      if (a.verdicts != nullptr) d4 = *(const uchar4*)(a.verdicts + i);
+      uint4 q = make_uint4(0, 0, 0, 0), en = make_uint4(0, 0, 0, 0);
+      if (by_dur) {
+        if (a.dbytes == 4) {
+          q = *(const uint4*)((const uint32_t*)a.dur.dur + i);
+        } else {
+          const ushort4 h = *(const ushort4*)((const uint16_t*)a.dur.dur + i);
+          q = make_uint4(h.x, h.y, h.z, h.w);
+        }
+      }
+      if (a.win_start != 0u) en = *(const uint4*)(a.entry_end + i);
+      const bool lv[4] = {v4.x != 0, v4.y != 0, v4.z != 0, v4.w != 0};
+      const bool vd[4] = {d4.x != 0, d4.y != 0, d4.z != 0, d4.w != 0};
+      const uint32_t qs[4] = {q.x, q.y, q.z, q.w};
+      const uint32_t es[4] = {en.x, en.y, en.z, en.w};
+      int32_t sc[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sc[k] = -1;
+        const bool m = lv[k] && vd[k] && k1_bounds(a, i + k, qs[k], es[k],
+                                                   sc[k]);
+        n_match += m;
+        n_live += lv[k];
+      }
+      *(int4*)(a.scores + i) = make_int4(sc[0], sc[1], sc[2], sc[3]);
+    } else {
+      for (int e = tid; e < ne; e += kThreads) {
+        const int64_t i = base + e;
+        int32_t sc = -1;
+        if (!pad) {
+          const bool live = a.entry_valid[i] != 0;
+          n_live += live;
+          if (live && (a.verdicts == nullptr || a.verdicts[i] != 0))
+            n_match += k1_bounds(
+                a, i, by_dur ? dur_raw(a.dur, i) : 0u,
+                a.win_start != 0u ? a.entry_end[i] : 0u, sc);
+        }
+        a.scores[i] = sc;
+      }
+    }
+  }
+  k1_counts(a, red, n_match, n_live);
+}
+
+// A cooperative launch of a K1 kernel over a.tiles: as many CTAs as fit
+// on the card (at most kK1MaxGrid), the resident count kept in `occ` for
+// the shared-memory size last asked. The allowance is raised to the whole
+// 227 KB, never to this call's size: other host threads launch the same
+// kernel.
+template <typename Kern>
+int k1_launch(Kern kern, std::atomic<long long>& occ, K1Args& a, int smem,
+              int64_t n, void* out, int64_t out_ints, cudaStream_t s) {
+  cudaError_t rc = cudaSuccess;
+  if (smem > 48 * 1024)
+    rc = cudaFuncSetAttribute((const void*)kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemMax);
+  int per_sm = 0, dev = 0, sms = 0;
+  const long long known = occ.load(std::memory_order_relaxed);
+  if (known >= 0 && (known >> 8) == smem) {
+    per_sm = (int)(known & 255);
+  } else if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                       kThreads, smem);
+    if (rc == cudaSuccess)
+      occ.store(((long long)smem << 8) | (per_sm & 255),
+                std::memory_order_relaxed);
+  }
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int64_t grid = (int64_t)per_sm * sms;
+  if (grid > kK1MaxGrid) grid = kK1MaxGrid;
+  if (grid > a.tiles) grid = a.tiles;
+  if (out_ints < n + 2 + 2 * grid) return (int)cudaErrorInvalidValue;
+  a.scores = (int32_t*)out;
+  a.counts = a.scores + n;
+  a.partials = a.counts + 2;
+  void* args[] = {(void*)&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)kern,
+                                          dim3((unsigned)grid),
+                                          dim3(kThreads), args, (size_t)smem,
+                                          s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1. key_layout/val_layout: the kv columns' Layout (both unpacked or
-// both packed). dur_shift: -1 = u32 durations, 0 = exact u16, s > 0 = u16
-// buckets with an s-bit residual of res_bytes bytes (entry_dur_res).
-// val_hits ([G, t_stride, n_vals] bytes, or words with hit_words) and
-// block_group (i32 [B]) are both null (range mode) or both set (hit-mask
-// mode). verdicts: u8 [n_entries] structural verdicts, or null. Returns
-// the cudaError_t of the launch (0 = launched).
-int tt_multi_scan(int key_layout, int val_layout, const void* kv_key,
-                  const void* kv_val, const void* entry_start,
-                  const void* entry_end, const void* entry_dur,
-                  const void* entry_dur_res, int dur_shift, int res_bytes,
-                  const void* entry_valid, const void* page_block,
-                  const void* term_keys, const void* val_ranges,
-                  const void* val_hits, int hit_words,
-                  const void* block_group, int64_t n_entries, int E, int C,
-                  int n_terms, int t_stride, int R, int64_t n_vals,
-                  uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
-                  uint32_t win_end, const void* verdicts, void* scores,
-                  void* counts, void* stream) {
-  if (n_entries <= 0) return 0;
-  if ((val_hits == nullptr) != (block_group == nullptr) ||
-      !valid_dur(dur_shift, res_bytes, entry_dur_res) ||
-      !valid_layouts(key_layout, val_layout, C))
-    return (int)cudaErrorInvalidValue;
-  const ScanArgs a = make_args(
-      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
-      dur_shift, res_bytes, entry_valid, page_block, term_keys, val_ranges,
-      val_hits, hit_words, block_group, n_entries, E, C, n_terms, t_stride,
-      R, n_vals, dur_lo, dur_hi, win_start, win_end, verdicts, scores,
-      counts);
-  return launch_scan<false>(key_layout, val_layout, a, (cudaStream_t)stream);
-}
+// K1 and K1s: one launcher, given a descriptor of the call (int64 each,
+// in the order of the K1Desc enum; kernels/scan.py builds it once per
+// staged batch and predicate). key/val layout: the kv columns' Layout
+// (both unpacked or both packed; without page_block, K1s, the unpacked
+// pair is int32/int32). dur_shift: -1 = u32 durations, 0 = exact u16,
+// s > 0 = u16 buckets with an s-bit residual of res_bytes bytes.
+// val_hits: null (range mode), [G, t_stride, n_vals] with block_group
+// [B] (K1), or [t_stride, n_vals] on every page (K1s: page_block and
+// block_group null); bytes, or words with hit_words. verdicts: u8
+// [P * E] structural verdicts, or null. out: int32 [out_ints] of at
+// least P * E + 2 + 2 * kK1MaxGrid, receiving the scores, then the two
+// counts (match count, inspected), then the CTAs' partial counts.
+// Returns the cudaError_t of the launch (0 = launched).
+enum K1Desc {
+  kdKeyLayout, kdValLayout, kdKvKey, kdKvVal, kdStart, kdEnd, kdDur,
+  kdDurRes, kdDurShift, kdResBytes, kdValid, kdPageBlock, kdTermKeys,
+  kdValRanges, kdValHits, kdHitWords, kdBlockGroup, kdP, kdE, kdC,
+  kdNTerms, kdTStride, kdR, kdNVals, kdDurLo, kdDurHi, kdWinStart,
+  kdWinEnd, kdCount
+};
 
-// K1s: one block's kv columns (the unpacked layout: int32 ids; or any
-// packed pair), term tables [t_stride] and [t_stride, R, 2], durations
-// as for K1, and an optional hit table [t_stride, n_vals] (bytes, or
-// words with hit_words; null = range mode), and verdicts as for K1.
-// Returns the cudaError_t of the launch.
-int tt_scan_single(int key_layout, int val_layout, const void* kv_key,
-                   const void* kv_val, const void* entry_start,
-                   const void* entry_end, const void* entry_dur,
-                   const void* entry_dur_res, int dur_shift, int res_bytes,
-                   const void* entry_valid, const void* term_keys,
-                   const void* val_ranges, const void* val_hits,
-                   int hit_words, int64_t n_entries, int E, int C,
-                   int n_terms, int t_stride, int R, int64_t n_vals,
-                   uint32_t dur_lo, uint32_t dur_hi, uint32_t win_start,
-                   uint32_t win_end, const void* verdicts, void* scores,
-                   void* counts, void* stream) {
-  if (n_entries <= 0) return 0;
-  if (!valid_dur(dur_shift, res_bytes, entry_dur_res) ||
-      !valid_layouts(key_layout, val_layout, C))
+int tt_scan_k1_desc_len() { return kdCount; }
+
+int tt_scan_k1_max_grid() { return kK1MaxGrid; }
+
+int tt_scan_k1(const int64_t* d, const void* verdicts, void* out,
+               int64_t out_ints, void* stream) {
+  auto ptr = [&](int k) { return (const void*)(uintptr_t)d[k]; };
+  const int kl = (int)d[kdKeyLayout], vl = (int)d[kdValLayout];
+  const int64_t P = d[kdP];
+  K1Args a;
+  a.kv_key = ptr(kdKvKey);
+  a.kv_val = ptr(kdKvVal);
+  a.entry_start = (const uint32_t*)ptr(kdStart);
+  a.entry_end = (const uint32_t*)ptr(kdEnd);
+  a.dur = DurCol{ptr(kdDur), ptr(kdDurRes), (int)d[kdDurShift],
+                 (int)d[kdResBytes]};
+  a.entry_valid = (const uint8_t*)ptr(kdValid);
+  a.page_block = (const int32_t*)ptr(kdPageBlock);
+  a.term_keys = (const int32_t*)ptr(kdTermKeys);
+  a.val_ranges = (const int32_t*)ptr(kdValRanges);
+  a.val_hits = ptr(kdValHits);
+  a.hit_words = (int)d[kdHitWords];
+  a.block_group = (const int32_t*)ptr(kdBlockGroup);
+  a.verdicts = (const uint8_t*)verdicts;
+  a.E = (int)d[kdE];
+  a.C = (int)d[kdC];
+  a.n_terms = (int)d[kdNTerms];
+  a.t_stride = (int)d[kdTStride];
+  a.R = (int)d[kdR];
+  a.n_vals = d[kdNVals];
+  a.dur_lo = (uint32_t)d[kdDurLo];
+  a.dur_hi = (uint32_t)d[kdDurHi];
+  a.win_start = (uint32_t)d[kdWinStart];
+  a.win_end = (uint32_t)d[kdWinEnd];
+  const bool single = a.page_block == nullptr;
+  if (P <= 0 || a.E <= 0) return 0;
+  if ((single ? a.block_group != nullptr
+              : (a.val_hits == nullptr) != (a.block_group == nullptr)) ||
+      !valid_dur(a.dur.shift, a.dur.res_bytes, a.dur.res) ||
+      !valid_layouts(kl, vl, a.C) || a.C < 1 || a.n_terms < 0 ||
+      a.n_terms > a.t_stride || a.R < 1)
     return (int)cudaErrorInvalidValue;
-  const ScanArgs a = make_args(
-      kv_key, kv_val, entry_start, entry_end, entry_dur, entry_dur_res,
-      dur_shift, res_bytes, entry_valid, nullptr, term_keys, val_ranges,
-      val_hits, hit_words, nullptr, n_entries, E, C, n_terms, t_stride, R,
-      n_vals, dur_lo, dur_hi, win_start, win_end, verdicts, scores, counts);
-  return launch_scan<true>(key_layout, val_layout, a, (cudaStream_t)stream);
+  const int64_t n = P * a.E;
+  cudaStream_t s = (cudaStream_t)stream;
+  a.dbytes = a.dur.shift < 0 ? 4 : 2;
+  if (a.n_terms == 0) {
+    // no terms: the streaming kernel, 4 entries a thread, tiles of 1,024
+    // entries of a page; vectors where the page length and the columns
+    // keep 4 entries aligned
+    a.te = a.E < 4 * kThreads ? (a.E + 3) & ~3 : 4 * kThreads;
+    a.tpp = (a.E + a.te - 1) / a.te;
+    a.tiles = P * a.tpp;
+    auto al = [](const void* p, int b) { return ((uintptr_t)p % b) == 0; };
+    const bool vec = a.E % 4 == 0 && al(a.entry_valid, 4) &&
+                     al(a.verdicts, 4) && al(a.dur.dur, 4 * a.dbytes) &&
+                     al(a.entry_end, 16) && al(out, 16);
+    static std::atomic<long long> occ_vec{-1}, occ_one{-1};
+    if (vec)
+      return k1_launch(k1_cols_kernel<true>, occ_vec, a, kK1Warps * 8, n,
+                       out, out_ints, s);
+    return k1_launch(k1_cols_kernel<false>, occ_one, a, kK1Warps * 8, n, out,
+                     out_ints, s);
+  }
+  // terms: tiles of 256 entries of a page, one a thread
+  a.kbytes = slot_bytes(kl, a.C);
+  a.vbytes = slot_bytes(vl, a.C);
+  a.te = kThreads;
+  a.tpp = (a.E + kThreads - 1) / kThreads;
+  a.tiles = P * a.tpp;
+  if (a.tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  // the block state: the terms' lane values (and the mask of those a lane
+  // can hold), the value bitmaps of range blocks (R <= 16, range mode)
+  // and their ranges, the counts
+  a.bits = a.R <= kK1BitMaxR && a.val_hits == nullptr;
+  a.s_pat = 0;
+  a.s_bits = a.s_pat + (int)((sizeof(K1Block) + 15) & ~(size_t)15);
+  a.s_rng = a.s_bits + (a.bits ? kK1BitTerms * kK1BitWords * 4 : 0);
+  a.s_red = a.s_rng + (a.bits ? kK1BitTerms * kK1BitMaxR * 8 : 0);
+  const int smem = a.s_red + kK1Warps * 8;
+  auto go = [&](auto k, auto v) -> int {
+    static std::atomic<long long> occ{-1};
+    return k1_launch(k1_kernel<decltype(k), decltype(v)>, occ, a, smem, n,
+                     out, out_ints, s);
+  };
+  if (single) return with_readers<true>(kl, vl, go);
+  return with_readers<false>(kl, vl, go);
 }
 
 // The bytes of K4's per-block term tables (the `tables` scratch of

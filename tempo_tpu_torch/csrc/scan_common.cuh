@@ -1,7 +1,8 @@
 // Device helpers shared by csrc/scan.cu (K1, K1s, K4) and
 // csrc/structural.cu (K6): the kv column readers of the unpacked and
-// packed layouts, the hit-table lookup, one kv slot's term test and the
-// duration test, so that the kernels cannot drift apart. See scan.cu's
+// packed layouts, the hit-table lookup, a term's value test, one kv
+// slot's term test and the duration test, so that the kernels cannot
+// drift apart. See scan.cu's
 // header for the layouts.
 
 #pragma once
@@ -70,22 +71,29 @@ __device__ __forceinline__ const void* hit_row(const void* base, int64_t row,
                : (const void*)((const uint8_t*)base + row * n);
 }
 
-// One kv slot against one term: key equality, then value membership --
-// a lookup in the term's hit row `h` (hit-mask mode), or the range test
-// over `rg` [R][2]. A value id < 0 never hits. `kk`/`vv` are readers of
-// the entry's slots; the value slot is read only when the key matches.
+// One term's value test of value id v: a lookup in the term's hit row
+// `h` (hit-mask mode; an id < 0 never hits), or the range test over `rg`
+// [R][2].
+__device__ __forceinline__ bool value_ok(int32_t v, const int32_t* rg,
+                                         int R, const void* h,
+                                         int64_t n_vals, bool words) {
+  if (h != nullptr) return v >= 0 && n_vals > 0 &&
+                           hit_lookup(h, n_vals, words, v);
+  for (int r = 0; r < R; ++r)
+    if (v >= rg[2 * r] && v <= rg[2 * r + 1]) return true;
+  return false;
+}
+
+// One kv slot against one term: key equality, then value_ok. `kk`/`vv`
+// are readers of the entry's slots; the value slot is read only when the
+// key matches.
 template <typename KP, typename VP>
 __device__ __forceinline__ bool slot_hit(const KP& kk, const VP& vv, int c,
                                          int32_t key, const int32_t* rg,
                                          int R, const void* h,
                                          int64_t n_vals, bool words) {
   if (kk[c] != key) return false;
-  const int32_t v = vv[c];
-  if (h != nullptr) return v >= 0 && n_vals > 0 &&
-                           hit_lookup(h, n_vals, words, v);
-  for (int r = 0; r < R; ++r)
-    if (v >= rg[2 * r] && v <= rg[2 * r + 1]) return true;
-  return false;
+  return value_ok(vv[c], rg, R, h, n_vals, words);
 }
 
 // The duration column: u32 (shift -1), exact u16 (shift 0), or u16

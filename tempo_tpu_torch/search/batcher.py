@@ -325,6 +325,30 @@ class QueryCoalescer:
             self._run(flush_now)
         return fut
 
+    def withdraw(self, fut: concurrent.futures.Future) -> bool:
+        """Take a query whose caller no longer wants its outputs out of
+        its pending group, and cancel its future. A group it leaves empty
+        goes with its deadline, so no dispatch runs for nobody. Returns
+        False when a flush has already taken the query (it then runs as
+        it would have)."""
+        with self._lock:
+            for key, grp in self._pending.items():
+                for j, item in enumerate(grp.items):
+                    if item[2] is fut:
+                        break
+                else:
+                    continue
+                del grp.items[j]
+                if not grp.items:
+                    del self._pending[key]
+                    self._deadlines = [d for d in self._deadlines
+                                       if d[1] != grp.gen]
+                    heapq.heapify(self._deadlines)
+                    self._cv.notify()
+                fut.cancel()
+                return True
+        return False
+
     def _window_loop(self) -> None:
         """The scheduler thread: pop due deadlines, skip those whose group
         a size flush already took, hand the rest to the flush pool."""
@@ -651,6 +675,15 @@ class BlockBatcher:
                         c.pins -= 1
                     self._evict_locked()
 
+    def _abandon(self, inflight: deque) -> None:
+        """Drop a search's undrained dispatches: a query still parked in
+        the coalescer is withdrawn from its pending group."""
+        if self.coalescer is not None:
+            for _cached, _mq, _pre, out in inflight:
+                if isinstance(out, concurrent.futures.Future):
+                    self.coalescer.withdraw(out)
+        inflight.clear()
+
     def _release_locked(self, gkey) -> None:
         n = self._interest.get(gkey, 0) - 1
         if n <= 0:
@@ -801,66 +834,72 @@ class BlockBatcher:
             groups = sorted(
                 groups, key=lambda g: tuple(j.key for j in g) not in resident)
 
-        for gi, group in enumerate(groups):
-            if results.complete:
-                break
-            gkey = tuple(j.key for j in group)
-            hdr_reasons = hdr_reasons_for(group)
-            if all(hdr_reasons):
-                results.metrics.skipped_blocks += len(group)
-                continue
-            ahead = prefetched.pop(gkey, None)
-            cached = (ahead[0].take() if ahead is not None
-                      else self._staged(group))
-            with self._lock:
-                cached.pins += 1
-            pinned.append(cached)
-            submit_prefetch(gi + 1)
-            with self._lock:
-                pre = cached.query_cache.get(sig)
-                if pre is not None:
-                    cached.query_cache.move_to_end(sig)
-            if pre is None:
-                pre = prepare(group, cached.batch,
-                              [r is not None for r in hdr_reasons])
+        try:
+            for gi, group in enumerate(groups):
+                if results.complete:
+                    break
+                gkey = tuple(j.key for j in group)
+                hdr_reasons = hdr_reasons_for(group)
+                if all(hdr_reasons):
+                    results.metrics.skipped_blocks += len(group)
+                    continue
+                ahead = prefetched.pop(gkey, None)
+                cached = (ahead[0].take() if ahead is not None
+                          else self._staged(group))
                 with self._lock:
-                    cached.query_cache[sig] = pre
-                    while len(cached.query_cache) > _QUERY_CACHE_MAX:
-                        cached.query_cache.popitem(last=False)
-            results.metrics.skipped_blocks += pre["skipped"]
-            if pre["all_skip"]:
-                continue
-            base = pre["mq"]
-            # the limit and the aggregate are per request; the tables (and
-            # their device copies, made at the first dispatch) are shared
-            # through `pre`
-            mq = dataclasses.replace(
-                base, limit=req.limit or 20,
-                device_tables=pre.get("device_tables"),
-                agg_stage=(stage_for_batch(cached.batch) if want_agg
-                           else None))
-            if self.coalescer is not None:
+                    cached.pins += 1
+                pinned.append(cached)
+                submit_prefetch(gi + 1)
                 with self._lock:
-                    peers = self._interest.get(gkey, 1) + self._unplanned
-                out = self.coalescer.submit(
-                    cached.batch, mq,
-                    resolve_top_k(self.engine.top_k, mq.limit), peers=peers)
-            else:
-                out = self.engine.scan_async(cached.batch, mq)
-            dispatches += 1
-            inflight.append((cached, mq, pre, out))
-            # this search does not come back to this group: later peers
-            # need not wait for it (a parked query still fuses with them)
-            with self._lock:
-                self._release_locked(gkey)
-            interest.remove(gkey)
-            while len(inflight) >= self.pipeline_depth:
+                    pre = cached.query_cache.get(sig)
+                    if pre is not None:
+                        cached.query_cache.move_to_end(sig)
+                if pre is None:
+                    pre = prepare(group, cached.batch,
+                                  [r is not None for r in hdr_reasons])
+                    with self._lock:
+                        cached.query_cache[sig] = pre
+                        while len(cached.query_cache) > _QUERY_CACHE_MAX:
+                            cached.query_cache.popitem(last=False)
+                results.metrics.skipped_blocks += pre["skipped"]
+                if pre["all_skip"]:
+                    continue
+                base = pre["mq"]
+                # the limit and the aggregate are per request; the tables (and
+                # their device copies, made at the first dispatch) are shared
+                # through `pre`
+                mq = dataclasses.replace(
+                    base, limit=req.limit or 20,
+                    device_tables=pre.get("device_tables"),
+                    agg_stage=(stage_for_batch(cached.batch) if want_agg
+                               else None))
+                if self.coalescer is not None:
+                    with self._lock:
+                        peers = self._interest.get(gkey, 1) + self._unplanned
+                    out = self.coalescer.submit(
+                        cached.batch, mq,
+                        resolve_top_k(self.engine.top_k, mq.limit), peers=peers)
+                else:
+                    out = self.engine.scan_async(cached.batch, mq)
+                dispatches += 1
+                inflight.append((cached, mq, pre, out))
+                # this search does not come back to this group: later peers
+                # need not wait for it (a parked query still fuses with them)
+                with self._lock:
+                    self._release_locked(gkey)
+                interest.remove(gkey)
+                while len(inflight) >= self.pipeline_depth:
+                    drain_one()
+            while inflight:
+                if results.complete:
+                    self._abandon(inflight)
+                    break
                 drain_one()
-        while inflight:
-            if results.complete:
-                inflight.clear()
-                break
-            drain_one()
+        except BaseException:
+            # a raising dispatch leaves later queries parked: withdraw
+            # them, so no window flushes them for nobody
+            self._abandon(inflight)
+            raise
         # an early quit leaves a lookahead pending: cancel it if it has
         # not started (a running one completes into the cache)
         for _ahead, f in prefetched.values():

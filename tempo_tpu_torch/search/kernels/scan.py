@@ -60,6 +60,19 @@ kernel matches keys first, over each block's distinct terms;
 in PyTorch, which the CPU tests hold against ``coalesced_scan_plain``
 and the reference.
 
+K1's and K1s's CUDA kernels follow their own rule (``csrc/scan.cu``'s
+header): with terms, a key run's 32-bit words are compared with each
+term's lane value at once (SWAR), a slot's value is tested only where its
+key names the term (a range block by a per-block bitmap of value ids), and
+an entry stops at its first failing term; without terms, no slot is read.
+``scan_tiled`` is that rule in PyTorch, which the CPU tests hold against
+the plain versions and the reference. Their wrappers check a staged
+batch's arrays and a predicate's tables once: a call's descriptor (its
+pointers, layouts and bounds) is kept for as long as every tensor it was
+checked on lives unchanged (``_K1_CALLS``, by identity and version), so a
+repeated call checks only its verdicts, allocates one buffer (scores,
+counts and the kernel's partial counts) and launches.
+
 A launch with verdicts counts in ``VERDICT_LAUNCHES`` (K1),
 ``SINGLE_VERDICT_LAUNCHES`` (K1s) or ``COALESCED_VERDICT_LAUNCHES`` (K4),
 whatever its layout and hit mode; the other counters count launches
@@ -69,6 +82,7 @@ without them.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -97,6 +111,18 @@ VERDICT_LAUNCHES = LaunchCount()             # K1
 SINGLE_VERDICT_LAUNCHES = LaunchCount()      # K1s
 COALESCED_VERDICT_LAUNCHES = LaunchCount()   # K4
 MAX_QUERIES = 64                 # K4's query axis, at most
+
+# csrc/scan.cu's K1Desc: the fields of a K1/K1s call's descriptor
+_K1_DESC = ("key_layout", "val_layout", "kv_key", "kv_val", "start", "end",
+            "dur", "dur_res", "dur_shift", "res_bytes", "valid",
+            "page_block", "term_keys", "val_ranges", "val_hits",
+            "hit_words", "block_group", "P", "E", "C", "n_terms",
+            "t_stride", "R", "n_vals", "dur_lo", "dur_hi", "win_start",
+            "win_end")
+K1_MAX_GRID = 2048          # csrc/scan.cu kK1MaxGrid: CTAs, at most
+_K1_CACHE_MAX = 4096
+K1_PAT_TERMS = 32           # csrc/scan.cu kK1PatTerms: terms of the SWAR
+                            # key test
 
 # csrc/scan.cu's Layout numbers: the unpacked layout by dtype, the packed
 # one by width (with the dtype its codes arrive in)
@@ -454,6 +480,154 @@ def scan_single_plain(kv_key, kv_val, entry_start, entry_end, entry_dur,
                    win_end)
 
 
+
+
+K1_THREADS = 256             # csrc/scan.cu kThreads
+K1_BIT_TERMS = 8             # kK1BitTerms: range terms with value bitmaps
+K1_BIT_IDS = 8192            # kK1BitWords * 32: the ids a bitmap holds
+K1_BIT_MAX_R = 16            # kK1BitMaxR: ranges a term, for bitmaps
+# a key column's lane bits (csrc/scan.cu KeyLanes) by dtype or width, and
+# whether its lanes hold ids (signed) or codes id + 1
+_LANES = {torch.int8: (8, True), torch.int16: (16, True),
+          torch.int32: (32, True), "u4": (4, False), "u8": (8, False),
+          "u16": (16, False), "u32": (32, False)}
+
+
+def k1_tile(E: int, terms: bool) -> int:
+    """Entries a K1/K1s tile, as ``tt_scan_k1`` picks them: with terms,
+    256 entries of a page (one a thread); without, 1,024 (four a thread),
+    or the page rounded up to 4 when it is shorter."""
+    if terms:
+        return K1_THREADS
+    return min(4 * K1_THREADS, (E + 3) // 4 * 4)
+
+
+def _lane_holds(key: int, bits: int, ids: bool) -> bool:
+    """Whether a key column of `bits`-bit lanes can hold key id `key`
+    (csrc/scan.cu KeyLanes::lane)."""
+    if ids:
+        return bits == 32 or -(1 << (bits - 1)) <= key < (1 << (bits - 1))
+    code = (key + 1) & _U32
+    return bits == 32 or code < (1 << bits)
+
+
+def scan_tiled(kv_key, kv_val, entry_start, entry_end, entry_dur,
+               entry_valid, page_block, term_keys, val_ranges, n_terms: int,
+               dur_lo: int, dur_hi: int, win_start: int, win_end: int,
+               val_hits=None, block_group=None, widths=None,
+               entry_dur_res=None, verdicts=None, grid: int = K1_MAX_GRID):
+    """K1's function by the rule of its CUDA kernels, in plain PyTorch ops:
+    tiles of ``k1_tile`` entries of one page, walked by `grid` CTAs in
+    runs. With terms, per tile its page's block b and, when b changes, the
+    block state: which terms (t < 32) a lane of the key column can hold,
+    and for a range block (no hit table, R <= 16) a bitmap of value ids
+    0..8,191 for each of its first 8 terms. Per entry, term by term in
+    order: the key run's lanes, word by word (32 bits of lanes a word),
+    that hold the term's key, in order, each value tested (by the bitmap
+    where it holds the id, else the hit row or the ranges) until one
+    passes; an entry stops at its first term that none passes; terms past
+    32 one slot loop each. Without terms no slot is read. Then K1's bounds
+    and score; the counts summed per CTA, then over the CTAs. With
+    `page_block` None it is K1s: every page block 0, `term_keys` [T],
+    `val_ranges` [T, R, 2] and `val_hits` [T, V] used on every page. The
+    same inputs and outputs as ``multi_scan_plain`` /
+    ``scan_single_plain``, which it must equal."""
+    single = page_block is None
+    kk, vv = _unpack_kv(kv_key, kv_val, widths)
+    P, E, C = kk.shape
+    if single:
+        term_keys, val_ranges = term_keys[None], val_ranges[None]
+        if val_hits is not None:
+            val_hits = val_hits[None]
+            block_group = torch.zeros(1, dtype=torch.int32)
+        pb = [0] * P
+    else:
+        pb = page_block.tolist()
+    lane_bits, lane_ids = _LANES[kv_key.dtype if widths is None
+                                 else widths[0]]
+    per_word = 32 // lane_bits
+    tl = min(n_terms, K1_PAT_TERMS)
+    R = int(val_ranges.shape[-2])
+    te = k1_tile(E, bool(n_terms))
+    tpp = -(-E // te)
+    tiles = P * tpp
+    ctas = max(1, min(grid, tiles))
+    valid = entry_valid.reshape(P, E)
+    verd = None if verdicts is None else verdicts.reshape(P, E)
+    passed = torch.zeros((P, E), dtype=torch.bool)
+    live = torch.zeros((P, E), dtype=torch.bool)
+
+    def block_state(b):
+        hit = val_hits is not None and int(block_group[b]) >= 0
+        keys = term_keys[b].tolist()
+        can = all(_lane_holds(k, lane_bits, lane_ids) for k in keys[:tl])
+        bitmaps = {}
+        if not hit and val_hits is None and R <= K1_BIT_MAX_R:
+            ids = torch.arange(K1_BIT_IDS)
+            for t in range(min(n_terms, K1_BIT_TERMS)):
+                rg = val_ranges[b, t].to(torch.int64)
+                bitmaps[t] = _in_ranges(ids, rg[:, 0], rg[:, 1])
+        return hit, keys, can, bitmaps
+
+    def value_ok(b, state, t, v):
+        hit, _keys, _can, bitmaps = state
+        if hit:
+            return _row_hits(val_hits[int(block_group[b]), t], v)
+        rg = val_ranges[b, t].to(torch.int64)
+        ok = _in_ranges(v, rg[:, 0], rg[:, 1])
+        if t in bitmaps:
+            inside = (v >= 0) & (v < K1_BIT_IDS)
+            ok = torch.where(inside, bitmaps[t][v.clamp(0, K1_BIT_IDS - 1)],
+                             ok)
+        return ok
+
+    runs = [range(cta * tiles // ctas, (cta + 1) * tiles // ctas)
+            for cta in range(ctas)]
+    state_b, state = None, None
+    for run in runs:
+        for tile in run:
+            page, e0 = tile // tpp, (tile % tpp) * te
+            sl = slice(e0, min(E, e0 + te))
+            b = pb[page]
+            if b < 0:
+                continue
+            ok = valid[page, sl].clone()
+            if verd is not None:
+                ok &= verd[page, sl] != 0
+            if n_terms:
+                if b != state_b:
+                    state_b, state = b, block_state(b)
+                if not state[2]:
+                    ok[:] = False
+                for t in range(tl):
+                    key = state[1][t]
+                    found = torch.zeros_like(ok)
+                    for w in range(0, C, per_word):
+                        for c in range(w, min(C, w + per_word)):
+                            named = ok & ~found & (kk[page, sl, c] == key)
+                            found |= named & value_ok(b, state, t,
+                                                      vv[page, sl, c])
+                    ok &= found
+                for t in range(K1_PAT_TERMS, n_terms):
+                    keym = kk[page, sl] == term_keys[b, t]
+                    ok &= (keym & value_ok(b, state, t, vv[page, sl])).any(
+                        dim=-1)
+            passed[page, sl] = ok
+            live[page, sl] = valid[page, sl]
+    scores, _counts = _finish(passed, live, entry_start, entry_end,
+                              entry_dur, entry_dur_res, widths, dur_lo,
+                              dur_hi, win_start, win_end)
+    # the counts: each CTA's pair over its run, summed after the barrier
+    match = (scores >= 0).reshape(P, E)
+    counts = [0, 0]
+    for run in runs:
+        for tile in run:
+            page, e0 = tile // tpp, (tile % tpp) * te
+            counts[0] += int(match[page, e0:e0 + te].sum())
+            counts[1] += int(live[page, e0:e0 + te].sum())
+    return scores, torch.tensor(counts, dtype=torch.int32)
+
+
 def _lib():
     lib = load("scan")
     if not getattr(lib, "_tt_typed", False):
@@ -464,14 +638,14 @@ def _lib():
         # kv layouts, kv columns, start, end, dur, dur_res, shift, res
         # bytes, valid
         cols = [i32, i32] + [p] * 6 + [i32, i32, p]
-        lib.tt_multi_scan.restype = i32
-        lib.tt_multi_scan.argtypes = (
-            cols + [p] * 4 + [i32, p, i64] + [i32] * 5 + [i64]
-            + [u32] * 4 + [p, p, p, p])
-        lib.tt_scan_single.restype = i32
-        lib.tt_scan_single.argtypes = (
-            cols + [p] * 3 + [i32, i64] + [i32] * 5 + [i64] + [u32] * 4
-            + [p, p, p, p])
+        lib.tt_scan_k1.restype = i32
+        lib.tt_scan_k1.argtypes = [p, p, p, i64, p]
+        lib.tt_scan_k1_desc_len.restype = i32
+        lib.tt_scan_k1_max_grid.restype = i32
+        if (lib.tt_scan_k1_desc_len() != len(_K1_DESC)
+                or lib.tt_scan_k1_max_grid() != K1_MAX_GRID):
+            raise RuntimeError("csrc/scan.cu's K1 descriptor differs from "
+                               "kernels/scan.py's")
         lib.tt_coalesced_scan.restype = i32
         lib.tt_coalesced_scan.argtypes = (
             cols + [p] * 10 + [i32, i64] + [i32] * 6 + [p, i32, p, i64, p,
@@ -622,122 +796,198 @@ def _count(k4: bool, widths, hits: bool) -> LaunchCount:
         else PACKED_LAUNCHES
 
 
+class _K1Call:
+    """A checked K1/K1s call: its descriptor for ``tt_scan_k1``, its
+    entry count, device and launch counter, and weak references to the
+    tensors it was checked on (a call's entry leaves the cache when one of
+    them dies)."""
+
+    __slots__ = ("desc", "n", "dev", "counter", "refs")
+
+
+# checked calls, by the identity and version of every tensor and the
+# scalars they were checked with: a staged batch's arrays and a
+# predicate's tables are checked once, not once a call
+_K1_CALLS: dict = {}
+
+
+def _k1_key(single: bool, tensors: tuple, scalars: tuple):
+    """The cache key of a call, or None when a tensor keeps no version
+    counter (an inference tensor): such a call is checked every time."""
+    try:
+        return (single, scalars) + tuple(
+            None if t is None else (id(t), t._version) for t in tensors)
+    except RuntimeError:
+        return None
+
+
+def _k1_call(single: bool, tensors: tuple, scalars: tuple, check_fn):
+    key = _k1_key(single, tensors, scalars)
+    call = None if key is None else _K1_CALLS.get(key)
+    if call is not None:
+        return call
+    call = check_fn()
+    if key is not None:
+        if len(_K1_CALLS) >= _K1_CACHE_MAX:
+            _K1_CALLS.clear()
+
+        def forget(_ref, key=key):
+            _K1_CALLS.pop(key, None)
+
+        call.refs = [weakref.ref(t, forget) for t in tensors
+                     if t is not None]
+        _K1_CALLS[key] = call
+    return call
+
+
+def _k1_desc(dev, kl, vl, shift, res_bytes, P, E, C, fields: dict,
+             counter) -> _K1Call:
+    vals = dict(fields, key_layout=kl, val_layout=vl, dur_shift=shift,
+                res_bytes=res_bytes, P=P, E=E, C=C)
+    call = _K1Call()
+    call.desc = (ctypes.c_int64 * len(_K1_DESC))(
+        *(int(vals.get(k) or 0) for k in _K1_DESC))
+    call.n, call.dev, call.counter, call.refs = P * E, dev, counter, []
+    return call
+
+
+def _k1_launch(call: _K1Call, verdicts, what: str):
+    """Launch K1/K1s for a checked call: scores, counts and the CTAs'
+    partial counts in one int32 buffer (the kernel writes the counts, no
+    launch zeroes them)."""
+    dev, n = call.dev, call.n
+    _check_verdicts(verdicts, (n,), dev, what)
+    if not n:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros(2, dtype=torch.int32, device=dev))
+    out = torch.empty(n + 2 + 2 * K1_MAX_GRID, dtype=torch.int32,
+                      device=dev)
+    lib = _lib()
+    rc = on_device(dev, lib.tt_scan_k1, call.desc, _ptr(verdicts),
+                   out.data_ptr(), out.numel())
+    check(lib, rc, what)
+    (call.counter[1] if verdicts is not None else call.counter[0]).bump()
+    return out[:n], out[n:n + 2]
+
+
 def _multi_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                      entry_valid, page_block, term_keys, val_ranges,
                      n_terms, dur_lo, dur_hi, win_start, win_end, val_hits,
                      block_group, widths=None, entry_dur_res=None,
                      verdicts=None):
-    dev = kv_key.device
-    kl, vl, C, shift, res_bytes = _check_entries(
-        kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
-        entry_dur_res, widths)
-    P, E = kv_key.shape[:2]
-    if page_block.dtype != torch.int32 or tuple(page_block.shape) != (P,):
-        raise ValueError(f"page_block: want int32 {(P,)}")
-    if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32:
-        raise TypeError("term tables must be int32")
-    B, t_stride = term_keys.shape
-    if val_ranges.dim() != 4 or tuple(val_ranges.shape[:2]) != (B, t_stride) \
-            or val_ranges.shape[3] != 2 or n_terms > t_stride:
-        raise ValueError("val_ranges must be [B, T, R, 2] beside term_keys "
-                         "[B, T]")
-    n_vals = 0
-    words = 0
-    if (val_hits is None) != (block_group is None):
-        raise ValueError("val_hits and block_group go together")
-    if val_hits is not None:
-        words = _check_hit_table(val_hits, 3, "val_hits")
-        if val_hits.shape[1] != t_stride:
-            raise ValueError("val_hits must be [G, T, V] beside term_keys "
-                             "[B, T]")
-        if block_group.dtype != torch.int32 \
-                or tuple(block_group.shape) != (B,):
-            raise ValueError(f"block_group: want int32 {(B,)}")
-        n_vals = int(val_hits.shape[2])
-    _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_dur_res, entry_valid,
-                             page_block, term_keys, val_ranges, val_hits,
-                             block_group), "multi_scan")
-    _check_bounds(dur_lo, dur_hi, win_start, win_end)
-    n = P * E
-    _check_verdicts(verdicts, (n,), dev, "multi_scan")
-    scores = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(2, dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_multi_scan(
-            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
-            entry_start.data_ptr(), entry_end.data_ptr(),
-            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
-            entry_valid.data_ptr(), page_block.data_ptr(),
-            term_keys.data_ptr(), val_ranges.data_ptr(), _ptr(val_hits),
-            words, _ptr(block_group), n, E, C, int(n_terms), t_stride,
-            int(val_ranges.shape[2]), n_vals, int(dur_lo), int(dur_hi),
-            int(win_start), int(win_end), _ptr(verdicts), scores.data_ptr(),
-            counts.data_ptr(), stream)
-    check(lib, rc, "multi_scan")
-    if n:
-        (VERDICT_LAUNCHES if verdicts is not None
-         else _count(False, widths, val_hits is not None)).bump()
-    return scores, counts
+    tensors = (kv_key, kv_val, entry_start, entry_end, entry_dur,
+               entry_dur_res, entry_valid, page_block, term_keys,
+               val_ranges, val_hits, block_group)
+    scalars = (n_terms, dur_lo, dur_hi, win_start, win_end, widths)
+
+    def checked() -> _K1Call:
+        dev = kv_key.device
+        kl, vl, C, shift, res_bytes = _check_entries(
+            kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+            entry_dur_res, widths)
+        P, E = kv_key.shape[:2]
+        if page_block.dtype != torch.int32 \
+                or tuple(page_block.shape) != (P,):
+            raise ValueError(f"page_block: want int32 {(P,)}")
+        if term_keys.dtype != torch.int32 \
+                or val_ranges.dtype != torch.int32:
+            raise TypeError("term tables must be int32")
+        if term_keys.dim() != 2:
+            raise ValueError("term_keys must be [B, T]")
+        B, t_stride = term_keys.shape
+        if val_ranges.dim() != 4 \
+                or tuple(val_ranges.shape[:2]) != (B, t_stride) \
+                or val_ranges.shape[3] != 2 or val_ranges.shape[2] < 1 \
+                or not 0 <= n_terms <= t_stride:
+            raise ValueError("val_ranges must be [B, T, R, 2] beside "
+                             "term_keys [B, T]")
+        n_vals = 0
+        words = 0
+        if (val_hits is None) != (block_group is None):
+            raise ValueError("val_hits and block_group go together")
+        if val_hits is not None:
+            words = _check_hit_table(val_hits, 3, "val_hits")
+            if val_hits.shape[1] != t_stride:
+                raise ValueError("val_hits must be [G, T, V] beside "
+                                 "term_keys [B, T]")
+            if block_group.dtype != torch.int32 \
+                    or tuple(block_group.shape) != (B,):
+                raise ValueError(f"block_group: want int32 {(B,)}")
+            n_vals = int(val_hits.shape[2])
+        _check_same_device(dev, tensors, "multi_scan")
+        _check_bounds(dur_lo, dur_hi, win_start, win_end)
+        return _k1_desc(
+            dev, kl, vl, shift, res_bytes, P, E, C, dict(
+                kv_key=kv_key.data_ptr(), kv_val=kv_val.data_ptr(),
+                start=entry_start.data_ptr(), end=entry_end.data_ptr(),
+                dur=entry_dur.data_ptr(), dur_res=_ptr(entry_dur_res),
+                valid=entry_valid.data_ptr(),
+                page_block=page_block.data_ptr(),
+                term_keys=term_keys.data_ptr(),
+                val_ranges=val_ranges.data_ptr(), val_hits=_ptr(val_hits),
+                hit_words=words, block_group=_ptr(block_group),
+                n_terms=n_terms, t_stride=t_stride,
+                R=val_ranges.shape[2], n_vals=n_vals, dur_lo=dur_lo,
+                dur_hi=dur_hi, win_start=win_start, win_end=win_end),
+            (_count(False, widths, val_hits is not None), VERDICT_LAUNCHES))
+
+    return _k1_launch(_k1_call(False, tensors, scalars, checked), verdicts,
+                      "multi_scan")
 
 
 def _scan_single_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,
                       entry_valid, term_keys, val_ranges, n_terms, dur_lo,
                       dur_hi, win_start, win_end, val_hits, widths=None,
                       entry_dur_res=None, verdicts=None):
-    dev = kv_key.device
-    kl, vl, C, shift, res_bytes = _check_entries(
-        kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
-        entry_dur_res, widths)
-    if widths is None and (kv_key.dtype != torch.int32
-                           or kv_val.dtype != torch.int32):
-        raise TypeError("scan_single takes int32 kv columns or a packed "
-                        "layout")
-    P, E = kv_key.shape[:2]
-    if term_keys.dtype != torch.int32 or val_ranges.dtype != torch.int32:
-        raise TypeError("term tables must be int32")
-    if term_keys.dim() != 1:
-        raise ValueError("term_keys must be [T]")
-    t_stride = term_keys.shape[0]
-    if val_ranges.dim() != 3 or val_ranges.shape[0] != t_stride \
-            or val_ranges.shape[2] != 2 or n_terms > t_stride:
-        raise ValueError("val_ranges must be [T, R, 2] beside term_keys [T]")
-    n_vals = 0
-    words = 0
-    if val_hits is not None:
-        words = _check_hit_table(val_hits, 2, "val_hits")
-        if val_hits.shape[0] != t_stride:
-            raise ValueError("val_hits rows must match term_keys")
-        n_vals = int(val_hits.shape[1])
-    _check_same_device(dev, (kv_key, kv_val, entry_start, entry_end,
-                             entry_dur, entry_dur_res, entry_valid,
-                             term_keys, val_ranges, val_hits),
-                       "scan_single")
-    _check_bounds(dur_lo, dur_hi, win_start, win_end)
-    n = P * E
-    _check_verdicts(verdicts, (n,), dev, "scan_single")
-    scores = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(2, dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_scan_single(
-            kl, vl, kv_key.data_ptr(), kv_val.data_ptr(),
-            entry_start.data_ptr(), entry_end.data_ptr(),
-            entry_dur.data_ptr(), _ptr(entry_dur_res), shift, res_bytes,
-            entry_valid.data_ptr(), term_keys.data_ptr(),
-            val_ranges.data_ptr(), _ptr(val_hits), words, n, E, C,
-            int(n_terms), t_stride, int(val_ranges.shape[1]), n_vals,
-            int(dur_lo), int(dur_hi), int(win_start), int(win_end),
-            _ptr(verdicts), scores.data_ptr(), counts.data_ptr(), stream)
-    check(lib, rc, "scan_single")
-    if n:
-        (SINGLE_VERDICT_LAUNCHES if verdicts is not None
-         else SINGLE_LAUNCHES if widths is None
-         else SINGLE_PACKED_LAUNCHES).bump()
-    return scores, counts
+    tensors = (kv_key, kv_val, entry_start, entry_end, entry_dur,
+               entry_dur_res, entry_valid, term_keys, val_ranges, val_hits)
+    scalars = (n_terms, dur_lo, dur_hi, win_start, win_end, widths)
+
+    def checked() -> _K1Call:
+        dev = kv_key.device
+        kl, vl, C, shift, res_bytes = _check_entries(
+            kv_key, kv_val, entry_start, entry_end, entry_dur, entry_valid,
+            entry_dur_res, widths)
+        if widths is None and (kv_key.dtype != torch.int32
+                               or kv_val.dtype != torch.int32):
+            raise TypeError("scan_single takes int32 kv columns or a "
+                            "packed layout")
+        P, E = kv_key.shape[:2]
+        if term_keys.dtype != torch.int32 \
+                or val_ranges.dtype != torch.int32:
+            raise TypeError("term tables must be int32")
+        if term_keys.dim() != 1:
+            raise ValueError("term_keys must be [T]")
+        t_stride = term_keys.shape[0]
+        if val_ranges.dim() != 3 or val_ranges.shape[0] != t_stride \
+                or val_ranges.shape[2] != 2 or val_ranges.shape[1] < 1 \
+                or not 0 <= n_terms <= t_stride:
+            raise ValueError("val_ranges must be [T, R, 2] beside "
+                             "term_keys [T]")
+        n_vals = 0
+        words = 0
+        if val_hits is not None:
+            words = _check_hit_table(val_hits, 2, "val_hits")
+            if val_hits.shape[0] != t_stride:
+                raise ValueError("val_hits rows must match term_keys")
+            n_vals = int(val_hits.shape[1])
+        _check_same_device(dev, tensors, "scan_single")
+        _check_bounds(dur_lo, dur_hi, win_start, win_end)
+        return _k1_desc(
+            dev, kl, vl, shift, res_bytes, P, E, C, dict(
+                kv_key=kv_key.data_ptr(), kv_val=kv_val.data_ptr(),
+                start=entry_start.data_ptr(), end=entry_end.data_ptr(),
+                dur=entry_dur.data_ptr(), dur_res=_ptr(entry_dur_res),
+                valid=entry_valid.data_ptr(), term_keys=term_keys.data_ptr(),
+                val_ranges=val_ranges.data_ptr(), val_hits=_ptr(val_hits),
+                hit_words=words, n_terms=n_terms, t_stride=t_stride,
+                R=val_ranges.shape[1], n_vals=n_vals, dur_lo=dur_lo,
+                dur_hi=dur_hi, win_start=win_start, win_end=win_end),
+            (SINGLE_LAUNCHES if widths is None else SINGLE_PACKED_LAUNCHES,
+             SINGLE_VERDICT_LAUNCHES))
+
+    return _k1_launch(_k1_call(True, tensors, scalars, checked), verdicts,
+                      "scan_single")
 
 
 def _coalesced_scan_cuda(kv_key, kv_val, entry_start, entry_end, entry_dur,

@@ -923,6 +923,39 @@ def test_no_peer_counter_leaks_after_a_dispatch_raises(slow_window_db,
     _assert_solo_arms_no_window(db)
 
 
+def test_early_quit_withdraws_its_parked_query(slow_window_db,
+                                               monkeypatch):
+    """A search that quits early takes its still-parked query out of the
+    coalescer: with a 2 s window and two dispatches in flight, the first
+    group's query flushes at once (no peer), the second's parks (a peer
+    is claimed), and the first answer completes the request. Right after
+    ``search`` returns nothing is pending, no window is armed, and no
+    dispatch runs once the window has passed."""
+    db = slow_window_db
+    co = db.batcher.coalescer
+    assert db.batcher.pipeline_depth > 1
+    assert len(db.batcher._cache) > 1
+    real = co.submit
+    submits = []
+
+    def submit(batch, mq, top_k, peers=None):
+        submits.append(batch)
+        return real(batch, mq, top_k, peers=1 if len(submits) == 1 else 2)
+
+    monkeypatch.setattr(co, "submit", submit)
+    before = co.stats()["dispatches"]
+    t0 = time.perf_counter()
+    db.search(TENANT, _port_req({}, {"limit": 1}))
+    assert time.perf_counter() - t0 < co.window_s / 2
+    assert len(submits) == 2                     # the second one parked
+    st = co.stats()
+    assert st["pending"] == 0 and co._deadlines == []
+    assert st["dispatches"] == before + 1
+    time.sleep(co.window_s + 0.3)
+    assert co.stats()["dispatches"] == before + 1
+    _assert_no_peers(db)
+
+
 def test_wrappers_count_no_launch_on_the_cpu(staged):
     """On CPU tensors K4 and K2r take their plain versions and count no
     launch."""
