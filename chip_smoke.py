@@ -112,10 +112,16 @@ error:
    to limit 1's; the ingest count (``analytics.dense_counts``, K8) on
    two micro-batches made from the corpus (8,192 rows x 64 series,
    1,048,576 x 4,096), equal to the host's count; every response equal
-   to the CPU path's; K7 ([1, N] and [8, N] at K = 3,840: the
-   shared-memory route; K = 30,720: the global-atomic one) and K8 (K =
-   960, shared; 61,440, global) against their plain versions, timed,
-   with bound and torch.bincount times; a packed TempoDB over the first
+   to the CPU path's; K7 ([1, N] and [8, N] at K = 3,840 and [1, N] at
+   K = 30,720: the shared-memory route; K = 61,440: the global-atomic
+   one) and K8 (K = 960, shared; 61,440, global) against their plain
+   versions, timed, with bound and torch.bincount times; one K7 call one
+   ``agg_kernel`` launch and nothing else on the stream (the profiler);
+   K7 at its design's edges (``k7_edges``: N = 0 to 4,096 k + 1, rows and
+   keys off a 16-byte boundary, K either side of the shared limit, keys
+   out of range, one hot bin, red_svc's ~10% accepted, rows at odd
+   phases; every launcher call replayed from 8 host threads at once; no
+   agg.cu build spilling); a packed TempoDB over the first
    64 blocks (``AGG_PACKED_BLOCKS``) through ``search_blocks``, each
    response equal to the unpacked database's; then the concurrent phase
    with 8 svc-00i agg requests and with 4 agg and 4 plain, every fused
@@ -822,7 +828,7 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
 
 
 class LauncherReplay:
-    """Records the C launcher calls that K1's, K1s's, K4's and K6's
+    """Records the C launcher calls that K1's, K1s's, K4's, K6's and K7's
     wrappers make between ``start`` and ``stop`` (each call's frame is
     kept, which keeps its tensors alive), then ``replay`` calls those
     launchers again straight from several host threads at once, without
@@ -834,12 +840,12 @@ class LauncherReplay:
 
     # each C launcher by the kernels it launches
     NAMES = {"tt_scan_k1": "K1", "tt_coalesced_scan": "K4",
-             "tt_structural_mask": "K6"}
+             "tt_structural_mask": "K6", "tt_agg_counts": "K7"}
 
     def __init__(self):
-        from tempo_tpu_torch.search.kernels import scan, structural
+        from tempo_tpu_torch.search.kernels import agg, scan, structural
 
-        self.mods = (scan, structural)
+        self.mods = (scan, structural, agg)
         self.calls = []
 
     def start(self):
@@ -3503,14 +3509,15 @@ def red_scores(db, batch, reqs: list):
 
 def k7_measure(label: str, scores, keys, K: int) -> dict:
     """K7 on score rows [Q, N] against its plain version, its CUDA-event
-    time, the plain version's and torch.bincount's (over torch.where(
-    scores >= 0, keys, K), one call for all rows with a row offset), and
-    its bound: the score rows read, the keys of the entries some row
-    accepts (32-byte sectors) and the counts written."""
+    time, the plain version's and torch.bincount's (``bench_agg.
+    k7_library``: one call for all rows with a row offset), and its bound
+    (``bench_agg.k7_bytes``: the score rows read, the keys of the entries
+    some row accepts (32-byte sectors) and the counts written)."""
     import torch
 
     from tempo_tpu_torch.search.kernels import agg
-    from tempo_tpu_torch.search.kernels.bench_coalesced import sector_bytes
+    from tempo_tpu_torch.search.kernels.bench_agg import (k7_bytes,
+                                                          k7_library)
 
     Q, n = scores.shape
     if Q == 1:
@@ -3522,27 +3529,20 @@ def k7_measure(label: str, scores, keys, K: int) -> dict:
     out = fn()
     err = require_equal(f"K7 ({label})", (out,),
                         (agg.agg_counts_rows_plain(scores, keys, K),))
-    off = (torch.arange(Q, device=scores.device, dtype=torch.int64)
-           * (K + 1))[:, None]
 
     def lib():
-        return torch.bincount(
-            (torch.where(scores >= 0, keys, K) + off).reshape(-1),
-            minlength=Q * (K + 1)).reshape(Q, K + 1)[:, :K]
+        return k7_library(scores, keys, K)
 
-    if not torch.equal(lib().to(torch.int32), out):
+    if not torch.equal(lib(), out):
         raise AssertionError(f"K7 ({label}) differs from torch.bincount")
-    need = (Q * n * 4 + sector_bytes((scores >= 0).any(dim=0), 4)
-            + Q * K * 4)
+    need = k7_bytes(scores, keys, K)
     return {"fn": fn, "err": err, "ms": cuda_ms(fn, 50),
             "plain_ms": cuda_ms(
                 lambda: agg.agg_counts_rows_plain(scores, keys, K), 5),
             "library_ms": cuda_ms(lib, 50), "bytes_needed": need,
             "bound_ms": need / HBM_BYTES_PER_S * 1e3,
             "shape": {"Q": Q, "N": n, "K": K,
-                      "route": ("shared" if K <= agg.shared_bins()
-                                else "global"),
-                      "counted": int(out.sum())}}
+                      "route": agg.route(K), "counted": int(out.sum())}}
 
 
 def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
@@ -3588,21 +3588,77 @@ def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
             "library_ms": cuda_ms(lib, 50), "bytes_needed": need,
             "bound_ms": need / HBM_BYTES_PER_S * 1e3,
             "shape": {"rows": s.numel(), "series": n_keys, "K": K,
-                      "route": ("shared" if K <= agg.shared_bins()
-                                else "global")}}
+                      "route": agg.count_route(K)}}
+
+
+def k7_edges(dev, seed: int) -> tuple:
+    """K7 held exactly against its plain version and torch.bincount on the
+    card, through its wrappers, at the edges of its design: the seeded
+    cases the CPU tests hold its rule to (``bench_agg.K7_CASES``): N = 0,
+    1, 3, 2,053, 4,095 and 4,096 k + 1; score rows and keys starting off a
+    16-byte boundary, in phase with each other and not; K = 1, 33, 30,720
+    and either side of the shared route's limit; keys past K and
+    negative; all rejected, all accepted, ~90% and red_svc's
+    ~10% accepted; one hot bin on both routes; [8, N] rows at odd phases,
+    [3, N] from element 1, 200 rows of 64 (more rows than CTAs). Every
+    launcher call is then replayed from 8 host threads at once
+    (``LauncherReplay``), and no ``agg.cu`` build (K8's included) may
+    spill in ptxas's report of the library loaded (this process's build or
+    the cached one's saved log). Returns (report, max abs err)."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import agg, build
+    from tempo_tpu_torch.search.kernels.bench_agg import (K7_CASES, k7_case,
+                                                          k7_library)
+    from tempo_tpu_torch.search.kernels.bench_coalesced import ptxas_usage
+
+    report, err = {}, 0
+    replay = LauncherReplay().start()
+    for name in K7_CASES:
+        scores, keys, K = k7_case(seed, name, dev)
+        Q, n = scores.shape
+        got = (agg.agg_counts(scores[0], keys, K)[None] if Q == 1
+               else agg.agg_counts_rows(scores, keys, K))
+        err = max(err, require_equal(
+            f"K7 edge {name}", (got,),
+            (agg.agg_counts_rows_plain(scores, keys, K),)))
+        if not torch.equal(k7_library(scores, keys, K), got):
+            raise AssertionError(f"K7 edge {name} differs from "
+                                 "torch.bincount")
+        report[name] = {"Q": Q, "N": n, "K": K, "route": agg.route(K),
+                        "counted": int(got.sum())}
+    replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
+    usage = ptxas_usage(build.BUILD_LOG.get("agg", ""))
+    if dev.type == "cuda" and not usage:
+        raise AssertionError("K7 edges: no ptxas report of the loaded "
+                             "agg.cu library")
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"agg.cu builds spill: {spills}")
+    print(f"K7 edges: {len(report)} cases, each equal to its plain version "
+          f"and torch.bincount ({replayed.get('K7', 0)} launcher calls "
+          f"replayed from 8 threads); {len(usage)} agg.cu builds in ptxas's "
+          "report, none spills, registers "
+          f"{sorted({v.get('registers') for v in usage.values()})}",
+          flush=True)
+    return report, err
 
 
 def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
     """K7 and K8 against their plain versions on the card, timed, with
     bound and library times: K7 over red_all's K1 scores on the largest
-    staged group ([1, N], K = 3,840 at full size, the shared route), over
-    the same scores with keys spread to 1,024 services (K = 30,720, the
-    global route), and over K4's rows of 8 svc-00i requests ([8, N]); K8
-    on the two ingest micro-batches (K = 960, shared; K = 61,440,
-    global)."""
+    staged group ([1, N], K = 3,840 at full size), over the same scores
+    with keys spread to 1,024 services (K = 30,720, still in shared
+    memory) and to 2,048 (K = 61,440, the global route), and over
+    K4's rows of 8 svc-00i requests ([8, N]); the device operations of
+    one K7 call (the profiler: one ``agg_kernel`` launch and nothing
+    else, no zeroing memset); K7 at its edges (``k7_edges``); K8 on the
+    two ingest micro-batches (K = 960, shared; K = 61,440, global)."""
     import torch
 
-    from tempo_tpu_torch.search.kernels import agg
+    from tempo_tpu_torch.search.kernels.bench_agg import spread_keys
 
     batch = largest_batch(db)
     stage = batch.agg_stage
@@ -3610,36 +3666,53 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
     K = stage.n_keys
     s1 = red_scores(db, batch, [({}, {"limit": 20})])[None]
     one = k7_measure("[1, N]", s1, keys, K)
-    idx = torch.arange(keys.numel(), device=keys.device, dtype=torch.int32)
-    keys30 = (((keys // 30) * 16 + idx % 16) % 1024 * 30
-              + keys % 30).to(torch.int32)
-    glob = k7_measure("[1, N], 1,024 services", s1, keys30, 1024 * 30)
+    k30 = k7_measure("[1, N], 1,024 services", s1, spread_keys(keys, 1024),
+                     1024 * 30)
+    glob = k7_measure("[1, N], 2,048 services", s1, spread_keys(keys, 2048),
+                      2048 * 30)
     s8 = red_scores(db, batch, [({"service.name": f"svc-00{i}"},
                                  {"limit": 20}) for i in range(CLIENTS)])
     rows8 = k7_measure("[8, N]", s8, keys, K)
     k8 = {name: k8_measure(name, sidx, dur, nk, db.device)
           for name, (sidx, dur, nk) in ingest.items()}
-    if not (one["shape"]["route"] == rows8["shape"]["route"] == "shared"
+    if not (one["shape"]["route"] == rows8["shape"]["route"]
+            == k30["shape"]["route"] == "shared"
             and glob["shape"]["route"] == "global"
             and k8["shared"]["shape"]["route"] == "shared"
             and k8["global"]["shape"]["route"] == "global"):
         raise AssertionError("the kernel phases missed a route of K7 or K8")
-    for label, m in (("K7 [1, N]", one), ("K7 global", glob),
+    # the profiler may keep fewer records than calls (C1), never more:
+    # each kept record must be the kernel, at most one a call
+    per_call = kernels_per_call(one["fn"])
+    if per_call and (sum(per_call.values()) > 1
+                     or not all("agg_kernel" in k for k in per_call)):
+        raise AssertionError(f"a K7 call ran {per_call} on the card, not "
+                             "one agg_kernel launch")
+    one["shape"]["per_call"] = per_call or "not measured (no profile)"
+    print(f"K7 per call on the card (profiler): {one['shape']['per_call']}",
+          flush=True)
+    one["shape"]["edges"], e = k7_edges(db.device, 20261018)
+    one["err"] = max(one["err"], e)
+    for label, m in (("K7 [1, N]", one), ("K7 1,024 services", k30),
+                     ("K7 2,048 services", glob),
                      ("K7 [8, N]", rows8)) + tuple(
             (f"K8 {k}", v) for k, v in k8.items()):
-        print(f"{label}: {m['shape']}, equal to its plain version; "
+        shape = {k: v for k, v in m["shape"].items() if k != "edges"}
+        print(f"{label}: {shape}, equal to its plain version; "
               f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, plain "
               f"{m['plain_ms']:.3f} ms, library {m['library_ms']:.4f} ms",
               flush=True)
 
-    def row(name, m, also=None):
+    def row(name, m, *also):
+        from tempo_tpu_torch.search.kernels.bench_structural import event_ms
+
         shape = dict(m["shape"], bytes_needed=m["bytes_needed"])
         err = m["err"]
-        if also is not None:
-            label, a = also
+        for label, a in also:
             shape[label] = {k: a[k] for k in ("ms", "plain_ms",
                                               "library_ms", "bound_ms",
                                               "bytes_needed", "shape")}
+            shape[label]["device_ms"] = event_ms(a["fn"])
             err = max(err, a["err"])
         return kernel_row(name, "tempo_tpu_torch/csrc/agg.cu",
                           ("tempo_tpu/search/multiblock.py:838"
@@ -3648,7 +3721,8 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
                           launches, err, m["ms"], m["plain_ms"],
                           m["bytes_needed"], m["library_ms"], shape, m["fn"])
 
-    return [row("agg_counts", one, ("global_route", glob)),
+    return [row("agg_counts", one, ("services_1024", k30),
+                ("global_route", glob)),
             row("agg_counts_rows", rows8),
             row("analytics_count", k8["global"],
                 ("shared_route", k8["shared"]))]
@@ -4889,8 +4963,9 @@ def main(argv=None) -> int:
     build.build_all()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = dict(build.BUILD_LOG)
+    report["built"] = sorted(build.BUILT)
     print(f"build: {report['build_s']:.1f} s "
-          f"({', '.join(sorted(build.BUILD_LOG)) or 'cached'})", flush=True)
+          f"({', '.join(sorted(build.BUILT)) or 'cached'})", flush=True)
     report["k9_kernels_per_call"] = k9_early_profiles()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -25,10 +25,13 @@ The reference limbs durations into two int31 halves; K8 takes whole
 int64 nanoseconds, so it is exact for every duration. In both a key
 outside [0, K) is counted nowhere, as the reference's sort +
 searchsorted + diff counts it nowhere. The CUDA kernels are
-``csrc/agg.cu`` (a shared-memory histogram per CTA up to
-``shared_bins()`` bins, global atomics past it); the plain versions below
-are the reference's own formulation (sort, searchsorted, diff), the CPU
-path and what the kernels are held against on the card. Launch counts:
+``csrc/agg.cu``: K7 is one cooperative launch a call (per-CTA shared
+histograms written as partials and summed by column after a grid
+barrier, up to ``SHARED_BINS`` bins; global atomics past it), whose rule
+``agg_counts_tiled`` renders in PyTorch; K8 a shared histogram per CTA
+up to ``COUNT_SHARED_BINS`` bins. The plain versions below are the
+reference's own formulation (sort, searchsorted, diff), the CPU path and
+what the kernels are held against on the card. Launch counts:
 ``LAUNCHES`` (K7, one row), ``ROW_LAUNCHES`` (K7, a query axis) and
 ``COUNT_LAUNCHES`` (K8).
 """
@@ -40,11 +43,16 @@ import ctypes
 import torch
 
 from . import LaunchCount
-from .build import check, load
+from .build import check, load, on_device
 
 LAUNCHES = LaunchCount()        # K7 over one score column
 ROW_LAUNCHES = LaunchCount()    # K7 over Q score rows in one launch
 COUNT_LAUNCHES = LaunchCount()  # K8
+
+THREADS = 1024              # csrc/agg.cu kAggThreads: a K7 CTA's threads
+TILE = 128                  # kTile: K rounds up to it (the partials' pitch)
+SHARED_BINS = 56_320        # kSharedBins: K7's shared route, at most
+COUNT_SHARED_BINS = 12_160  # kCountSharedBins: K8's
 
 
 def agg_counts(scores, entry_agg, n_keys: int):
@@ -52,12 +60,12 @@ def agg_counts(scores, entry_agg, n_keys: int):
     CPU tensors, the CUDA kernel for CUDA tensors."""
     if scores.dim() != 1:
         raise ValueError("agg_counts takes a score column [N]")
-    if scores.device.type == "cpu":
+    if scores.is_cpu:
         return agg_counts_rows_plain(scores.view(1, -1), entry_agg,
                                      n_keys)[0]
-    out = _agg_cuda(scores.view(1, -1), entry_agg, n_keys)
+    out = _agg_cuda(scores, 1, entry_agg, n_keys)
     LAUNCHES.bump()
-    return out[0]
+    return out[:n_keys]
 
 
 def agg_counts_rows(scores, entry_agg, n_keys: int):
@@ -65,11 +73,12 @@ def agg_counts_rows(scores, entry_agg, n_keys: int):
     tensors, the CUDA kernel for CUDA tensors."""
     if scores.dim() != 2:
         raise ValueError("agg_counts_rows takes score rows [Q, N]")
-    if scores.device.type == "cpu":
+    if scores.is_cpu:
         return agg_counts_rows_plain(scores, entry_agg, n_keys)
-    out = _agg_cuda(scores, entry_agg, n_keys)
+    Q = scores.shape[0]
+    out = _agg_cuda(scores, Q, entry_agg, n_keys)
     ROW_LAUNCHES.bump()
-    return out
+    return out.as_strided((Q, n_keys), (n_keys, 1))
 
 
 def agg_counts_rows_plain(scores, entry_agg, n_keys: int):
@@ -85,6 +94,47 @@ def agg_counts_rows_plain(scores, entry_agg, n_keys: int):
         skey, torch.arange(n_keys + 1, dtype=torch.int32,
                            device=scores.device).expand(Q, -1).contiguous())
     return (edges[:, 1:] - edges[:, :-1]).to(torch.int32)
+
+
+def agg_counts_tiled(scores, entry_agg, n_keys: int, grid: int):
+    """K7's rule as its kernel runs it, in PyTorch (no card path uses
+    it): `grid` CTAs split the Q rows into S = max(1, grid // Q) units a
+    row; unit s of row q counts the row's 16-byte vectors
+    [nv * s // S, nv * (s + 1) // S) from the row's first 16-byte-aligned
+    score (by the tensors' addresses), and the entries before it and
+    after the last whole vector one by one, entry j of those going to
+    unit (j // THREADS) % S; a row whose address differs from the keys'
+    modulo 16 is counted one by one whole. Each unit's histogram is a
+    row of partials [Q * S, Kp] (K rounded up to ``TILE``; here its
+    non-zero entries); the counts are their sum by column."""
+    Q, n = scores.shape
+    S = max(1, grid // Q)
+    kp = pitch(n_keys)
+    dev = scores.device
+    kept = (entry_agg >= 0) & (entry_agg < n_keys)
+    key_ptr = entry_agg.data_ptr()
+    e = torch.arange(n, dtype=torch.int64, device=dev)
+    out = torch.zeros(Q, kp + 1, dtype=torch.int64, device=dev)
+    for q in range(Q):
+        row = scores[q]
+        ptr = row.data_ptr()
+        head = (-(ptr // 4)) % 4
+        if (ptr - key_ptr) % 16 or head > n:
+            head = n
+        nv = (n - head) // 4
+        tail = head + 4 * nv
+        bounds = torch.tensor([nv * s // S for s in range(S + 1)],
+                              dtype=torch.int64, device=dev)
+        vec = (e >= head) & (e < tail)
+        unit_vec = torch.searchsorted(bounds, (e - head) // 4,
+                                      right=True) - 1
+        one = torch.where(e < head, e, e - tail + head)
+        unit = torch.where(vec, unit_vec, (one // THREADS) % S)
+        key = torch.where((row >= 0) & kept, entry_agg.to(torch.int64), kp)
+        # the units' partial histograms (unit, bin) -> count, then by column
+        cell, count = torch.unique(unit * (kp + 1) + key, return_counts=True)
+        out[q].index_add_(0, cell % (kp + 1), count)
+    return out[:, :n_keys].to(torch.int32)
 
 
 def analytics_count(sidx, dur, thresholds, n_keys: int):
@@ -113,26 +163,69 @@ def analytics_count_plain(sidx, dur, thresholds, n_keys: int):
     return (edges[1:] - edges[:-1]).to(torch.int32)
 
 
+_LIB = None     # the typed library, once checked against this module
+
+
 def _lib():
+    global _LIB
+    if _LIB is not None:
+        return _LIB
     lib = load("agg")
-    if not getattr(lib, "_tt_typed", False):
-        p = ctypes.c_void_p
-        i32, i64 = ctypes.c_int, ctypes.c_int64
-        lib.tt_agg_counts.restype = i32
-        lib.tt_agg_counts.argtypes = [p, p, i32, i64, i32, p, i32, p]
-        lib.tt_analytics_count.restype = i32
-        lib.tt_analytics_count.argtypes = [p, p, i64, p, i32, i32, p, i32,
-                                           p]
-        lib.tt_agg_shared_bins.restype = i32
-        lib.tt_agg_shared_bins.argtypes = []
-        lib._tt_typed = True
+    p = ctypes.c_void_p
+    i32, i64 = ctypes.c_int, ctypes.c_int64
+    lib.tt_agg_counts.restype = i32
+    lib.tt_agg_counts.argtypes = [p, p, i32, i64, i32, p, i64, p]
+    lib.tt_analytics_count.restype = i32
+    lib.tt_analytics_count.argtypes = [p, p, i64, p, i32, i32, p, i32, p]
+    for fn in (lib.tt_agg_shared_bins, lib.tt_count_shared_bins):
+        fn.restype = i32
+        fn.argtypes = []
+    lib.tt_agg_out_ints.restype = i64
+    lib.tt_agg_out_ints.argtypes = [i32, i32, i32]
+    if (lib.tt_agg_shared_bins() != SHARED_BINS
+            or lib.tt_count_shared_bins() != COUNT_SHARED_BINS
+            or lib.tt_agg_out_ints(3, 100, 5) != _out_ints(3, 100, 5)):
+        raise RuntimeError("csrc/agg.cu and kernels/agg.py disagree on "
+                           "K7's or K8's constants")
+    _LIB = lib
     return lib
 
 
-def shared_bins() -> int:
-    """The bin count up to which the kernels count in shared memory (in
-    global memory past it); builds the kernels."""
-    return int(_lib().tt_agg_shared_bins())
+def pitch(K: int) -> int:
+    """Kp, K7's bins a partial row: K rounded up to ``TILE``."""
+    return -(-K // TILE) * TILE
+
+
+def route(K: int) -> str:
+    """K7's route for K bins: "shared" (per-CTA histograms in shared
+    memory, summed as partials) up to ``SHARED_BINS`` bins a row, else
+    "global" (atomics into the output)."""
+    return "shared" if pitch(K) <= SHARED_BINS else "global"
+
+
+def count_route(K: int) -> str:
+    """K8's route for K bins: "shared" up to ``COUNT_SHARED_BINS``."""
+    return "shared" if K <= COUNT_SHARED_BINS else "global"
+
+
+def _out_ints(Q: int, K: int, sms: int) -> int:
+    """csrc/agg.cu agg_out_ints: the counts [Q, K], then on the shared
+    route (from a 16-byte boundary) the partials of at most max(Q, sms)
+    units of Kp bins each."""
+    if route(K) == "global":
+        return Q * K
+    return -(-Q * K // 4) * 4 + max(Q, sms) * pitch(K)
+
+
+_SMS: dict = {}     # device index -> SM count
+
+
+def _sms(dev) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _need(t, dtype, what: str, dev) -> None:
@@ -141,28 +234,30 @@ def _need(t, dtype, what: str, dev) -> None:
                          f"{dev}, got {t.dtype} on {t.device}")
 
 
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def _agg_cuda(scores, entry_agg, n_keys: int):
-    dev = scores.device
-    _need(scores, torch.int32, "scores", dev)
-    _need(entry_agg, torch.int32, "entry_agg", dev)
-    Q, n = scores.shape
+def _agg_cuda(scores, Q: int, entry_agg, n_keys: int):
+    """One K7 launch over score rows [Q, N] (or a column, Q = 1): the
+    counts [Q * n_keys] first in one int32 allocation, the kernel's
+    partials after them; nothing else on the stream. Returns the
+    allocation."""
+    n = scores.shape[-1]
+    if (scores.dtype != torch.int32 or entry_agg.dtype != torch.int32
+            or entry_agg.get_device() != scores.get_device()
+            or not scores.is_contiguous() or not entry_agg.is_contiguous()):
+        _need(scores, torch.int32, "scores", scores.device)
+        _need(entry_agg, torch.int32, "entry_agg", scores.device)
     if entry_agg.numel() != n:
         raise ValueError(f"entry_agg has {entry_agg.numel()} keys for "
                          f"{n} scores")
-    if not 0 < n_keys < 2**31 or Q > 65535:
+    if not 0 < n_keys < 2**31 - TILE or Q >= 2**31:
         raise ValueError(f"agg_counts: n_keys {n_keys}, {Q} rows")
-    out = torch.empty((Q, n_keys), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_agg_counts(scores.data_ptr(), entry_agg.data_ptr(), Q, n,
-                               n_keys, out.data_ptr(), _sm_count(dev),
-                               stream)
-    check(lib, rc, "agg_counts")
+    dev = scores.device
+    ints = _out_ints(Q, n_keys, _sms(dev))
+    out = torch.empty(ints, dtype=torch.int32, device=dev)
+    lib = _LIB or _lib()
+    rc = on_device(dev, lib.tt_agg_counts, scores.data_ptr(),
+                   entry_agg.data_ptr(), Q, n, n_keys, out.data_ptr(), ints)
+    if rc:
+        check(lib, rc, "agg_counts")
     return out
 
 
@@ -185,6 +280,7 @@ def _count_cuda(sidx, dur, thresholds, n_keys: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_analytics_count(sidx.data_ptr(), dur.data_ptr(), n,
                                     thresholds.data_ptr(), nb, K,
-                                    out.data_ptr(), _sm_count(dev), stream)
+                                    out.data_ptr(),
+                                    _sms(dev), stream)
     check(lib, rc, "analytics_count")
     return out

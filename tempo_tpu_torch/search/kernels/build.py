@@ -6,9 +6,10 @@ includes) compiles into its own shared library with a plain C interface
 first call to :func:`load` starts one ``nvcc`` per source, all at once,
 waits for them, and caches the results under
 ``tempo_tpu_torch/csrc/build/`` named by a hash of the source, the
-headers and the flags; later processes reuse a library whose hash
-matches. Nothing is built
-when the package is imported.
+headers and the flags, with nvcc's output (ptxas's register and spill
+report) saved beside each; later processes reuse a library whose hash
+matches and read its saved report. Nothing is built when the package is
+imported.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# nvcc's output per source of the last build in this process (ptxas -v
-# register/shared-memory lines), for whoever wants to print it
+# nvcc's output (ptxas -v register/spill lines) per source, of the
+# library this process loads: its own build's or the cached one's saved log
 BUILD_LOG: dict[str, str] = {}
+# the sources this process compiled (the others came from the cache)
+BUILT: set[str] = set()
 
 
 def _nvcc() -> str:
@@ -55,14 +58,17 @@ def _target(src: Path) -> Path:
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every csrc/*.cu whose library is missing, one nvcc process
-    per source, all started together. Returns name -> library path."""
+    """Compile every csrc/*.cu whose library (or its saved nvcc log) is
+    missing, one nvcc process per source, all started together, and fill
+    ``BUILD_LOG`` for every source. Returns name -> library path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src.stem: (src, _target(src))
                for src in sorted(CSRC.glob("*.cu"))}
     procs = {}
     for name, (src, out) in targets.items():
-        if out.exists():
+        log = out.with_suffix(".log")
+        if out.exists() and log.exists():
+            BUILD_LOG[name] = log.read_text()
             continue
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
@@ -76,7 +82,13 @@ def build_all() -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, out)  # atomic: a concurrent builder loses nothing
+        BUILT.add(name)
+        # the log first, then the library (atomic renames: a concurrent
+        # builder loses nothing, and a library is never without its log)
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, out.with_suffix(".log"))
+        os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: out for name, (_src, out) in targets.items()}
