@@ -65,17 +65,27 @@ error:
    (the single-block engine), each cold then 10 times warm, with launch
    counts per request; times three on the device; requires the CPU
    path's responses;
-   then holds K3 (dict_probe), K1 in hit-mask mode and K1s (scan_single)
-   against their plain versions on the card and times them; then K4 in
+   then holds K3 (dict_probe) in bool rows and in words, K1 in hit-mask
+   mode and K1s (scan_single) against their plain versions on the card
+   and times them, and the whole probe call from needle bytes
+   (``probe_value_hits``: card ms, host issue time, and by the profiler
+   one ``probe_kernel`` launch a call and nothing else on the stream);
+   K3 also at its design's edges (``k3_edges``: V = 1 to 4,097, empty
+   values, a value longer than a chunk, matches across value boundaries
+   and in the last bytes, needles of 1 to 64 bytes, the empty needle
+   and a None term, T = 1 to 60, non-ASCII bytes, buf off a 16-byte
+   boundary, both output forms; every launcher call replayed from 8
+   host threads at once; no probe.cu build spilling); then K4 in
    hit-mask mode on 6 probed and 2 host-compiled requests, with the fused
    dispatch against the solo ones; then the concurrent phase with 8
    exhaustive session-id substrings, and the point lookup alone once
    more;
 5. the packed high-cardinality cell: the hc corpus's first 4 blocks (one
    4,096-page group), an unpacked and a packed TempoDB through the same
-   three entry points, each packed response equal to the unpacked one;
-   then K1, K1s and K4 with word hit tables and K5 (pack_mask_words)
-   against their plain versions;
+   three entry points, each packed response equal to the unpacked one,
+   K3 writing the word masks itself (no K5 launch on the path); then
+   K1, K1s and K4 with word hit tables and K5 (pack_mask_words, which
+   no main path launches any longer) against their plain versions;
 6. the structural cell: 16 blocks x 65,536 traces like the tag cell's,
    each trace with 1-31 span rows (16.8M spans; service.name, name,
    http.status_code, 1-2,000 ms, kind 0-5), through a TempoDB with
@@ -248,6 +258,9 @@ KERNELS = ("multi_scan", "multi_scan_hits", "scan_single", "topk",
            "agg_counts_rows", "analytics_count", "hot_scan", "shard_topk",
            "dist_multi_scan", "dist_coalesced_scan", "dist_scan_single",
            "dist_probe")
+# kernels held against their plain versions whose work no main path
+# launches any longer: K5, whose words K3 writes itself on the packed route
+OFF_PATH = ("pack_mask_words",)
 CLIENTS = 8                     # concurrent clients
 BUSY_ROUNDS = 3                 # rounds a concurrent row's device ms takes
 # the concurrent clients' predicates: one service each, AND status 500
@@ -463,6 +476,7 @@ def counters() -> dict:
     return {"multi_scan": scan.LAUNCHES, "multi_scan_hits": scan.HIT_LAUNCHES,
             "scan_single": scan.SINGLE_LAUNCHES, "topk": topk.LAUNCHES,
             "dict_probe": probe.LAUNCHES,
+            "dict_probe_words": probe.WORD_LAUNCHES,
             "coalesced_scan": scan.COALESCED_LAUNCHES,
             "coalesced_scan_hits": scan.COALESCED_HIT_LAUNCHES,
             "topk_rows": topk.ROW_LAUNCHES,
@@ -817,7 +831,8 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
     card; returns the largest absolute difference (0)."""
     import torch
 
-    torch.cuda.synchronize()
+    if any(g.is_cuda for g in got):
+        torch.cuda.synchronize()
     err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape or not torch.equal(g, w):
@@ -828,8 +843,8 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
 
 
 class LauncherReplay:
-    """Records the C launcher calls that K1's, K1s's, K4's, K6's and K7's
-    wrappers make between ``start`` and ``stop`` (each call's frame is
+    """Records the C launcher calls that K1's, K1s's, K3's, K4's, K6's and
+    K7's wrappers make between ``start`` and ``stop`` (each call's frame is
     kept, which keeps its tensors alive), then ``replay`` calls those
     launchers again straight from several host threads at once, without
     the wrappers' Python between calls: a launcher that sets a kernel's
@@ -840,12 +855,14 @@ class LauncherReplay:
 
     # each C launcher by the kernels it launches
     NAMES = {"tt_scan_k1": "K1", "tt_coalesced_scan": "K4",
-             "tt_structural_mask": "K6", "tt_agg_counts": "K7"}
+             "tt_structural_mask": "K6", "tt_agg_counts": "K7",
+             "tt_dict_probe": "K3"}
 
     def __init__(self):
-        from tempo_tpu_torch.search.kernels import agg, scan, structural
+        from tempo_tpu_torch.search.kernels import (agg, probe, scan,
+                                                    structural)
 
-        self.mods = (scan, structural, agg)
+        self.mods = (scan, structural, agg, probe)
         self.calls = []
 
     def start(self):
@@ -1185,26 +1202,65 @@ def kernel_phase(db, reqs: dict, launches: dict) -> list:
 def hc_kernel_phase(db, bsb, launches: dict) -> list:
     """K3, K1 in hit-mask mode and K1s against their plain versions on the
     high-cardinality cell's staged data, at the main path's shapes: K3 on
-    one staged dictionary with the scattered needle "77", K1 on the
-    largest staged group with the exhaustive request's hit masks, K1s on
-    the single-block path's block with the bench request."""
+    one staged dictionary with the scattered needle "77", in bool rows
+    and in words (the packed route's form), and the whole probe call from
+    the needle's bytes (``probe_value_hits``: card ms, the host's issue
+    time, and the device operations of a call by the profiler: one
+    ``probe_kernel`` launch, no fill, no copy); K3 at its design's edges
+    (``k3_edges``); K1 on the largest staged group with the exhaustive
+    request's hit masks, K1s on the single-block path's block with the
+    bench request."""
     from tempo_tpu_torch.search import dict_probe
-    from tempo_tpu_torch.search.kernels import probe
+    from tempo_tpu_torch.search.kernels import pack, probe
+    from tempo_tpu_torch.search.kernels.bench_probe import k3_bytes
+    from tempo_tpu_torch.search.kernels.bench_structural import event_ms
 
     batch = largest_batch(db)
     dd = next(iter(batch.staged_dicts.values()))
-    needles, lens = dict_probe.needle_tensors([b"77"], db.device)
+    needles, lens = dict_probe.needle_tensors([b"77"])
     p_args = (dd.buf, dd.off, needles, lens)
-    hits, any_hits = probe.dict_probe(*p_args)
-    k3_err = require_equal("K3", (hits, any_hits),
-                           probe.dict_probe_plain(*p_args))
-    T, V = hits.shape
-    k3_bytes = (dd.buf.numel() + dd.off.numel() * 4 + T * V + T
-                + needles.numel() + lens.numel() * 4)
+    want = probe.dict_probe_plain(*p_args)
+    k3_err = require_equal("K3", probe.dict_probe(*p_args), want)
+    want_w = (pack.pack_mask_words_plain(want[0]), want[1])
+    k3_err = max(k3_err, require_equal(
+        "K3 words", probe.dict_probe(*p_args, True), want_w))
+    T, V = want[0].shape
     k3_ms = cuda_ms(lambda: probe.dict_probe(*p_args), 50)
     k3_plain = cuda_ms(lambda: probe.dict_probe_plain(*p_args), 3)
-    k3_shape = {"values": V, "dict_bytes": int(dd.buf.numel()), "T": T,
-                "needle": "77", "hits": int(hits.sum())}
+
+    def words():
+        return probe.dict_probe(*p_args, True)
+
+    def call():
+        return dict_probe.probe_value_hits(dd, [b"77"])
+
+    k3_err = max(k3_err, require_equal("K3 probe call", call(), want))
+    # the profiler may keep fewer records than calls (C1), never more:
+    # each kept record must be the kernel, at most one a call
+    per_call = kernels_per_call(call)
+    if per_call and (sum(per_call.values()) > 1
+                     or not all("probe_kernel" in k for k in per_call)):
+        raise AssertionError(f"a probe call ran {per_call} on the card, not "
+                             "one probe_kernel launch")
+    edges, e = k3_edges(db.device, 20261018)
+    k3_shape = {
+        "values": V, "dict_bytes": int(dd.buf.numel()), "T": T,
+        "needle": "77", "hits": int(want[0].sum()), "edges": edges,
+        "words": {"ms": cuda_ms(words, 50), "device_ms": event_ms(words),
+                  "plain_ms": cuda_ms(lambda: pack.pack_mask_words_plain(
+                      probe.dict_probe_plain(*p_args)[0]), 3),
+                  "bound_ms": k3_bytes(dd.buf, dd.off, T, True)
+                  / HBM_BYTES_PER_S * 1e3, "shape": [T, -(-V // 32)]},
+        "probe_call": {"ms": cuda_ms(call, 50), "host_us": host_us(call),
+                       "device_ms": event_ms(call),
+                       "per_call": per_call or "not measured (no profile)"}}
+    print(f"K3 probe call (probe_value_hits, needle bytes to hits): "
+          f"{k3_shape['probe_call']['ms']:.4f} ms a call back to back, "
+          f"{k3_shape['probe_call']['host_us']:.1f} us of host issue time, "
+          f"{k3_shape['probe_call']['device_ms']:.4f} ms device; device "
+          f"operations a call (profiler): {k3_shape['probe_call']['per_call']}"
+          f"; words {k3_shape['words']['ms']:.4f} ms back to back, "
+          f"{k3_shape['words']['device_ms']:.4f} ms device", flush=True)
     tags, kw = hc_requests()["hc_exhaustive_77"]
     k1h, _scores = k1_row(db, "multi_scan_hits",
                           "tempo_tpu/search/multiblock.py:855", tags, kw,
@@ -1214,17 +1270,77 @@ def hc_kernel_phase(db, bsb, launches: dict) -> list:
         k1s_row(bsb, "scan_single", "tempo_tpu/search/engine.py:331",
                 launches),
         kernel_row("dict_probe", "tempo_tpu_torch/csrc/probe.cu",
-                   "tempo_tpu/search/dict_probe.py:283", launches, k3_err,
-                   k3_ms, k3_plain, k3_bytes, None, k3_shape,
+                   "tempo_tpu/search/dict_probe.py:283", launches,
+                   max(k3_err, e), k3_ms, k3_plain,
+                   k3_bytes(dd.buf, dd.off, T, False), None, k3_shape,
                    lambda: probe.dict_probe(*p_args)),
     ]
 
 
+def k3_edges(dev, seed: int) -> tuple:
+    """K3 held exactly against its plain version on `dev`, through its
+    wrapper, in both output forms (bool rows; words against
+    ``pack_mask_words_plain``), at the edges of its design: the seeded
+    cases the CPU tests hold its rule to (``bench_probe.K3_CASES``): V =
+    1, 31, 32, 33 and 4,097; session ids with a prefix; empty values; a
+    value longer than a chunk with matches across its seams; a match
+    that would cross a value boundary and one in the last bytes of buf;
+    needles of 1, 2, 16 and 64 bytes, one equal to a value and one
+    longer than every value; the empty needle and a None term; T = 1,
+    2, 33, 40 and 60 (two launches); non-ASCII UTF-8; buf off a 16-byte
+    boundary. On the card every launcher call is then replayed from 8
+    host threads at once (``LauncherReplay``), and no ``probe.cu`` build
+    may spill in ptxas's report of the library loaded (this process's
+    build or the cached one's saved log). On the CPU (a rehearsal) the
+    wrapper takes the plain version. Returns (report, max abs err)."""
+    from tempo_tpu_torch.search.kernels import build, pack, probe
+    from tempo_tpu_torch.search.kernels.bench_coalesced import ptxas_usage
+    from tempo_tpu_torch.search.kernels.bench_probe import K3_CASES, k3_case
+
+    report, err = {}, 0
+    replay = LauncherReplay().start()
+    try:
+        for name in K3_CASES:
+            c = k3_case(seed, name, dev)
+            args = (c["buf"], c["off"], c["arr"], c["lens"])
+            hits, any_hits = probe.dict_probe_plain(*args)
+            err = max(err, require_equal(f"K3 edge {name}",
+                                         probe.dict_probe(*args),
+                                         (hits, any_hits)))
+            err = max(err, require_equal(
+                f"K3 edge {name}, words", probe.dict_probe(*args, True),
+                (pack.pack_mask_words_plain(hits), any_hits)))
+            report[name] = {"V": len(c["vals"]), "N": int(c["buf"].numel()),
+                            "T": len(c["needles"]),
+                            "buf_mod_16": c["buf"].data_ptr() % 16,
+                            "hits": int(hits.sum())}
+    finally:
+        replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
+    usage = ptxas_usage(build.BUILD_LOG.get("probe", ""))
+    if dev.type == "cuda" and not usage:
+        raise AssertionError("K3 edges: no ptxas report of the loaded "
+                             "probe.cu library")
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"probe.cu builds spill: {spills}")
+    print(f"K3 edges: {len(report)} cases, bool and words, each equal to "
+          f"its plain version ({replayed.get('K3', 0)} launcher calls "
+          f"replayed from 8 threads); {len(usage)} probe.cu builds in "
+          "ptxas's report, none spills, registers "
+          f"{sorted({v.get('registers') for v in usage.values()})}",
+          flush=True)
+    return report, err
+
+
 def k5_row(db, launches: dict) -> dict:
-    """K5 against its plain version on the card: the probe's output for
-    "77" over one staged dictionary of the packed high-cardinality cell
-    ([1, 1,050,711] at full size), and a seeded [8, 2,135] mask (V not a
-    multiple of 32); exact equality."""
+    """K5 against its plain version on the card: the probe's bool output
+    for "77" over one staged dictionary of the packed high-cardinality
+    cell ([1, 1,050,711] at full size), and a seeded [8, 2,135] mask (V
+    not a multiple of 32); exact equality. No main path launches K5 any
+    longer (K3 writes the packed route's words itself), so its launches
+    are 0 (``OFF_PATH``)."""
     import torch
 
     from tempo_tpu_torch.search import dict_probe
@@ -1232,7 +1348,7 @@ def k5_row(db, launches: dict) -> dict:
 
     batch = largest_batch(db)
     dd = next(iter(batch.staged_dicts.values()))
-    needles, lens = dict_probe.needle_tensors([b"77"], db.device)
+    needles, lens = dict_probe.needle_tensors([b"77"])
     hits, _any = probe.dict_probe(dd.buf, dd.off, needles, lens)
     err = require_equal("K5", (pack.pack_mask_words(hits),),
                         (pack.pack_mask_words_plain(hits),))
@@ -1932,8 +2048,9 @@ def packed_hc_cell(args, work: str, report: dict, dbs: list,
         report[f"hc_packed_launches_{label}"] = path
     require_launched("packed hc search", report["hc_packed_launches_packed"],
                      ("multi_scan_packed_hits", "scan_single_packed",
-                      "dict_probe", "pack_mask_words", "topk"),
-                     ("multi_scan_hits", "scan_single", "multi_scan"))
+                      "dict_probe", "dict_probe_words", "topk"),
+                     ("multi_scan_hits", "scan_single", "multi_scan",
+                      "pack_mask_words"))
     same_responses("packed hc search", kres, pres)
     lat = {}
     for name in kres:
@@ -1971,6 +2088,9 @@ def packed_hc_cell(args, work: str, report: dict, dbs: list,
     row = concurrent_rounds(packed_db, "hc", sessions, args.rounds, serial)
     add_counts(launches, row["launches"])
     require_fusion(row, "coalesced_scan_packed_hits")
+    if row["launches"].get("pack_mask_words"):
+        raise AssertionError(f"the packed hc sessions launched K5: "
+                             f"{row['launches']}")
     print(f"concurrent packed high cardinality sessions (coalescing): round "
           f"p50 {row['round_p50_ms']:.3f} ms, p95 {row['round_p95_ms']:.3f} "
           f"ms; request p50 {row['lat_p50_ms']:.3f} ms, p95 "
@@ -2142,6 +2262,8 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
                                  f"{path}")
     if path["multi_scan"]:
         raise AssertionError(f"a probed block took the range mode: {path}")
+    if path["dict_probe_words"] or path["pack_mask_words"]:
+        raise AssertionError(f"the unpacked hc path asked for words: {path}")
     add_counts(launches, path)
     lat_report = {}
     expect = {"hc_point": 1, "hc_prefix": 10, "hc_search_block_point": 1,
@@ -4734,7 +4856,7 @@ def chain_rows(tag_db, hc_db, pages, mesh_obj, launches: dict) -> list:
     hb = largest_batch(hc_db)
     sd = next(iter(hb.staged_dicts.values()))
     dd = sd.shards[0]
-    needles, lens = dict_probe.needle_tensors([b"77"], dev)
+    needles, lens = dict_probe.needle_tensors([b"77"])
 
     def probe_plain():
         return probe.dict_probe_plain(dd.buf, dd.off, needles, lens)
@@ -4988,9 +5110,13 @@ def main(argv=None) -> int:
     kernels = [by_name[k] for k in KERNELS]
     for r in kernels:
         r["launches"] = launches[r["name"]]
-        if not r["launches"]:
+        if not r["launches"] and r["name"] not in OFF_PATH:
             raise AssertionError(f"{r['name']} was never launched on the "
                                  "main path")
+        if r["launches"] and r["name"] in OFF_PATH:
+            raise AssertionError(f"a main path launched {r['name']}")
+    by_name["dict_probe"]["shape"]["word_launches"] = launches.get(
+        "dict_probe_words", 0)
     report["kernels"] = kernels
     report["launches_all_paths"] = launches
     for r in kernels:

@@ -6,8 +6,10 @@ block whose value dictionary has at least ``DEVICE_PROBE_MIN_VALS``
 distinct values stages the dictionary's bytes with its pages; query
 compilation then answers each tag term's substring test with kernel K3
 (``kernels.probe.dict_probe``) and hands the scan a ``[T, V]`` hit mask
-instead of folding host id sets into ranges. Nothing but the prune
-decision (``any_hits``, T bools) comes back to the host.
+(a packed engine: ``[T, ceil(V/32)]`` words, from the same launch)
+instead of folding host id sets into ranges. The needles travel in the
+launch's parameters; nothing but the prune decision (``any_hits``, T
+bools) comes back to the host.
 
 Layout, packed once per dictionary and memoized on the block's container:
 
@@ -24,14 +26,16 @@ the reference's ``dist_probe_kernel``: ``pack_device_dict(val_dict,
 n_shards)`` gives rank r the contiguous value range ``[r*vs, (r+1)*vs)``
 (``PackedDeviceDict.shard``; ``vs`` is a multiple of 32, so a gathered
 mask packs into words that never straddle two ranks), each rank runs K3
-over its range, and the ``[T, vs]`` masks are ``all_gather``ed into one
-``[T, S*vs]`` mask (a layout copy) from which ``any_hits`` is taken
+over its range, and the ``[T, vs]`` masks (or ``[T, vs/32]`` words) are
+``all_gather``ed into one ``[T, S*vs]`` mask (a layout copy) from which
+``any_hits`` is taken
 (``ShardedDeviceDict``, ``probe_value_hits``). Ids at or past V are pad
 values no column holds.
 """
 
 from __future__ import annotations
 
+from array import array
 from dataclasses import dataclass
 
 import numpy as np
@@ -175,51 +179,56 @@ def stage_val_dict(val_dict: list, device: torch.device,
     return place_device_dict(packed, device)
 
 
-def probe_value_hits(ddev, needles: list):
+def probe_value_hits(ddev, needles: list, words: bool = False):
     """Run K3 for a list of UTF-8 needles against a staged dictionary.
     A needle of None stands for a term that must match nothing (its key
     is absent from the block). Returns (hits bool [T, V], any_hits bool
-    [T]) on the dictionary's device; nothing synchronizes here. A
-    ShardedDeviceDict answers through the mesh: K3 over each local
-    rank's range, then the all_gather, under the collective lock; its
-    hits are [T, S*vs].
+    [T]) on the dictionary's device, or with `words` the mask as int32
+    words [T, ceil(V/32)] (``packing.pack_mask_words``'s form, written by
+    the same launch); nothing synchronizes here. A ShardedDeviceDict
+    answers through the mesh: K3 over each local rank's range, then the
+    all_gather, under the collective lock; its mask covers S*vs values
+    (vs a multiple of 32, so the ranks' words join whole).
 
     Raises ValueError for an empty list or a needle longer than
     MAX_NEEDLE_BYTES: callers route such queries to the host path before
     they get here."""
-    arr, lens = needle_tensors(needles, ddev.device)
+    arr, lens = needle_tensors(needles)
+    args = (arr, lens, True) if words else (arr, lens)
     if not isinstance(ddev, ShardedDeviceDict):
-        return probe_k.dict_probe(ddev.buf, ddev.off, arr, lens)
+        return probe_k.dict_probe(ddev.buf, ddev.off, *args)
     ex = ddev.exchange
     with ex.locked():
         gathered = ex.all_gather(
-            [probe_k.dict_probe(d.buf, d.off, arr, lens)[0]
-             for d in ddev.shards])                     # [S, T, vs]
-    S, T, vs = gathered.shape
-    hits = gathered.permute(1, 0, 2).reshape(T, S * vs)
+            [probe_k.dict_probe(d.buf, d.off, *args)[0]
+             for d in ddev.shards])                     # [S, T, vs(/32)]
+    S, T, w = gathered.shape
+    hits = gathered.permute(1, 0, 2).reshape(T, S * w)
     if hits.device.type == "cuda":
         dist_k.PROBE_LAUNCHES.bump()
-    return hits, hits.any(dim=1)
+    return hits, ((hits != 0).any(dim=1) if words else hits.any(dim=1))
 
 
-def needle_tensors(needles: list, device: torch.device):
-    """K3's needle inputs: uint8 [T, L] rows and int32 [T] lengths (-1 for
-    a None needle). Raises ValueError for an empty list or a needle
-    longer than MAX_NEEDLE_BYTES."""
+def needle_tensors(needles: list):
+    """K3's needle inputs, in host memory (the kernel's launch carries
+    them): uint8 [T, L] rows and int32 [T] lengths (-1 for a None
+    needle). Raises ValueError for an empty list or a needle longer than
+    MAX_NEEDLE_BYTES."""
     T = len(needles)
     if T == 0:
         raise ValueError("probe_value_hits needs at least one needle")
     lmax = max((len(n) for n in needles if n is not None), default=0)
     if lmax > MAX_NEEDLE_BYTES:
         raise ValueError(f"needle exceeds {MAX_NEEDLE_BYTES} bytes")
-    arr = np.zeros((T, max(1, lmax)), dtype=np.uint8)
-    lens = np.full(T, -1, dtype=np.int32)
+    L = max(1, lmax)
+    rows = bytearray(T * L)
+    lens = array("i", [-1]) * T
     for t, nb in enumerate(needles):
         if nb is not None:
-            arr[t, :len(nb)] = np.frombuffer(nb, dtype=np.uint8)
+            rows[t * L:t * L + len(nb)] = nb
             lens[t] = len(nb)
-    return (torch.from_numpy(arr).to(device),
-            torch.from_numpy(lens).to(device))
+    return (torch.frombuffer(rows, dtype=torch.uint8).view(T, L),
+            torch.frombuffer(lens, dtype=torch.int32))
 
 
 def hits_to_ids(hits_row) -> np.ndarray:

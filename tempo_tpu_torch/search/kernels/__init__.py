@@ -4,6 +4,7 @@
   K1s ``scan.scan_single``     (csrc/scan.cu)  <- tempo_tpu engine.scan_kernel
   K2  ``topk.topk``            (csrc/topk.cu)  <- tempo_tpu engine.masked_topk
   K3  ``probe.dict_probe``     (csrc/probe.cu) <- tempo_tpu dict_probe.probe_kernel
+                               (and, in words, packing.pack_mask_words after it)
   K4  ``scan.coalesced_scan``  (csrc/scan.cu)  <- tempo_tpu multiblock.coalesced_scan_kernel
   K2r ``topk.topk_rows``       (csrc/topk.cu)  <- its vmapped masked_topk
   K5  ``pack.pack_mask_words`` (csrc/pack.cu)  <- tempo_tpu packing.pack_mask_words
@@ -17,6 +18,12 @@
                                <- tempo_tpu live_tier.hot_scan_kernel
   K9  ``dist.shard_topk``      (csrc/dist.cu)  <- the global top-k tail of
                                tempo_tpu's mesh kernels (B10)
+
+K3 is one cooperative launch a call over tiles of values staged once in
+shared memory (candidates a 32-bit word at a time on the needle's last
+two bytes, every term over one read, the needles in the launch's
+parameters) that writes bool rows or, for a packed engine, the words K5
+would: no main path launches K5 any longer.
 
 K1, K1s and K4 also read batches staged in the packed layout
 (``search/packing.py``): the scan half of the reference's packing
@@ -37,7 +44,8 @@ with u16 / bucketed durations), ``PACKED_HIT_LAUNCHES``,
 ``COALESCED_PACKED_HIT_LAUNCHES``, and with verdicts (any layout and
 hit mode) ``VERDICT_LAUNCHES``, ``SINGLE_VERDICT_LAUNCHES`` and
 ``COALESCED_VERDICT_LAUNCHES``; ``topk.LAUNCHES``, ``topk.ROW_LAUNCHES``,
-``probe.LAUNCHES``, ``pack.LAUNCHES``, ``structural.LAUNCHES``, and
+``probe.LAUNCHES`` (every K3 launch) and ``probe.WORD_LAUNCHES`` (those
+that wrote words), ``pack.LAUNCHES``, ``structural.LAUNCHES``, and
 ``agg.LAUNCHES`` / ``agg.ROW_LAUNCHES`` (K7, one row / a query axis),
 ``agg.COUNT_LAUNCHES`` (K8), ``scan.HOT_LAUNCHES`` (B9, a chain
 whose K1s, K2 and K6 launches count in their own counters too),

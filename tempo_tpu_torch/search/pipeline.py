@@ -210,8 +210,8 @@ def compile_query(key_dict: list, val_dict: list, req,
     dictionary content and tag-set. `staged_dict` (a
     dict_probe.DeviceDict of this value dictionary, present when staging
     applied the size threshold) sends the substring test to the device
-    probe; with `packed` (a packed engine) its hit mask is bit-packed into
-    words by K5."""
+    probe; with `packed` (a packed engine) K3 writes its hit mask as
+    words."""
     sig = fp = None
     if cache is not None and cache_on is not None:
         sig = tags_sig(req)
@@ -257,12 +257,12 @@ def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
 
 def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
                        packed: bool = False):
-    """One K3 launch for all terms (then, with `packed`, one K5 launch
-    that packs the mask into words). A term whose key is absent prunes
-    the block, or under the exhaustive flag gets an all-false row
-    whatever its needle. Without the flag, a term whose key exists but
-    whose needle hits no value prunes the block: reading `any_hits` is
-    the probe's one device-to-host sync."""
+    """One K3 launch for all terms, which with `packed` writes the mask
+    as words (``packing.pack_mask_words``'s form). A term whose key is
+    absent prunes the block, or under the exhaustive flag gets an
+    all-false row whatever its needle. Without the flag, a term whose key
+    exists but whose needle hits no value prunes the block: reading
+    `any_hits` is the probe's one device-to-host sync."""
     term_key_ids = []
     needles = []
     for k, v in terms:
@@ -275,14 +275,13 @@ def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
             continue
         term_key_ids.append(i)
         needles.append(v.encode("utf-8"))
-    hits, any_hits = dict_probe.probe_value_hits(staged_dict, needles)
+    hits, any_hits = dict_probe.probe_value_hits(staged_dict, needles,
+                                                 packed)
     if not exhaustive:
         any_host = any_hits.cpu().numpy()
         if any(ki >= 0 and not any_host[t]
                for t, ki in enumerate(term_key_ids)):
             return None
-    if packed:
-        hits = packing.pack_mask_words(hits)
     T = len(term_key_ids)
     val_ranges = np.tile(np.array([1, 0], dtype=np.int32), (T, 1, 1))
     return np.asarray(term_key_ids, dtype=np.int32), val_ranges, hits

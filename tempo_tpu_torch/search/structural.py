@@ -8,7 +8,7 @@ batch the tree compiles (``compile_structural``) into
 - a **static plan**, nested tuples of ops and table indices, the same
   descriptor the reference builds (``_LeafCollector``);
 - **parameter tables**, the reference's seven: per-block leaf term keys
-  and value ranges (or device hit masks, through the same K3/K5 probe
+  and value ranges (or device hit masks, through the same K3 probe
   route the tag terms take, under the exhaustive contract: a leaf never
   prunes a block), duration, kind and aggregate parameters.
 
@@ -624,7 +624,7 @@ def _probe_leaf_terms(block, terms: list, staged_dict, packed: bool):
     val_hits [T, V] or None) under the exhaustive contract (a missing key
     gets id -1, an empty value set the empty ranges). The device probe
     answers when the dictionary is staged and every needle fits it (K3,
-    then K5 with `packed`); otherwise the host walk. Device products
+    in words with `packed`); otherwise the host walk. Device products
     cache apart from host ones, and per mask format."""
     from . import dict_probe
     from .pipeline import _device_probe_tags, _host_probe_tags
