@@ -124,14 +124,20 @@ error:
    1,048,576 x 4,096), equal to the host's count; every response equal
    to the CPU path's; K7 ([1, N] and [8, N] at K = 3,840 and [1, N] at
    K = 30,720: the shared-memory route; K = 61,440: the global-atomic
-   one) and K8 (K = 960, shared; 61,440, global) against their plain
-   versions, timed, with bound and torch.bincount times; one K7 call one
-   ``agg_kernel`` launch and nothing else on the stream (the profiler);
+   one) and K8 (K = 960, one CTA's shared memory; 61,440, global
+   atomics) against their plain versions, timed, with
+   bound and torch.bincount times; one K7 call one ``agg_kernel`` launch
+   and one K8 call one ``count_kernel`` launch, nothing else on the
+   stream (the profiler);
    K7 at its design's edges (``k7_edges``: N = 0 to 4,096 k + 1, rows and
    keys off a 16-byte boundary, K either side of the shared limit, keys
    out of range, one hot bin, red_svc's ~10% accepted, rows at odd
    phases; every launcher call replayed from 8 host threads at once; no
-   agg.cu build spilling); a packed TempoDB over the first
+   agg.cu build spilling); K8 at its design's edges (``k8_edges``: n = 0
+   to 4,096 x 5 + 3, columns off a 16-byte boundary in and out of phase,
+   K either side of the CTA route's limit, series ids out of range,
+   durations on every threshold and past 2^62, one hot bin; replayed
+   from 8 threads); a packed TempoDB over the first
    64 blocks (``AGG_PACKED_BLOCKS``) through ``search_blocks``, each
    response equal to the unpacked database's; then the concurrent phase
    with 8 svc-00i agg requests and with 4 agg and 4 plain, every fused
@@ -843,20 +849,20 @@ def require_equal(what: str, got: tuple, want: tuple) -> int:
 
 
 class LauncherReplay:
-    """Records the C launcher calls that K1's, K1s's, K3's, K4's, K6's and
-    K7's wrappers make between ``start`` and ``stop`` (each call's frame is
-    kept, which keeps its tensors alive), then ``replay`` calls those
-    launchers again straight from several host threads at once, without
-    the wrappers' Python between calls: a launcher that sets a kernel's
-    shared-memory allowance to its own call's size fails its launch when
-    another thread's smaller allowance lands between its set and its
-    launch, and one whose cached occupancy or per-batch state another
-    thread changes launches a wrong grid."""
+    """Records the C launcher calls that K1's, K1s's, K3's, K4's, K6's,
+    K7's and K8's wrappers make between ``start`` and ``stop`` (each
+    call's frame is kept, which keeps its tensors alive), then ``replay``
+    calls those launchers again straight from several host threads at
+    once, without the wrappers' Python between calls: a launcher that sets
+    a kernel's shared-memory allowance to its own call's size fails its
+    launch when another thread's smaller allowance lands between its set
+    and its launch, and one whose cached occupancy or per-batch state
+    another thread changes launches a wrong grid."""
 
     # each C launcher by the kernels it launches
     NAMES = {"tt_scan_k1": "K1", "tt_coalesced_scan": "K4",
              "tt_structural_mask": "K6", "tt_agg_counts": "K7",
-             "tt_dict_probe": "K3"}
+             "tt_analytics_count": "K8", "tt_dict_probe": "K3"}
 
     def __init__(self):
         from tempo_tpu_torch.search.kernels import (agg, probe, scan,
@@ -3538,8 +3544,8 @@ def red_ingest_batches(blocks: list, seed: int) -> dict:
     1,048,576 rows by (service, operation, status 500 or not) (4,096
     series; fewer where the corpus is smaller); durations in
     nanoseconds (ms x 1e6 plus a seeded sub-millisecond part, the first
-    rows on every threshold and one either side of it). route -> (series
-    ids int32, durations int64, n_keys)."""
+    rows on every threshold and one either side of it). "services" /
+    "operations" -> (series ids int32, durations int64, n_keys)."""
     import numpy as np
 
     from tempo_tpu_torch.search.analytics import (LATENCY_BUCKETS_S,
@@ -3572,10 +3578,10 @@ def red_ingest_batches(blocks: list, seed: int) -> dict:
                         for d in (-1, 0, 1)], dtype=np.int64)
     dur[:edges.size] = edges
     s500 = (c["s500"] == 0).astype(np.int64)
-    return {"shared": (c["svc"][:8192].astype(np.int32), dur[:8192].copy(),
-                       64),
-            "global": (((c["svc"] * 32 + c["name"]) * 2 + s500)
-                       .astype(np.int32), dur, 4096)}
+    return {"services": (c["svc"][:8192].astype(np.int32),
+                         dur[:8192].copy(), 64),
+            "operations": (((c["svc"] * 32 + c["name"]) * 2 + s500)
+                           .astype(np.int32), dur, 4096)}
 
 
 def host_dense_counts(sidx, dur, n_keys: int):
@@ -3670,19 +3676,22 @@ def k7_measure(label: str, scores, keys, K: int) -> dict:
 def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
     """K8 on one micro-batch against its plain version and the host's
     count, its CUDA-event time, the plain version's and torch.bucketize +
-    torch.bincount's, and its bound: series ids and durations read,
-    thresholds read, counts written."""
+    torch.bincount's (``bench_agg.k8_library``), and its bound: series ids
+    and durations read, counts written (the thresholds ride in the
+    launch's parameters)."""
+    import numpy as np
     import torch
 
     from tempo_tpu_torch.search.analytics import (LATENCY_BUCKETS_S,
                                                   thresholds_tensor)
     from tempo_tpu_torch.search.kernels import agg
+    from tempo_tpu_torch.search.kernels.bench_agg import k8_library
 
-    thr = thresholds_tensor(LATENCY_BUCKETS_S, device)
+    thr = thresholds_tensor(LATENCY_BUCKETS_S, torch.device("cpu"))
+    thr_dev = thresholds_tensor(LATENCY_BUCKETS_S, device)
     s = torch.from_numpy(sidx).to(device)
     d = torch.from_numpy(dur).to(device)
-    nb1 = thr.numel() + 1
-    K = n_keys * nb1
+    K = n_keys * (thr.numel() + 1)
 
     def fn():
         return agg.analytics_count(s, d, thr, n_keys)
@@ -3690,20 +3699,16 @@ def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
     out = fn()
     err = require_equal(f"K8 ({label})", (out,),
                         (agg.analytics_count_plain(s, d, thr, n_keys),))
-    s64 = s.to(torch.int64)
 
     def lib():
-        return torch.bincount(s64 * nb1 + torch.bucketize(d, thr, right=True),
-                              minlength=K)[:K]
-
-    import numpy as np
+        return k8_library(s, d, thr_dev, n_keys)
 
     if not np.array_equal(out.cpu().numpy(),
                           host_dense_counts(sidx, dur, n_keys)) \
-            or not torch.equal(lib().to(torch.int32), out):
+            or not torch.equal(lib(), out):
         raise AssertionError(f"K8 ({label}) differs from the host's count "
                              "or torch.bincount")
-    need = s.numel() * 12 + thr.numel() * 8 + K * 4
+    need = s.numel() * 12 + K * 4
     return {"fn": fn, "err": err, "ms": cuda_ms(fn, 50),
             "plain_ms": cuda_ms(
                 lambda: agg.analytics_count_plain(s, d, thr, n_keys), 5),
@@ -3711,6 +3716,58 @@ def k8_measure(label: str, sidx, dur, n_keys: int, device) -> dict:
             "bound_ms": need / HBM_BYTES_PER_S * 1e3,
             "shape": {"rows": s.numel(), "series": n_keys, "K": K,
                       "route": agg.count_route(K)}}
+
+
+def k8_edges(dev, seed: int) -> tuple:
+    """K8 held exactly against its plain version and torch.bincount on the
+    card, through its public wrapper, at the edges of its design: the
+    seeded cases the CPU tests hold its rule to (``bench_agg.K8_CASES``):
+    n = 0, 1, 3, 2,053, 4,097 and 4,096 x 5 + 3; series ids and durations
+    off a 16-byte boundary, in phase with each other and not; K = 15, 960,
+    61,440, either side of the CTA route's limit and far past it; series
+    ids past n_keys and negative; durations on every threshold and one
+    either side, 0 and 2^62 - 1 up to 2^63 - 1; one hot bin on both
+    routes. Every launcher call is then
+    replayed from 8 host threads at once (``LauncherReplay``), and no
+    ``agg.cu`` build may spill in ptxas's report of the library loaded.
+    Returns (report, max abs err)."""
+    import torch
+
+    from tempo_tpu_torch.search.kernels import agg, build
+    from tempo_tpu_torch.search.kernels.bench_agg import (K8_CASES, k8_case,
+                                                          k8_library)
+    from tempo_tpu_torch.search.kernels.bench_coalesced import ptxas_usage
+
+    report, err = {}, 0
+    replay = LauncherReplay().start()
+    for name in K8_CASES:
+        s, d, thr, n_keys, _b = k8_case(seed, name, dev)
+        got = agg.analytics_count(s, d, thr, n_keys)
+        want = agg.analytics_count_plain(s, d, thr, n_keys)
+        err = max(err, require_equal(f"K8 edge {name}", (got,), (want,)))
+        if not torch.equal(k8_library(s, d, thr.to(dev), n_keys), got):
+            raise AssertionError(f"K8 edge {name} differs from "
+                                 "torch.bincount")
+        K = got.numel()
+        report[name] = {"n": s.numel(), "K": K, "route": agg.count_route(K),
+                        "counted": int(got.sum())}
+    replay.stop()
+    replayed = replay.replay() if dev.type == "cuda" else {}
+    usage = ptxas_usage(build.BUILD_LOG.get("agg", ""))
+    if dev.type == "cuda" and not any("count_kernel" in k for k in usage):
+        raise AssertionError("K8 edges: no ptxas report of count_kernel in "
+                             "the loaded agg.cu library")
+    spills = {k: v for k, v in usage.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"agg.cu builds spill: {spills}")
+    routes = sorted({r["route"] for r in report.values()})
+    print(f"K8 edges: {len(report)} cases ({', '.join(routes)} routes), "
+          f"each equal to its plain version and torch.bincount "
+          f"({replayed.get('K8', 0)} launcher calls replayed from 8 "
+          f"threads); {len(usage)} agg.cu builds in ptxas's report, none "
+          "spills", flush=True)
+    return report, err
 
 
 def k7_edges(dev, seed: int) -> tuple:
@@ -3777,7 +3834,10 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
     K4's rows of 8 svc-00i requests ([8, N]); the device operations of
     one K7 call (the profiler: one ``agg_kernel`` launch and nothing
     else, no zeroing memset); K7 at its edges (``k7_edges``); K8 on the
-    two ingest micro-batches (K = 960, shared; K = 61,440, global)."""
+    two ingest micro-batches (K = 960, one CTA's shared memory; K =
+    61,440, global atomics), one call of each one
+    ``count_kernel`` launch and nothing else (the profiler), and K8 at its
+    edges (``k8_edges``)."""
     import torch
 
     from tempo_tpu_torch.search.kernels.bench_agg import spread_keys
@@ -3800,8 +3860,8 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
     if not (one["shape"]["route"] == rows8["shape"]["route"]
             == k30["shape"]["route"] == "shared"
             and glob["shape"]["route"] == "global"
-            and k8["shared"]["shape"]["route"] == "shared"
-            and k8["global"]["shape"]["route"] == "global"):
+            and k8["services"]["shape"]["route"] == "cta"
+            and k8["operations"]["shape"]["route"] == "global"):
         raise AssertionError("the kernel phases missed a route of K7 or K8")
     # the profiler may keep fewer records than calls (C1), never more:
     # each kept record must be the kernel, at most one a call
@@ -3815,6 +3875,19 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
           flush=True)
     one["shape"]["edges"], e = k7_edges(db.device, 20261018)
     one["err"] = max(one["err"], e)
+    # one K8 call: the count kernel alone, no memset, on either route
+    for m in k8.values():
+        per_call = kernels_per_call(m["fn"])
+        if per_call and (sum(per_call.values()) > 1
+                         or not all("count_kernel" in k for k in per_call)):
+            raise AssertionError(f"a K8 call ran {per_call} on the card, "
+                                 "not one count_kernel launch")
+        m["shape"]["per_call"] = per_call or "not measured (no profile)"
+    print("K8 per call on the card (profiler): "
+          + "; ".join(f"{k} {m['shape']['per_call']}" for k, m in k8.items()),
+          flush=True)
+    k8["operations"]["shape"]["edges"], e = k8_edges(db.device, 20261018)
+    k8["operations"]["err"] = max(k8["operations"]["err"], e)
     for label, m in (("K7 [1, N]", one), ("K7 1,024 services", k30),
                      ("K7 2,048 services", glob),
                      ("K7 [8, N]", rows8)) + tuple(
@@ -3846,8 +3919,8 @@ def red_kernel_phase(db, ingest: dict, launches: dict) -> list:
     return [row("agg_counts", one, ("services_1024", k30),
                 ("global_route", glob)),
             row("agg_counts_rows", rows8),
-            row("analytics_count", k8["global"],
-                ("shared_route", k8["shared"]))]
+            row("analytics_count", k8["operations"],
+                ("cta_route", k8["services"]))]
 
 
 def red_cell(args, work: str, report: dict, dbs: list,

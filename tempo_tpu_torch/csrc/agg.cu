@@ -74,12 +74,58 @@
 // a warp's keys with __match_any_sync saves nothing when neighbouring
 // entries belong to different services.
 //
-// K8 (`count_kernel`) keeps its first design: one thread per entry per
-// loop step, four entries in flight a thread; each warp groups its lanes
-// by key (__match_any_sync) and one leader adds the group's count. Up to
-// kCountSharedBins bins (48 KB without opting in) each CTA counts in
-// shared memory and adds its non-zero bins into the output, zeroed on the
-// stream first; past that the atomics go straight to the output.
+// K8's design (`count_kernel`): one cooperative launch a call, no memset,
+// `out` written exactly once. Its bound at the ingest count's main shape
+// (1,048,576 rows, K = 61,440) is 12.6 MB read and 0.25 MB written:
+// 3.8 us of HBM time, below the ~5.5 us a cooperative grid takes to
+// launch and retire empty, so launch and barriers, not bytes, set its
+// pace there.
+//   - The thresholds (at most 64) and nb ride in the launch's parameter
+//     struct (`__grid_constant__`): a warp reads each with one uniform
+//     constant-bank load, four entries against it at a time (the linear
+//     walk; a binary search would read the bank at divergent indices).
+//   - A persistent grid of 1,024-thread CTAs, one an SM. Each CTA takes a
+//     contiguous share of the rows' 16-byte vectors: four series ids in
+//     one int4 and their four durations in two longlong2, from the first
+//     element at which both columns are 16-byte aligned, the next vectors
+//     loaded before the current ones are counted. The entries before it
+//     and after the last whole vector are counted one by one, spread over
+//     the CTAs; columns whose addresses can never be aligned together (a
+//     series id view whose phase the durations cannot match) are counted
+//     one by one whole.
+//   - The CTA route, up to kCtaBins = 36,864 bins (K rounded up to
+//     kTile): each CTA counts into its own histogram in shared memory and
+//     writes it as one row of partials [CTAs, Kp] with 16-byte stores;
+//     after one grid barrier the grid sums the rows by column and writes
+//     `out` once (K7's tiles, `column_sums`; up to 64 rows in one pass, a
+//     lane a row slice of 4 bins, `column_sums_few`). The partials live
+//     in the output's allocation (the wrapper's), after the counts.
+//   - Past kCtaBins, the global route: the grid zeroes `out` itself,
+//     crosses one grid barrier and adds each entry into `out` with a
+//     global atomic.
+//   - A warp whose 128 entries share one bin adds once (a vote and a
+//     shuffle), and four entries of one bin add once: one hot bin costs
+//     less than keys spread over every bin.
+// The limit is measured (bench_agg.py, device ms over 1,048,576 rows,
+// H100 80GB HBM3 at 700 W; PERF.md §6): one CTA's histogram beats the
+// global route at K = 15,360 (0.0153 against 0.0236) and 30,720 (0.0196
+// against 0.0234) and still at its limit (K = 36,855: 0.0222-0.0226
+// against 0.0239-0.0240 at 36,870); past it the CTAs' partial rows of K
+// bins cost the column sum more than the atomics into L2 cost the count,
+// and at K = 61,440 the global route takes 0.0216-0.0227.
+// Tried and dropped: one histogram a thread-block cluster in distributed
+// shared memory, each CTA owning a slice and an entry one atomic into its
+// owner's (`map_shared_rank`), clusters of 2, 4 and 8 (bench_agg.py's
+// "a cluster of C" variants): a remote add costs more than a local one, so
+// every cluster lost to one CTA while K fits it and to the global route
+// past that (K = 61,440: C = 2 / 4 / 8 0.0261 / 0.0250 / 0.0253; C = 2
+// adding into its own CTA instead, 0.0234).
+// Why: the first K8 zeroed `out` with a memset (a second operation on
+// the stream), counted K = 61,440 with a global atomic per entry behind
+// __match_any_sync grouping (3x slower for K7 when neighbours differ, as
+// (service, operation, bucket) keys do), stopped its shared route at 48
+// KB without the opt-in allowance, loaded 4 and 8 bytes a thread, and
+// read its thresholds from device memory in every CTA.
 
 #include <atomic>
 #include <cstdint>
@@ -90,17 +136,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kAggThreads = 1024;      // K7: one CTA an SM
+constexpr int kAggThreads = 1024;      // K7 and K8: one CTA an SM
 constexpr int kAggWarps = kAggThreads / 32;
 constexpr int kSumBytes = kAggWarps * 32 * 16;   // the column sums' smem
 constexpr int kTile = 128;             // bins: a column tile, the pitch's unit
-constexpr int kSharedBins = 56320;     // K7's shared route: 220 KB of bins
+constexpr int kSharedBins = 56320;     // a CTA's bins at most: 220 KB
 constexpr int kMaxDevices = 64;
 
-constexpr int kThreads = 512;          // K8
-constexpr int kItems = 4;              // entries a K8 thread loads a step
-constexpr int kCountSharedBins = 12160;  // K8: 47.5 KB of bins
 constexpr int kMaxThresholds = 64;     // K8's duration edges, at most
+constexpr int kCtaBins = 36864;        // K8's CTA route: up to this pitch
 
 struct AggArgs {
   const int32_t* scores;   // [rows, n]
@@ -111,13 +155,15 @@ struct AggArgs {
   int rows, K, Kp, per_row;  // per_row: units (shares) a row
 };
 
-// One count for each lane's key into hist (key < 0: none). Every lane of
-// the warp must call it together.
-__device__ __forceinline__ void warp_count(unsigned* hist, int key) {
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  if (key >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(hist + key, (unsigned)__popc(peers));
-}
+struct CountArgs {
+  const int32_t* sidx;     // [n]
+  const int64_t* dur;      // [n]
+  int32_t* out;            // [K]
+  unsigned* partials;      // [CTAs, Kp] (CTA route)
+  int64_t n;
+  int K, Kp, nb;
+  long long thr[kMaxThresholds];   // ascending; the first nb are used
+};
 
 // Adds a thread's accepted keys (key < 0: none) into hist, one shared
 // (or, on the global route, global) atomic each.
@@ -131,6 +177,91 @@ __device__ __forceinline__ void count_keys(unsigned* hist,
 
 __device__ __forceinline__ int kept(int score, int key, unsigned K) {
   return (score >= 0 && (unsigned)key < K) ? key : -1;
+}
+
+// The counts of `rows` output rows [rows, K] from their partial rows
+// [rows * S, Kp] (row q's S first), a tile of kTile bins a CTA at a time:
+// lane l of warp w adds bins 4l..4l+3 of partial rows w, w + 32, ..., the
+// warps' sums meet in `smem` (kSumBytes, free by now), and kTile threads
+// add them and write each count once.
+__device__ __forceinline__ void column_sums(const unsigned* partials,
+                                            int rows, int S, int Kp, int K,
+                                            int32_t* out, unsigned* smem) {
+  uint4* red = reinterpret_cast<uint4*>(smem);      // [kAggWarps][32]
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int per_q = Kp / kTile;
+  const int tiles = rows * per_q;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int q = tile / per_q;
+    const int c0 = (tile - q * per_q) * kTile;
+    const uint4* base = reinterpret_cast<const uint4*>(
+        partials + (int64_t)q * S * Kp + c0) + lane;
+    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 4
+    for (int r = warp; r < S; r += kAggWarps) {
+      const uint4 v = __ldcg(base + (int64_t)r * (Kp / 4));
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    red[warp * 32 + lane] = acc;
+    __syncthreads();
+    if (t < kTile) {
+      const unsigned* col = reinterpret_cast<const unsigned*>(red) + t;
+      unsigned sum = 0;
+#pragma unroll 8
+      for (int w = 0; w < kAggWarps; ++w) sum += col[w * kTile];
+      if (c0 + t < K) out[(int64_t)q * K + c0 + t] = (int32_t)sum;
+    }
+    __syncthreads();
+  }
+}
+
+// The counts [K] from S <= kFewRows partial rows [S, Kp] in one pass: a
+// warp takes 8 column groups of 4 bins and its lanes 4 row slices (lane
+// = slice * 8 + group), so 8 lanes read 128 contiguous bytes of a row;
+// each lane adds its rows (S / 4 loads in flight), the slices meet by
+// shuffle, and the first slice's lanes write their 4 counts.
+constexpr int kFewRows = 64;
+
+__device__ __forceinline__ void column_sums_few(const unsigned* partials,
+                                                int S, int Kp, int K,
+                                                int32_t* out) {
+  const int lane = threadIdx.x & 31;
+  const int slice = lane >> 3, group = lane & 7;
+  const int64_t warps = (int64_t)gridDim.x * kAggWarps;
+  for (int64_t w = (int64_t)blockIdx.x * kAggWarps + (threadIdx.x >> 5);
+       w < Kp / 32; w += warps) {
+    const int64_t c = w * 32 + group * 4;          // the group's first bin
+    const uint4* col = reinterpret_cast<const uint4*>(partials + c);
+    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 4
+    for (int r = slice; r < S; r += 4) {
+      const uint4 v = __ldcg(col + (int64_t)r * (Kp / 4));
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+#pragma unroll
+    for (int m = 8; m < 32; m <<= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, m);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, m);
+    }
+    if (slice == 0) {
+      if (c + 4 <= K) {
+        reinterpret_cast<int4*>(out)[c / 4] =
+            make_int4((int)acc.x, (int)acc.y, (int)acc.z, (int)acc.w);
+      } else {
+        const unsigned v[4] = {acc.x, acc.y, acc.z, acc.w};
+        for (int j = 0; j < 4 && c + j < K; ++j) out[c + j] = (int32_t)v[j];
+      }
+    }
+  }
 }
 
 template <bool kShared>
@@ -211,89 +342,140 @@ agg_kernel(const AggArgs a) {
   }
   if (!kShared) return;
   cg::this_grid().sync();
-  // column sums, a tile of kTile bins at a time: lane l of warp w adds
-  // bins 4l..4l+3 of partial rows w, w + 32, ..., the warps' sums meet in
-  // the (now free) histogram's shared memory, and kTile threads add them
-  uint4* red = reinterpret_cast<uint4*>(hist);      // [kAggWarps][32]
-  const int lane = t & 31, warp = t >> 5;
-  const int per_q = a.Kp / kTile;
-  const int tiles = a.rows * per_q;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int q = tile / per_q;
-    const int c0 = (tile - q * per_q) * kTile;
-    const uint4* base = reinterpret_cast<const uint4*>(
-        a.partials + (int64_t)q * S * a.Kp + c0) + lane;
-    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 4
-    for (int r = warp; r < S; r += kAggWarps) {
-      const uint4 v = __ldcg(base + (int64_t)r * (a.Kp / 4));
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    red[warp * 32 + lane] = acc;
-    __syncthreads();
-    if (t < kTile) {
-      const unsigned* col = reinterpret_cast<const unsigned*>(red) + t;
-      unsigned sum = 0;
-#pragma unroll 8
-      for (int w = 0; w < kAggWarps; ++w) sum += col[w * kTile];
-      if (c0 + t < a.K) a.out[(int64_t)q * a.K + c0 + t] = (int32_t)sum;
-    }
-    __syncthreads();
+  column_sums(a.partials, a.rows, S, a.Kp, a.K, a.out, hist);
+}
+
+// K8's routes: one CTA's shared memory, or the grid's atomics into `out`.
+constexpr int kRouteGlobal = 0, kRouteCta = 1;
+
+// `v` counts into bin k (< K): the CTA's histogram, or `out` on the
+// global route.
+template <int kRoute>
+__device__ __forceinline__ void add_key(unsigned* hist, const CountArgs& a,
+                                        unsigned k, unsigned v) {
+  atomicAdd((kRoute == kRouteGlobal ? (unsigned*)a.out : hist) + k, v);
+}
+
+// Four entries' keys: their buckets by the thresholds in the parameter
+// bank (one uniform load a threshold for all four), and whether each key
+// lies in [0, K) (`ok`).
+__device__ __forceinline__ void keys4(const CountArgs& a,
+                                      const int (&sidx)[4],
+                                      const long long (&dur)[4],
+                                      unsigned (&key)[4], bool (&ok)[4]) {
+  int b[4] = {0, 0, 0, 0};
+  for (int i = 0; i < a.nb; ++i) {
+    const long long edge = a.thr[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] += dur[j] >= edge;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long k = (long long)sidx[j] * (a.nb + 1) + b[j];
+    ok[j] = (unsigned long long)k < (unsigned long long)a.K;
+    key[j] = (unsigned)k;
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const int32_t* __restrict__ sidx,
-             const int64_t* __restrict__ dur, int64_t n,
-             const int64_t* __restrict__ thr, int nb, int K,
-             unsigned* __restrict__ out) {
-  extern __shared__ unsigned smem[];
-  __shared__ long long edges[kMaxThresholds];
-  for (int t = threadIdx.x; t < nb; t += kThreads) edges[t] = thr[t];
-  unsigned* hist = kShared ? smem : out;
-  if (kShared)
-    for (int k = threadIdx.x; k < K; k += kThreads) smem[k] = 0;
-  __syncthreads();   // publishes the edges (and the zeroed bins)
-  const int64_t step = (int64_t)gridDim.x * kThreads * kItems;
-  for (int64_t base = (int64_t)blockIdx.x * kThreads * kItems; base < n;
-       base += step) {
-    int key[kItems];
+// Four entries counted straight into their bins: one add each whose key
+// lies in [0, K), one add where all four share a bin and, where the whole
+// warp's do (a hot series), one add for the warp (a vote and a shuffle,
+// not __match_any_sync's grouping).
+template <int kRoute>
+__device__ __forceinline__ void count4(unsigned* hist, const CountArgs& a,
+                                       const int (&sidx)[4],
+                                       const long long (&dur)[4]) {
+  unsigned key[4];
+  bool ok[4];
+  keys4(a, sidx, dur, key, ok);
+  const bool same = ok[0] && key[1] == key[0] && key[2] == key[0] &&
+                    key[3] == key[0];
+  const unsigned act = __activemask();
+  const int lead = __ffs(act) - 1;
+  const unsigned k0 = __shfl_sync(act, key[0], lead);
+  if (__all_sync(act, same && key[0] == k0)) {
+    if ((int)(threadIdx.x & 31) == lead)
+      add_key<kRoute>(hist, a, k0, 4u * __popc(act));
+  } else if (same) {
+    add_key<kRoute>(hist, a, key[0], 4u);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = base + j * kThreads + threadIdx.x;
-      key[j] = -1;
-      if (i < n) {
-        const long long d = dur[i];
-        int b = 0;
-        for (int t = 0; t < nb; ++t) b += d >= edges[t];
-        const long long k = (long long)sidx[i] * (nb + 1) + b;
-        if (k >= 0 && k < K) key[j] = (int)k;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) warp_count(hist, key[j]);
-  }
-  if (kShared) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < K; k += kThreads) {
-      const unsigned c = smem[k];
-      if (c) atomicAdd(out + k, c);
-    }
+    for (int j = 0; j < 4; ++j)
+      if (ok[j]) add_key<kRoute>(hist, a, key[j], 1u);
   }
 }
 
-// K8's CTAs: enough for four 512-thread CTAs an SM, never more than the
-// entries have steps of work.
-unsigned count_grid(int64_t n, int sm_count) {
-  const int64_t tiles = (n + (int64_t)kThreads * kItems - 1) /
-                        ((int64_t)kThreads * kItems);
-  int64_t g = 4LL * sm_count;
-  if (g > tiles) g = tiles;
-  return (unsigned)(g < 1 ? 1 : g);
+template <int kRoute>
+__global__ void __launch_bounds__(kAggThreads, 1)
+count_kernel(const __grid_constant__ CountArgs a) {
+  extern __shared__ __align__(16) unsigned hist[];
+  const int t = threadIdx.x;
+  const int g = blockIdx.x, G = gridDim.x;
+  if (kRoute == kRouteCta) {
+    for (int i = t; i < a.Kp / 4; i += kAggThreads)
+      reinterpret_cast<uint4*>(hist)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();              // every bin zeroed before any add
+  } else {
+    for (int64_t i = (int64_t)g * kAggThreads + t; i < a.K;
+         i += (int64_t)G * kAggThreads)
+      a.out[i] = 0;
+    cg::this_grid().sync();
+  }
+  // the vectors: from the first element where both columns are 16-byte
+  // aligned (series ids at 4 bytes, durations at 8: a head of 0-3
+  // entries, or none that fits both, and then every entry one by one)
+  const uintptr_t as = (uintptr_t)a.sidx, ad = (uintptr_t)a.dur;
+  int64_t head = (int64_t)((16 - (as & 15)) & 15) / 4;
+  if (((ad + 8 * head) & 15) != 0 || head > a.n) head = a.n;
+  const int64_t nv = (a.n - head) >> 2;
+  const int64_t lo = nv * g / G, hi = nv * (g + 1) / G;
+  const int4* s4 = reinterpret_cast<const int4*>(a.sidx + head);
+  const longlong2* d2 = reinterpret_cast<const longlong2*>(a.dur + head);
+  int64_t v = lo + t;
+  int4 s = make_int4(0, 0, 0, 0);
+  longlong2 d0 = make_longlong2(0, 0), d1 = d0;
+  if (v < hi) {
+    s = __ldg(s4 + v);
+    d0 = __ldg(d2 + 2 * v);
+    d1 = __ldg(d2 + 2 * v + 1);
+  }
+  for (; v < hi; v += kAggThreads) {
+    const int64_t w = v + kAggThreads;
+    int4 ns = s;
+    longlong2 n0 = d0, n1 = d1;
+    if (w < hi) {      // the next vectors, in flight while these count
+      ns = __ldg(s4 + w);
+      n0 = __ldg(d2 + 2 * w);
+      n1 = __ldg(d2 + 2 * w + 1);
+    }
+    const int si[4] = {s.x, s.y, s.z, s.w};
+    const long long du[4] = {d0.x, d0.y, d1.x, d1.y};
+    count4<kRoute>(hist, a, si, du);
+    s = ns;
+    d0 = n0;
+    d1 = n1;
+  }
+  // the head and the tail, one entry a thread (lanes 1-3 of the four
+  // count nothing: a key past K is never counted)
+  const int64_t tail = head + 4 * nv;
+  const int64_t n_one = head + (a.n - tail);
+  for (int64_t j = (int64_t)g * kAggThreads + t; j < n_one;
+       j += (int64_t)G * kAggThreads) {
+    const int64_t e = j < head ? j : tail + (j - head);
+    const int si[4] = {a.sidx[e], -1, -1, -1};
+    const long long du[4] = {a.dur[e], 0, 0, 0};
+    count4<kRoute>(hist, a, si, du);
+  }
+  if (kRoute == kRouteGlobal) return;
+  __syncthreads();                // every add has landed
+  uint4* dst = reinterpret_cast<uint4*>(a.partials + (int64_t)g * a.Kp);
+  for (int i = t; i < a.Kp / 4; i += kAggThreads)
+    dst[i] = reinterpret_cast<const uint4*>(hist)[i];
+  cg::this_grid().sync();         // every partial row written
+  if (G <= kFewRows)
+    column_sums_few(a.partials, G, a.Kp, a.K, a.out);
+  else
+    column_sums(a.partials, 1, G, a.Kp, a.K, a.out, hist);
 }
 
 int64_t round_up(int64_t x, int64_t m) { return (x + m - 1) / m * m; }
@@ -305,6 +487,19 @@ int64_t agg_out_ints(int rows, int K, int sms) {
   const int64_t counts = (int64_t)rows * K;
   if (kp > kSharedBins) return counts;
   return round_up(counts, 4) + (rows > sms ? rows : sms) * kp;
+}
+
+// K8's route for K bins: one CTA's shared memory while K rounded up to
+// kTile is at most kCtaBins, else global atomics.
+int count_route(int K) {
+  return round_up(K, kTile) <= kCtaBins ? kRouteCta : kRouteGlobal;
+}
+
+// The ints of K8's output buffer: K counts, then on the CTA route (from a
+// 16-byte boundary) the partial rows of at most `sms` CTAs.
+int64_t count_out_ints(int K, int sms) {
+  if (count_route(K) == kRouteGlobal) return K;
+  return round_up(K, 4) + (int64_t)sms * round_up(K, kTile);
 }
 
 // Per device: the SM count, once the kernel's shared-memory allowance is
@@ -375,20 +570,78 @@ int agg_launch(const void* scores, const void* keys, int rows, int64_t n,
       dim3(kAggThreads), args, 0, s);
 }
 
+int count_launch(const int32_t* sidx, const int64_t* dur, int64_t n,
+                 const int64_t* thr, int nb, int K, int32_t* out,
+                 int64_t out_ints, cudaStream_t s) {
+  static std::atomic<int> ready_cta[kMaxDevices];
+  static std::atomic<int> ready_global[kMaxDevices];
+  const int route = count_route(K);
+  int sms = 0;
+  const int rc = route == kRouteCta
+      ? agg_setup(count_kernel<kRouteCta>, ready_cta, &sms)
+      : agg_setup(count_kernel<kRouteGlobal>, ready_global, &sms);
+  if (rc != 0) return rc;
+  if (out_ints < count_out_ints(K, sms)) return (int)cudaErrorInvalidValue;
+  CountArgs a;
+  a.sidx = sidx;
+  a.dur = dur;
+  a.out = out;
+  a.n = n;
+  a.K = K;
+  a.nb = nb;
+  for (int i = 0; i < kMaxThresholds; ++i) a.thr[i] = i < nb ? thr[i] : 0;
+  // CTAs: no more than the entries have steps of four a thread
+  const int64_t steps = (n + 4LL * kAggThreads - 1) / (4LL * kAggThreads);
+  int64_t want = steps < 1 ? 1 : steps;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kAggThreads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (route == kRouteCta) {
+    const int64_t kp = round_up(K, kTile);
+    a.Kp = (int)kp;
+    a.partials = (unsigned*)out + round_up(K, 4);
+    if (want > sms) want = sms;
+    cfg.dynamicSmemBytes = (size_t)(kp * 4 > kSumBytes ? kp * 4 : kSumBytes);
+  } else {
+    // the global route: enough CTAs to zero `out` quickly too
+    a.Kp = 0;
+    a.partials = nullptr;
+    const int64_t zero = ((int64_t)K + 4LL * kAggThreads - 1) /
+                         (4LL * kAggThreads);
+    if (want < zero) want = zero;
+    if (want > sms) want = sms;
+    cfg.dynamicSmemBytes = 0;
+  }
+  cfg.gridDim = dim3((unsigned)want);
+  if (route == kRouteCta)
+    return (int)cudaLaunchKernelEx(&cfg, count_kernel<kRouteCta>, a);
+  return (int)cudaLaunchKernelEx(&cfg, count_kernel<kRouteGlobal>, a);
+}
+
 }  // namespace
 
 extern "C" {
 
 // The bin count (K rounded up to kTile) up to which K7 counts in shared
-// memory, and K8's.
+// memory: also the most bins one K8 CTA holds.
 int tt_agg_shared_bins() { return kSharedBins; }
-int tt_count_shared_bins() { return kCountSharedBins; }
 
 // The int32 elements K7's `out` must hold for `rows` rows of K bins on a
 // card of `sms` SMs.
 int64_t tt_agg_out_ints(int rows, int K, int sms) {
   return agg_out_ints(rows, K, sms);
 }
+
+// The bin count (K rounded up to kTile) up to which K8 counts in one
+// CTA's shared memory, and the int32 elements its `out` must hold for K
+// bins on a card of `sms` SMs.
+int tt_count_cta_bins() { return kCtaBins; }
+int64_t tt_count_out_ints(int K, int sms) { return count_out_ints(K, sms); }
 
 // K7. scores: int32 [rows, n]; keys: int32 [n]; out: int32 [out_ints] of
 // at least tt_agg_out_ints(rows, K, SMs): the counts [rows, K] first, the
@@ -402,26 +655,20 @@ int tt_agg_counts(const void* scores, const void* keys, int rows, int64_t n,
                     (cudaStream_t)stream);
 }
 
-// sidx: int32 [n]; dur: int64 [n]; thr: int64 [nb], ascending; out: int32
-// [K], zeroed here. Returns the cudaError_t of the launches.
+// K8. sidx: int32 [n]; dur: int64 [n]; thr: int64 [nb] in HOST memory,
+// ascending (copied into the launch's parameters); out: int32 [out_ints]
+// of at least tt_count_out_ints(K, SMs): the counts [K] first, the
+// kernel's partials after them. One launch, nothing else on the stream.
+// Returns the cudaError_t of the launch (0 = launched).
 int tt_analytics_count(const void* sidx, const void* dur, int64_t n,
                        const void* thr, int nb, int K, void* out,
-                       int sm_count, void* stream) {
-  if (K <= 0) return 0;
-  if (nb < 0 || nb > kMaxThresholds) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)K * 4, s);
-  if (e != cudaSuccess || n <= 0) return (int)e;
-  const unsigned g = count_grid(n, sm_count);
-  if (K <= kCountSharedBins)
-    count_kernel<true><<<g, kThreads, (size_t)K * 4, s>>>(
-        (const int32_t*)sidx, (const int64_t*)dur, n,
-        (const int64_t*)thr, nb, K, (unsigned*)out);
-  else
-    count_kernel<false><<<g, kThreads, 0, s>>>(
-        (const int32_t*)sidx, (const int64_t*)dur, n,
-        (const int64_t*)thr, nb, K, (unsigned*)out);
-  return (int)cudaGetLastError();
+                       int64_t out_ints, void* stream) {
+  if (K <= 0 || n < 0 || nb < 0 || nb > kMaxThresholds ||
+      (nb > 0 && thr == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return count_launch((const int32_t*)sidx, (const int64_t*)dur, n,
+                      (const int64_t*)thr, nb, K, (int32_t*)out, out_ints,
+                      (cudaStream_t)stream);
 }
 
 const char* tt_cuda_error_string(int code) {

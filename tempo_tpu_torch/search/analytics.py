@@ -95,10 +95,18 @@ def _dur_thresholds_full(buckets: tuple) -> tuple:
     return tuple((hi << 31) | lo for hi, lo in _dur_thresholds(buckets))
 
 
+@functools.lru_cache(maxsize=16)
 def thresholds_tensor(buckets: tuple, device: torch.device) -> torch.Tensor:
-    """The whole thresholds as the int64 tensor K8 takes, on `device`."""
+    """The whole thresholds as an int64 tensor on `device`, made once per
+    device and bucket tuple (callers only read it). K8 takes them on the
+    host for data on any device (its launch's parameters carry them), so
+    ``dense_counts`` asks for the host's; a device copy serves
+    ``torch.bucketize``, the yardstick beside K8."""
     return torch.tensor(_dur_thresholds_full(buckets), dtype=torch.int64,
                         device=device)
+
+
+_HOST = torch.device("cpu")
 
 
 def dense_counts(sidx: np.ndarray, dur: np.ndarray, n_keys: int,
@@ -108,13 +116,13 @@ def dense_counts(sidx: np.ndarray, dur: np.ndarray, n_keys: int,
     [n_keys * (len(buckets) + 1)], bin ``series * (nb + 1) + b`` counting
     the rows of that series whose duration (int64 nanoseconds) lies in
     latency bucket b (``bisect_left`` on the edges in seconds). Rows of a
-    series id at or past `n_keys` are not counted. One K8 launch on
-    `device` (``cuda`` by default; ``cpu`` runs its plain version), one
-    copy back."""
+    series id at or past `n_keys` are not counted. Two copies in, one K8
+    launch on `device` (``cuda`` by default; ``cpu`` runs its plain
+    version), one copy back."""
     dev = resolve_device(device)
     s = torch.from_numpy(np.ascontiguousarray(sidx, dtype=np.int32)).to(dev)
     d = torch.from_numpy(np.ascontiguousarray(dur, dtype=np.int64)).to(dev)
-    out = analytics_count(s, d, thresholds_tensor(tuple(buckets), dev),
+    out = analytics_count(s, d, thresholds_tensor(tuple(buckets), _HOST),
                           n_keys)
     return out.cpu().numpy().astype(np.int64)
 

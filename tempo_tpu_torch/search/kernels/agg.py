@@ -28,12 +28,15 @@ searchsorted + diff counts it nowhere. The CUDA kernels are
 ``csrc/agg.cu``: K7 is one cooperative launch a call (per-CTA shared
 histograms written as partials and summed by column after a grid
 barrier, up to ``SHARED_BINS`` bins; global atomics past it), whose rule
-``agg_counts_tiled`` renders in PyTorch; K8 a shared histogram per CTA
-up to ``COUNT_SHARED_BINS`` bins. The plain versions below are the
-reference's own formulation (sort, searchsorted, diff), the CPU path and
-what the kernels are held against on the card. Launch counts:
-``LAUNCHES`` (K7, one row), ``ROW_LAUNCHES`` (K7, a query axis) and
-``COUNT_LAUNCHES`` (K8).
+``agg_counts_tiled`` renders in PyTorch; K8 is one cooperative launch a
+call too, with per-CTA shared histograms summed the same way up to
+``CTA_BINS`` bins and global atomics past it (``count_route``), whose
+rule ``analytics_count_tiled`` renders. K8 takes its
+thresholds on the host: they ride in the launch's parameters. The plain
+versions below are the reference's own formulation (sort, searchsorted,
+diff), the CPU path and what the kernels are held against on the card.
+Launch counts: ``LAUNCHES`` (K7, one row), ``ROW_LAUNCHES`` (K7, a query
+axis) and ``COUNT_LAUNCHES`` (K8).
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ LAUNCHES = LaunchCount()        # K7 over one score column
 ROW_LAUNCHES = LaunchCount()    # K7 over Q score rows in one launch
 COUNT_LAUNCHES = LaunchCount()  # K8
 
-THREADS = 1024              # csrc/agg.cu kAggThreads: a K7 CTA's threads
+THREADS = 1024              # csrc/agg.cu kAggThreads: a K7 or K8 CTA's
 TILE = 128                  # kTile: K rounds up to it (the partials' pitch)
-SHARED_BINS = 56_320        # kSharedBins: K7's shared route, at most
-COUNT_SHARED_BINS = 12_160  # kCountSharedBins: K8's
+SHARED_BINS = 56_320        # kSharedBins: K7's shared route, a K8 CTA's bins
+CTA_BINS = 36_864           # kCtaBins: K8's CTA route, at most
 
 
 def agg_counts(scores, entry_agg, n_keys: int):
@@ -139,7 +142,7 @@ def agg_counts_tiled(scores, entry_agg, n_keys: int, grid: int):
 
 def analytics_count(sidx, dur, thresholds, n_keys: int):
     """[n_keys * (nb + 1)] counts — the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    the CUDA kernel for CUDA tensors (`thresholds` then on the host)."""
     if sidx.device.type == "cpu":
         return analytics_count_plain(sidx, dur, thresholds, n_keys)
     out = _count_cuda(sidx, dur, thresholds, n_keys)
@@ -163,6 +166,54 @@ def analytics_count_plain(sidx, dur, thresholds, n_keys: int):
     return (edges[1:] - edges[:-1]).to(torch.int32)
 
 
+def analytics_count_tiled(sidx, dur, thresholds, n_keys: int, grid: int):
+    """K8's rule as its kernel runs it, in PyTorch (no card path uses it),
+    for `grid` CTAs. On the CTA route (``count_route``) CTA g counts the
+    vectors [nv * g // G, nv * (g + 1) // G) of 4 entries from the first
+    element where the series ids and the durations are both 16-byte
+    aligned (by the tensors' addresses), and the entries before it and
+    after the last whole vector one by one, entry j of those going to CTA
+    (j // THREADS) % G; columns that are never aligned together are
+    counted one by one whole. An entry whose key lies in [0, K) is counted
+    in its CTA's histogram, one row of partials [G, K] (here its non-zero
+    entries), and the counts are their sum by column. On the global route
+    every entry adds into the output."""
+    n = sidx.numel()
+    nb1 = int(thresholds.numel()) + 1
+    K = n_keys * nb1
+    dev = sidx.device
+    b = torch.zeros(n, dtype=torch.int64, device=dev)
+    for t in thresholds.tolist():
+        b += dur >= t
+    key = sidx.to(torch.int64) * nb1 + b
+    kept = (key >= 0) & (key < K)
+    if count_route(K) == "global":
+        return torch.bincount(key[kept], minlength=K)[:K].to(torch.int32)
+    G = grid
+    ps, pd = sidx.data_ptr(), dur.data_ptr()
+    head = (-(ps // 4)) % 4
+    if (pd + 8 * head) % 16 or head > n:
+        head = n
+    nv = (n - head) // 4
+    tail = head + 4 * nv
+    e = torch.arange(n, dtype=torch.int64, device=dev)
+    bounds = torch.tensor([nv * g // G for g in range(G + 1)],
+                          dtype=torch.int64, device=dev)
+    vec = (e >= head) & (e < tail)
+    cta_vec = torch.searchsorted(bounds, (e - head) // 4, right=True) - 1
+    one = torch.where(e < head, e, e - tail + head)
+    cta = torch.where(vec, cta_vec, (one // THREADS) % G)[kept]
+    key = key[kept]
+    if bool((cta < 0).any()) or bool((cta >= G).any()):
+        raise AssertionError("an entry outside the grid's CTAs")
+    kp = pitch(K)
+    # the CTAs' partial rows (CTA, bin) -> count, then by column
+    cell, count = torch.unique(cta * kp + key, return_counts=True)
+    out = torch.zeros(kp, dtype=torch.int64, device=dev)
+    out.index_add_(0, cell % kp, count)
+    return out[:K].to(torch.int32)
+
+
 _LIB = None     # the typed library, once checked against this module
 
 
@@ -176,15 +227,20 @@ def _lib():
     lib.tt_agg_counts.restype = i32
     lib.tt_agg_counts.argtypes = [p, p, i32, i64, i32, p, i64, p]
     lib.tt_analytics_count.restype = i32
-    lib.tt_analytics_count.argtypes = [p, p, i64, p, i32, i32, p, i32, p]
-    for fn in (lib.tt_agg_shared_bins, lib.tt_count_shared_bins):
-        fn.restype = i32
-        fn.argtypes = []
+    lib.tt_analytics_count.argtypes = [p, p, i64, p, i32, i32, p, i64, p]
+    lib.tt_agg_shared_bins.restype = i32
+    lib.tt_agg_shared_bins.argtypes = []
     lib.tt_agg_out_ints.restype = i64
     lib.tt_agg_out_ints.argtypes = [i32, i32, i32]
+    lib.tt_count_cta_bins.restype = i32
+    lib.tt_count_cta_bins.argtypes = []
+    lib.tt_count_out_ints.restype = i64
+    lib.tt_count_out_ints.argtypes = [i32, i32]
     if (lib.tt_agg_shared_bins() != SHARED_BINS
-            or lib.tt_count_shared_bins() != COUNT_SHARED_BINS
-            or lib.tt_agg_out_ints(3, 100, 5) != _out_ints(3, 100, 5)):
+            or lib.tt_agg_out_ints(3, 100, 5) != _out_ints(3, 100, 5)
+            or lib.tt_count_cta_bins() != CTA_BINS
+            or any(lib.tt_count_out_ints(K, 132) != count_out_ints(K, 132)
+                   for K in (15, 960, CTA_BINS, CTA_BINS + 1, 61_440))):
         raise RuntimeError("csrc/agg.cu and kernels/agg.py disagree on "
                            "K7's or K8's constants")
     _LIB = lib
@@ -204,8 +260,18 @@ def route(K: int) -> str:
 
 
 def count_route(K: int) -> str:
-    """K8's route for K bins: "shared" up to ``COUNT_SHARED_BINS``."""
-    return "shared" if K <= COUNT_SHARED_BINS else "global"
+    """K8's route for K bins: "cta" (each CTA's histogram in its shared
+    memory) while K rounded up to ``TILE`` is at most ``CTA_BINS``, else
+    "global" (atomics into the output)."""
+    return "cta" if pitch(K) <= CTA_BINS else "global"
+
+
+def count_out_ints(K: int, sms: int) -> int:
+    """csrc/agg.cu count_out_ints: the counts [K], then on the CTA route
+    (from a 16-byte boundary) the partial rows of at most `sms` CTAs."""
+    if count_route(K) == "global":
+        return K
+    return -(-K // 4) * 4 + sms * pitch(K)
 
 
 def _out_ints(Q: int, K: int, sms: int) -> int:
@@ -262,25 +328,35 @@ def _agg_cuda(scores, Q: int, entry_agg, n_keys: int):
 
 
 def _count_cuda(sidx, dur, thresholds, n_keys: int):
+    """One K8 launch: the counts [K] first in one int32 allocation, the
+    kernel's partials after them; nothing else on the stream. Returns the
+    counts. `thresholds` lie on the host (the launch's parameters carry
+    them)."""
     dev = sidx.device
-    _need(sidx, torch.int32, "sidx", dev)
-    _need(dur, torch.int64, "dur", dev)
-    _need(thresholds, torch.int64, "thresholds", dev)
+    if (sidx.dtype != torch.int32 or dur.dtype != torch.int64
+            or dur.device != dev or not sidx.is_contiguous()
+            or not dur.is_contiguous()):
+        _need(sidx, torch.int32, "sidx", dev)
+        _need(dur, torch.int64, "dur", dev)
+    if thresholds.device.type != "cpu":
+        raise ValueError("analytics_count: the thresholds of a CUDA count "
+                         "must lie on the host (K8 takes them in its "
+                         "launch's parameters)")
+    _need(thresholds, torch.int64, "thresholds", thresholds.device)
     n = sidx.numel()
     nb = thresholds.numel()
     if dur.numel() != n or nb > 64:
         raise ValueError(f"analytics_count: {n} series ids, {dur.numel()} "
                          f"durations, {nb} thresholds (at most 64)")
     K = n_keys * (nb + 1)
-    if not 0 < K < 2**31:
+    if not 0 < K < 2**31 - 2 * TILE:
         raise ValueError(f"analytics_count: {K} bins")
-    out = torch.empty(K, dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_analytics_count(sidx.data_ptr(), dur.data_ptr(), n,
-                                    thresholds.data_ptr(), nb, K,
-                                    out.data_ptr(),
-                                    _sms(dev), stream)
-    check(lib, rc, "analytics_count")
-    return out
+    ints = count_out_ints(K, _sms(dev))
+    out = torch.empty(ints, dtype=torch.int32, device=dev)
+    lib = _LIB or _lib()
+    rc = on_device(dev, lib.tt_analytics_count, sidx.data_ptr(),
+                   dur.data_ptr(), n, thresholds.data_ptr(), nb, K,
+                   out.data_ptr(), ints)
+    if rc:
+        check(lib, rc, "analytics_count")
+    return out[:K]
