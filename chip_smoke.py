@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's backend tag search once on one CUDA card.
+"""Drive the PyTorch port's search and trace-by-ID once on one CUDA card.
 
   python3 chip_smoke.py                  # full size, as a user would call it
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
       --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
       --hc-packed-blocks 2 --st-blocks 4 \\
       --st-traces-per-block 16384 --agg-blocks 8 \\
-      --wal-traces 16384                               # a quick check
+      --wal-traces 16384 --tbi-traces-per-block 4096   # a quick check
 
 The mesh cell (step 9) needs no flag and runs over the earlier cells'
 corpora.
@@ -187,7 +187,24 @@ error:
    torch.topk over the gathered scores with the wrapper's host
    microseconds, the world-1 NCCL collectives timed, and the four B10
    chains against their plain versions;
-10. prints the kernels line, the card's name and power limit, and as the
+10. the trace-by-ID cell (no kernel of its own; host work over blocks'
+   blooms, indexes and data pages): 32 blocks x 16,384 traces of the tag
+   corpus's shapes (``--tbi-blocks``, ``--tbi-traces-per-block``; a cut
+   is printed), each written twice through the port, its search
+   container and its trace objects (v2 traces of 8 spans under the
+   entry's service.name, ``StreamingBlock``, zlib, 1 MiB pages), with
+   one meta.json; one more block holds a second partial (2 new spans, 1
+   duplicate) of 1 trace in 64 of blocks 0-3. The tag cell's exhaustive
+   request at limit 64 through ``TempoDB.search`` on the card (K1 and
+   K2, their launches added to the counts, the response equal to the CPU
+   path's), then ``find_trace_by_id`` of each result (found, its v2
+   header the result's start and end); 1,024 seeded present ids (the
+   written object, or the combine of both partials), every partial's id,
+   and 1,024 absent ids (None, no failed block; the bloom passes
+   counted); write seconds, the first lookup, and p50/p95 of a hit, a
+   miss and a partial, and of the checksum and the parse of a full
+   1,024-record index page;
+11. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 Every kernel row's device ms is the median of 20 single calls, each
@@ -5109,6 +5126,480 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
     return rows
 
 
+TBI_TENANT = "tbi"
+TBI_SPANS = 8                   # spans of a trace object
+TBI_PARTIAL_EVERY = 64          # 1 trace in 64 of blocks 0-3 has a partial
+TBI_PARTIAL_BLOCKS = 4
+TBI_LOOKUPS = 1024              # present ids, and absent ids, looked up
+TBI_LIMIT = 64                  # results of the search that comes first
+TBI_TRACES = 16_384             # traces a block, unless cut
+TBI_INDEX_RECORDS = 1024        # records of a full index page (the default)
+
+
+def tbi_times(start_s, dur_ms):
+    """Every span's (start, end) in unix ns, two ``[..., TBI_SPANS]``
+    int64 arrays: the root from start_s for dur_ms, child i inside it,
+    i/16 of the root's length in from each end."""
+    import numpy as np
+
+    t0 = np.asarray(start_s, dtype=np.int64)[..., None] * 1_000_000_000
+    t1 = t0 + np.asarray(dur_ms, dtype=np.int64)[..., None] * 1_000_000
+    cut = (t1 - t0) * np.arange(TBI_SPANS, dtype=np.int64) // 16
+    return t0 + cut, t1 - cut
+
+
+def tbi_trace(tid: bytes, svc: str, starts, ends, span_ids: bytes):
+    """One trace object's proto: TBI_SPANS spans under `svc`, span 0 the
+    root and the parent of the others, span i named SPAN_OPS[i]."""
+    from tempo_tpu_torch import tempopb
+
+    t = tempopb.Trace()
+    rs = t.batches.add()
+    kv = rs.resource.attributes.add()
+    kv.key = "service.name"
+    kv.value.string_value = svc
+    ss = rs.scope_spans.add()
+    ss.scope.name = "chip-smoke"
+    for i in range(TBI_SPANS):
+        s = ss.spans.add()
+        s.trace_id = tid
+        s.span_id = span_ids[8 * i:8 * i + 8]
+        s.name = SPAN_OPS[i]
+        s.kind = 2 if i == 0 else 3
+        if i:
+            s.parent_span_id = span_ids[:8]
+        s.start_time_unix_nano = int(starts[i])
+        s.end_time_unix_nano = int(ends[i])
+    return t
+
+
+def tbi_partial(orig, span_ids: bytes):
+    """A second partial of `orig`: two new spans and a duplicate of its
+    span 1, under the same resource and scope."""
+    from tempo_tpu_torch import tempopb
+
+    t = tempopb.Trace()
+    rs = t.batches.add()
+    rs.resource.CopyFrom(orig.batches[0].resource)
+    ss = rs.scope_spans.add()
+    ss.scope.CopyFrom(orig.batches[0].scope_spans[0].scope)
+    root = orig.batches[0].scope_spans[0].spans[0]
+    for i in range(2):
+        s = ss.spans.add()
+        s.CopyFrom(root)
+        s.span_id = span_ids[8 * i:8 * i + 8]
+        s.parent_span_id = root.span_id
+        s.name = "partial"
+    ss.spans.append(orig.batches[0].scope_spans[0].spans[1])
+    return t
+
+
+def tbi_template() -> tuple:
+    """The v2 object of one ``tbi_trace`` with seeded placeholder fields,
+    and the offsets of every field that differs between traces. Every
+    such field has a fixed width (ids, a 7-byte service name, fixed64
+    times, the header), so a trace's object is this one with those bytes
+    replaced: ``tbi_objects`` builds a block's objects so, and checks a
+    sample against the proto's own serialization."""
+    import numpy as np
+
+    from tempo_tpu_torch.model.codec import codec_for
+
+    rng = np.random.default_rng(0x7B1)
+    tid, sids, svc = rng.bytes(16), rng.bytes(8 * TBI_SPANS), "Zq#Wx!Y"
+    st, en = (rng.integers(1 << 40, 1 << 62, size=TBI_SPANS)
+              for _ in range(2))
+    obj = codec_for("v2").marshal(tbi_trace(tid, svc, st, en, sids), 0, 0)
+
+    def where(pat: bytes, count: int = 1) -> list:
+        out, pos = [], obj.find(pat)
+        while pos >= 0:
+            out.append(pos)
+            pos = obj.find(pat, pos + 1)
+        if len(out) != count:
+            raise AssertionError(f"template: {len(out)} placeholders")
+        return out
+
+    root = where(sids[:8], TBI_SPANS)   # span 0's id, then 7 parent ids
+    offs = {"tid": where(tid, TBI_SPANS), "svc": where(svc.encode()),
+            "sid": root[:1] + [where(sids[8 * i:8 * i + 8])[0]
+                               for i in range(1, TBI_SPANS)],
+            "parent": root[1:],
+            "start": [where(int(v).to_bytes(8, "little"))[0] for v in st],
+            "end": [where(int(v).to_bytes(8, "little"))[0] for v in en]}
+    return obj, offs
+
+
+def tbi_objects(tpl: tuple, rows: dict, val_dict: list, sids):
+    """A block's v2 objects, ``[n, L]`` uint8, row j the object of
+    ``tbi_trace`` for entry j of `rows` with span ids ``sids[j]``
+    (``[n, TBI_SPANS, 8]`` uint8) and header (start, end)."""
+    import numpy as np
+
+    obj, offs = tpl
+    n = len(rows["tid"])
+    arr = np.empty((n, len(obj)), dtype=np.uint8)
+    arr[:] = np.frombuffer(obj, dtype=np.uint8)
+    for k, col in ((0, "start"), (4, "end")):
+        arr[:, k:k + 4] = rows[col].astype("<u4").reshape(n, 1).view(
+            np.uint8)
+    for o in offs["tid"]:
+        arr[:, o:o + 16] = rows["tid"]
+    names = [v.encode() for v in val_dict]
+    used = np.unique(rows["svc"])
+    if any(len(names[int(i)]) != 7 for i in used):
+        raise AssertionError("service names of the template's width only")
+    table = np.zeros((len(names), 7), dtype=np.uint8)
+    for i in used:
+        table[int(i)] = np.frombuffer(names[int(i)], dtype=np.uint8)
+    o = offs["svc"][0]
+    arr[:, o:o + 7] = table[rows["svc"]]
+    for i, o in enumerate(offs["sid"]):
+        arr[:, o:o + 8] = sids[:, i]
+    for o in offs["parent"]:
+        arr[:, o:o + 8] = sids[:, 0]
+    st, en = tbi_times(rows["start"], rows["dur"])
+    for col, key in ((st, "start"), (en, "end")):
+        b8 = col.astype("<u8").view(np.uint8).reshape(n, TBI_SPANS, 8)
+        for i, o in enumerate(offs[key]):
+            arr[:, o:o + 8] = b8[:, i]
+    return arr
+
+
+def tbi_rows(pages) -> dict:
+    """The valid entries of a block's pages as flat columns."""
+    import numpy as np
+
+    valid = np.asarray(pages.entry_valid).reshape(-1)
+    idx = np.flatnonzero(valid)
+    return {"idx": idx,
+            "tid": np.asarray(pages.trace_ids).reshape(-1, 16)[idx],
+            "start": np.asarray(pages.entry_start).reshape(-1)[idx],
+            "end": np.asarray(pages.entry_end).reshape(-1)[idx],
+            "dur": np.asarray(pages.entry_dur).reshape(-1)[idx],
+            "svc": np.asarray(pages.entry_root_svc).reshape(-1)[idx]}
+
+
+def tbi_write_block(be, b: int, pages, objects: list) -> None:
+    """Block b through the port's writers: its search container
+    (``write_search_objects``), then its trace objects (``StreamingBlock``,
+    zlib, 1 MiB pages), meta.json last, once, with both sets of fields.
+    `objects`: (id, object, start, end) in any order."""
+    from tempo_tpu_torch.backend.types import BlockMeta
+    from tempo_tpu_torch.encoding.v2.streaming_block import StreamingBlock
+    from tempo_tpu_torch.search.backend_search_block import \
+        write_search_objects
+
+    meta = BlockMeta(tenant_id=TBI_TENANT, block_id=block_id(b),
+                     encoding="zlib", data_encoding="v2")
+    write_search_objects(be, meta, pages, "zlib")
+    sb = StreamingBlock(meta, page_size=1 << 20, backend=be)
+    try:
+        for tid, obj, s, e in sorted(objects, key=lambda o: o[0]):
+            sb.add_object(tid, obj, s, e)
+        sb.complete()
+    except BaseException:
+        sb.abort()
+        raise
+
+
+def tbi_corpus(root: str, blocks: int, n: int, seed: int) -> dict:
+    """Writes `blocks` blocks of n traces (the tag corpus's shapes, seed
+    `seed`) and one block of partials. Returns the written objects of
+    TBI_LOOKUPS seeded ids, each partial's id with its two objects, and
+    the count of traces in the search containers."""
+    import numpy as np
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.model.codec import codec_for
+    from tempo_tpu_torch.search.columnar import ColumnarPages
+
+    be = LocalBackend(root)
+    codec = codec_for("v2")
+    tpl = tbi_template()
+    rng = np.random.default_rng([seed, 1])
+    total = blocks * n
+    sample = set(rng.choice(total, size=min(TBI_LOOKUPS, total),
+                            replace=False).tolist())
+    expect: dict = {}      # sampled id -> object
+    part_rows = []         # (pages, entry position) of the partials
+    part_objects = []      # (id, partial object, start, end, object)
+    lock = threading.Lock()
+
+    def one(b):
+        pages = make_block(seed, b, n, ENTRIES_PER_PAGE)
+        rows = tbi_rows(pages)
+        m = len(rows["idx"])
+        sids = np.frombuffer(np.random.default_rng([seed, b, 2]).bytes(
+            m * TBI_SPANS * 8), dtype=np.uint8).reshape(m, TBI_SPANS, 8)
+        arr = tbi_objects(tpl, rows, pages.val_dict, sids)
+        objs = [arr[j].tobytes() for j in range(m)]
+        tids = [rows["tid"][j].tobytes() for j in range(m)]
+        part = np.flatnonzero(np.random.default_rng([seed, b, 3]).integers(
+            0, TBI_PARTIAL_EVERY, size=m) == 0) if b < TBI_PARTIAL_BLOCKS \
+            else np.zeros(0, dtype=np.int64)
+        psids = np.random.default_rng([seed, b, 4]).bytes(16 * len(part))
+        mine_rows, mine_parts = [], []
+        st, en = tbi_times(rows["start"], rows["dur"])
+        # the template's objects against the proto's own bytes: the first
+        # entries and every one with a partial
+        for j in sorted(set(range(min(8, m))) | set(part.tolist())):
+            s, e = int(rows["start"][j]), int(rows["end"][j])
+            t = tbi_trace(tids[j], pages.val_dict[int(rows["svc"][j])],
+                          st[j], en[j], sids[j].tobytes())
+            if codec.marshal(t, s, e) != objs[j]:
+                raise AssertionError(f"block {b} entry {j}: template object "
+                                     "differs from the proto's bytes")
+            if j in part:
+                k = int(np.searchsorted(part, j))
+                p = codec.marshal(tbi_partial(t, psids[16 * k:16 * k + 16]),
+                                  s, e)
+                mine_parts.append((tids[j], p, s, e, objs[j]))
+                mine_rows.append((pages, int(rows["idx"][j])))
+        mine = {tids[j]: objs[j] for j in range(m) if b * n + j in sample}
+        tbi_write_block(be, b, pages,
+                        [(tids[j], objs[j], int(rows["start"][j]),
+                          int(rows["end"][j])) for j in range(m)])
+        with lock:
+            expect.update(mine)
+            part_rows.extend(mine_rows)
+            part_objects.extend(mine_parts)
+
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(os.cpu_count() or 4, 8)) as ex:
+        list(ex.map(one, range(blocks)))
+    # the partials' block: their search entries copied from their blocks'
+    # pages (one dictionary for every block of this corpus), and objects
+    E = ENTRIES_PER_PAGE
+    m = len(part_rows)
+    P = max(1, -(-m // E))
+    first = part_rows[0][0] if part_rows else make_block(seed, 0, 1, E)
+    cols = {}
+    for name in ("kv_key", "kv_val", "entry_start", "entry_end",
+                 "entry_dur", "entry_valid", "entry_root_svc",
+                 "entry_root_name", "trace_ids"):
+        src = np.asarray(getattr(first, name))
+        flat = np.zeros((P * E,) + src.shape[2:], dtype=src.dtype)
+        if name in ("kv_key", "kv_val", "entry_root_svc",
+                    "entry_root_name"):
+            flat[...] = -1
+        for k, (pg, pos) in enumerate(part_rows):
+            flat[k] = np.asarray(getattr(pg, name)).reshape(
+                (-1,) + src.shape[2:])[pos]
+        cols[name] = flat.reshape((P, E) + src.shape[2:])
+    pages = ColumnarPages.from_arrays(
+        first.key_dict, first.val_dict, cols["kv_key"], cols["kv_val"],
+        cols["entry_start"], cols["entry_end"], cols["entry_dur"],
+        cols["entry_valid"], cols["entry_root_svc"], cols["entry_root_name"],
+        cols["trace_ids"])
+    tbi_write_block(be, blocks, pages, [o[:4] for o in part_objects])
+    return {"expect": expect,
+            "partials": {o[0]: (o[4], o[1]) for o in part_objects},
+            "n_total": total + m, "n_partials": m}
+
+
+def tbi_timed(fn, reps: int) -> dict:
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(time.perf_counter() - t0)
+    lat.sort()
+    return {"p50_ms": lat[len(lat) // 2] * 1e3,
+            "p95_ms": pct(lat, 0.95) * 1e3, "lat_ms": [x * 1e3 for x in lat]}
+
+
+def trace_by_id_cell(args, work: str, report: dict, dbs: list,
+                     launches: dict, device: str = "cuda") -> list:
+    """The trace-by-ID cell (step 10 of the module docstring): search on
+    the card, then open every trace it returned, then present and absent
+    ids. Returns no kernel rows (its kernels are the tag cell's)."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.backend.types import bloom_name
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.encoding.v2.bloom import ShardedBloom
+    from tempo_tpu_torch.encoding.v2.index import (IndexReader, IndexWriter,
+                                                   Record)
+    from tempo_tpu_torch.model.codec import codec_for
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.utils.xxh64 import xxh64
+
+    blocks, n = args.tbi_blocks, args.tbi_traces_per_block
+    if blocks < TBI_PARTIAL_BLOCKS:
+        raise ValueError(f"--tbi-blocks must be >= {TBI_PARTIAL_BLOCKS}")
+    root = os.path.join(work, "tbi")
+    seed = args.seed + 17
+    out: dict = {"blocks": blocks, "traces_per_block": n,
+                 "traces_per_block_asked": TBI_TRACES}
+    report["trace_by_id"] = out
+    if n < TBI_TRACES:
+        print(f"trace-by-id: cut to {n} traces a block ({TBI_TRACES} "
+              "asked)", flush=True)
+    t0 = time.perf_counter()
+    c = tbi_corpus(root, blocks, n, seed)
+    out["write_s"] = time.perf_counter() - t0
+    out["partials"] = c["n_partials"]
+    print(f"trace-by-id corpus: {blocks} blocks x {n} traces and a block of "
+          f"{c['n_partials']} partials written (search containers, data, "
+          f"index, blooms; zlib) in {out['write_s']:.1f} s", flush=True)
+
+    codec = codec_for("v2")
+    db = TempoDB(LocalBackend(root),
+                 TempoDBConfig(search_max_batch_pages=4096), device=device)
+    dbs.append(db)
+    db.poll()
+    if len(db.blocklist.metas(TBI_TENANT)) != blocks + 1:
+        raise AssertionError("trace-by-id: blocklist misses blocks")
+    tags = dict(BENCH, **EXHAUSTIVE)
+    req = SearchRequest(tags=dict(tags), limit=TBI_LIMIT)
+    reset_counts()
+    t0 = time.perf_counter()
+    resp = db.search(TBI_TENANT, req).response()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["search_ms"] = (time.perf_counter() - t0) * 1e3
+    path = read_counts()
+    if device != "cpu" and (path["multi_scan"] == 0 or path["topk"] == 0):
+        raise AssertionError(f"trace-by-id search launched no kernel: {path}")
+    add_counts(launches, path)
+    out["launches"] = {k: v for k, v in path.items() if v}
+    check_response("tbi_search", resp, tags, {"limit": TBI_LIMIT},
+                   c["n_total"])
+    t0 = time.perf_counter()
+    cpu = TempoDB(LocalBackend(root),
+                  TempoDBConfig(search_max_batch_pages=4096), device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    if cpu.search(TBI_TENANT, SearchRequest(tags=dict(tags),
+                                            limit=TBI_LIMIT)).response() \
+            != resp:
+        raise AssertionError("trace-by-id search: card and CPU differ")
+    cpu.close()
+    dbs.remove(cpu)
+    out["cpu_check_s"] = time.perf_counter() - t0
+    if not resp.traces or (n >= TBI_TRACES
+                           and len(resp.traces) != TBI_LIMIT):
+        raise AssertionError(f"trace-by-id search: {len(resp.traces)} "
+                             "results")
+
+    def find(tid):
+        obj, failed = db.find_trace_by_id(TBI_TENANT, tid)
+        if failed:
+            raise AssertionError(f"{tid.hex()}: {failed} blocks failed")
+        return obj
+
+    # search, then open every trace it returned
+    t_open = time.perf_counter()
+    first = None
+    for r in resp.traces:
+        tid = bytes.fromhex(r.trace_id)
+        t0 = time.perf_counter()
+        obj = find(tid)
+        if first is None:
+            first = (time.perf_counter() - t0) * 1e3
+        if obj is None:
+            raise AssertionError(f"searched trace {r.trace_id} not found")
+        s = r.start_time_unix_nano // 1_000_000_000
+        if codec.fast_range(obj) != (s, s + r.duration_ms // 1000):
+            raise AssertionError(f"{r.trace_id}: header "
+                                 f"{codec.fast_range(obj)}")
+        t = codec.prepare_for_read(obj)
+        svc = t.batches[0].resource.attributes[0].value.string_value
+        spans = sum(len(ss.spans) for b in t.batches for ss in b.scope_spans)
+        if svc != r.root_service_name or spans not in (TBI_SPANS,
+                                                       TBI_SPANS + 2):
+            raise AssertionError(f"{r.trace_id}: {svc}, {spans} spans")
+    out["first_lookup_ms"] = first
+    out["opened"] = len(resp.traces)
+    out["open_s"] = time.perf_counter() - t_open
+    # present ids: the written object, or the combine of both partials in
+    # either order (the pool returns partials as its threads finish); then
+    # the first TBI_LIMIT partials' ids; then absent ids, None with no
+    # failed block. From CLIENTS threads: a lookup is mostly thread
+    # starts, file opens and inflating a page, which overlap
+    def check(tid, obj):
+        got = find(tid)
+        if tid in c["partials"]:
+            a, p = c["partials"][tid]
+            if got not in (codec.combine(a, p), codec.combine(p, a)):
+                raise AssertionError(f"{tid.hex()}: partials not combined")
+            return 1
+        if got != obj:
+            raise AssertionError(f"{tid.hex()}: wrong object")
+        return 0
+
+    checked = list(c["partials"].items())[:TBI_LIMIT]
+    rng = np.random.default_rng([seed, 4])
+    absent = [rng.bytes(16) for _ in range(TBI_LOOKUPS)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=CLIENTS) as ex:
+        partial_hits = sum(ex.map(lambda kv: check(*kv),
+                                  c["expect"].items()))
+        list(ex.map(lambda kv: check(kv[0], kv[1][0]), checked))
+        for tid, got in zip(absent, ex.map(find, absent)):
+            if got is not None:
+                raise AssertionError(f"absent id {tid.hex()} found")
+    out["checks_s"] = time.perf_counter() - t0
+    out["present"] = len(c["expect"])
+    out["present_partials"] = partial_hits
+    out["partials_checked"] = len(checked)
+    # the absent ids' bloom passes, over every block's shard
+    t0 = time.perf_counter()
+    be = LocalBackend(root)
+    blooms = [(m, [be.read(TBI_TENANT, m.block_id, bloom_name(s))
+                   for s in range(m.bloom_shard_count)])
+              for m in db.blocklist.metas(TBI_TENANT)]
+    passed = 0
+    for tid in absent:
+        for m, shards in blooms:
+            passed += ShardedBloom.test_marshalled(
+                shards[ShardedBloom.shard_for(tid, m.bloom_shard_count)],
+                tid)
+    out["bloom_count_s"] = time.perf_counter() - t0
+    out["absent"] = len(absent)
+    out["absent_bloom_passes"] = passed
+    out["absent_block_tests"] = len(absent) * len(blooms)
+    hit = next(t for t in c["expect"] if t not in c["partials"])
+    part = next(iter(c["partials"]))
+    for name, tid in (("hit", hit), ("miss", absent[0]), ("partial", part)):
+        out[name] = tbi_timed(lambda tid=tid: find(tid), args.reps)
+    # a full index page of TBI_INDEX_RECORDS records, as a block of about a
+    # GiB holds: a lookup checksums and parses each page of a block's index
+    # afresh, a cost the cell's one-page indexes hide
+    rng_ix = np.random.default_rng([seed, 5])
+    ix = IndexWriter(TBI_INDEX_RECORDS).write(
+        [Record(k, 1000 * i, 1000) for i, k in enumerate(
+            sorted(rng_ix.bytes(16) for _ in range(TBI_INDEX_RECORDS)))])
+    body = ix[12:]
+    out["index_page_bytes"] = len(body)
+    out["xxh64_page"] = tbi_timed(lambda: xxh64(body), args.reps)
+    out["index_reader_page"] = tbi_timed(lambda: IndexReader(ix), args.reps)
+    print(f"trace-by-id: search (limit {TBI_LIMIT}) {out['search_ms']:.2f} "
+          f"ms, launches {json.dumps(out['launches'])}; opened "
+          f"{out['opened']} of {len(resp.traces)} results, first lookup "
+          f"{first:.2f} ms; {out['present']} present ids found "
+          f"({partial_hits} combined from 2 partials), {len(checked)} "
+          f"partial ids combined, {len(absent)} absent "
+          f"ids none found ({out['checks_s']:.1f} s from {CLIENTS} "
+          f"threads), {passed} of {out['absent_block_tests']} block "
+          f"bloom tests passed; p50/p95 over {args.reps}: hit "
+          f"{out['hit']['p50_ms']:.2f}/{out['hit']['p95_ms']:.2f} ms, miss "
+          f"{out['miss']['p50_ms']:.2f}/{out['miss']['p95_ms']:.2f} ms, "
+          f"partial {out['partial']['p50_ms']:.2f}/"
+          f"{out['partial']['p95_ms']:.2f} ms; a {TBI_INDEX_RECORDS}-record "
+          f"index page ({len(body)} B): xxh64 p50/p95 "
+          f"{out['xxh64_page']['p50_ms']:.2f}/"
+          f"{out['xxh64_page']['p95_ms']:.2f} ms, IndexReader "
+          f"{out['index_reader_page']['p50_ms']:.2f}/"
+          f"{out['index_reader_page']['p95_ms']:.2f} ms", flush=True)
+    db.close()
+    dbs.remove(db)
+    return []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -5134,6 +5625,10 @@ def main(argv=None) -> int:
                          "search_live_tier_max_entries)")
     ap.add_argument("--wal-traces", type=int, default=262_144,
                     help="traces of the live cell's WAL head")
+    ap.add_argument("--tbi-blocks", type=int, default=32,
+                    help="blocks of the trace-by-ID cell's corpus (and a "
+                         "block of partials)")
+    ap.add_argument("--tbi-traces-per-block", type=int, default=TBI_TRACES)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -5175,6 +5670,7 @@ def main(argv=None) -> int:
         rows += red_cell(args, work, report, dbs, launches)
         rows += live_cell(args, work, report, dbs, launches)
         rows += mesh_cell(args, work, report, dbs, launches)
+        rows += trace_by_id_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()
@@ -5207,6 +5703,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     report["nvidia_smi"] = smi
+    t = report["trace_by_id"]
+    print(f"trace-by-id on {smi}: write {t['write_s']:.1f} s, first lookup "
+          f"{t['first_lookup_ms']:.2f} ms, p50/p95 hit "
+          f"{t['hit']['p50_ms']:.2f}/{t['hit']['p95_ms']:.2f} ms, miss "
+          f"{t['miss']['p50_ms']:.2f}/{t['miss']['p95_ms']:.2f} ms, partial "
+          f"{t['partial']['p50_ms']:.2f}/{t['partial']['p95_ms']:.2f} ms, "
+          f"full index page xxh64 {t['xxh64_page']['p50_ms']:.2f} ms, "
+          f"IndexReader {t['index_reader_page']['p50_ms']:.2f} ms", flush=True)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of tempo-tpu's search engine, for one NVIDIA H100.
+"""PyTorch/CUDA port of tempo-tpu's read path, for one NVIDIA H100.
 
 The JAX package ``tempo_tpu`` is the reference; this package is a second
 implementation beside it that imports nothing from it. Module names mirror
@@ -14,6 +14,9 @@ kernels in ``csrc/`` (``scan.cu``, ``topk.cu``, and ``probe.cu`` for value
 dictionaries large enough to probe on the device). Given a mesh
 (``parallel/``), ``TempoDB`` shards every batch over ranks on
 ``torch.distributed`` and merges their top-k with ``csrc/dist.cu``.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-see ``device.py``.
+Trace-by-ID is host code, as in the reference: ``db.TempoDB
+.find_trace_by_id`` over ``encoding.v2.backend_block.BackendBlock``
+(bloom, index, one data page), the blocks written by
+``encoding.v2.streaming_block.StreamingBlock``. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; see ``device.py``.
 """

@@ -1,6 +1,7 @@
-"""Filesystem backend: ``<path>/<tenant>/<block>/<name>`` (the read/write
-subset of the reference's ``backend/local.py``). Writes are atomic via
-temp file + rename."""
+"""Filesystem backend: ``<path>/<tenant>/<block>/<name>`` (a copy of the
+reference's ``backend/local.py`` without its fault points). Writes are
+atomic via temp file + rename, appends via a hidden temp file renamed at
+``close_append``; either package's blocks read back through the other."""
 
 from __future__ import annotations
 
@@ -39,12 +40,59 @@ class LocalBackend(RawBackend):
                 os.unlink(tmp)
             raise
 
+    def append(self, tenant, block_id, name, tracker, data: bytes):
+        if tracker is None:
+            self._p(tenant, block_id, name)
+            d = self._p(tenant, block_id)
+            os.makedirs(d, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=d, prefix=f".{name}.append.")
+            os.close(fd)
+            tracker = tmp
+        with open(tracker, "ab") as f:
+            f.write(data)
+        return tracker
+
+    def close_append(self, tenant, block_id, name, tracker) -> None:
+        if tracker is None:
+            return
+        os.replace(tracker, self._p(tenant, block_id, name))
+
+    def abort_append(self, tenant, block_id, name, tracker) -> None:
+        if tracker is None:
+            return
+        try:
+            os.unlink(tracker)
+        except OSError:
+            pass
+
     def read(self, tenant, block_id, name) -> bytes:
         try:
             with open(self._p(tenant, block_id, name), "rb") as f:
                 return f.read()
         except FileNotFoundError:
             raise DoesNotExist(f"{tenant}/{block_id}/{name}") from None
+
+    def read_range(self, tenant, block_id, name, offset: int,
+                   length: int) -> bytes:
+        try:
+            with open(self._p(tenant, block_id, name), "rb") as f:
+                f.seek(offset)
+                return f.read(length)
+        except FileNotFoundError:
+            raise DoesNotExist(f"{tenant}/{block_id}/{name}") from None
+
+    def delete(self, tenant, block_id, name) -> None:
+        try:
+            os.unlink(self._p(tenant, block_id, name))
+        except FileNotFoundError:
+            raise DoesNotExist(f"{tenant}/{block_id}/{name}") from None
+        # an emptied block directory goes too
+        d = self._p(tenant, block_id)
+        try:
+            if block_id and not os.listdir(d):
+                os.rmdir(d)
+        except OSError:
+            pass
 
     def list_tenants(self) -> list[str]:
         try:

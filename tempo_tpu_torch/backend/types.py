@@ -1,7 +1,8 @@
-"""Block metadata and object naming (the subset of the reference's
-``backend/types.py`` the search slice reads and writes). ``meta.json``
-uses the same JSON fields, so the port reads the reference's blocks and
-the reference reads the port's."""
+"""Block metadata and object naming (the reference's ``backend/types.py``
+without compacted metas and the tenant index). ``meta.json`` uses the
+same JSON fields, so the port reads the reference's blocks and the
+reference reads the port's: the search container's fields and the trace
+objects' (data, index and bloom geometry) alike."""
 
 from __future__ import annotations
 
@@ -12,8 +13,14 @@ from dataclasses import asdict, dataclass
 VERSION_VT1 = "vT1"
 
 NAME_META = "meta.json"
+NAME_DATA = "data"
+NAME_INDEX = "index"
 NAME_SEARCH = "search"
 NAME_SEARCH_HEADER = "search-header.json"
+
+
+def bloom_name(shard: int) -> str:
+    return f"bloom-{shard}"
 
 
 def new_block_id() -> str:
@@ -55,3 +62,9 @@ class BlockMeta:
         d = json.loads(data)
         return cls(**{k: v for k, v in d.items()
                       if k in cls.__dataclass_fields__})
+
+    def extend_range(self, start: int, end: int) -> None:
+        if start:
+            self.start_time = min(self.start_time or start, start)
+        if end:
+            self.end_time = max(self.end_time, end)

@@ -1,20 +1,21 @@
-"""TempoDB facade for the port: the backend search read path.
+"""TempoDB facade for the port: the backend read path.
 
-Counterpart of the search half of the reference's ``db/tempodb.py``:
+Counterpart of the read half of the reference's ``db/tempodb.py``:
 ``poll`` of the blocklist from the backend (which also tells the live
 tier, ``live_tier``, what became visible), ``search`` of a tenant's
 blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
 list of them, all through the batched device engine, each answering an
-``?agg=`` aggregate when the database's analytics gate is on. Given a
-mesh (``parallel.mesh.make_mesh``), or with ``auto_mesh`` once
-``torch.distributed`` is initialized with more than one rank, the three
-shard every batch over the mesh's ranks (one rank per device; B10's
-chains and K9); the live tier stays on the rank's own device, unsharded.
-Writing trace blocks, trace-by-id lookup, compaction and retention are
-later slices;
-the search blocks this reads are written by
-``search.backend_search_block.write_search_block`` (or by the reference,
-which writes the same bytes).
+``?agg=`` aggregate when the database's analytics gate is on; and
+``find_trace_by_id``, host work over each block's bloom, index and one
+data page. Given a mesh (``parallel.mesh.make_mesh``), or with
+``auto_mesh`` once ``torch.distributed`` is initialized with more than
+one rank, the three searches shard every batch over the mesh's ranks
+(one rank per device; B10's chains and K9); the live tier stays on the
+rank's own device, unsharded. Completing blocks from the WAL, compaction
+and retention are later slices; the blocks this reads are written by
+``encoding.v2.streaming_block.StreamingBlock`` (trace objects) and
+``search.backend_search_block.write_search_block`` (search containers),
+or by the reference, which writes the same bytes.
 """
 
 from __future__ import annotations
@@ -29,13 +30,16 @@ import torch
 from ..backend.raw import DoesNotExist, RawBackend
 from ..backend.types import NAME_SEARCH_HEADER, BlockMeta
 from ..device import resolve_device
+from ..encoding.v2.backend_block import BackendBlock
 from ..search.backend_search_block import BackendSearchBlock
 from ..search.batcher import BlockBatcher, ScanJob
 from ..search.live_tier import LiveTier
 from ..search.results import SearchResults
 from ..search.structural import StructuralConfig
+from ..utils.ids import pad_trace_id
 from .blocklist import Blocklist
 from .poller import Poller
+from .pool import run_jobs
 
 
 @dataclass
@@ -92,7 +96,9 @@ class TempoDBConfig:
     search_live_tier_enabled: bool = False
     search_live_tier_max_entries: int = 4096
     search_live_tail_max_subscriptions: int = 16
-    pool_workers: int = 50                # concurrent meta reads per poll
+    # concurrent meta reads per poll, and blocks a trace-by-id lookup
+    # reads at once
+    pool_workers: int = 50
     # bounded wait on the process-wide collective dispatch lock
     # (parallel.mesh.dispatch_lock); a timeout raises DispatchLockTimeout.
     # <= 0 waits forever
@@ -208,6 +214,54 @@ class TempoDB:
             for bid in [b for b in self._headers if b not in live]:
                 del self._headers[bid]
         self.batcher.invalidate(live)
+
+    # ------------------------------------------------------------------
+    # trace by id
+
+    @staticmethod
+    def _include_block(m: BlockMeta, block_start: str, block_end: str,
+                       start_s: int = 0, end_s: int = 0) -> bool:
+        """Block id in the [block_start, block_end] shard range, and the
+        block's time range overlapping [start_s, end_s]."""
+        if block_start and m.block_id < block_start:
+            return False
+        if block_end and m.block_id > block_end:
+            return False
+        if start_s and m.end_time and m.end_time < start_s:
+            return False
+        if end_s and m.start_time and m.start_time > end_s:
+            return False
+        return True
+
+    def find_trace_by_id(self, tenant: str, trace_id: bytes,
+                         block_start: str = "", block_end: str = ""
+                         ) -> tuple[bytes | None, int]:
+        """The tenant's stored object of `trace_id` (8 or 16 bytes), or
+        None, and the count of blocks that failed. Every block in range is
+        read on the pool (bloom, index, one data page); a trace found in
+        several blocks (until compaction merges them) comes back combined
+        by the codec of the first meta's data_encoding, its partials in
+        the order the pool returned them. A block that raises (a missing
+        object, a corrupt index page) counts as failed and is left out.
+        Host work only: no device is touched."""
+        key = pad_trace_id(trace_id)
+        metas = [m for m in self.blocklist.metas(tenant)
+                 if self._include_block(m, block_start, block_end)]
+
+        def job(m: BlockMeta):
+            return BackendBlock(self.backend, m).find_by_id(key)
+
+        found, errors = run_jobs(metas, job, workers=self.cfg.pool_workers)
+        if not found:
+            return None, len(errors)
+        if len(found) == 1:
+            return found[0], len(errors)
+        # protobuf is imported only where partials must be combined: the
+        # search path does not need it
+        from ..model.codec import codec_for
+
+        return (codec_for(metas[0].data_encoding).combine(*found),
+                len(errors))
 
     # ------------------------------------------------------------------
     # search

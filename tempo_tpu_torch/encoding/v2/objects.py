@@ -1,5 +1,8 @@
-"""Object framing inside data pages and WAL files (a copy of the
-reference's ``encoding/v2/objects.py``; the bytes are the same both ways).
+"""Object framing (a copy of the reference's ``encoding/v2/objects.py``;
+the bytes are the same both ways): the trace objects inside a block's
+data pages (``streaming_block`` writes them, ``backend_block`` reads
+them) and the records of the WAL head's search sidecar
+(``search/streaming.py``).
 
 ``| u32 id_len | u32 data_len | id | data |``, little-endian.
 """

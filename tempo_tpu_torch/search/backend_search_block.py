@@ -47,6 +47,18 @@ def write_search_pages(backend: RawBackend, meta: BlockMeta,
                        pages: ColumnarPages, encoding: str = "zlib") -> dict:
     """Write an already-built container and its header, then re-commit the
     block meta with the container geometry. Returns the header."""
+    header = write_search_objects(backend, meta, pages, encoding)
+    backend.write_block_meta(meta)
+    return header
+
+
+def write_search_objects(backend: RawBackend, meta: BlockMeta,
+                         pages: ColumnarPages, encoding: str = "zlib"
+                         ) -> dict:
+    """``write_search_pages`` without the meta commit: the container and
+    its header are written and `meta` gains the container geometry, for a
+    writer that commits meta.json itself once the block's other objects
+    are written. Returns the header."""
     blob = compress(pages.to_bytes(), encoding)
     header = dict(pages.header)
     header["encoding"] = encoding
@@ -58,7 +70,6 @@ def write_search_pages(backend: RawBackend, meta: BlockMeta,
     meta.search_size = len(blob)
     meta.search_entries_per_page = header["entries_per_page"]
     meta.search_kv_per_entry = header["kv_per_entry"]
-    backend.write_block_meta(meta)
     return header
 
 
