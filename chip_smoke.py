@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search and trace-by-ID once on one CUDA card.
+"""Drive the PyTorch port's search, trace-by-ID and ingest on one CUDA card.
 
   python3 chip_smoke.py                  # full size, as a user would call it
   python3 chip_smoke.py --blocks 8 --traces-per-block 8192 \\
       --hc-blocks 2 --hc-traces-per-block 131072 --long-blocks 4 \\
       --hc-packed-blocks 2 --st-blocks 4 \\
       --st-traces-per-block 16384 --agg-blocks 8 \\
-      --wal-traces 16384 --tbi-traces-per-block 4096   # a quick check
+      --wal-traces 16384 --tbi-traces-per-block 4096 \\
+      --ingest-traces-per-block 4096                   # a quick check
 
 The mesh cell (step 9) needs no flag and runs over the earlier cells'
 corpora.
@@ -204,7 +205,33 @@ error:
    counted); write seconds, the first lookup, and p50/p95 of a hit, a
    miss and a partial, and of the checksum and the parse of a full
    1,024-record index page;
-11. prints the kernels line, the card's name and power limit, and as the
+11. the ingest cell (the write path; its kernels K1, K1s and K2 on the
+   searches after it): OTLP ``ResourceSpans`` pushes of 8,192 spans
+   (``--ingest-push-spans``) made from the seed, 4 head blocks x 16,384
+   traces (``--ingest-blocks``, ``--ingest-traces-per-block``) of 8 spans
+   each, 4 under the trace's service and 4 under a downstream one, 1
+   trace in 64 split over two pushes and 1 in 256 with a span ending
+   before it starts, then one block of 1,024 traces
+   (``--ingest-bare-traces``). Each push: ``push_items`` (regroup and
+   extraction), ``AppendBlock.append`` into the port's WAL (zlib), and
+   the head's ``StreamingSearchBlock``; each head through
+   ``TempoDB.complete_block`` (zlib blocks and containers), the last one
+   without entries, so without a container. The fourth head is dropped
+   without a close and replayed (``WAL.replay_all``,
+   ``StreamingSearchBlock.rescan``): the same objects and entries. Then
+   six requests through ``TempoDB.search`` on the card, each equal to
+   the CPU path's, the exhaustive one's results equal to a host count
+   (the pushed search data through ``search_data_matches``, the bare
+   block's pushed traces through ``matches``); ``search_block`` on a
+   container block and the bare one, ``BackendSearchBlock.search`` on
+   one; every result opened by ``find_trace_by_id``, byte-equal to its
+   ``AppendBlock.find`` bytes from before completion. It prints
+   extraction us a trace and spans a second, WAL append MB/s, replay s,
+   ``complete_block`` s a block (objects, index and bloom, container),
+   the first search and the warm p50/p95, and ingest to searchable: from
+   the last push through completion and poll to the first search that
+   returns its last trace;
+12. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
 Every kernel row's device ms is the median of 20 single calls, each
@@ -2257,7 +2284,7 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
     gpu = TempoDB(be, cfg, device="cuda")
     dbs.append(gpu)
     gpu.poll()
-    groups = gpu.batcher.plan(gpu._jobs("hc", gpu.blocklist.epoch()))
+    groups = gpu.batcher.plan(gpu._jobs("hc", gpu.blocklist.epoch())[0])
     report["hc_plan"] = [len(g) for g in groups]
     gc.collect()        # free the tag-search cell's closed databases first
     torch.cuda.reset_peak_memory_stats()
@@ -5600,6 +5627,509 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
     return []
 
 
+ING_TENANT = "ingest"
+ING_BASE_S = BASE_S + 2 * 86_400   # the ingest cell's traces, two days on
+ING_SPANS = 8                   # spans a trace: 4 under each of 2 services
+ING_PUSH_SPANS = 8192           # spans a push (the OTLP collector's batch)
+ING_SPLIT_EVERY = 64            # 1 trace in 64 spans two pushes
+ING_SKEW_EVERY = 256            # 1 trace in 256 has a span ending early
+ING_TRACES = 16_384             # traces a head block, unless cut
+ING_BARE = 1024                 # traces of the block with no container
+ING_LIMIT = 1000                # the exhaustive request's limit
+# the downstream services a trace's spans 4-7 sit under
+ING_DEPS = [f"dep-{i:02d}" for i in range(16)]
+
+
+def ing_requests(blocks: int) -> dict:
+    """The ingest cell's requests, the exhaustive one first (it stages
+    every group, and its matches are counted on the host)."""
+    w0 = ING_BASE_S + (blocks // 2) * BLOCK_SPAN_S
+    return {
+        "ing_exhaustive": (dict(BENCH, **EXHAUSTIVE), {"limit": ING_LIMIT}),
+        "ing_service": ({"service.name": "svc-007"}, {"limit": 20}),
+        "ing_and": ({"service.name": "svc-01", "http.method": "GET"},
+                    {"limit": 20}),
+        "ing_error": ({"error": "true", "region": "eu"}, {"limit": 50}),
+        "ing_duration": ({}, {"min_duration_ms": 30_000,
+                              "max_duration_ms": 59_999, "limit": 20}),
+        "ing_window": ({"name": "op-3"}, {"start": w0 + 120,
+                                          "end": w0 + 240, "limit": 20}),
+    }
+
+
+def ing_columns(seed: int, b: int, n: int) -> dict:
+    """Block b's n traces as numpy columns: ids, span ids, the root's
+    service (of KEYS) and the downstream one (of ING_DEPS), start second, root duration (log-uniform over
+    1-60,000 ms), status and method, and which traces are split over two
+    pushes or carry a span that ends before it starts."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, b])
+    ids = rng.integers(0, 256, size=(n, 16), dtype=np.uint8)
+    ids[:, 0] = b   # distinct across blocks
+    return {
+        "tid": ids,
+        "sid": rng.integers(0, 256, size=(n, ING_SPANS, 8), dtype=np.uint8),
+        "svc": rng.integers(0, 64, size=n),
+        "svc2": rng.integers(0, len(ING_DEPS), size=n),
+        "start": ING_BASE_S + b * BLOCK_SPAN_S
+        + rng.integers(0, BLOCK_SPAN_S, size=n),
+        "dur": np.exp(rng.uniform(0, np.log(60_000), size=n)).astype(
+            np.int64),
+        "status": rng.integers(0, len(KEYS["http.status_code"]), size=n),
+        "method": rng.integers(0, len(KEYS["http.method"]), size=n),
+        "split": rng.integers(0, ING_SPLIT_EVERY, size=n) == 0,
+        "skew": rng.integers(0, ING_SKEW_EVERY, size=n) == 0,
+        "skew_ms": rng.integers(1, 5_000, size=n),
+    }
+
+
+def ing_resource(tempopb, name: str, k: int):
+    """Service `name`'s resource: its name, and a host, region and
+    namespace that follow from its number `k` (a collector batches spans
+    by resource)."""
+    rs = tempopb.ResourceSpans()
+    for key, val in (("service.name", name),
+                     ("host.name", KEYS["host.name"][k * 31 % 2000]),
+                     ("region", KEYS["region"][k % 6]),
+                     ("k8s.namespace", KEYS["k8s.namespace"][k % 16])):
+        kv = rs.resource.attributes.add()
+        kv.key = key
+        kv.value.string_value = val
+    ss = rs.scope_spans.add()
+    ss.scope.name = "chip-smoke-ingest"
+    ss.scope.version = "1.0"
+    return rs
+
+
+def ing_pushes(cols: dict, per_push: int) -> list:
+    """The block's pushes, each a list of ResourceSpans, one a service.
+    A trace's spans 0-3 (the root and 3 children) sit under its service,
+    spans 4-7 under the downstream one, the root's attributes carry
+    http.method and http.status_code (int), the children component; a
+    split trace's spans 4-7 come in the next push (none in a block's last
+    push is split). Returns (pushes, split mask, skew mask)."""
+    import numpy as np
+
+    from tempo_tpu_torch import tempopb
+
+    n = len(cols["tid"])
+    n_push = -(-n // per_push)
+    split = cols["split"] & (np.arange(n) // per_push < n_push - 1)
+    st, en = tbi_times(cols["start"], cols["dur"])
+    en[cols["skew"], ING_SPANS - 1] = (st[cols["skew"], ING_SPANS - 1]
+                                       - cols["skew_ms"][cols["skew"]]
+                                       * 1_000_000)
+    kv = tempopb.KeyValue
+    av = tempopb.AnyValue
+    methods = [kv(key="http.method", value=av(string_value=m))
+               for m in KEYS["http.method"]]
+    codes = [kv(key="http.status_code", value=av(int_value=int(c)))
+             for c in KEYS["http.status_code"]]
+    comps = [[kv(key="component", value=av(string_value=c))]
+             for c in KEYS["component"]]
+    pushes = [dict() for _ in range(n_push)]
+    for j in range(n):
+        p = j // per_push
+        tid = cols["tid"][j].tobytes()
+        sids = cols["sid"][j]
+        root = sids[0].tobytes()
+        status = int(cols["status"][j])
+        for i in range(ING_SPANS):
+            svc = (KEYS["service.name"][int(cols["svc"][j])] if i < 4
+                   else ING_DEPS[int(cols["svc2"][j])])
+            q = p + 1 if (i >= 4 and split[j]) else p
+            rs = pushes[q].get(svc)
+            if rs is None:
+                rs = pushes[q][svc] = ing_resource(
+                    tempopb, svc, int(cols["svc"][j] if i < 4
+                                      else 64 + cols["svc2"][j]))
+            if i == 0:
+                attrs = [methods[int(cols["method"][j])], codes[status]]
+            else:
+                attrs = comps[i % 4]
+            sp = rs.scope_spans[0].spans.add(
+                trace_id=tid, span_id=sids[i].tobytes(),
+                parent_span_id=b"" if i == 0 else root,
+                name=SPAN_OPS[i], kind=2 if i == 0 else 3,
+                start_time_unix_nano=int(st[j, i]),
+                end_time_unix_nano=int(en[j, i]), attributes=attrs)
+            if i == 0 and KEYS["http.status_code"][status] >= "500":
+                sp.status.code = tempopb.Status.STATUS_CODE_ERROR
+    return [list(p.values()) for p in pushes], split, cols["skew"]
+
+
+class IngTimes:
+    """Seconds spent in the parts of ``complete_block``: the streaming
+    writer's complete() (the last page, index, bloom shards, meta.json)
+    and the search container's build and write, by wrapping both for the
+    cell's duration; the rest of a completion is the trace objects."""
+
+    def __init__(self):
+        self.complete_s = 0.0
+        self.container_s = 0.0
+
+    def __enter__(self):
+        from tempo_tpu_torch.db import tempodb
+        from tempo_tpu_torch.encoding.v2.streaming_block import \
+            StreamingBlock
+
+        self._saved = (tempodb.write_search_block, StreamingBlock.complete)
+        write, complete = self._saved
+
+        def timed_write(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return write(*a, **kw)
+            finally:
+                self.container_s += time.perf_counter() - t0
+
+        def timed_complete(sb, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return complete(sb, *a, **kw)
+            finally:
+                self.complete_s += time.perf_counter() - t0
+
+        tempodb.write_search_block = timed_write
+        StreamingBlock.complete = timed_complete
+        return self
+
+    def __exit__(self, *exc):
+        from tempo_tpu_torch.db import tempodb
+        from tempo_tpu_torch.encoding.v2.streaming_block import \
+            StreamingBlock
+
+        tempodb.write_search_block, StreamingBlock.complete = self._saved
+        return False
+
+
+def ingest_cell(args, work: str, report: dict, dbs: list,
+                launches: dict, device: str = "cuda") -> list:
+    """The ingest cell (step 11 of the module docstring): OTLP pushes
+    through the port's write path into head blocks, a crash and its
+    replay, completion with and without a search container, then
+    searches on the card held against the CPU path and a host count, and
+    every result opened. Returns no kernel rows (its kernels, K1, K1s
+    and K2, have the tag cell's rows); their launches are added."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.backend.types import NAME_SEARCH
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model import matches
+    from tempo_tpu_torch.model.codec import codec_for
+    from tempo_tpu_torch.model.types import (SearchBlockRequest,
+                                             SearchRequest)
+    from tempo_tpu_torch.modules.distributor import push_items
+    from tempo_tpu_torch.search import structural
+    from tempo_tpu_torch.search.backend_search_block import \
+        BackendSearchBlock
+    from tempo_tpu_torch.search.data import (clone_search_data,
+                                             decode_search_data,
+                                             encode_search_data,
+                                             search_data_matches)
+    from tempo_tpu_torch.search.streaming import StreamingSearchBlock
+
+    blocks, n = args.ingest_blocks, args.ingest_traces_per_block
+    n_bare, per_push = args.ingest_bare_traces, args.ingest_push_spans
+    if blocks < 2:
+        raise ValueError("--ingest-blocks must be >= 2")
+    seed = args.seed + 18
+    root = os.path.join(work, "ingest")
+    wal_dir = os.path.join(work, "ingest-wal")
+    out: dict = {"blocks": blocks, "traces_per_block": n,
+                 "traces_per_block_asked": ING_TRACES, "bare_traces": n_bare,
+                 "push_spans": per_push}
+    report["ingest"] = out
+    if n < ING_TRACES:
+        print(f"ingest: cut to {n} traces a block ({ING_TRACES} asked)",
+              flush=True)
+    cfg = TempoDBConfig(block_encoding="zlib", search_encoding="zlib",
+                        wal_encoding="zlib", search_max_batch_pages=4096)
+    reset_counts()
+    db = TempoDB(LocalBackend(root), cfg, device=device, wal_dir=wal_dir)
+    dbs.append(db)
+    codec = codec_for("v2")
+    sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
+
+    pushed_sd: dict = {}      # tid -> merged pushed SearchData (containers)
+    bare_traces: dict = {}    # tid -> pushed Trace (the bare block)
+    expect: dict = {}         # tid -> AppendBlock.find bytes, pre-completion
+    t = {"gen": 0.0, "extract": 0.0, "append": 0.0, "head": 0.0}
+    n_spans = n_traces = wal_bytes = seg_bytes = 0
+    n_split = n_skew = 0
+    complete_s = []
+
+    def ingest(blk, ssb, pushes, bare: bool):
+        nonlocal n_spans, n_traces, wal_bytes, seg_bytes
+        for batches in pushes:
+            t0 = time.perf_counter()
+            items, ns = push_items(batches)
+            t1 = time.perf_counter()
+            before = blk.data_length
+            for tid, s, e, seg, _ in items:
+                blk.append(tid, seg, s, e)
+            t2 = time.perf_counter()
+            for tid, _, _, seg, sd in items:
+                ssb.append(tid, decode_search_data(sd, tid))
+            t3 = time.perf_counter()
+            t["extract"] += t1 - t0
+            t["append"] += t2 - t1
+            t["head"] += t3 - t2
+            wal_bytes += blk.data_length - before
+            seg_bytes += sum(len(it[3]) for it in items)
+            n_spans += ns
+            for tid, _, _, seg, sd in items:
+                if bare:
+                    tr = codec.prepare_for_read(seg)
+                    if tid in bare_traces:
+                        bare_traces[tid].MergeFrom(tr)
+                    else:
+                        bare_traces[tid] = tr
+                    continue
+                part = decode_search_data(sd, tid)
+                cur = pushed_sd.get(tid)
+                if cur is None:
+                    pushed_sd[tid] = part
+                else:
+                    cur = clone_search_data(cur)
+                    cur.merge(part)
+                    pushed_sd[tid] = cur
+
+    def complete(blk, ssb, entries):
+        t0 = time.perf_counter()
+        meta = db.complete_block(blk, entries)
+        complete_s.append(time.perf_counter() - t0)
+        blk.clear()
+        ssb.clear()
+        return meta
+
+    times = IngTimes()
+    with times:
+        for b in range(blocks + 1):
+            bare = b == blocks
+            t0 = time.perf_counter()
+            cols = ing_columns(seed, b, n_bare if bare else n)
+            pushes, split, skew = ing_pushes(cols, per_push // ING_SPANS)
+            t["gen"] += time.perf_counter() - t0
+            n_split += int(split.sum())
+            n_skew += int(skew.sum())
+            n_traces += len(cols["tid"])
+            blk = db.wal.new_block(ING_TENANT,
+                                   block_id=f"00000000-0000-4000-8018-"
+                                   f"{b:012d}")
+            ssb = StreamingSearchBlock(blk.path + ".search")
+            t_last = time.perf_counter()
+            ingest(blk, ssb, pushes[:-1], bare)
+            t_last = time.perf_counter()
+            ingest(blk, ssb, pushes[-1:], bare)
+            last_tid = cols["tid"][-1].tobytes()
+            for tid, obj in blk.iterator():
+                expect[tid] = obj
+            if len(blk) != len(cols["tid"]) + int(split.sum()):
+                raise AssertionError(f"ingest block {b}: {len(blk)} records")
+            if b == blocks - 1:
+                # the crash: the head's objects dropped without a close
+                # (every append was flushed), then replayed
+                path = blk.path
+                orig = list(blk.iterator())
+                orig_entries = [encode_search_data(e) for e in ssb.entries()]
+                del blk, ssb
+                gc.collect()
+                t0 = time.perf_counter()
+                replayed, removed = db.wal.replay_all()
+                ssb = StreamingSearchBlock.rescan(path + ".search")
+                out["replay"] = {"s": time.perf_counter() - t0,
+                                 "bytes": db.wal.last_replay["bytes"],
+                                 "objects": len(orig),
+                                 "records": sum(len(r) for r in replayed)}
+                if removed or len(replayed) != 1 or replayed[0].path != path:
+                    raise AssertionError(f"replay: {removed}, "
+                                         f"{[r.path for r in replayed]}")
+                blk = replayed[0]
+                if list(blk.iterator()) != orig:
+                    raise AssertionError("replay: objects differ")
+                if [encode_search_data(e) for e in ssb.entries()] != \
+                        orig_entries:
+                    raise AssertionError("replay: search entries differ")
+            meta = complete(blk, ssb, None if bare else ssb.entries())
+            if bare:
+                db.poll()
+                # the last push, searchable: a search that returns its last
+                # trace (the block's own window, its root service)
+                s = int(cols["start"][-1])
+                req = SearchRequest(tags={"service.name": KEYS[
+                    "service.name"][int(cols["svc"][-1])]},
+                                    start=s, end=s, limit=100)
+                for tries in range(1, 4):
+                    resp = db.search(ING_TENANT, req).response()
+                    sync()
+                    if last_tid.hex() in {r.trace_id for r in resp.traces}:
+                        break
+                else:
+                    raise AssertionError("ingest: the last push's trace "
+                                         "was not found")
+                out["ingest_to_searchable_s"] = time.perf_counter() - t_last
+                out["ingest_to_searchable_tries"] = tries
+            if bare == bool(meta.search_pages):
+                raise AssertionError(f"ingest block {b}: search pages "
+                                     f"{meta.search_pages}")
+    out["traces"] = n_traces
+    out["spans"] = n_spans
+    out["split_traces"] = n_split
+    out["skewed_traces"] = n_skew
+    out["gen_s"] = t["gen"]
+    out["extract_s"] = t["extract"]
+    out["extract_us_per_trace"] = t["extract"] / n_traces * 1e6
+    out["spans_per_s"] = n_spans / t["extract"]
+    out["wal_append_s"] = t["append"]
+    out["wal_bytes"] = wal_bytes
+    out["segment_bytes"] = seg_bytes
+    out["wal_append_mb_per_s"] = wal_bytes / t["append"] / 1e6
+    out["search_head_append_s"] = t["head"]
+    nb = blocks + 1
+    out["complete_block_s"] = complete_s
+    out["complete"] = {
+        "per_block_s": sum(complete_s) / nb,
+        "objects_s": (sum(complete_s) - times.complete_s
+                      - times.container_s) / nb,
+        "index_bloom_s": times.complete_s / nb,
+        "container_s": times.container_s / blocks}
+    be = LocalBackend(root)
+    metas = db.blocklist.metas(ING_TENANT)
+    if len(metas) != nb or sum(
+            NAME_SEARCH in os.listdir(os.path.join(root, ING_TENANT,
+                                                   m.block_id))
+            for m in metas) != blocks:
+        raise AssertionError("ingest: blocks or containers missing")
+    if os.listdir(wal_dir):
+        raise AssertionError(f"ingest: WAL left {os.listdir(wal_dir)}")
+    print(f"ingest: {nb} blocks ({blocks} x {n} traces, {n_bare} without a "
+          f"container), {n_traces} traces, {n_spans} spans in pushes of "
+          f"{per_push} spans ({n_split} traces split over two pushes, "
+          f"{n_skew} with a span ending before it starts); generated in "
+          f"{t['gen']:.1f} s; regroup and extraction {t['extract']:.1f} s "
+          f"({out['extract_us_per_trace']:.1f} us a trace, "
+          f"{out['spans_per_s']:.0f} spans/s); WAL append {wal_bytes} B in "
+          f"{t['append']:.2f} s ({out['wal_append_mb_per_s']:.1f} MB/s), "
+          f"search head {t['head']:.2f} s; replay "
+          f"{out['replay']['s']:.2f} s; complete_block "
+          f"{out['complete']['per_block_s']:.2f} s a block (objects "
+          f"{out['complete']['objects_s']:.2f}, index and bloom "
+          f"{out['complete']['index_bloom_s']:.3f}, container "
+          f"{out['complete']['container_s']:.2f} s); ingest to searchable "
+          f"{out['ingest_to_searchable_s']:.2f} s", flush=True)
+
+    # searches on the card, each against the CPU path; the exhaustive one
+    # first (it stages every group) and against a host count
+    reqs = ing_requests(blocks)
+    db.poll()
+    cpu = TempoDB(LocalBackend(root), cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    resps = {}
+    for name, (tags, kw) in reqs.items():
+        t0 = time.perf_counter()
+        resp = db.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw)
+                         ).response()
+        sync()
+        if name == "ing_exhaustive":
+            out["first_search_ms"] = (time.perf_counter() - t0) * 1e3
+        want = cpu.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw)
+                          ).response()
+        if resp != want:
+            raise AssertionError(f"ingest {name}: card and CPU differ")
+        check_response(name, resp, tags, kw, n_traces)
+        resps[name] = resp
+    tags, kw = reqs["ing_exhaustive"]
+    req = SearchRequest(tags=dict(tags), **kw)
+    host = {tid.hex() for tid, sd in pushed_sd.items()
+            if search_data_matches(sd, req, structural.OFF)}
+    host |= {tid.hex() for tid, tr in bare_traces.items()
+             if matches(tr, req, structural.OFF)}
+    got = {r.trace_id for r in resps["ing_exhaustive"].traces}
+    if not host or len(host) >= ING_LIMIT or got != host:
+        raise AssertionError(f"ingest exhaustive: {len(got)} results, host "
+                             f"count {len(host)}")
+    out["exhaustive_matches"] = len(got)
+    out["host_matches"] = len(host)
+    for name, resp in resps.items():
+        if not resp.traces and name != "ing_window":
+            raise AssertionError(f"ingest {name}: no result")
+    name = "ing_service"
+    tags, kw = reqs[name]
+    lat = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        r = db.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw))
+        sync()
+        lat.append(time.perf_counter() - t0)
+        if r.response() != resps[name]:
+            raise AssertionError("ingest warm search differs")
+    lat.sort()
+    out["warm"] = {"request": name, "p50_ms": lat[len(lat) // 2] * 1e3,
+                   "p95_ms": pct(lat, 0.95) * 1e3,
+                   "lat_ms": [x * 1e3 for x in lat]}
+    # one written block through search_block (the batcher, K1) and the
+    # single-block engine (K1s); the bare block through search_block
+    for m in (metas[0], metas[-1]):
+        sbr = dict(tenant_id=ING_TENANT, block_id=m.block_id,
+                   encoding=m.encoding, version=m.version,
+                   data_encoding=m.data_encoding, start_time=m.start_time,
+                   end_time=m.end_time)
+        for nm in ("ing_service", "ing_exhaustive"):
+            tags, kw = reqs[nm]
+            got_b = db.search_block(SearchBlockRequest(
+                search_req=SearchRequest(tags=dict(tags), **kw), **sbr))
+            want_b = cpu.search_block(SearchBlockRequest(
+                search_req=SearchRequest(tags=dict(tags), **kw), **sbr))
+            if got_b.response() != want_b.response():
+                raise AssertionError(f"ingest search_block {nm}: card and "
+                                     "CPU differ")
+    tags, kw = reqs["ing_exhaustive"]
+    single = BackendSearchBlock(be, metas[0], device=device).search(
+        SearchRequest(tags=dict(tags), **kw)).response()
+    single_cpu = BackendSearchBlock(be, metas[0], device="cpu").search(
+        SearchRequest(tags=dict(tags), **kw)).response()
+    if single != single_cpu or not {r.trace_id for r in single.traces} \
+            <= got:
+        raise AssertionError("ingest single-block search differs")
+    sync()
+    path = read_counts()
+    cpu.close()
+    dbs.remove(cpu)
+    if device != "cpu" and not (path["multi_scan"] and path["topk"]
+                                and path["scan_single"]):
+        raise AssertionError(f"ingest: kernels not launched: {path}")
+    add_counts(launches, path)
+    out["launches"] = {k: v for k, v in path.items() if v}
+    # every result opened, byte-equal to its WAL bytes before completion
+    ids = sorted({r.trace_id for resp in resps.values()
+                  for r in resp.traces})
+    t0 = time.perf_counter()
+
+    def open_one(h):
+        obj, failed = db.find_trace_by_id(ING_TENANT, bytes.fromhex(h))
+        if failed or obj != expect[bytes.fromhex(h)]:
+            raise AssertionError(f"ingest: {h} opened differs from the WAL")
+        return 1
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=CLIENTS) as ex:
+        out["opened"] = sum(ex.map(open_one, ids))
+    out["open_s"] = time.perf_counter() - t0
+    print(f"ingest searches: exhaustive {len(got)} matches (= the host "
+          f"count), first search {out['first_search_ms']:.1f} ms, "
+          f"{name} warm p50/p95 {out['warm']['p50_ms']:.2f}/"
+          f"{out['warm']['p95_ms']:.2f} ms over {args.reps}; launches "
+          f"{json.dumps(out['launches'])}; {out['opened']} results opened, "
+          f"each its WAL bytes ({out['open_s']:.1f} s)", flush=True)
+    db.close()
+    dbs.remove(db)
+    return []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -5629,6 +6159,16 @@ def main(argv=None) -> int:
                     help="blocks of the trace-by-ID cell's corpus (and a "
                          "block of partials)")
     ap.add_argument("--tbi-traces-per-block", type=int, default=TBI_TRACES)
+    ap.add_argument("--ingest-blocks", type=int, default=4,
+                    help="head blocks of the ingest cell with a search "
+                         "container (and one without)")
+    ap.add_argument("--ingest-traces-per-block", type=int,
+                    default=ING_TRACES)
+    ap.add_argument("--ingest-bare-traces", type=int, default=ING_BARE,
+                    help="traces of the ingest cell's block without a "
+                         "search container")
+    ap.add_argument("--ingest-push-spans", type=int, default=ING_PUSH_SPANS,
+                    help="spans a push of the ingest cell")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=10,
                     help="timed rounds of the concurrent phases")
@@ -5671,6 +6211,7 @@ def main(argv=None) -> int:
         rows += live_cell(args, work, report, dbs, launches)
         rows += mesh_cell(args, work, report, dbs, launches)
         rows += trace_by_id_cell(args, work, report, dbs, launches)
+        rows += ingest_cell(args, work, report, dbs, launches)
     finally:
         for db in dbs:
             db.close()
@@ -5711,6 +6252,19 @@ def main(argv=None) -> int:
           f"{t['partial']['p50_ms']:.2f}/{t['partial']['p95_ms']:.2f} ms, "
           f"full index page xxh64 {t['xxh64_page']['p50_ms']:.2f} ms, "
           f"IndexReader {t['index_reader_page']['p50_ms']:.2f} ms", flush=True)
+    g = report["ingest"]
+    print(f"ingest on {smi}: regroup and extraction "
+          f"{g['extract_us_per_trace']:.1f} us a trace, "
+          f"{g['spans_per_s']:.0f} spans/s; WAL append "
+          f"{g['wal_append_mb_per_s']:.1f} MB/s; replay "
+          f"{g['replay']['s']:.2f} s; complete_block "
+          f"{g['complete']['per_block_s']:.2f} s a block (objects "
+          f"{g['complete']['objects_s']:.2f}, index and bloom "
+          f"{g['complete']['index_bloom_s']:.3f}, container "
+          f"{g['complete']['container_s']:.2f}); first search "
+          f"{g['first_search_ms']:.1f} ms, warm p50/p95 "
+          f"{g['warm']['p50_ms']:.2f}/{g['warm']['p95_ms']:.2f} ms; ingest "
+          f"to searchable {g['ingest_to_searchable_s']:.2f} s", flush=True)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

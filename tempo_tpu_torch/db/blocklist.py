@@ -30,3 +30,10 @@ class Blocklist:
             if new_m != self._metas:
                 self._epoch += 1
             self._metas = new_m
+
+    def add(self, tenant: str, metas: list[BlockMeta]) -> None:
+        """Between polls: blocks this process wrote join the tenant's list
+        at once."""
+        with self._lock:
+            self._metas.setdefault(tenant, []).extend(metas)
+            self._epoch += 1

@@ -1,21 +1,30 @@
-"""TempoDB facade for the port: the backend read path.
+"""TempoDB facade for the port: block writes and the backend read path.
 
-Counterpart of the read half of the reference's ``db/tempodb.py``:
-``poll`` of the blocklist from the backend (which also tells the live
-tier, ``live_tier``, what became visible), ``search`` of a tenant's
-blocks, ``search_block`` of one page-range job and ``search_blocks`` of a
-list of them, all through the batched device engine, each answering an
-``?agg=`` aggregate when the database's analytics gate is on; and
-``find_trace_by_id``, host work over each block's bloom, index and one
-data page. Given a mesh (``parallel.mesh.make_mesh``), or with
-``auto_mesh`` once ``torch.distributed`` is initialized with more than
-one rank, the three searches shard every batch over the mesh's ranks
-(one rank per device; B10's chains and K9); the live tier stays on the
-rank's own device, unsharded. Completing blocks from the WAL, compaction
-and retention are later slices; the blocks this reads are written by
-``encoding.v2.streaming_block.StreamingBlock`` (trace objects) and
-``search.backend_search_block.write_search_block`` (search containers),
-or by the reference, which writes the same bytes.
+Counterpart of the reference's ``db/tempodb.py`` without compaction and
+retention:
+
+- writes: ``complete_block`` turns a WAL head block (``wal.AppendBlock``)
+  into a backend block, and ``write_block_direct`` writes one from
+  objects; each writes the trace objects (``StreamingBlock``: data pages,
+  index, bloom, meta.json) and, given search entries, the columnar search
+  container (``write_search_block``), the reference's bytes for the same
+  input. With a ``wal_dir`` the database owns a ``WAL``.
+- reads: ``poll`` of the blocklist from the backend (which also tells the
+  live tier, ``live_tier``, what became visible), ``search`` of a
+  tenant's blocks, ``search_block`` of one page-range job and
+  ``search_blocks`` of a list of them, all through the batched device
+  engine, each answering an ``?agg=`` aggregate when the database's
+  analytics gate is on; and ``find_trace_by_id``, host work over each
+  block's bloom, index and one data page.
+
+A block without a search container is searched on the host from its
+trace objects (``_fallback_search``: decode, ``model.matches``), after
+the batched pass and only while the result is not complete. Given a mesh
+(``parallel.mesh.make_mesh``), or with ``auto_mesh`` once
+``torch.distributed`` is initialized with more than one rank, the three
+searches shard every batch over the mesh's ranks (one rank per device;
+B10's chains and K9); the live tier stays on the rank's own device,
+unsharded.
 """
 
 from __future__ import annotations
@@ -23,16 +32,21 @@ from __future__ import annotations
 import json
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from ..backend.raw import DoesNotExist, RawBackend
 from ..backend.types import NAME_SEARCH_HEADER, BlockMeta
 from ..device import resolve_device
+from ..encoding.compression import usable
 from ..encoding.v2.backend_block import BackendBlock
-from ..search.backend_search_block import BackendSearchBlock
+from ..encoding.v2.streaming_block import StreamingBlock
+from ..search import structural
+from ..search.backend_search_block import (BackendSearchBlock,
+                                           write_search_block)
 from ..search.batcher import BlockBatcher, ScanJob
+from ..search.columnar import PageGeometry
 from ..search.live_tier import LiveTier
 from ..search.results import SearchResults
 from ..search.structural import StructuralConfig
@@ -44,8 +58,19 @@ from .pool import run_jobs
 
 @dataclass
 class TempoDBConfig:
-    """The search-read fields of the reference's TempoDBConfig, same names
-    and defaults."""
+    """The reference's TempoDBConfig fields for block writes and search
+    reads, same names and defaults."""
+    # codecs of block data pages, WAL records and search containers; a
+    # codec this process cannot use raises at the first write (the WAL's
+    # when it is built), it is never swapped for another
+    block_encoding: str = "zstd"
+    wal_encoding: str = "auto"            # auto = zlib (wal.py)
+    search_encoding: str = "zstd"
+    block_page_size: int = 1 << 20        # uncompressed bytes a data page
+    # a completing block streams its pages to the backend every this
+    # many compressed bytes
+    complete_flush_bytes: int = 30 << 20
+    search_geometry: PageGeometry = field(default_factory=PageGeometry)
     search_cache_blocks: int = 64         # open search-block objects kept
     search_max_batch_pages: int = 4096    # pages stacked per dispatch
     search_batch_cache_bytes: int = 4 << 30   # staged-batch device budget
@@ -119,21 +144,30 @@ class TempoDBConfig:
 
 
 class TempoDB:
-    """The search reader over one backend, on one device, or on one rank
-    of a mesh."""
+    """The block writer and search reader over one backend, on one
+    device, or on one rank of a mesh."""
 
     def __init__(self, backend: RawBackend, cfg: TempoDBConfig | None = None,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 wal_dir: str | None = None):
         """`device`: where staged batches live and the kernels run —
         ``cuda`` by default; ``cpu`` runs the kernels' plain versions.
         Raises when CUDA is asked for (or defaulted to) and absent.
         `mesh`: a ``parallel.mesh.make_mesh`` DeviceMesh to shard batched
         scans over, this process one of its ranks; its process group must
         carry `device`'s tensors (NCCL for CUDA, gloo for the CPU), or
-        this raises ValueError."""
+        this raises ValueError. `wal_dir`: where the database's ``WAL``
+        (``self.wal``, codec ``cfg.wal_encoding``) keeps its files; None
+        (the default) gives a database with no WAL."""
         self.backend = backend
         self.cfg = cfg or TempoDBConfig()
         self.device = resolve_device(device)
+        self.wal = None
+        if wal_dir is not None:
+            from ..wal import WAL
+
+            self.wal = WAL(wal_dir, encoding=self.cfg.wal_encoding)
+        self._structural = self.cfg.structural()
         self.blocklist = Blocklist()
         self.poller = Poller(backend, concurrency=self.cfg.pool_workers)
         self.batcher = BlockBatcher(
@@ -162,7 +196,7 @@ class TempoDB:
         self._headers: OrderedDict[str, dict] = OrderedDict()
         self._headers_max = 131_072
         self._jobs_cache: dict[str, tuple] = {}
-        # (epoch, jobs, groups) per search_blocks job list
+        # (epoch, jobs, fallback, missing, groups) per search_blocks job list
         self._breq_jobs_cache: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
 
@@ -196,6 +230,72 @@ class TempoDB:
 
                 self._use_mesh(make_mesh())
             self._mesh_resolved = True
+
+    # ------------------------------------------------------------------
+    # writer
+
+    def _check_codecs(self, search: bool) -> None:
+        for name in ("block_encoding",) + (("search_encoding",) if search
+                                           else ()):
+            enc = getattr(self.cfg, name)
+            if not usable(enc):
+                raise ValueError(f"{name} {enc!r} cannot be used in this "
+                                 "process (zstd needs the zstandard "
+                                 "package; lz4, snappy and s2 the "
+                                 "reference's native runtime)")
+
+    def _write_block(self, meta: BlockMeta, objects, search_entries
+                     ) -> BlockMeta:
+        """Stream (id, object, start, end) in ascending id order into a
+        backend block, then the search container when there are entries,
+        and add the block to the blocklist. A failed write deletes what it
+        wrote and raises."""
+        self._check_codecs(bool(search_entries))
+        sb = StreamingBlock(meta, page_size=self.cfg.block_page_size,
+                            backend=self.backend,
+                            flush_size=self.cfg.complete_flush_bytes)
+        try:
+            for oid, obj, s, e in objects:
+                sb.add_object(oid, obj, s, e)
+            out = sb.complete(self.backend)
+        except BaseException:
+            sb.abort()
+            raise
+        if search_entries:
+            write_search_block(self.backend, out, search_entries,
+                               geometry=self.cfg.search_geometry,
+                               encoding=self.cfg.search_encoding)
+        self.blocklist.add(out.tenant_id, [out])
+        return out
+
+    def complete_block(self, block, search_entries=None) -> BlockMeta:
+        """A WAL head block (``wal.AppendBlock``) as a backend block with
+        the same id: its traces in id order, each trace's segments as one
+        object, and the search container built from `search_entries` (the
+        head's ``StreamingSearchBlock.entries()``). Without entries the
+        block has no container and is searched from its trace objects."""
+        from ..model.codec import codec_for
+
+        codec = codec_for(block.meta.data_encoding)
+        meta = BlockMeta(tenant_id=block.meta.tenant_id,
+                         block_id=block.meta.block_id,
+                         encoding=self.cfg.block_encoding,
+                         data_encoding=block.meta.data_encoding)
+
+        def objects():
+            for oid, obj in block.iterator():
+                r = codec.fast_range(obj) or (0, 0)
+                yield oid, obj, r[0], r[1]
+
+        return self._write_block(meta, objects(), search_entries)
+
+    def write_block_direct(self, tenant: str, objects, search_entries=None,
+                           data_encoding: str = "v2") -> BlockMeta:
+        """A backend block from (id, object, start, end) tuples in
+        ascending id order, with a new block id."""
+        meta = BlockMeta(tenant_id=tenant, encoding=self.cfg.block_encoding,
+                         data_encoding=data_encoding)
+        return self._write_block(meta, objects, search_entries)
 
     # ------------------------------------------------------------------
     # blocklist
@@ -327,61 +427,111 @@ class TempoDB:
                        geometry=(hdr["entries_per_page"],
                                  hdr["kv_per_entry"]))
 
-    def _jobs(self, tenant: str, epoch: int) -> list[ScanJob]:
+    def _jobs(self, tenant: str, epoch: int) -> tuple[list, list]:
+        """The tenant's scan jobs and its blocks without a search
+        container, cached per blocklist epoch. A cached container-less
+        block is probed again at each search: its DoesNotExist may have
+        been a read that came before the write."""
         with self._lock:
             hit = self._jobs_cache.get(tenant)
         if hit is not None and hit[0] == epoch:
-            return hit[1]
-        jobs = []
+            jobs, fallback = hit[1], hit[2]
+            if fallback:
+                promoted, still = [], []
+                for m in fallback:
+                    try:
+                        promoted.append(self._scan_job(m))
+                    except DoesNotExist:
+                        still.append(m)
+                if promoted:
+                    jobs, fallback = jobs + promoted, still
+                    with self._lock:
+                        self._jobs_cache[tenant] = (epoch, jobs, fallback)
+            return jobs, fallback
+        jobs, fallback = [], []
         for m in self.blocklist.metas(tenant):
             try:
                 jobs.append(self._scan_job(m))
             except DoesNotExist:
-                raise self._no_container(tenant, m.block_id) from None
+                fallback.append(m)
         with self._lock:
-            self._jobs_cache[tenant] = (epoch, jobs)
-        return jobs
+            self._jobs_cache[tenant] = (epoch, jobs, fallback)
+        return jobs, fallback
 
-    @staticmethod
-    def _no_container(tenant: str, block_id: str):
-        # the reference answers such blocks from their trace objects (a
-        # proto scan); that path is not part of this slice, and leaving
-        # the blocks out would be a silently wrong answer
-        return NotImplementedError(
-            f"block {block_id} of tenant {tenant!r} has no search "
-            "container; the trace-object fallback scan is not ported yet")
+    def _fallback_search(self, metas: list[BlockMeta], req,
+                         results: SearchResults) -> None:
+        """Blocks without a search container, searched on the host: each
+        trace object decoded and held against the request
+        (``model.matches``), the whole block, stopping when the results
+        are complete. A block counts as inspected with its data pages'
+        bytes."""
+        from ..model.codec import codec_for
+        from ..model.matches import matches, trace_search_metadata
+
+        for m in metas:
+            block = BackendBlock(self.backend, m)
+            codec = codec_for(m.data_encoding)
+            results.metrics.inspected_blocks += 1
+            results.metrics.inspected_bytes += block.bytes_in_pages(0, None)
+            for oid, obj in block.iter_objects():
+                results.metrics.inspected_traces += 1
+                trace = codec.prepare_for_read(obj)
+                if matches(trace, req, self._structural):
+                    results.add(trace_search_metadata(oid, trace))
+                if results.complete:
+                    return
 
     def search(self, tenant: str, req,
                results: SearchResults | None = None) -> SearchResults:
         """Search all blocks of a tenant through the batched device engine,
-        stopping early at the result limit."""
+        stopping early at the result limit; then, while the results are
+        not complete, the blocks without a search container whose meta
+        range meets the request's window (``_fallback_search``; the others
+        count as skipped)."""
         self._ensure_mesh()
         results = results or SearchResults.for_request(req)
         epoch = self.blocklist.epoch()
-        jobs = self._jobs(tenant, epoch)
-        return self.batcher.search(jobs, req, results,
-                                   plan_key=(tenant, epoch, len(jobs)))
+        jobs, fallback = self._jobs(tenant, epoch)
+        self.batcher.search(jobs, req, results,
+                            plan_key=(tenant, epoch, len(jobs)))
+        if fallback and not results.complete:
+            live = [m for m in fallback
+                    if self._include_block(m, "", "", req.start, req.end)]
+            results.metrics.skipped_blocks += len(fallback) - len(live)
+            if live:
+                self._fallback_search(live, req, results)
+        return results
 
     def search_block(self, req) -> SearchResults:
         """One search job (SearchBlockRequest): pages [start_page,
         start_page + pages_to_search) of one block's search container,
         with the block meta carried in the request. Runs through the
-        batcher, so a repeated job hits the staged cache. Raises
-        NotImplementedError when the block has no search container."""
+        batcher, so a repeated job hits the staged cache. A block without
+        a container is scanned whole from its trace objects by the job
+        that starts at page 0 (container pages do not address its
+        objects), if its meta range meets the window; other jobs of it
+        add nothing."""
         meta = BlockMeta(
             tenant_id=req.tenant_id, block_id=req.block_id,
             encoding=req.encoding or "zstd", version=req.version or "vT1",
             data_encoding=req.data_encoding or "v2",
             start_time=req.start_time, end_time=req.end_time)
         self._ensure_mesh()
-        results = SearchResults.for_request(req.search_req)
+        sr = req.search_req
+        results = SearchResults.for_request(sr)
         try:
             job = self._scan_job(meta, req.start_page,
                                  req.pages_to_search or None)
         except DoesNotExist:
-            raise self._no_container(req.tenant_id, req.block_id) from None
+            structural.structural_query(sr, self._structural)  # refuse first
+            if req.start_page == 0:
+                if self._include_block(meta, "", "", sr.start, sr.end):
+                    self._fallback_search([meta], sr, results)
+                else:
+                    results.metrics.skipped_blocks += 1
+            return results
         if job.n_pages > 0:
-            self.batcher.search([job], req.search_req, results)
+            self.batcher.search([job], sr, results)
         return results
 
     def search_blocks(self, breq) -> SearchResults:
@@ -389,7 +539,10 @@ class TempoDB:
         jobs, planned into groups and scanned like ``search``. The jobs
         and their plan are memoized per job list and blocklist epoch.
         Zero-page jobs (a stale meta, a start past the container) are
-        dropped."""
+        dropped. Jobs of blocks without a container follow
+        ``search_block``: the page-0 job scans the block's trace objects
+        after the batched pass; the others are kept aside, and both are
+        probed again at each search."""
         self._ensure_mesh()
         req = breq.search_req
         results = SearchResults.for_request(req)
@@ -400,8 +553,31 @@ class TempoDB:
         epoch = self.blocklist.epoch()
         with self._lock:
             hit = self._breq_jobs_cache.get(sig)
-        if hit is None or hit[0] != epoch:
-            jobs = []
+        if hit is not None and hit[0] == epoch:
+            _, jobs, fallback, missing, groups = hit
+            if fallback or missing:
+                promoted, still_fb, still_miss = [], [], []
+                for meta in fallback:
+                    try:
+                        promoted.append(self._scan_job(meta))
+                    except DoesNotExist:
+                        still_fb.append(meta)
+                for meta, sp, pp in missing:
+                    try:
+                        job = self._scan_job(meta, sp, pp or None)
+                    except DoesNotExist:
+                        still_miss.append((meta, sp, pp))
+                        continue
+                    if job.n_pages > 0:
+                        promoted.append(job)
+                if promoted:
+                    jobs = jobs + promoted
+                    fallback, missing = still_fb, still_miss
+                    hit = (epoch, jobs, fallback, missing,
+                           self.batcher.plan(jobs))
+                    self._remember_breq(sig, hit)
+        else:
+            jobs, fallback, missing = [], [], []
             for j in breq.jobs:
                 meta = BlockMeta(
                     tenant_id=breq.tenant_id, block_id=j.block_id,
@@ -413,13 +589,29 @@ class TempoDB:
                     job = self._scan_job(meta, j.start_page,
                                          j.pages_to_search or None)
                 except DoesNotExist:
-                    raise self._no_container(breq.tenant_id,
-                                             j.block_id) from None
+                    if j.start_page == 0:
+                        fallback.append(meta)
+                    else:
+                        missing.append((meta, j.start_page,
+                                        j.pages_to_search))
+                    continue
                 if job.n_pages > 0:
                     jobs.append(job)
-            hit = (epoch, jobs, self.batcher.plan(jobs))
-            with self._lock:
-                self._breq_jobs_cache[sig] = hit
-                while len(self._breq_jobs_cache) > 32:
-                    self._breq_jobs_cache.popitem(last=False)
-        return self.batcher.search(hit[1], req, results, groups=hit[2])
+            hit = (epoch, jobs, fallback, missing, self.batcher.plan(jobs))
+            self._remember_breq(sig, hit)
+        _, jobs, fallback, _, groups = hit
+        self.batcher.search(jobs, req, results, groups=groups)
+        for meta in fallback:
+            if results.complete:
+                break
+            if not self._include_block(meta, "", "", req.start, req.end):
+                results.metrics.skipped_blocks += 1
+                continue
+            self._fallback_search([meta], req, results)
+        return results
+
+    def _remember_breq(self, sig: tuple, hit: tuple) -> None:
+        with self._lock:
+            self._breq_jobs_cache[sig] = hit
+            while len(self._breq_jobs_cache) > 32:
+                self._breq_jobs_cache.popitem(last=False)

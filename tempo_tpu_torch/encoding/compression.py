@@ -25,6 +25,17 @@ def _zstd_or_raise():
     return _zstd
 
 
+# codecs of the reference that need its native runtime, which the port
+# does not bind yet
+NATIVE_ENCODINGS = ("lz4", "snappy", "s2")
+
+
+def usable(encoding: str) -> bool:
+    """Can this process compress and decompress `encoding`?"""
+    return encoding in ("none", "gzip", "zlib") or (
+        encoding == "zstd" and _zstd is not None)
+
+
 def compress(data: bytes, encoding: str, level: int = 3) -> bytes:
     if encoding == "none":
         return data

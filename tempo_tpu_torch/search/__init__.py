@@ -1,7 +1,8 @@
 """Search subsystem of the port: columnar search blocks, host query
 compilation, and the batched scan over hand-written CUDA kernels.
 
-  data.py        per-trace search data (span rows too) + wire codec
+  data.py        per-trace search data (span rows too): extraction from
+                 a trace proto, wire codec
   columnar.py    the columnar page format + container codec (byte-
                  identical to the reference's), span segment included
   ir.py          the structural query IR (a copy of the reference's)
@@ -29,8 +30,14 @@ compilation, and the batched scan over hand-written CUDA kernels.
 """
 
 from .columnar import ColumnarPages, PageGeometry
-from .data import SearchData, decode_search_data, encode_search_data
+from .data import (DEFAULT_MAX_SEARCH_BYTES, DEFAULT_MAX_SPAN_KVS,
+                   DEFAULT_MAX_SPANS, SearchData, collect_span_rows,
+                   decode_search_data, encode_search_data,
+                   extract_search_data)
 from .results import SearchResults
 
 __all__ = ["SearchData", "encode_search_data", "decode_search_data",
-           "ColumnarPages", "PageGeometry", "SearchResults"]
+           "extract_search_data", "collect_span_rows",
+           "DEFAULT_MAX_SEARCH_BYTES", "DEFAULT_MAX_SPANS",
+           "DEFAULT_MAX_SPAN_KVS", "ColumnarPages", "PageGeometry",
+           "SearchResults"]

@@ -1,11 +1,16 @@
-"""Per-trace search data and its wire codec.
+"""Per-trace search data: its extraction from a trace proto, and its
+wire codec.
 
-Counterpart of the reference's ``search/data.py`` without the proto
-extraction (the port does not ingest traces from OTLP yet): the codec,
-the merge of a trace's micro-batches (``SearchData.merge``,
-``clone_search_data``) and the host predicate ``search_data_matches``
-that the WAL head's walk and the tail subscriptions evaluate.
-Wire format, little-endian, length-prefixed:
+Counterpart of the reference's ``search/data.py``. For each trace it
+records the tag key -> values map (resource and span attributes, span
+names under ``name``, ``error`` for error-status spans) under a byte
+budget, the time range, and the root service and span name that render a
+result without decoding the trace; with the structural gate on, one row a
+span too (``collect_span_rows``). It holds the merge of a trace's
+micro-batches (``SearchData.merge``, ``clone_search_data``) and the host
+predicate ``search_data_matches`` that the WAL head's walk and the tail
+subscriptions evaluate. Protobuf is imported where a proto is walked, so
+the search path needs none. Wire format, little-endian, length-prefixed:
 
   | u32 start_s | u32 end_s | u32 dur_ms | u16 root_svc_len | root_svc
   | u16 root_name_len | root_name | u16 n_keys |
@@ -28,6 +33,15 @@ from dataclasses import dataclass, field
 
 _U32 = struct.Struct("<I")
 _U16 = struct.Struct("<H")
+
+# tag bytes kept a trace (keys and values), the reference's
+# max_search_bytes_per_trace default
+DEFAULT_MAX_SEARCH_BYTES = 5 << 10
+# span rows a trace, and kv pairs a span, captured for the structural
+# engine (StructuralConfig.max_spans / max_span_kvs override them)
+DEFAULT_MAX_SPANS = 512
+DEFAULT_MAX_SPAN_KVS = 16
+STATUS_CODE_ERROR = 2   # tempopb.Status.STATUS_CODE_ERROR
 
 
 @dataclass
@@ -93,6 +107,170 @@ def clone_search_data(sd: SearchData) -> SearchData:
         dur_ms=sd.dur_ms, root_service=sd.root_service,
         root_name=sd.root_name,
         kvs={k: set(v) for k, v in sd.kvs.items()}, spans=list(sd.spans))
+
+
+def extract_search_data(trace_id: bytes, trace,
+                        max_bytes: int = DEFAULT_MAX_SEARCH_BYTES,
+                        range_ns: tuple[int, int] | None = None,
+                        spans: bool = False) -> SearchData:
+    """One trace's search data. Tag values are kept first seen first
+    while a key and value fit in `max_bytes` (each distinct value once).
+    `range_ns`: the trace's (start_ns, end_ns) when the caller has it.
+    A trace whose spans end before they start gets a duration of 0 (clock
+    skew is valid input). The root is the earliest parentless span, else
+    the earliest span. With `spans`, the span rows too (the structural
+    gate's walk), under the default caps."""
+    sd = SearchData(trace_id=trace_id)
+    if range_ns is None:
+        from ..model.matches import trace_range_ns
+
+        range_ns = trace_range_ns(trace)
+    start_ns, end_ns = range_ns
+    sd.start_s = start_ns // 1_000_000_000
+    sd.end_s = end_ns // 1_000_000_000
+    sd.dur_ms = (min(max(0, end_ns - start_ns) // 1_000_000, 0xFFFFFFFF)
+                 if end_ns else 0)
+
+    budget = max_bytes
+    root = None
+    kvs = sd.kvs
+    any_str = _any_value_str
+    for batch in trace.batches:
+        svc = ""
+        for kv in batch.resource.attributes:
+            v = any_str(kv.value)
+            k = kv.key
+            if v:
+                cost = len(k) + len(v)
+                if budget >= cost:
+                    s = kvs.get(k)
+                    if s is None:
+                        s = kvs[k] = set()
+                    if v not in s:
+                        s.add(v)
+                        budget -= cost
+            if k == "service.name":
+                svc = v
+        for ss in batch.scope_spans:
+            for span in ss.spans:
+                v = span.name
+                if v:
+                    cost = 4 + len(v)
+                    if budget >= cost:
+                        s = kvs.get("name")
+                        if s is None:
+                            s = kvs["name"] = set()
+                        if v not in s:
+                            s.add(v)
+                            budget -= cost
+                if span.status.code == STATUS_CODE_ERROR and budget >= 9:
+                    s = kvs.get("error")
+                    if s is None:
+                        s = kvs["error"] = set()
+                    if "true" not in s:
+                        s.add("true")
+                        budget -= 9
+                for kv in span.attributes:
+                    v = any_str(kv.value)
+                    if v:
+                        k = kv.key
+                        cost = len(k) + len(v)
+                        if budget >= cost:
+                            s = kvs.get(k)
+                            if s is None:
+                                s = kvs[k] = set()
+                            if v not in s:
+                                s.add(v)
+                                budget -= cost
+                if not span.parent_span_id and (
+                        root is None or span.start_time_unix_nano < root[0]):
+                    root = (span.start_time_unix_nano, svc, span.name)
+    if root is None:
+        # no parentless span: the earliest span overall
+        for batch in trace.batches:
+            svc = ""
+            for kv in batch.resource.attributes:
+                if kv.key == "service.name":
+                    svc = kv.value.string_value
+            for ss in batch.scope_spans:
+                for span in ss.spans:
+                    if root is None or span.start_time_unix_nano < root[0]:
+                        root = (span.start_time_unix_nano, svc, span.name)
+    if root is not None:
+        sd.root_service, sd.root_name = root[1], root[2]
+    if spans:
+        sd.spans = collect_span_rows(trace)
+    return sd
+
+
+def collect_span_rows(trace, max_spans: int = DEFAULT_MAX_SPANS,
+                      max_kvs: int = DEFAULT_MAX_SPAN_KVS) -> list:
+    """One SpanData row a span, in walk order, at most `max_spans`, with
+    parents resolved by span id (a span is never its own parent). A row's
+    kvs: its resource's ``service.name``, ``name``, ``error`` and its
+    attributes, at most `max_kvs` keys."""
+    rows: list[SpanData] = []
+    idx_of: dict[bytes, int] = {}       # span id -> row index
+    parents: list[bytes] = []           # raw parent ids, resolved after
+    for batch in trace.batches:
+        svc = ""
+        for kv in batch.resource.attributes:
+            if kv.key == "service.name":
+                svc = kv.value.string_value
+        for ss in batch.scope_spans:
+            for span in ss.spans:
+                if len(rows) >= max_spans:
+                    break
+                st, en = span.start_time_unix_nano, span.end_time_unix_nano
+                sp = SpanData(
+                    parent=-1,
+                    dur_ms=min(max(0, en - st) // 1_000_000, 0xFFFFFFFF)
+                    if en else 0,
+                    kind=int(span.kind))
+                kvs = sp.kvs
+                n_kv = 0
+                if svc:
+                    kvs["service.name"] = {svc}
+                    n_kv += 1
+                if span.name and n_kv < max_kvs:
+                    kvs["name"] = {span.name}
+                    n_kv += 1
+                if span.status.code == STATUS_CODE_ERROR and n_kv < max_kvs:
+                    kvs["error"] = {"true"}
+                    n_kv += 1
+                for kv in span.attributes:
+                    if n_kv >= max_kvs:
+                        break
+                    v = _any_value_str(kv.value)
+                    if v:
+                        kvs.setdefault(kv.key, set()).add(v)
+                        n_kv += 1
+                if span.span_id:
+                    idx_of.setdefault(bytes(span.span_id), len(rows))
+                parents.append(bytes(span.parent_span_id))
+                rows.append(sp)
+    for i, pid in enumerate(parents):
+        if pid:
+            pi = idx_of.get(pid)
+            if pi is not None and pi != i:
+                rows[i].parent = pi
+    return rows
+
+
+def _any_value_str(v) -> str:
+    """An AnyValue as the string the search matches: strings as they are,
+    ints in decimal, bools as true/false, doubles by repr; "" for the
+    other kinds."""
+    which = v.WhichOneof("value")
+    if which == "string_value":
+        return v.string_value
+    if which == "int_value":
+        return str(v.int_value)
+    if which == "bool_value":
+        return "true" if v.bool_value else "false"
+    if which == "double_value":
+        return repr(v.double_value)
+    return ""
 
 
 def search_data_matches(sd: SearchData, req, cfg) -> bool:

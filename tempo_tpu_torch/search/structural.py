@@ -56,7 +56,8 @@ def _pow2(n: int) -> int:
 class StructuralConfig:
     """One database's structural gate and knobs
     (TempoDBConfig.search_structural_enabled, _stack_enabled,
-    _bucket_enabled, _bucket_max_nodes, _shard_spans, _remainder_pages)."""
+    _bucket_enabled, _bucket_max_nodes, _shard_spans, _remainder_pages)
+    and span caps."""
     enabled: bool = False
     # concurrent structural queries with one plan descriptor stack into
     # one fused dispatch; off, a structural query dispatches alone at once
@@ -75,6 +76,11 @@ class StructuralConfig:
     # axis pads to the least multiple of the shard count (remainder_pad)
     # instead of doubling from it
     remainder_pages: bool = False
+    # span rows kept a trace, and kv pairs a span, where span rows are
+    # extracted (the write path with the gate on, the fallback scan); the
+    # reference's defaults, which no database of the port changes
+    max_spans: int = 512
+    max_span_kvs: int = 16
 
     def stack_group_key(self, batch, st) -> tuple | None:
         """The coalescer's group key of a structural query, or None (it

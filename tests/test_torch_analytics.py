@@ -431,7 +431,7 @@ def test_corpus_spans_groups_and_edge_cases(dbs):
     """Several groups, so merge_agg runs across them; the "" series and
     errors are present."""
     _ref, port = dbs
-    groups = port.batcher.plan(port._jobs(TENANT, port.blocklist.epoch()))
+    groups = port.batcher.plan(port._jobs(TENANT, port.blocklist.epoch())[0])
     assert len(groups) >= 2
     got = port.search(TENANT, _reqs({}, {"limit": 20})[1]).response()
     series = json.loads(got.metrics.agg_json)["series"]

@@ -102,6 +102,8 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.encoding.v2.backend_block\n"
         "import tempo_tpu_torch.db.pool, tempo_tpu_torch.utils.xxh64\n"
         "import tempo_tpu_torch.utils.hashing\n"
+        "import tempo_tpu_torch.wal, tempo_tpu_torch.modules.distributor\n"
+        "import tempo_tpu_torch.model.matches, tempo_tpu_torch.model.sort\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('tempo_tpu', 'xxhash')\n"
         "             or m.startswith('tempo_tpu.'))\n"

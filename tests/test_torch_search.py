@@ -173,7 +173,7 @@ def test_search_exercises_groups_and_early_quit(dbs):
     before scanning all of them."""
     _ref, port = dbs
     epoch = port.blocklist.epoch()
-    jobs = port._jobs(TENANT, epoch)
+    jobs, _ = port._jobs(TENANT, epoch)
     groups = port.batcher.plan(jobs)
     assert len(groups) >= 4
     res = port.search(TENANT, SearchRequest(tags={"region": "us"}))
