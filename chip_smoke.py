@@ -16,7 +16,10 @@ What it does, in order, failing (exit code != 0, no result line) on any
 error:
 
 1. builds the port's CUDA kernels (tempo_tpu_torch/csrc/*.cu, one nvcc per
-   source, started together) for sm_90a;
+   source, started together) for sm_90a, and beside them its host library
+   (tempo_tpu_torch/csrc/host/tempotpu.cc, the host's C++ compiler:
+   the ingest walker, the codecs, the substring scan, XXH64), printing
+   the compiler and the codecs that loaded;
 2. the tag-search cell: writes a seeded corpus through the port's write
    path (ColumnarPages.from_arrays -> write_search_pages, zlib) into a
    temporary LocalBackend, by default 256 blocks x 65,536 traces = 16.8M
@@ -80,7 +83,11 @@ error:
    hit-mask mode on 6 probed and 2 host-compiled requests, with the fused
    dispatch against the solo ones; then the concurrent phase with 8
    exhaustive session-id substrings, and the point lookup alone once
-   more;
+   more; then one request whose needle is longer than K3 takes (64
+   bytes), so each block's dictionary is scanned on the host by the
+   library's memmem scan (``hc_host_route``), its value ids over block
+   0's dictionary held against numpy's for it and three short needles,
+   both timed;
 5. the packed high-cardinality cell: the hc corpus's first 4 blocks (one
    4,096-page group), an unpacked and a packed TempoDB through the same
    three entry points, each packed response equal to the unpacked one,
@@ -203,8 +210,8 @@ error:
    written object, or the combine of both partials), every partial's id,
    and 1,024 absent ids (None, no failed block; the bloom passes
    counted); write seconds, the first lookup, and p50/p95 of a hit, a
-   miss and a partial, and of the checksum and the parse of a full
-   1,024-record index page;
+   miss and a partial, and of the checksum (the host library's XXH64, and
+   the plain Python one) and the parse of a full 1,024-record index page;
 11. the ingest cell (the write path; its kernels K1, K1s and K2 on the
    searches after it): OTLP ``ResourceSpans`` pushes of 8,192 spans
    (``--ingest-push-spans``) made from the seed, 4 head blocks x 16,384
@@ -213,8 +220,12 @@ error:
    trace in 64 split over two pushes and 1 in 256 with a span ending
    before it starts, then one block of 1,024 traces
    (``--ingest-bare-traces``). Each push: ``push_items`` (regroup and
-   extraction), ``AppendBlock.append`` into the port's WAL (zlib), and
-   the head's ``StreamingSearchBlock``; each head through
+   extraction by the host library's walker; every push must go through
+   it, and the first head's pushes also through the Python walk,
+   ``push_items_plain``, whose items must be byte-equal),
+   ``AppendBlock.append`` into the port's WAL (codec ``auto``: snappy
+   where the host library has it), and the head's
+   ``StreamingSearchBlock``; each head through
    ``TempoDB.complete_block`` (zlib blocks and containers), the last one
    without entries, so without a container. The fourth head is dropped
    without a close and replayed (``WAL.replay_all``,
@@ -226,11 +237,15 @@ error:
    container block and the bare one, ``BackendSearchBlock.search`` on
    one; every result opened by ``find_trace_by_id``, byte-equal to its
    ``AppendBlock.find`` bytes from before completion. It prints
-   extraction us a trace and spans a second, WAL append MB/s, replay s,
+   extraction us a trace and spans a second (both walks over the first
+   head), WAL append MB/s, replay s,
    ``complete_block`` s a block (objects, index and bloom, container),
    the first search and the warm p50/p95, and ingest to searchable: from
    the last push through completion and poll to the first search that
-   returns its last trace;
+   returns its last trace. Where the host has libzstd, one more head
+   block under ``TempoDBConfig()``'s defaults (zstd blocks and
+   containers) is completed, searched on the card against the CPU path,
+   and each result opened;
 12. prints the kernels line, the card's name and power limit, and as the
    last line {"ok": true, "device": {...}}.
 
@@ -2381,10 +2396,82 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
     report["hc_solo_again"] = solo_again(gpu, "hc", "hc_point", tags, kw,
                                          res["hc_point"], args.reps,
                                          launches)
+    report["hc_host_route"] = hc_host_route(gpu, bsbs["gpu"])
     for db in (gpu, serial):
         db.close()
         dbs.remove(db)
     return rows
+
+
+# a session.id needle longer than K3 takes (dict_probe.MAX_NEEDLE_BYTES):
+# it matches no value, so the scan runs over every byte of a dictionary
+HC_LONG_NEEDLE = "session-00123456/" * 5
+
+
+def hc_host_route(db, bsb) -> dict:
+    """One request whose needle K3 cannot take, so each block's dictionary
+    goes through the host route (``pipeline.substring_value_ids``: the host
+    library's memmem scan from 50,000 values on); the scan must run and
+    the request return nothing. Then block 0's dictionary (1,050,711
+    values at full size) through the scan and through numpy
+    (``substring_value_ids_plain``) for that needle and three short ones:
+    equal value ids, both timed (the scan warm: its packing is kept)."""
+    import numpy as np
+
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.ops import native
+    from tempo_tpu_torch.search import dict_probe, pipeline
+
+    if len(HC_LONG_NEEDLE.encode()) <= dict_probe.MAX_NEEDLE_BYTES:
+        raise AssertionError("the long needle fits K3")
+    scans = []
+    scan = native.substr_scan
+
+    def counted(*a):
+        scans.append(len(a[1]) - 1)
+        return scan(*a)
+
+    native.substr_scan = counted
+    try:
+        t0 = time.perf_counter()
+        resp = db.search("hc", SearchRequest(
+            tags={SESSION_KEY: HC_LONG_NEEDLE}, limit=20)).response()
+        request_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        native.substr_scan = scan
+    if not scans or resp.traces:
+        raise AssertionError(f"hc host route: {len(scans)} scans, "
+                             f"{len(resp.traces)} results")
+    vals = bsb.pages().val_dict
+    t0 = time.perf_counter()
+    pipeline.packed_val_dict(vals)
+    out = {"request_ms": request_ms, "scans": len(scans),
+           "values_scanned": sum(scans), "dict_values": len(vals),
+           "pack_ms": (time.perf_counter() - t0) * 1e3, "needles": {}}
+    for needle in (HC_LONG_NEEDLE, "77", "123456", "session-0000"):
+        t0 = time.perf_counter()
+        got = pipeline.substring_value_ids(vals, needle)
+        t1 = time.perf_counter()
+        want = pipeline.substring_value_ids_plain(vals, needle)
+        t2 = time.perf_counter()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"hc host route {needle!r}: the scan's "
+                                 "value ids differ from numpy's")
+        out["needles"][needle] = {"ids": int(got.size),
+                                  "scan_ms": (t1 - t0) * 1e3,
+                                  "numpy_ms": (t2 - t1) * 1e3}
+    long = out["needles"][HC_LONG_NEEDLE]
+    print(f"hc host route: a {len(HC_LONG_NEEDLE)}-byte needle, "
+          f"{out['scans']} dictionaries ({out['values_scanned']} values) "
+          f"scanned by the host library, no result, {request_ms:.1f} ms; "
+          f"block 0's {len(vals)} values (packed once, "
+          f"{out['pack_ms']:.1f} ms): "
+          + ", ".join(f"{n[:12]!r} {r['ids']} ids, scan {r['scan_ms']:.2f} "
+                      f"ms, numpy {r['numpy_ms']:.1f} ms"
+                      for n, r in out["needles"].items())
+          + f" (the long needle: scan {long['scan_ms']:.2f} ms, numpy "
+          f"{long['numpy_ms']:.1f} ms; ids equal)", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5452,7 +5539,7 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
                                                    Record)
     from tempo_tpu_torch.model.codec import codec_for
     from tempo_tpu_torch.model.types import SearchRequest
-    from tempo_tpu_torch.utils.xxh64 import xxh64
+    from tempo_tpu_torch.utils.xxh64 import xxh64, xxh64_plain
 
     blocks, n = args.tbi_blocks, args.tbi_traces_per_block
     if blocks < TBI_PARTIAL_BLOCKS:
@@ -5602,7 +5689,11 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
             sorted(rng_ix.bytes(16) for _ in range(TBI_INDEX_RECORDS)))])
     body = ix[12:]
     out["index_page_bytes"] = len(body)
+    if xxh64(body) != xxh64_plain(body):
+        raise AssertionError("xxh64: the host library and the plain "
+                             "version differ")
     out["xxh64_page"] = tbi_timed(lambda: xxh64(body), args.reps)
+    out["xxh64_plain_page"] = tbi_timed(lambda: xxh64_plain(body), 3)
     out["index_reader_page"] = tbi_timed(lambda: IndexReader(ix), args.reps)
     print(f"trace-by-id: search (limit {TBI_LIMIT}) {out['search_ms']:.2f} "
           f"ms, launches {json.dumps(out['launches'])}; opened "
@@ -5618,8 +5709,9 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
           f"partial {out['partial']['p50_ms']:.2f}/"
           f"{out['partial']['p95_ms']:.2f} ms; a {TBI_INDEX_RECORDS}-record "
           f"index page ({len(body)} B): xxh64 p50/p95 "
-          f"{out['xxh64_page']['p50_ms']:.2f}/"
-          f"{out['xxh64_page']['p95_ms']:.2f} ms, IndexReader "
+          f"{out['xxh64_page']['p50_ms']:.4f}/"
+          f"{out['xxh64_page']['p95_ms']:.4f} ms (plain Python "
+          f"{out['xxh64_plain_page']['p50_ms']:.2f} ms), IndexReader "
           f"{out['index_reader_page']['p50_ms']:.2f}/"
           f"{out['index_reader_page']['p95_ms']:.2f} ms", flush=True)
     db.close()
@@ -5818,11 +5910,14 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
     from tempo_tpu_torch.backend.local import LocalBackend
     from tempo_tpu_torch.backend.types import NAME_SEARCH
     from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.encoding.compression import compress
     from tempo_tpu_torch.model import matches
     from tempo_tpu_torch.model.codec import codec_for
     from tempo_tpu_torch.model.types import (SearchBlockRequest,
                                              SearchRequest)
-    from tempo_tpu_torch.modules.distributor import push_items
+    from tempo_tpu_torch.modules import distributor
+    from tempo_tpu_torch.modules.distributor import (push_items,
+                                                     push_items_plain)
     from tempo_tpu_torch.search import structural
     from tempo_tpu_torch.search.backend_search_block import \
         BackendSearchBlock
@@ -5847,10 +5942,14 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
         print(f"ingest: cut to {n} traces a block ({ING_TRACES} asked)",
               flush=True)
     cfg = TempoDBConfig(block_encoding="zlib", search_encoding="zlib",
-                        wal_encoding="zlib", search_max_batch_pages=4096)
+                        wal_encoding="auto", search_max_batch_pages=4096)
     reset_counts()
     db = TempoDB(LocalBackend(root), cfg, device=device, wal_dir=wal_dir)
     dbs.append(db)
+    out["wal_encoding"] = db.wal.encoding
+    print(f"ingest: the WAL's codec auto resolved to {db.wal.encoding}",
+          flush=True)
+    distributor.NATIVE_WALKS.reset()
     codec = codec_for("v2")
     sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
 
@@ -5858,15 +5957,35 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
     bare_traces: dict = {}    # tid -> pushed Trace (the bare block)
     expect: dict = {}         # tid -> AppendBlock.find bytes, pre-completion
     t = {"gen": 0.0, "extract": 0.0, "append": 0.0, "head": 0.0}
-    n_spans = n_traces = wal_bytes = seg_bytes = 0
+    n_spans = n_traces = wal_bytes = seg_bytes = n_pushes = n_records = 0
     n_split = n_skew = 0
     complete_s = []
+    # the first head's pushes through both walks: seconds, spans
+    both = {"native_s": 0.0, "plain_s": 0.0, "spans": 0, "pushes": 0,
+            "codec_s": 0.0, "segments": 0}
 
-    def ingest(blk, ssb, pushes, bare: bool):
-        nonlocal n_spans, n_traces, wal_bytes, seg_bytes
+    def ingest(blk, ssb, pushes, bare: bool, plain: bool = False):
+        nonlocal n_spans, n_traces, wal_bytes, seg_bytes, n_pushes, n_records
         for batches in pushes:
             t0 = time.perf_counter()
             items, ns = push_items(batches)
+            t1 = time.perf_counter()
+            n_pushes += 1
+            if plain:
+                want = push_items_plain(batches)
+                both["plain_s"] += time.perf_counter() - t1
+                both["native_s"] += t1 - t0
+                both["spans"] += ns
+                both["pushes"] += 1
+                if (items, ns) != want:
+                    raise AssertionError("ingest: the native walker's items "
+                                         "differ from the Python walk's")
+                tc = time.perf_counter()     # the WAL codec alone
+                for it in items:
+                    compress(it[3], db.wal.encoding)
+                both["codec_s"] += time.perf_counter() - tc
+                both["segments"] += len(items)
+            t["extract"] += t1 - t0
             t1 = time.perf_counter()
             before = blk.data_length
             for tid, s, e, seg, _ in items:
@@ -5875,10 +5994,10 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
             for tid, _, _, seg, sd in items:
                 ssb.append(tid, decode_search_data(sd, tid))
             t3 = time.perf_counter()
-            t["extract"] += t1 - t0
             t["append"] += t2 - t1
             t["head"] += t3 - t2
             wal_bytes += blk.data_length - before
+            n_records += len(items)
             seg_bytes += sum(len(it[3]) for it in items)
             n_spans += ns
             for tid, _, _, seg, sd in items:
@@ -5922,9 +6041,11 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
                                    f"{b:012d}")
             ssb = StreamingSearchBlock(blk.path + ".search")
             t_last = time.perf_counter()
-            ingest(blk, ssb, pushes[:-1], bare)
+            ingest(blk, ssb, pushes[:-1], bare, plain=b == 0)
             t_last = time.perf_counter()
-            ingest(blk, ssb, pushes[-1:], bare)
+            ingest(blk, ssb, pushes[-1:], bare, plain=b == 0)
+            if b == 0:
+                both["traces"] = len(cols["tid"])
             last_tid = cols["tid"][-1].tobytes()
             for tid, obj in blk.iterator():
                 expect[tid] = obj
@@ -5976,6 +6097,19 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
             if bare == bool(meta.search_pages):
                 raise AssertionError(f"ingest block {b}: search pages "
                                      f"{meta.search_pages}")
+    if distributor.NATIVE_WALKS.n != n_pushes:
+        raise AssertionError(f"ingest: {distributor.NATIVE_WALKS.n} of "
+                             f"{n_pushes} pushes went through the native "
+                             "walker")
+    out["pushes"] = n_pushes
+    out["native_walks"] = distributor.NATIVE_WALKS.n
+    out["first_head_walks"] = {
+        "traces": both["traces"], "spans": both["spans"],
+        "pushes": both["pushes"], "items_equal": True,
+        "native_us_per_trace": both["native_s"] / both["traces"] * 1e6,
+        "plain_us_per_trace": both["plain_s"] / both["traces"] * 1e6,
+        "native_spans_per_s": both["spans"] / both["native_s"],
+        "plain_spans_per_s": both["spans"] / both["plain_s"]}
     out["traces"] = n_traces
     out["spans"] = n_spans
     out["split_traces"] = n_split
@@ -5988,6 +6122,10 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
     out["wal_bytes"] = wal_bytes
     out["segment_bytes"] = seg_bytes
     out["wal_append_mb_per_s"] = wal_bytes / t["append"] / 1e6
+    out["wal_records"] = n_records
+    out["wal_append_us_per_record"] = t["append"] / n_records * 1e6
+    out["wal_codec_us_per_segment"] = both["codec_s"] / both["segments"] \
+        * 1e6
     out["search_head_append_s"] = t["head"]
     nb = blocks + 1
     out["complete_block_s"] = complete_s
@@ -6006,14 +6144,24 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
         raise AssertionError("ingest: blocks or containers missing")
     if os.listdir(wal_dir):
         raise AssertionError(f"ingest: WAL left {os.listdir(wal_dir)}")
+    w = out["first_head_walks"]
+    print(f"ingest: {n_pushes} of {n_pushes} pushes through the native "
+          f"walker; the first head's {w['pushes']} pushes through both "
+          f"walks, items byte-equal: native {w['native_us_per_trace']:.1f} "
+          f"us a trace ({w['native_spans_per_s']:.0f} spans/s), Python "
+          f"{w['plain_us_per_trace']:.1f} us a trace "
+          f"({w['plain_spans_per_s']:.0f} spans/s)", flush=True)
     print(f"ingest: {nb} blocks ({blocks} x {n} traces, {n_bare} without a "
           f"container), {n_traces} traces, {n_spans} spans in pushes of "
           f"{per_push} spans ({n_split} traces split over two pushes, "
           f"{n_skew} with a span ending before it starts); generated in "
           f"{t['gen']:.1f} s; regroup and extraction {t['extract']:.1f} s "
           f"({out['extract_us_per_trace']:.1f} us a trace, "
-          f"{out['spans_per_s']:.0f} spans/s); WAL append {wal_bytes} B in "
-          f"{t['append']:.2f} s ({out['wal_append_mb_per_s']:.1f} MB/s), "
+          f"{out['spans_per_s']:.0f} spans/s); WAL ({db.wal.encoding}) append "
+          f"{wal_bytes} B, {n_records} records, in "
+          f"{t['append']:.2f} s ({out['wal_append_mb_per_s']:.1f} MB/s, "
+          f"{out['wal_append_us_per_record']:.1f} us a record, of which "
+          f"the codec {out['wal_codec_us_per_segment']:.1f} us), "
           f"search head {t['head']:.2f} s; replay "
           f"{out['replay']['s']:.2f} s; complete_block "
           f"{out['complete']['per_block_s']:.2f} s a block (objects "
@@ -6127,7 +6275,104 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
           f"each its WAL bytes ({out['open_s']:.1f} s)", flush=True)
     db.close()
     dbs.remove(db)
+    ingest_zstd_block(args, work, out, dbs, launches, device)
     return []
+
+
+def ingest_zstd_block(args, work: str, out: dict, dbs: list,
+                      launches: dict, device: str) -> None:
+    """Where the host has libzstd: one more head block, of the ingest
+    cell's shapes, under ``TempoDBConfig()``'s default codecs (zstd blocks
+    and containers, the WAL's ``auto``): pushed, completed, searched on
+    the card against the CPU path, and each result opened, byte-equal to
+    its WAL bytes."""
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.modules.distributor import push_items
+    from tempo_tpu_torch.ops import native
+    from tempo_tpu_torch.search.data import decode_search_data
+    from tempo_tpu_torch.search.streaming import StreamingSearchBlock
+
+    if "zstd" not in native.codecs():
+        out["zstd_block"] = None
+        print("ingest: this host has no libzstd.so.1, so no zstd block",
+              flush=True)
+        return
+    cfg = TempoDBConfig()
+    if (cfg.block_encoding, cfg.search_encoding) != ("zstd", "zstd"):
+        raise AssertionError("TempoDBConfig's default codecs moved")
+    root = os.path.join(work, "ingest-zstd")
+    reset_counts()
+    db = TempoDB(LocalBackend(root), cfg, device=device,
+                 wal_dir=os.path.join(work, "ingest-zstd-wal"))
+    dbs.append(db)
+    b = args.ingest_blocks + 1          # other trace ids than the cell's
+    cols = ing_columns(args.seed + 18, b, args.ingest_traces_per_block)
+    pushes, _split, _skew = ing_pushes(cols,
+                                       args.ingest_push_spans // ING_SPANS)
+    blk = db.wal.new_block(ING_TENANT,
+                           block_id=f"00000000-0000-4000-8019-{b:012d}")
+    ssb = StreamingSearchBlock(blk.path + ".search")
+    for batches in pushes:
+        for tid, s, e, seg, sd in push_items(batches)[0]:
+            blk.append(tid, seg, s, e)
+            ssb.append(tid, decode_search_data(sd, tid))
+    expect = dict(blk.iterator())
+    t0 = time.perf_counter()
+    meta = db.complete_block(blk, ssb.entries())
+    complete_s = time.perf_counter() - t0
+    blk.clear()
+    ssb.clear()
+    hdr = json.loads(LocalBackend(root).read(ING_TENANT, meta.block_id,
+                                             "search-header.json"))
+    if meta.encoding != "zstd" or hdr.get("encoding") != "zstd":
+        raise AssertionError(f"zstd block: {meta.encoding}, container "
+                             f"{hdr.get('encoding')}")
+    db.poll()
+    cpu = TempoDB(LocalBackend(root), cfg, device="cpu")
+    dbs.append(cpu)
+    cpu.poll()
+    reqs = ing_requests(1)
+    ids = set()
+    try:
+        for name in ("ing_exhaustive", "ing_service", "ing_error"):
+            tags, kw = reqs[name]
+            resp = db.search(ING_TENANT, SearchRequest(tags=dict(tags),
+                                                       **kw)).response()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            if resp != cpu.search(ING_TENANT, SearchRequest(
+                    tags=dict(tags), **kw)).response():
+                raise AssertionError(f"zstd block {name}: card and CPU "
+                                     "differ")
+            if not resp.traces:
+                raise AssertionError(f"zstd block {name}: no result")
+            ids |= {r.trace_id for r in resp.traces}
+    finally:
+        cpu.close()
+        dbs.remove(cpu)
+    path = read_counts()
+    if device != "cpu" and not (path["multi_scan"] and path["topk"]):
+        raise AssertionError(f"zstd block: kernels not launched: {path}")
+    add_counts(launches, path)
+    for h in sorted(ids):
+        obj, failed = db.find_trace_by_id(ING_TENANT, bytes.fromhex(h))
+        if failed or obj != expect[bytes.fromhex(h)]:
+            raise AssertionError(f"zstd block: {h} opened differs from the "
+                                 "WAL")
+    out["zstd_block"] = {"traces": len(cols["tid"]), "wal": db.wal.encoding,
+                         "complete_s": complete_s, "opened": len(ids),
+                         "launches": {k: v for k, v in path.items() if v}}
+    print(f"ingest zstd block: {len(cols['tid'])} traces, WAL "
+          f"{db.wal.encoding}, zstd block and container completed in "
+          f"{complete_s:.2f} s; 3 searches equal to the CPU path's, "
+          f"{len(ids)} results opened, each its WAL bytes; launches "
+          f"{json.dumps(out['zstd_block']['launches'])}", flush=True)
+    db.close()
+    dbs.remove(db)
 
 
 def main(argv=None) -> int:
@@ -6189,13 +6434,24 @@ def main(argv=None) -> int:
 
     report: dict = {"args": vars(args)}
 
+    from tempo_tpu_torch.ops import native
+
     t0 = time.perf_counter()
-    build.build_all()
+    # the host library builds while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        host = ex.submit(native.lib)
+        build.build_all()
+        host.result()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = dict(build.BUILD_LOG)
     report["built"] = sorted(build.BUILT)
+    report["host_library"] = {"log": native.BUILD_LOG, "built": native.BUILT,
+                              "codecs": native.codecs()}
     print(f"build: {report['build_s']:.1f} s "
-          f"({', '.join(sorted(build.BUILT)) or 'cached'})", flush=True)
+          f"({', '.join(sorted(build.BUILT)) or 'cached'}); host library "
+          f"{'built' if native.BUILT else 'cached'} by "
+          f"{native.BUILD_LOG.splitlines()[0]}, codecs "
+          f"{', '.join(native.codecs())}", flush=True)
     report["k9_kernels_per_call"] = k9_early_profiles()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6250,21 +6506,39 @@ def main(argv=None) -> int:
           f"{t['hit']['p50_ms']:.2f}/{t['hit']['p95_ms']:.2f} ms, miss "
           f"{t['miss']['p50_ms']:.2f}/{t['miss']['p95_ms']:.2f} ms, partial "
           f"{t['partial']['p50_ms']:.2f}/{t['partial']['p95_ms']:.2f} ms, "
-          f"full index page xxh64 {t['xxh64_page']['p50_ms']:.2f} ms, "
-          f"IndexReader {t['index_reader_page']['p50_ms']:.2f} ms", flush=True)
+          f"full index page xxh64 {t['xxh64_page']['p50_ms']:.4f} ms "
+          f"(FINAL17r, pure Python: 2.85 ms; here "
+          f"{t['xxh64_plain_page']['p50_ms']:.2f}), IndexReader "
+          f"{t['index_reader_page']['p50_ms']:.2f} ms", flush=True)
+    h = report["hc_host_route"]
+    long = h["needles"][HC_LONG_NEEDLE]
+    print(f"hc host route on {smi}: a {len(HC_LONG_NEEDLE)}-byte needle "
+          f"over {h['dict_values']} values, scan {long['scan_ms']:.2f} ms, "
+          f"numpy {long['numpy_ms']:.1f} ms, ids equal; the request "
+          f"{h['request_ms']:.1f} ms over {h['scans']} dictionaries",
+          flush=True)
     g = report["ingest"]
-    print(f"ingest on {smi}: regroup and extraction "
+    w = g["first_head_walks"]
+    print(f"ingest on {smi}: {g['native_walks']} of {g['pushes']} pushes "
+          f"through the native walker; regroup and extraction "
           f"{g['extract_us_per_trace']:.1f} us a trace, "
-          f"{g['spans_per_s']:.0f} spans/s; WAL append "
-          f"{g['wal_append_mb_per_s']:.1f} MB/s; replay "
-          f"{g['replay']['s']:.2f} s; complete_block "
+          f"{g['spans_per_s']:.0f} spans/s (ING18a, the Python walk: 226.7 "
+          f"us, 35,290 spans/s); the first head, both walks, items equal: "
+          f"native {w['native_us_per_trace']:.1f}, Python "
+          f"{w['plain_us_per_trace']:.1f} us a trace; WAL ({g['wal_encoding']}"
+          f", auto) append {g['wal_append_mb_per_s']:.1f} MB/s (ING18a, "
+          f"zlib: 4.50); replay {g['replay']['s']:.2f} s (ING18a: 0.67); "
+          f"complete_block "
           f"{g['complete']['per_block_s']:.2f} s a block (objects "
           f"{g['complete']['objects_s']:.2f}, index and bloom "
           f"{g['complete']['index_bloom_s']:.3f}, container "
           f"{g['complete']['container_s']:.2f}); first search "
           f"{g['first_search_ms']:.1f} ms, warm p50/p95 "
           f"{g['warm']['p50_ms']:.2f}/{g['warm']['p95_ms']:.2f} ms; ingest "
-          f"to searchable {g['ingest_to_searchable_s']:.2f} s", flush=True)
+          f"to searchable {g['ingest_to_searchable_s']:.2f} s (ING18a: "
+          f"1.11); zstd block: "
+          + ("none (no libzstd)" if g["zstd_block"] is None else
+             f"{g['zstd_block']['opened']} results opened"), flush=True)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

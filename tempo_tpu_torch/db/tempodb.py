@@ -39,7 +39,7 @@ import torch
 from ..backend.raw import DoesNotExist, RawBackend
 from ..backend.types import NAME_SEARCH_HEADER, BlockMeta
 from ..device import resolve_device
-from ..encoding.compression import usable
+from ..encoding.compression import usable, why_unusable
 from ..encoding.v2.backend_block import BackendBlock
 from ..encoding.v2.streaming_block import StreamingBlock
 from ..search import structural
@@ -64,7 +64,7 @@ class TempoDBConfig:
     # codec this process cannot use raises at the first write (the WAL's
     # when it is built), it is never swapped for another
     block_encoding: str = "zstd"
-    wal_encoding: str = "auto"            # auto = zlib (wal.py)
+    wal_encoding: str = "auto"            # auto: snappy, else zlib (wal.py)
     search_encoding: str = "zstd"
     block_page_size: int = 1 << 20        # uncompressed bytes a data page
     # a completing block streams its pages to the backend every this
@@ -240,9 +240,7 @@ class TempoDB:
             enc = getattr(self.cfg, name)
             if not usable(enc):
                 raise ValueError(f"{name} {enc!r} cannot be used in this "
-                                 "process (zstd needs the zstandard "
-                                 "package; lz4, snappy and s2 the "
-                                 "reference's native runtime)")
+                                 f"process: {why_unusable(enc)}")
 
     def _write_block(self, meta: BlockMeta, objects, search_entries
                      ) -> BlockMeta:

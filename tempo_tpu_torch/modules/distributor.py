@@ -10,19 +10,23 @@ the same pass collects the trace's tags (first seen first, under the byte
 budget), its range and its root. With the structural gate on, a second
 walk over each regrouped trace adds its span rows.
 
-This module has the walk only. The ``Distributor`` service around it (the
-ring, write quorum, tenant overrides and rate limits, the generator's
-forwarder) comes with the serving layer, and the reference's native
-walker (``tt_ingest_regroup``) with the port's binding of ``native/``;
-until then this pure-Python walk is the port's write path. Protobuf is
-imported where batches are walked.
+This module has the walks only. ``push_items`` runs the native walker
+(``ops/native.py`` ``ingest_regroup``, the port's C++ host runtime) over
+the serialized batches; ``push_items_plain`` builds the same items from
+the Python walk, ``regroup_extract``, which stays as the walker's plain
+version and gives a push with an invalid trace id its error. The
+``Distributor`` service around them (the ring, write quorum, tenant
+overrides and rate limits, the generator's forwarder) comes with the
+serving layer. Protobuf is imported where batches are walked.
 """
 
 from __future__ import annotations
 
+from ..ops import native
 from ..search.data import (DEFAULT_MAX_SEARCH_BYTES, STATUS_CODE_ERROR,
                            SearchData, _any_value_str, collect_span_rows,
                            encode_search_data)
+from ..search.kernels import LaunchCount
 from ..search.structural import OFF, StructuralConfig
 from ..utils.ids import pad_trace_id, validate_trace_id
 
@@ -199,6 +203,11 @@ def regroup_by_trace(batches: list) -> tuple[dict, int]:
     return out, n_spans
 
 
+# pushes the native walker regrouped (push_items' calls that returned its
+# items, not the Python walk's)
+NATIVE_WALKS = LaunchCount()
+
+
 def push_items(batches: list,
                max_search_bytes: int = DEFAULT_MAX_SEARCH_BYTES,
                structural_cfg: StructuralConfig = OFF) -> tuple[list, int]:
@@ -206,7 +215,28 @@ def push_items(batches: list,
     search_data_bytes)`` a trace, in first-seen order, and the span count.
     The segment is the regrouped trace in the v2 push framing; with
     `structural_cfg`'s gate on, the search data carries span rows under
-    its caps."""
+    its caps. The native walker builds them from the serialized batches,
+    byte for byte ``push_items_plain``'s; a span with an invalid trace id
+    sends the push through the Python walk, which raises its error, as the
+    reference's distributor does."""
+    blobs = [b.SerializeToString() for b in batches]
+    try:
+        n_spans, items, _summaries = native.ingest_regroup(
+            blobs, max_search_bytes, spans=structural_cfg.enabled,
+            max_spans=structural_cfg.max_spans,
+            max_span_kvs=structural_cfg.max_span_kvs)
+    except native.InvalidTraceId:
+        return push_items_plain(batches, max_search_bytes, structural_cfg)
+    NATIVE_WALKS.bump()
+    return items, n_spans
+
+
+def push_items_plain(batches: list,
+                     max_search_bytes: int = DEFAULT_MAX_SEARCH_BYTES,
+                     structural_cfg: StructuralConfig = OFF
+                     ) -> tuple[list, int]:
+    """``push_items`` from the Python walk (``regroup_extract``, then
+    ``collect_span_rows`` over each regrouped trace with the gate on)."""
     from ..model.codec import CURRENT_ENCODING, segment_codec_for
 
     codec = segment_codec_for(CURRENT_ENCODING)

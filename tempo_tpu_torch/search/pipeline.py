@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..ops import native
 from . import dict_probe, packing
 from .analytics import AGG_QUERY_TAG
 from .structural import STRUCTURAL_QUERY_TAG
@@ -103,9 +104,32 @@ def block_header_skip_reason(header: dict, req) -> str | None:
     return None
 
 
+# dictionaries of this many values or more take the host library's memmem
+# scan (the reference's NATIVE_SCAN_THRESHOLD); smaller ones numpy's
+NATIVE_SCAN_THRESHOLD = 50_000
+# packed dictionaries are kept, the newest first, up to this many bytes
+_PACKED_MAX_BYTES = 1 << 30
+_packed_lock = threading.Lock()
+_packed: OrderedDict = OrderedDict()   # id(val_dict) -> (val_dict, packed)
+
+
 def substring_value_ids(val_dict: list, needle: str) -> np.ndarray:
     """Ids of dictionary values containing `needle` (bytes.Contains
-    semantics; the empty needle matches every value)."""
+    semantics; the empty needle matches every value), ascending. From
+    ``NATIVE_SCAN_THRESHOLD`` values on, one memmem pass over the
+    dictionary packed end to end (``ops/native.py`` ``substr_scan``; the
+    packing is kept for the dictionary, as the reference's
+    ``packed_val_dict``); below it, numpy (``substring_value_ids_plain``)."""
+    if not needle:
+        return np.arange(len(val_dict), dtype=np.int32)
+    if len(val_dict) < NATIVE_SCAN_THRESHOLD:
+        return substring_value_ids_plain(val_dict, needle)
+    buf, offsets = packed_val_dict(val_dict)
+    return native.substr_scan(buf, offsets, needle.encode("utf-8"))
+
+
+def substring_value_ids_plain(val_dict: list, needle: str) -> np.ndarray:
+    """``substring_value_ids`` by numpy."""
     if not needle:
         return np.arange(len(val_dict), dtype=np.int32)
     if not val_dict:
@@ -113,6 +137,36 @@ def substring_value_ids(val_dict: list, needle: str) -> np.ndarray:
     arr = np.array(val_dict, dtype=np.str_)
     hits = np.char.find(arr, needle) >= 0
     return np.nonzero(hits)[0].astype(np.int32)
+
+
+def pack_val_dict(val_dict: list) -> tuple:
+    """(the values' utf-8 bytes end to end, int64 offsets[n+1])."""
+    blobs = [v.encode("utf-8") for v in val_dict]
+    offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    return b"".join(blobs), offsets
+
+
+def packed_val_dict(val_dict: list) -> tuple:
+    """``pack_val_dict(val_dict)``, kept for the newest dictionaries up to
+    ``_PACKED_MAX_BYTES`` (by identity: a block's dictionary is one list
+    for its life; the entry holds the list, so its id is not reused while
+    kept)."""
+    key = id(val_dict)
+    with _packed_lock:
+        hit = _packed.get(key)
+        if hit is not None and hit[0] is val_dict:
+            _packed.move_to_end(key)
+            return hit[1]
+    packed = pack_val_dict(val_dict)
+    with _packed_lock:
+        _packed[key] = (val_dict, packed)
+        _packed.move_to_end(key)
+        total = sum(len(p[0]) + p[1].nbytes for _, p in _packed.values())
+        while len(_packed) > 1 and total > _PACKED_MAX_BYTES:
+            _, (buf, offs) = _packed.popitem(last=False)[1]
+            total -= len(buf) + offs.nbytes
+    return packed
 
 
 _PRUNED = "pruned"  # cache sentinel: block provably cannot match these tags

@@ -3,9 +3,12 @@
 The reference hashes bloom probes and index-page checksums with the
 ``xxhash`` package; the port does not depend on it, so it carries the
 algorithm itself (Yann Collet's XXH64, the 64-bit variant of xxHash; the
-same digest as ``xxhash.xxh64_intdigest``). Two forms:
+same digest as ``xxhash.xxh64_intdigest``). Three forms:
 
-- ``xxh64``: any bytes and seed, on Python ints masked to 64 bits;
+- ``xxh64``: any bytes and seed, in C (``tt_xxhash64`` of the port's host
+  library, ``ops/native.py``);
+- ``xxh64_plain``: the same in Python, on ints masked to 64 bits (the
+  plain version the tests hold the C one against);
 - ``xxh64_16``: a ``[N, 16]`` uint8 array of padded trace ids at once,
   on uint64 arrays (numpy array arithmetic wraps modulo 2^64, which is
   what the algorithm wants; numpy uint64 *scalars* warn or raise on
@@ -17,6 +20,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from ..ops import native
 
 P1 = 0x9E3779B185EBCA87
 P2 = 0xC2B2AE3D27D4EB4F
@@ -54,6 +59,11 @@ def _avalanche(h: int) -> int:
 
 def xxh64(data: bytes, seed: int = 0) -> int:
     """The XXH64 digest of `data` under `seed`, as an int in [0, 2^64)."""
+    return native.xxhash64(data, seed)
+
+
+def xxh64_plain(data: bytes, seed: int = 0) -> int:
+    """``xxh64`` in Python."""
     seed &= MASK64
     n = len(data)
     off = 0

@@ -10,13 +10,13 @@ percent-encoded. Replay rescans each file: a torn tail (a crashed
 writer's partial record) is cut off, a record that does not decompress is
 dropped, and empty or unparseable files are removed.
 
-Codecs: ``none``, ``gzip``, ``zlib``, and ``zstd`` where the
-``zstandard`` package imports. ``auto`` is ``zlib``: the reference's
-``auto`` is native snappy when its C++ runtime is built, and the port
-does not bind that runtime yet, so ``snappy``, ``lz4`` and ``s2`` raise
-when the WAL is built. A file written with a codec this process cannot
-decode raises at replay, naming the codec, and stays on disk: dropping its
-records would lose acknowledged writes.
+Codecs: those of ``encoding/compression.py`` (``none``, ``gzip``,
+``zlib``, ``zstd``, ``lz4``, ``snappy``, ``s2``). ``auto`` is snappy where
+the port's host library has it, and zlib otherwise, as the reference's
+``auto``. A codec this process cannot use raises when the WAL is built. A
+file written with a codec this process cannot decode raises at replay,
+naming the codec, and stays on disk: dropping its records would lose
+acknowledged writes.
 """
 
 from __future__ import annotations
@@ -28,15 +28,14 @@ import urllib.parse
 from dataclasses import dataclass
 
 from ..backend.types import VERSION_VT1, BlockMeta
-from ..encoding.compression import (NATIVE_ENCODINGS, compress, decompress,
-                                    usable)
+from ..encoding.compression import (ENCODINGS, compress, decompress,
+                                    usable, why_unusable)
 from ..encoding.v2.objects import marshal_object, unmarshal_objects
 from ..utils.ids import pad_trace_id
 
 log = logging.getLogger(__name__)
 
 _SEP = "+"
-ENCODINGS = ("none", "gzip", "zlib", "zstd")
 
 
 def resolve_wal_encoding(encoding: str = "auto") -> str:
@@ -44,17 +43,13 @@ def resolve_wal_encoding(encoding: str = "auto") -> str:
     process cannot use, when the WAL is built rather than at the first
     append."""
     if encoding == "auto":
-        return "zlib"
-    if encoding in NATIVE_ENCODINGS:
-        raise ValueError(f"wal_encoding {encoding!r} needs the reference's "
-                         "native runtime, which the port does not bind; "
-                         f"use auto or one of {', '.join(ENCODINGS)}")
+        return "snappy" if usable("snappy") else "zlib"
     if encoding not in ENCODINGS:
         raise ValueError(f"wal_encoding {encoding!r}: supported are auto, "
                          f"{', '.join(ENCODINGS)}")
     if not usable(encoding):
-        raise ValueError(f"wal_encoding {encoding!r} needs the zstandard "
-                         "package, which is not installed")
+        raise ValueError(f"wal_encoding {encoding!r} cannot be used in this "
+                         f"process: {why_unusable(encoding)}")
     return encoding
 
 

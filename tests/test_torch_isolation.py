@@ -104,6 +104,7 @@ def test_importing_the_port_loads_no_reference_module():
         "import tempo_tpu_torch.utils.hashing\n"
         "import tempo_tpu_torch.wal, tempo_tpu_torch.modules.distributor\n"
         "import tempo_tpu_torch.model.matches, tempo_tpu_torch.model.sort\n"
+        "import tempo_tpu_torch.ops.native\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('tempo_tpu', 'xxhash')\n"
         "             or m.startswith('tempo_tpu.'))\n"
@@ -112,6 +113,47 @@ def test_importing_the_port_loads_no_reference_module():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_port_module_names_the_reference_runtime(path):
+    """The port builds and loads its own host library; no module names
+    the reference's ``native/`` directory or ``tempo_tpu/ops``."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for name in ("native/", "tempo_tpu/ops", "tempo_tpu.ops"):
+        assert name not in text, f"{os.path.relpath(path, ROOT)}: {name}"
+
+
+def test_host_sources_include_nothing_of_the_reference():
+    """The port's C++ sources include system headers and each other only,
+    nothing from ``native/`` (its header comment names what it copies)."""
+    srcs = []
+    for dirpath, _dirs, files in os.walk(os.path.join(PKG, "csrc")):
+        srcs += [os.path.join(dirpath, f) for f in files
+                 if f.endswith((".cc", ".cu", ".cuh", ".h"))
+                 and "build" not in dirpath]
+    assert os.path.join(PKG, "csrc", "host", "tempotpu.cc") in srcs
+    for src in srcs:
+        with open(src, encoding="utf-8") as f:
+            incs = [ln for ln in f if ln.lstrip().startswith("#include")]
+        for ln in incs:
+            assert "native" not in ln and ".." not in ln, (src, ln)
+
+
+def test_host_library_is_built_and_loaded_from_the_ports_build_dir():
+    from tempo_tpu_torch.ops import native
+
+    build_dir = os.path.join(PKG, "csrc", "build")
+    assert str(native.BUILD_DIR) == build_dir
+    assert str(native.SOURCE) == os.path.join(PKG, "csrc", "host",
+                                              "tempotpu.cc")
+    lib = native.lib()
+    assert os.path.dirname(lib._name) == build_dir
+    assert os.path.basename(lib._name).startswith("libtempotpu-")
+    with open("/proc/self/maps") as f:
+        assert lib._name in f.read()
 
 
 def test_default_device_is_cuda_and_never_the_cpu(tmp_path):

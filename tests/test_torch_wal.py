@@ -4,12 +4,13 @@ Segments come from the port's write path over seeded OTLP pushes
 (``tests/torch_otlp.py``), traces split over pushes among them, so a
 block holds several segments of one id. Files written by either package
 replay in the other with the same records, objects, ranges and counts
-(codecs ``none``, ``zlib``, ``gzip``; the reference's codec is set
-explicitly, since its ``auto`` is snappy when its native runtime is
-built). Replay handles a torn tail, a corrupt record and stray files as
-the reference does. The port's ``auto`` is zlib; the native codecs, which
-the port does not bind, raise when a WAL is built, and a file written
-with one raises at replay and stays on disk.
+(codecs ``none``, ``zlib``, ``gzip``, and ``snappy``, ``lz4`` and
+``zstd`` through each package's native library; the reference's codec is
+set explicitly). Replay handles a torn tail, a corrupt record and stray
+files as the reference does. The port's ``auto`` is snappy where its host
+library has it, as the reference's; with the codecs taken away
+(``monkeypatch``), ``auto`` is zlib, the others raise when a WAL is
+built, and a file written with one raises at replay and stays on disk.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from tempo_tpu_torch.backend.local import LocalBackend
 from tempo_tpu_torch.db import TempoDB, TempoDBConfig
 from tempo_tpu_torch.encoding import compression
 from tempo_tpu_torch.modules.distributor import push_items
+from tempo_tpu_torch.ops import native as port_native
 from tempo_tpu_torch.wal import (WAL, parse_wal_filename,
                                  resolve_wal_encoding, wal_filename)
 
@@ -37,6 +39,14 @@ from tests.torch_otlp import make_pushes
 
 TENANT = "t/1+x y"        # a tenant id the filename must percent-encode
 BID = "00000000-0000-4000-8000-000000000018"
+
+
+@pytest.fixture
+def no_native_codecs(monkeypatch):
+    """This process as a host without libzstd, liblz4, the library's
+    snappy, and the zstandard package."""
+    monkeypatch.setattr(port_native, "codecs", lambda: ())
+    monkeypatch.setattr(compression, "_zstd", None)
 
 
 @pytest.fixture(scope="module")
@@ -73,18 +83,21 @@ def _replay(pkg: str, d: str):
     return w, blocks, removed
 
 
-@pytest.mark.parametrize("enc", ["none", "zlib", "gzip"])
+@pytest.mark.parametrize("enc", ["none", "zlib", "gzip", "snappy", "lz4",
+                                 "zstd"])
 @pytest.mark.parametrize("writer,reader", [("ref", "port"), ("port", "ref")])
 def test_wal_files_replay_across_packages(tmp_path, items, enc, writer,
                                           reader):
     """A file one package writes replays in the other with the same
     objects (each id's segments combined), record count, length, range
-    and object count; the filenames are the same in both."""
+    and object count; the filenames are the same in both, and so are the
+    files, but for gzip (its header carries its time of writing) and
+    snappy (the port's encoder is its own; the framing is the same)."""
     paths = {}
     for pkg in ("ref", "port"):
         paths[pkg] = _write(pkg, str(tmp_path / pkg), enc, items)
     assert os.path.basename(paths["ref"]) == os.path.basename(paths["port"])
-    if enc != "gzip":   # gzip's header carries its time of writing
+    if enc not in ("gzip", "snappy"):
         with open(paths["ref"], "rb") as a, open(paths["port"], "rb") as b:
             assert a.read() == b.read()
     _, got, _ = _replay(reader, str(tmp_path / writer))
@@ -192,15 +205,26 @@ def test_replay_removes_what_the_reference_removes(tmp_path, items):
     assert removed["ref"] == removed["port"]
 
 
-def test_auto_is_zlib_and_the_rest_resolve_as_named():
+def test_auto_is_zlib_and_the_rest_resolve_as_named(no_native_codecs):
+    """Without the host library's codecs ``auto`` is zlib, as the
+    reference's without its native runtime."""
     assert resolve_wal_encoding() == resolve_wal_encoding("auto") == "zlib"
-    for enc in ("none", "gzip", "zlib", "zstd"):
+    for enc in ("none", "gzip", "zlib"):
+        assert resolve_wal_encoding(enc) == enc
+
+
+def test_auto_is_snappy_where_the_library_has_it():
+    assert "snappy" in port_native.codecs()
+    assert resolve_wal_encoding() == resolve_wal_encoding("auto") == "snappy"
+    for enc in ("none", "gzip", "zlib", "zstd", "lz4", "snappy", "s2"):
         assert resolve_wal_encoding(enc) == enc
 
 
 @pytest.mark.parametrize("enc", ["snappy", "lz4", "s2", "brotli", ""])
-def test_codecs_the_port_cannot_use_raise_when_the_wal_is_built(tmp_path,
-                                                                enc):
+def test_codecs_the_port_cannot_use_raise_when_the_wal_is_built(
+        tmp_path, enc, no_native_codecs):
+    """brotli and "" are no codec; snappy, lz4 and s2 raise on a host
+    without them."""
     with pytest.raises(ValueError, match="wal_encoding"):
         WAL(str(tmp_path / "w"), encoding=enc)
     with pytest.raises(ValueError, match="wal_encoding"):
@@ -209,10 +233,40 @@ def test_codecs_the_port_cannot_use_raise_when_the_wal_is_built(tmp_path,
                 wal_dir=str(tmp_path / "w2"))
 
 
-def test_zstd_without_zstandard_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(compression, "_zstd", None)
+@pytest.mark.parametrize("enc", ["snappy", "lz4", "s2", "brotli", ""])
+def test_native_codecs_resolve_when_the_wal_is_built(tmp_path, enc):
+    """With the host library, snappy, lz4 and s2 build a WAL (and a
+    database's); brotli and "" still raise."""
+    if enc in ("brotli", ""):
+        with pytest.raises(ValueError, match="wal_encoding"):
+            WAL(str(tmp_path / "w"), encoding=enc)
+        return
+    assert WAL(str(tmp_path / "w"), encoding=enc).encoding == enc
+    db = TempoDB(LocalBackend(str(tmp_path / "b")),
+                 TempoDBConfig(wal_encoding=enc), device="cpu",
+                 wal_dir=str(tmp_path / "w2"))
+    try:
+        assert db.wal.encoding == enc
+    finally:
+        db.close()
+
+
+def test_zstd_without_zstandard_raises(tmp_path, no_native_codecs):
+    """Neither libzstd nor the zstandard package: zstd raises."""
     with pytest.raises(ValueError, match="zstandard"):
         WAL(str(tmp_path), encoding="zstd")
+
+
+def test_zstd_through_the_library_without_zstandard(tmp_path, monkeypatch,
+                                                    items):
+    """Without the zstandard package the library's zstd serves, and the
+    reference reads what it wrote."""
+    monkeypatch.setattr(compression, "_zstd", None)
+    path = _write("port", str(tmp_path), "zstd", items[:8])
+    assert os.path.basename(path).endswith("+zstd+v2")
+    _, got, _ = _replay("ref", str(tmp_path))
+    assert len(got[0]) == 8
+    got[0].close()
 
 
 def _snappy_literal(data: bytes) -> bytes:
@@ -233,12 +287,10 @@ def _snappy_literal(data: bytes) -> bytes:
     return bytes(out)
 
 
-def test_a_reference_snappy_file_raises_and_stays_on_disk(tmp_path, items):
+def _reference_snappy_file(d, items):
     """A WAL file of the reference's snappy codec (its records framed by
-    the reference, its name by the reference's wal_filename): the port's
-    replay raises naming the codec and removes nothing, the file and its
-    sidecar stay byte for byte."""
-    d = tmp_path / "wal"
+    the reference, its name by the reference's wal_filename) with a
+    sidecar; returns (path, body)."""
     d.mkdir()
     meta = RefBlockMeta(block_id=BID, tenant_id=TENANT, encoding="snappy",
                         data_encoding="v2")
@@ -252,11 +304,35 @@ def test_a_reference_snappy_file_raises_and_stays_on_disk(tmp_path, items):
     path = d / ref_wal.wal_filename(meta)
     path.write_bytes(body)
     (d / (path.name + ".search")).write_bytes(b"sidecar")
+    return path, body
+
+
+def test_a_reference_snappy_file_raises_and_stays_on_disk(
+        tmp_path, items, no_native_codecs):
+    """On a host without the codec the port's replay raises naming it and
+    removes nothing: the file and its sidecar stay byte for byte."""
+    d = tmp_path / "wal"
+    path, body = _reference_snappy_file(d, items)
     before = sorted(os.listdir(d))
     with pytest.raises(ValueError, match="snappy"):
         WAL(str(d)).replay_all()
     assert sorted(os.listdir(d)) == before
     assert path.read_bytes() == body
+
+
+def test_a_reference_snappy_file_replays(tmp_path, items):
+    """With the host library the same file replays: every record, and the
+    objects of the same segments written uncompressed."""
+    path, _body = _reference_snappy_file(tmp_path / "wal", items)
+    blocks, removed = WAL(str(tmp_path / "wal")).replay_all()
+    assert len(blocks) == 1 and not removed
+    assert blocks[0].path == str(path) and len(blocks[0]) == 8
+    assert blocks[0].corrupt_records == 0
+    _write("port", str(tmp_path / "plain"), "none", items[:8])
+    _, want, _ = _replay("port", str(tmp_path / "plain"))
+    assert list(blocks[0].iterator()) == list(want[0].iterator())
+    for b in blocks + want:
+        b.close()
 
 
 def test_append_find_and_lifecycle(tmp_path, items):
@@ -276,7 +352,7 @@ def test_append_find_and_lifecycle(tmp_path, items):
         assert blk.find(tid) == codec.to_object(segs)
     assert blk.find(b"\x07" * 16) is None
     assert [t for t, _ in blk.iterator()] == sorted(by_id)
-    assert blk.meta.encoding == "zlib" and blk.meta.total_objects == len(items)
+    assert blk.meta.encoding == "snappy" and blk.meta.total_objects == len(items)
     blk.close()
     assert blk.find(items[0][0]) is None
     assert os.path.exists(blk.path)

@@ -59,6 +59,7 @@ from tempo_tpu_torch.model.types import (BlockSearchJob, SearchBlockRequest,
                                          SearchRequest)
 from tempo_tpu_torch.modules.distributor import (push_items, regroup_by_trace,
                                                  regroup_extract)
+from tempo_tpu_torch.ops import native
 from tempo_tpu_torch.search import data
 from tempo_tpu_torch.search import ir
 from tempo_tpu_torch.search.columnar import PageGeometry
@@ -436,8 +437,9 @@ def test_write_block_direct_writes_the_reference_bytes(tmp_path, pushes,
 @pytest.mark.parametrize("what", ["block", "search"])
 def test_an_unusable_codec_raises_at_the_first_write(tmp_path, pushes,
                                                      monkeypatch, what):
-    """zstd without zstandard (and a native codec) raises before anything
-    is written; no codec is swapped for another."""
+    """On a host without libzstd and zstandard, zstd (and, without the host
+    library's codecs, snappy) raises before anything is written; no codec
+    is swapped for another."""
     items = [it for it in push_items(pushes[0])[0]]
     objects = [(t, seg, s, e) for t, s, e, seg, _ in
                sorted(items, key=lambda it: it[0])
@@ -449,9 +451,9 @@ def test_an_unusable_codec_raises_at_the_first_write(tmp_path, pushes,
     db = TempoDB(LocalBackend(str(root)), TempoDBConfig(**kw), device="cpu")
     try:
         monkeypatch.setattr(compression, "_zstd", None)
+        monkeypatch.setattr(native, "codecs", lambda: ())
         with pytest.raises(ValueError, match="zstd"):
             db.write_block_direct(TENANT, objects, entries)
-        monkeypatch.undo()
         db.cfg.block_encoding = db.cfg.search_encoding = "snappy"
         with pytest.raises(ValueError, match="snappy"):
             db.write_block_direct(TENANT, objects, entries)
