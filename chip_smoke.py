@@ -246,8 +246,28 @@ error:
    block under ``TempoDBConfig()``'s defaults (zstd blocks and
    containers) is completed, searched on the card against the CPU path,
    and each result opened;
-12. prints the kernels line, the card's name and power limit, and as the
-   last line {"ok": true, "device": {...}}.
+12. the attribution cell (per-query stats, ``search/query_stats.py``, and
+   the dispatch profiler, ``observability/profile.py``), over the tag,
+   structural and RED databases the earlier cells left staged, card and
+   CPU: the tag cell's six requests, the desc plan and red_all with
+   ``explain`` on the card and on the CPU, their query stats equal in
+   every field that measures no time, each response equal to its twin
+   without ``explain``; the p50 of 10 warm runs' ``device_seconds`` (the
+   CUDA events of their dispatches) of the three requests ``KernelTimer``
+   timed in the tag cell, each at least 0.9x that device ms and at most
+   the request's wall p50; four 8-client exhaustive rounds with
+   coalescing on, every dispatch's stage totals equal to the sum of the
+   shares its members' stats received (within 1e-6 ms); the bench
+   request 10 times with the profiling fence on (the same answers, its
+   device seconds); and the bench request in 21 interleaved turns over
+   three databases: both gates on, the profiler alone (query stats off),
+   both off; the three p50s, the responses equal. It prints one
+   ``attribution:`` line;
+13. prints the run's time, the kernels line, the card's name and power
+   limit, and as the last line {"ok": true, "device": {...}}.
+
+Responses are compared through ``canon``: the attributed device seconds
+(``SearchMetrics.device_seconds``) are a timing and are set to 0 there.
 
 Every kernel row's device ms is the median of 20 single calls, each
 between two CUDA events with a spin kernel holding the stream while the
@@ -334,6 +354,9 @@ CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
 # the high-cardinality cell's concurrent session.id substrings
 HC_SESSIONS = ("77", "123", "404", "5555", "0012", "99", "31", "808")
 EXHAUSTIVE = {"x-dbg-exhaustive": ""}
+# databases the earlier cells leave staged for the attribution cell, by
+# corpus: {"gpu", "cpu", "reqs", "tenant", ...}; closed at the run's end
+STAGED: dict = {}
 
 
 def requests(blocks: int) -> dict:
@@ -612,7 +635,7 @@ def drive(call, reps: int, sync: bool) -> dict:
 
     reset_counts()
     t0 = time.perf_counter()
-    resp = call().response()
+    resp = canon(call().response())
     if sync:
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -621,7 +644,7 @@ def drive(call, reps: int, sync: bool) -> dict:
     with GcPauses() as pauses:
         for _ in range(reps):
             t0 = time.perf_counter()
-            again = call().response()
+            again = canon(call().response())
             if sync:
                 torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
@@ -647,6 +670,16 @@ def run_queries(db, tenant: str, reqs: dict, reps: int) -> dict:
             raise AssertionError(f"{name}: {e}") from None
         out[name]["dispatches"] = db.batcher.last_dispatches
     return out
+
+
+def canon(resp):
+    """A response as it is compared: the database's attributed device
+    seconds (``SearchMetrics.device_seconds``, a timing) set to 0. The
+    attribution cell reads them from the explain breakdown instead."""
+    import dataclasses
+
+    return dataclasses.replace(resp, metrics=dataclasses.replace(
+        resp.metrics, device_seconds=0.0))
 
 
 def check_response(name: str, resp, tags: dict, kw: dict, n_total: int,
@@ -823,12 +856,16 @@ class KernelTimer:
 
     def take(self) -> dict:
         """The device ms of the launches timed since the last take, their
-        count and the uncovered ones; clears them."""
+        count and the uncovered ones; clears them. The pairs are taken
+        before the device is synchronised: a launch another thread makes
+        after the requests returned (a fused dispatch whose member had
+        already quit) then goes to the next take, and every pair read here
+        has completed."""
         import torch
 
-        torch.cuda.synchronize()
         with self._lock:
             pairs, self.pairs = self.pairs, []
+        torch.cuda.synchronize()
         ms = sum(ev[1].elapsed_time(ev[2]) for ev in pairs)
         # a hold that ran to its limit (~50 ms) was not released in time
         uncovered = sum(ev[0].elapsed_time(ev[1]) > 40.0 for ev in pairs)
@@ -1589,7 +1626,7 @@ def concurrent_rounds(db, tenant: str, reqs: list, rounds: int,
     def one(i):
         barrier.wait(timeout=120)
         t0 = time.perf_counter()
-        resp = db.search(tenant, requests[i]).response()
+        resp = canon(db.search(tenant, requests[i]).response())
         return time.perf_counter() - t0, resp
 
     co = db.batcher.coalescer
@@ -1661,8 +1698,9 @@ def concurrent_phase(label: str, co_db, serial_db, tenant: str,
 
     out = {}
     for set_name, reqs in sets.items():
-        serial = [serial_db.search(tenant, SearchRequest(tags=dict(t), **kw))
-                  .response() for t, kw in reqs]
+        serial = [canon(serial_db.search(
+            tenant, SearchRequest(tags=dict(t), **kw)).response())
+                  for t, kw in reqs]
         for db_name, db in (("coalescing", co_db),
                             ("no_coalescing", serial_db)):
             row = concurrent_rounds(db, tenant, reqs, rounds, serial)
@@ -1814,8 +1852,9 @@ def tag_search_cell(args, work: str, report: dict, dbs: list,
     report["cpu_check_s"] = time.perf_counter() - t0
     print(f"cpu check: {len(reqs)} responses identical "
           f"({report['cpu_check_s']:.1f} s)", flush=True)
-    cpu.close()
-    dbs.remove(cpu)
+    # both stay staged for the attribution cell (closed at the run's end)
+    STAGED["tag"] = {"gpu": gpu, "cpu": cpu, "reqs": reqs,
+                     "tenant": "smoke", "root": root, "busy": busy}
     rows = kernel_phase(gpu, reqs, launches)
     rows += coalesced_phase(gpu, [(t, {"limit": 20})
                                   for t in CONCURRENT_TAGS],
@@ -1842,9 +1881,8 @@ def tag_search_cell(args, work: str, report: dict, dbs: list,
                                       res["bench_and"], args.reps, launches)
     rows += packed_tag_phase(args, root, reqs, res, gpu, report, dbs,
                              launches)
-    for db in (gpu, serial):
-        db.close()
-        dbs.remove(db)
+    serial.close()
+    dbs.remove(serial)
     return rows
 
 
@@ -1931,8 +1969,9 @@ def packed_tag_phase(args, root: str, reqs: dict, res: dict, plain_db,
     print_busy(busy, lat)
 
     exh = [(dict(t, **EXHAUSTIVE), {"limit": 20}) for t in CONCURRENT_TAGS]
-    serial = [plain_db.search("smoke", SearchRequest(tags=dict(t), **kw))
-              .response() for t, kw in exh]
+    serial = [canon(plain_db.search(
+        "smoke", SearchRequest(tags=dict(t), **kw)).response())
+              for t, kw in exh]
     row = concurrent_rounds(packed, "smoke", exh, args.rounds, serial)
     add_counts(launches, row["launches"])
     require_fusion(row, "coalesced_scan_packed")
@@ -2148,8 +2187,9 @@ def packed_hc_cell(args, work: str, report: dict, dbs: list,
           f"{report['hc_mask_bytes']['packed']}", flush=True)
     sessions = [(dict(EXHAUSTIVE, **{SESSION_KEY: v}), {"limit": 20})
                 for v in HC_SESSIONS]
-    serial = [plain_db.search("hc", SearchRequest(tags=dict(t), **kw))
-              .response() for t, kw in sessions]
+    serial = [canon(plain_db.search(
+        "hc", SearchRequest(tags=dict(t), **kw)).response())
+              for t, kw in sessions]
     row = concurrent_rounds(packed_db, "hc", sessions, args.rounds, serial)
     add_counts(launches, row["launches"])
     require_fusion(row, "coalesced_scan_packed_hits")
@@ -2247,7 +2287,7 @@ def paired_latency(label: str, calls: dict, reps: int) -> dict:
             order = [("unpacked", plain), ("packed", packed)]
             for side, call in (order if i % 2 == 0 else order[::-1]):
                 t0 = time.perf_counter()
-                call().response()
+                canon(call().response())
                 torch.cuda.synchronize()
                 lat[side].append((time.perf_counter() - t0) * 1e3)
         row = {f"{side}_p50_ms": pct(v, 0.5) for side, v in lat.items()}
@@ -2434,8 +2474,8 @@ def hc_host_route(db, bsb) -> dict:
     native.substr_scan = counted
     try:
         t0 = time.perf_counter()
-        resp = db.search("hc", SearchRequest(
-            tags={SESSION_KEY: HC_LONG_NEEDLE}, limit=20)).response()
+        resp = canon(db.search("hc", SearchRequest(
+            tags={SESSION_KEY: HC_LONG_NEEDLE}, limit=20)).response())
         request_ms = (time.perf_counter() - t0) * 1e3
     finally:
         native.substr_scan = scan
@@ -3522,9 +3562,8 @@ def structural_cell(args, work: str, report: dict, dbs: list,
         raise AssertionError("st_desc_agg: card and CPU responses differ")
     report["st_agg"] = latency_row(ares["st_desc_agg"], got)
     print_row("st_desc_agg", report["st_agg"])
-    cpu.close()
-    dbs.remove(cpu)
-    del cpu, cres
+    STAGED["st"] = {"gpu": gpu, "cpu": cpu, "reqs": reqs, "tenant": "st"}
+    del cres
     gc.collect()
 
     rows = structural_kernel_phase(gpu, bsbs["gpu"], launches)
@@ -3538,7 +3577,8 @@ def structural_cell(args, work: str, report: dict, dbs: list,
     dbs.append(stacked)
     stacked.poll()
     creqs = [(st_tag(p, True), {"limit": 20}) for p in ST_BUCKET_PLANS]
-    serial = [gpu.search("st", SearchRequest(tags=dict(t), **kw)).response()
+    serial = [canon(gpu.search("st", SearchRequest(tags=dict(t),
+                                                   **kw)).response())
               for t, kw in creqs]
     conc = {}
     for label, db in (("stacked_bucketed", stacked), ("solo", gpu)):
@@ -3594,8 +3634,6 @@ def structural_cell(args, work: str, report: dict, dbs: list,
     for label in both:
         both[label][0].close()
         dbs.remove(both[label][0])
-    gpu.close()
-    dbs.remove(gpu)
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -4153,9 +4191,9 @@ def red_cell(args, work: str, report: dict, dbs: list,
     report["red_cpu_check_s"] = time.perf_counter() - t0
     print(f"RED cpu check: {len(reqs)} responses identical "
           f"({report['red_cpu_check_s']:.1f} s)", flush=True)
-    cpu.close()
-    dbs.remove(cpu)
-    del cpu, cres
+    STAGED["red"] = {"gpu": gpu, "cpu": cpu, "reqs": reqs,
+                     "tenant": RED_TENANT}
+    del cres
     gc.collect()
 
     rows = red_kernel_phase(gpu, ingest, launches)
@@ -4181,7 +4219,7 @@ def red_cell(args, work: str, report: dict, dbs: list,
         breq = SearchBlocksRequest(
             search_req=SearchRequest(tags=dict(tags), **kw),
             tenant_id=RED_TENANT, jobs=jobs)
-        want = gpu.search_blocks(breq).response()
+        want = canon(gpu.search_blocks(breq).response())
         r = drive(lambda: packed.search_blocks(breq), args.reps, True)
         if r["resp"] != want:
             raise AssertionError(f"packed {name}: the packed database's "
@@ -4234,9 +4272,8 @@ def red_cell(args, work: str, report: dict, dbs: list,
                              f"members, or none fused: {mixed}")
     print(f"RED fused dispatches: {len(mixed)}, each all agg or all plain",
           flush=True)
-    for db in (gpu, serial):
-        db.close()
-        dbs.remove(db)
+    serial.close()
+    dbs.remove(serial)
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -4520,7 +4557,7 @@ def live_cell(args, work: str, report: dict, dbs: list,
     t0 = time.perf_counter()
     for name, rq in reqs.items():
         c = answer(lambda q, r: cpu.search(LIVE_TENANT, q, r), *rq)()
-        if c.response() != res[name]["resp"]:
+        if canon(c.response()) != res[name]["resp"]:
             raise AssertionError(f"{name}: card and CPU responses differ")
     out["cpu_check_s"] = time.perf_counter() - t0
     print(f"live stage: {rec.pages.n_pages} pages, tier {rec.tier}, built "
@@ -4551,7 +4588,7 @@ def live_cell(args, work: str, report: dict, dbs: list,
         cpu.mark_cut(LIVE_TENANT, cut)
         for tid, raw in batch:
             cpu.absorb(LIVE_TENANT, tid, raw)
-        ids = {m.trace_id for m in got.response().traces}
+        ids = {m.trace_id for m in canon(got.response()).traces}
         if ids != {tid.hex() for tid, _ in batch} or n["hot_scan"] != 1:
             raise AssertionError(f"push round {i}: the new batch is not "
                                  f"the newest answer, or launches {n}")
@@ -4586,7 +4623,7 @@ def live_cell(args, work: str, report: dict, dbs: list,
         tags, kw = reqs[name]
         g = answer(lambda q, r: lt.search(LIVE_TENANT, q, r), tags, kw)()
         c = answer(lambda q, r: cpu.search(LIVE_TENANT, q, r), tags, kw)()
-        if g.response() != c.response() \
+        if canon(g.response()) != canon(c.response()) \
                 or g.metrics.inspected_traces != n_live - len(half):
             raise AssertionError(f"after the cut, {name}: card and CPU "
                                  "responses differ")
@@ -4654,7 +4691,7 @@ def live_cell(args, work: str, report: dict, dbs: list,
     for name, rq in WAL_REQUESTS.items():
         c = answer(lambda q, r: scan_search_data(
             blk.entries(), q, r, cstage, 0, cpu), *rq)()
-        if c.response() != wres[name]["resp"]:
+        if canon(c.response()) != wres[name]["resp"]:
             raise AssertionError(f"{name}: card and CPU responses differ")
     wal["cpu_check_s"] = time.perf_counter() - t0
     print(f"WAL head: {n_wal} traces, sidecar "
@@ -5126,8 +5163,9 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
         print_busy(out["tag_device_busy"], out["tag_search"])
         exh = [(dict(t, **EXHAUSTIVE), {"limit": 20})
                for t in CONCURRENT_TAGS]
-        serial = [tag_db.search("smoke", SearchRequest(tags=dict(t), **kw))
-                  .response() for t, kw in exh]
+        serial = [canon(tag_db.search(
+            "smoke", SearchRequest(tags=dict(t), **kw)).response())
+                  for t, kw in exh]
         row = concurrent_rounds(tag_db, "smoke", exh, args.rounds, serial)
         add_counts(launches, row["launches"])
         require_fusion(row, "coalesced_scan")
@@ -5571,7 +5609,7 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
     req = SearchRequest(tags=dict(tags), limit=TBI_LIMIT)
     reset_counts()
     t0 = time.perf_counter()
-    resp = db.search(TBI_TENANT, req).response()
+    resp = canon(db.search(TBI_TENANT, req).response())
     if device != "cpu":
         torch.cuda.synchronize()
     out["search_ms"] = (time.perf_counter() - t0) * 1e3
@@ -5587,8 +5625,8 @@ def trace_by_id_cell(args, work: str, report: dict, dbs: list,
                   TempoDBConfig(search_max_batch_pages=4096), device="cpu")
     dbs.append(cpu)
     cpu.poll()
-    if cpu.search(TBI_TENANT, SearchRequest(tags=dict(tags),
-                                            limit=TBI_LIMIT)).response() \
+    if canon(cpu.search(TBI_TENANT, SearchRequest(tags=dict(tags),
+                                            limit=TBI_LIMIT)).response()) \
             != resp:
         raise AssertionError("trace-by-id search: card and CPU differ")
     cpu.close()
@@ -6085,7 +6123,7 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
                     "service.name"][int(cols["svc"][-1])]},
                                     start=s, end=s, limit=100)
                 for tries in range(1, 4):
-                    resp = db.search(ING_TENANT, req).response()
+                    resp = canon(db.search(ING_TENANT, req).response())
                     sync()
                     if last_tid.hex() in {r.trace_id for r in resp.traces}:
                         break
@@ -6180,13 +6218,13 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
     resps = {}
     for name, (tags, kw) in reqs.items():
         t0 = time.perf_counter()
-        resp = db.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw)
-                         ).response()
+        resp = canon(db.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw)
+                         ).response())
         sync()
         if name == "ing_exhaustive":
             out["first_search_ms"] = (time.perf_counter() - t0) * 1e3
-        want = cpu.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw)
-                          ).response()
+        want = canon(cpu.search(ING_TENANT, SearchRequest(tags=dict(tags),
+                                                          **kw)).response())
         if resp != want:
             raise AssertionError(f"ingest {name}: card and CPU differ")
         check_response(name, resp, tags, kw, n_traces)
@@ -6214,7 +6252,7 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
         r = db.search(ING_TENANT, SearchRequest(tags=dict(tags), **kw))
         sync()
         lat.append(time.perf_counter() - t0)
-        if r.response() != resps[name]:
+        if canon(r.response()) != resps[name]:
             raise AssertionError("ingest warm search differs")
     lat.sort()
     out["warm"] = {"request": name, "p50_ms": lat[len(lat) // 2] * 1e3,
@@ -6233,14 +6271,14 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
                 search_req=SearchRequest(tags=dict(tags), **kw), **sbr))
             want_b = cpu.search_block(SearchBlockRequest(
                 search_req=SearchRequest(tags=dict(tags), **kw), **sbr))
-            if got_b.response() != want_b.response():
+            if canon(got_b.response()) != canon(want_b.response()):
                 raise AssertionError(f"ingest search_block {nm}: card and "
                                      "CPU differ")
     tags, kw = reqs["ing_exhaustive"]
-    single = BackendSearchBlock(be, metas[0], device=device).search(
-        SearchRequest(tags=dict(tags), **kw)).response()
-    single_cpu = BackendSearchBlock(be, metas[0], device="cpu").search(
-        SearchRequest(tags=dict(tags), **kw)).response()
+    single = canon(BackendSearchBlock(be, metas[0], device=device).search(
+        SearchRequest(tags=dict(tags), **kw)).response())
+    single_cpu = canon(BackendSearchBlock(be, metas[0], device="cpu").search(
+        SearchRequest(tags=dict(tags), **kw)).response())
     if single != single_cpu or not {r.trace_id for r in single.traces} \
             <= got:
         raise AssertionError("ingest single-block search differs")
@@ -6340,12 +6378,12 @@ def ingest_zstd_block(args, work: str, out: dict, dbs: list,
     try:
         for name in ("ing_exhaustive", "ing_service", "ing_error"):
             tags, kw = reqs[name]
-            resp = db.search(ING_TENANT, SearchRequest(tags=dict(tags),
-                                                       **kw)).response()
+            resp = canon(db.search(ING_TENANT, SearchRequest(tags=dict(tags),
+                                                       **kw)).response())
             if device != "cpu":
                 torch.cuda.synchronize()
-            if resp != cpu.search(ING_TENANT, SearchRequest(
-                    tags=dict(tags), **kw)).response():
+            if resp != canon(cpu.search(ING_TENANT, SearchRequest(
+                    tags=dict(tags), **kw)).response()):
                 raise AssertionError(f"zstd block {name}: card and CPU "
                                      "differ")
             if not resp.traces:
@@ -6373,6 +6411,249 @@ def ingest_zstd_block(args, work: str, out: dict, dbs: list,
           f"{json.dumps(out['zstd_block']['launches'])}", flush=True)
     db.close()
     dbs.remove(db)
+
+
+# ---------------------------------------------------------------------------
+# the attribution cell (per-query stats and the dispatch profiler)
+
+# the fields of query_stats_json that measure no time (the CPU tests hold
+# them against the reference's too)
+ATTRIB_FIELDS = ("blocks_inspected", "skipped_blocks", "bytes_inspected",
+                 "dispatches", "fused_dispatches", "cache", "staged_bytes",
+                 "query")
+ATTRIB_TIMED = ("exhaustive_bench", "bench_and", "limit_1000")
+
+
+def untimed(resp):
+    """canon(resp) without the explain breakdown either."""
+    import dataclasses
+
+    resp = canon(resp)
+    return dataclasses.replace(resp, metrics=dataclasses.replace(
+        resp.metrics, query_stats_json=""))
+
+
+def same_stats(name: str, got: dict, want: dict) -> None:
+    """A card database's explain dict against the CPU database's, in every
+    field that measures no time."""
+    def nodes(d):
+        return [{k: n.get(k) for k in ("id", "op", "detail", "est_bytes")}
+                for n in (d.get("structural") or {}).get("nodes", [])]
+
+    def probe(d):
+        hp = d.get("host_probe") or {}
+        return hp.get("count"), hp.get("bytes")
+
+    bad = [k for k in ATTRIB_FIELDS if got.get(k) != want.get(k)]
+    if sorted(got) != sorted(want):
+        bad.append("keys")
+    if probe(got) != probe(want):
+        bad.append("host_probe")
+    if nodes(got) != nodes(want):
+        bad.append("structural")
+    if bad:
+        raise AssertionError(f"{name}: card and CPU query stats differ in "
+                             f"{bad}: card {got}, CPU {want}")
+
+
+def attribution_cell(args, report: dict, launches: dict) -> None:
+    """The attribution cell (step 12 of the module docstring), over the
+    tag, structural and RED databases the earlier cells left staged."""
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.search import batcher, query_stats
+
+    t_cell = time.perf_counter()
+    tag, st, red = STAGED["tag"], STAGED["st"], STAGED["red"]
+    out: dict = {}
+    reset_counts()
+    # the same stats on the card and on the CPU, and each explain
+    # response equal to its twin without explain
+    cases = ([(tag, n) for n in tag["reqs"]]
+             + [(st, "st_desc_exhaustive"), (red, "red_all")])
+    for cell, name in cases:
+        tags, kw = cell["reqs"][name]
+        req = SearchRequest(tags=dict(tags), explain=True, **kw)
+        got = cell["gpu"].search(cell["tenant"], req).response()
+        want = cell["cpu"].search(cell["tenant"], req).response()
+        same_stats(name, json.loads(got.metrics.query_stats_json),
+                   json.loads(want.metrics.query_stats_json))
+        twin = cell["gpu"].search(cell["tenant"], SearchRequest(
+            tags=dict(tags), **kw)).response()
+        if untimed(got) != untimed(twin) or untimed(got) != untimed(want) \
+                or twin.metrics.query_stats_json:
+            raise AssertionError(f"{name}: the explain response differs "
+                                 "from its twin or from the CPU path's")
+    out["stats_equal"] = [name for _c, name in cases]
+
+    # device_seconds (CUDA events) against KernelTimer's device ms (the
+    # tag cell's pass, the hold kernels off here) and the wall p50
+    timed = {}
+    for name in ATTRIB_TIMED:
+        tags, kw = tag["reqs"][name]
+        req = SearchRequest(tags=dict(tags), explain=True, **kw)
+        tag["gpu"].search("smoke", req)
+        dev, wall = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            r = tag["gpu"].search("smoke", req).response()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            d = json.loads(r.metrics.query_stats_json)
+            dev.append(d["device_seconds"] * 1e3)
+        row = {"device_seconds_ms_p50": pct(dev, 0.5),
+               "wall_p50_ms": pct(wall, 0.5),
+               "kernel_timer_ms": tag["busy"][name]["device_ms"],
+               "stages_ms": d["device_stages_ms"]}
+        timed[name] = row
+        if not (0.9 * row["kernel_timer_ms"] <= row["device_seconds_ms_p50"]
+                <= row["wall_p50_ms"]):
+            raise AssertionError(f"{name}: device_seconds p50 "
+                                 f"{row['device_seconds_ms_p50']:.4f} ms "
+                                 f"outside [0.9 x KernelTimer "
+                                 f"{row['kernel_timer_ms']:.4f}, wall p50 "
+                                 f"{row['wall_p50_ms']:.4f}]")
+    out["events_vs_kernel_timer"] = timed
+
+    # the 8-client exhaustive rounds, coalescing on: every dispatch's
+    # stage totals against the shares its members' stats received
+    shares = threading.local()
+    splits: list = []
+    real_attr = batcher.QueryCoalescer._attribute
+    real_add = query_stats.QueryStats.add_device_stages
+
+    def add_spy(self, stages, *a, **kw):
+        got = getattr(shares, "got", None)
+        if got is not None:
+            got.append(dict(stages))
+        return real_add(self, stages, *a, **kw)
+
+    def attr_spy(stats, weights, totals, h2d):
+        shares.got = []
+        try:
+            real_attr(stats, weights, totals, h2d)
+        finally:
+            got, shares.got = shares.got, None
+        splits.append((len(stats), dict(totals), got))
+
+    exh = [SearchRequest(tags=dict(t, **EXHAUSTIVE), limit=20)
+           for t in CONCURRENT_TAGS]
+    serial = [untimed(tag["gpu"].search("smoke", r).response())
+              for r in exh]
+    barrier = threading.Barrier(len(exh))
+
+    def one(i):
+        barrier.wait(timeout=120)
+        return untimed(tag["gpu"].search("smoke", exh[i]).response())
+
+    batcher.QueryCoalescer._attribute = staticmethod(attr_spy)
+    query_stats.QueryStats.add_device_stages = add_spy
+    try:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(exh)) as ex:
+            for _r in range(4):
+                futs = [ex.submit(one, i) for i in range(len(exh))]
+                if [f.result(timeout=600) for f in futs] != serial:
+                    raise AssertionError("attribution rounds: a response "
+                                         "differs from its serial one")
+    finally:
+        batcher.QueryCoalescer._attribute = staticmethod(real_attr)
+        query_stats.QueryStats.add_device_stages = real_add
+    worst = 0.0
+    for n, totals, got in splits:
+        if len(got) != n:
+            raise AssertionError(f"a dispatch of {n} members booked "
+                                 f"{len(got)} shares")
+        for stage, total in totals.items():
+            err = abs(sum(g.get(stage, 0.0) for g in got) - total) * 1e3
+            worst = max(worst, err)
+    if worst > 1e-6:
+        raise AssertionError(f"a fused dispatch's shares miss its stage "
+                             f"totals by {worst} ms")
+    fused = sum(1 for n, _t, _g in splits if n > 1)
+    if not fused:
+        raise AssertionError("the attribution rounds fused no dispatch")
+    out["rounds"] = {"dispatches": len(splits), "fused": fused,
+                     "max_share_error_ms": worst}
+
+    # the fence on the stats database: the stream synchronised after each
+    # dispatch's launches (its gate is the database's, flipped for these
+    # requests only), the same answers and device seconds
+    tags, kw = tag["reqs"]["bench_and"]
+    req = SearchRequest(tags=dict(tags), explain=True, **kw)
+    base = untimed(tag["gpu"].search("smoke", req).response())
+    gate = tag["gpu"].profiling
+    fenced = []
+    gate.fence = True
+    try:
+        for _ in range(10):
+            r = tag["gpu"].search("smoke", req).response()
+            if untimed(r) != base:
+                raise AssertionError("bench_and with the fence answered "
+                                     "differently")
+            fenced.append(r.metrics.device_seconds * 1e3)
+    finally:
+        gate.fence = False
+    out["fence_device_seconds_ms_p50"] = pct(fenced, 0.5)
+    if not out["fence_device_seconds_ms_p50"] > 0:
+        raise AssertionError("the fenced requests booked no device time")
+
+    # the bench request, interleaved turns over three databases: both
+    # gates on, the profiler alone (stats off), both off
+    def tag_db(**gates):
+        db = TempoDB(LocalBackend(tag["root"]), TempoDBConfig(
+            search_max_batch_pages=4096, **gates), device="cuda")
+        db.poll()
+        tags, kw = tag["reqs"]["exhaustive_bench"]
+        db.search("smoke", SearchRequest(tags=dict(tags), **kw))  # stage
+        return db
+
+    sides = {"on": tag["gpu"]}
+    try:
+        sides["profiler"] = tag_db(search_query_stats_enabled=False)
+        sides["off"] = tag_db(search_query_stats_enabled=False,
+                              search_profiling_enabled=False)
+        tags, kw = tag["reqs"]["bench_and"]
+        req = SearchRequest(tags=dict(tags), **kw)
+        lat = {k: [] for k in sides}
+        order = list(sides)
+        for i in range(21):
+            resp = {}
+            for side in order[i % 3:] + order[:i % 3]:
+                t0 = time.perf_counter()
+                resp[side] = sides[side].search("smoke", req).response()
+                lat[side].append((time.perf_counter() - t0) * 1e3)
+            if untimed(resp["profiler"]) != untimed(resp["on"]) \
+                    or untimed(resp["off"]) != untimed(resp["on"]) \
+                    or resp["profiler"].metrics.device_seconds \
+                    or resp["off"].metrics.device_seconds:
+                raise AssertionError("the gates answered differently")
+    finally:
+        for side in ("profiler", "off"):
+            if side in sides:
+                sides[side].close()
+    out["on_off_p50_ms"] = {k: pct(v, 0.5) for k, v in lat.items()}
+    path = read_counts()
+    add_counts(launches, path)
+    out["launches"] = path
+    out["s"] = time.perf_counter() - t_cell
+    report["attribution"] = out
+    t = out["events_vs_kernel_timer"]
+    print("attribution: card and CPU query stats equal over "
+          f"{len(cases)} requests (explain twins equal); device_seconds "
+          "p50 / KernelTimer / wall p50 ms: "
+          + ", ".join(f"{n} {r['device_seconds_ms_p50']:.4f} / "
+                      f"{r['kernel_timer_ms']:.4f} / {r['wall_p50_ms']:.3f}"
+                      for n, r in t.items())
+          + f"; 8-client exhaustive rounds: {fused} fused of "
+          f"{len(splits)} dispatches, shares conserved (worst "
+          f"{worst:.3g} ms); fenced bench_and device_seconds p50 "
+          f"{out['fence_device_seconds_ms_p50']:.4f} ms; bench_and p50 "
+          "stats and profiler / profiler alone / both off "
+          f"{out['on_off_p50_ms']['on']:.3f} / "
+          f"{out['on_off_p50_ms']['profiler']:.3f} / "
+          f"{out['on_off_p50_ms']['off']:.3f} ms; launches "
+          f"{json.dumps(path)}; {out['s']:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -6422,6 +6703,7 @@ def main(argv=None) -> int:
                     help="also write the full report (timings, shapes, "
                          "nvcc/ptxas output) as JSON to this path")
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
 
     import torch
 
@@ -6468,6 +6750,7 @@ def main(argv=None) -> int:
         rows += mesh_cell(args, work, report, dbs, launches)
         rows += trace_by_id_cell(args, work, report, dbs, launches)
         rows += ingest_cell(args, work, report, dbs, launches)
+        attribution_cell(args, report, launches)
     finally:
         for db in dbs:
             db.close()
@@ -6539,11 +6822,13 @@ def main(argv=None) -> int:
           f"1.11); zstd block: "
           + ("none (no libzstd)" if g["zstd_block"] is None else
              f"{g['zstd_block']['opened']} results opened"), flush=True)
+    report["run_s"] = time.perf_counter() - t_run
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
+    print(f"run: {report['run_s']:.1f} s on {smi}", flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
                                    if k != "shape"} for kr in kernels]}))
     print(smi)

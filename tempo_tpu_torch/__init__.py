@@ -20,3 +20,5 @@ Trace-by-ID is host code, as in the reference: ``db.TempoDB
 ``encoding.v2.streaming_block.StreamingBlock``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; see ``device.py``.
 """
+
+__version__ = "0.1.0"

@@ -19,7 +19,17 @@ retention:
 
 A block without a search container is searched on the host from its
 trace objects (``_fallback_search``: decode, ``model.matches``), after
-the batched pass and only while the result is not complete. Given a mesh
+the batched pass and only while the result is not complete.
+
+With ``search_query_stats_enabled`` (the default) each of the three
+searches books a query's ``QueryStats`` (``search/query_stats.py``) and
+returns its device seconds in the response's metrics; under
+``SearchRequest.explain`` its whole breakdown too (``query_stats_json``).
+The bytes the scans inspected on the device ride every response.
+``search_profiling_enabled`` opens a profiler record a device dispatch
+(``observability/profile.py``). Both gates belong to the database; the
+recent-query and recent-dispatch rings are the process's, and no
+database sets them. Given a mesh
 (``parallel.mesh.make_mesh``), or with ``auto_mesh`` once
 ``torch.distributed`` is initialized with more than one rank, the three
 searches shard every batch over the mesh's ranks (one rank per device;
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -42,7 +53,9 @@ from ..device import resolve_device
 from ..encoding.compression import usable, why_unusable
 from ..encoding.v2.backend_block import BackendBlock
 from ..encoding.v2.streaming_block import StreamingBlock
-from ..search import structural
+from ..observability import metrics as obs
+from ..observability import profile
+from ..search import query_stats, structural
 from ..search.backend_search_block import (BackendSearchBlock,
                                            write_search_block)
 from ..search.batcher import BlockBatcher, ScanJob
@@ -132,6 +145,23 @@ class TempoDBConfig:
     # with more than one rank (resolved at the first search); a mesh given
     # to TempoDB wins, at any world size
     auto_mesh: bool = True
+    # dispatch profiler (observability/profile.py): a record a device
+    # dispatch, its execute stage the device time between CUDA events.
+    # Off, every dispatch site gets the shared noop record. The fence
+    # synchronises the stream after each dispatch (triage only: it ends
+    # the dispatch/drain pipelining). Per database here; the reference's
+    # gate is process-wide.
+    search_profiling_enabled: bool = True
+    search_profiling_fence: bool = False
+    # per-query stats (search/query_stats.py): blocks and bytes, skip
+    # reasons, cache events, host stages and attributed device seconds a
+    # search, device_seconds in every response, the breakdown under
+    # SearchRequest.explain. Off, no QueryStats is created and responses
+    # are the same but for device_seconds (0), a timing. Per database
+    # here. The recent-query ring and the slow-query threshold are the
+    # process's (query_stats.configure), as are the profiler's ring
+    # (profile.configure): a database sets none of them.
+    search_query_stats_enabled: bool = True
 
     def structural(self) -> StructuralConfig:
         return StructuralConfig(
@@ -168,6 +198,8 @@ class TempoDB:
 
             self.wal = WAL(wal_dir, encoding=self.cfg.wal_encoding)
         self._structural = self.cfg.structural()
+        self.profiling = profile.Gate(self.cfg.search_profiling_enabled,
+                                      self.cfg.search_profiling_fence)
         self.blocklist = Blocklist()
         self.poller = Poller(backend, concurrency=self.cfg.pool_workers)
         self.batcher = BlockBatcher(
@@ -180,7 +212,8 @@ class TempoDB:
             coalesce_max_queries=self.cfg.search_coalesce_max_queries,
             packed=self.cfg.search_packed_residency,
             structural_cfg=self.cfg.structural(),
-            analytics_enabled=self.cfg.search_analytics_enabled)
+            analytics_enabled=self.cfg.search_analytics_enabled,
+            profiling=self.profiling)
         self.mesh = None
         # auto_mesh resolves at the first search (_ensure_mesh)
         self._mesh_resolved = mesh is not None
@@ -374,7 +407,8 @@ class TempoDB:
                     probe_min_vals=self.cfg.search_device_probe_min_vals,
                     device=self.device,
                     packed=self.cfg.search_packed_residency,
-                    structural_cfg=self.cfg.structural())
+                    structural_cfg=self.cfg.structural(),
+                    profiling=self.profiling)
                 self._search_blocks[meta.block_id] = bsb
                 while len(self._search_blocks) > self.cfg.search_cache_blocks:
                     self._search_blocks.popitem(last=False)
@@ -462,22 +496,57 @@ class TempoDB:
         trace object decoded and held against the request
         (``model.matches``), the whole block, stopping when the results
         are complete. A block counts as inspected with its data pages'
-        bytes."""
+        bytes, booked as the query's host bytes, and as one
+        ``tempo_search_fallback_scans_total``; the scan's wall time is
+        the query's ``fallback_scan`` stage."""
         from ..model.codec import codec_for
         from ..model.matches import matches, trace_search_metadata
 
-        for m in metas:
-            block = BackendBlock(self.backend, m)
-            codec = codec_for(m.data_encoding)
-            results.metrics.inspected_blocks += 1
-            results.metrics.inspected_bytes += block.bytes_in_pages(0, None)
-            for oid, obj in block.iter_objects():
-                results.metrics.inspected_traces += 1
-                trace = codec.prepare_for_read(obj)
-                if matches(trace, req, self._structural):
-                    results.add(trace_search_metadata(oid, trace))
-                if results.complete:
-                    return
+        qs = query_stats.current()
+        t0 = time.perf_counter() if qs is not None else 0.0
+        try:
+            for m in metas:
+                block = BackendBlock(self.backend, m)
+                codec = codec_for(m.data_encoding)
+                obs.fallback_scans.inc(tenant=m.tenant_id)
+                results.metrics.inspected_blocks += 1
+                nbytes = block.bytes_in_pages(0, None)
+                results.metrics.inspected_bytes += nbytes
+                if qs is not None:
+                    qs.add_inspected(blocks=1, nbytes=nbytes,
+                                     placement="host")
+                for oid, obj in block.iter_objects():
+                    results.metrics.inspected_traces += 1
+                    trace = codec.prepare_for_read(obj)
+                    if matches(trace, req, self._structural):
+                        results.add(trace_search_metadata(oid, trace))
+                    if results.complete:
+                        return
+        finally:
+            if qs is not None:
+                qs.add_stage("fallback_scan", time.perf_counter() - t0)
+
+    def _begin(self, tenant: str, req):
+        """This database's QueryStats for a search, or None with its
+        stats gate off."""
+        return query_stats.begin(
+            tenant, req, enabled=self.cfg.search_query_stats_enabled)
+
+    @staticmethod
+    def _finalize_query_stats(qs, req, results: SearchResults) -> None:
+        """Close the query's record and put it on the response: the device
+        seconds always ride the metrics, the JSON breakdown (the
+        reference's keys, sorted) only under ``req.explain``. finish()
+        also publishes to the process registry. (The device bytes are
+        booked by the scans themselves, stats on or off, so a database
+        with its stats off answers as one with them on, the timing
+        aside; the reference books them here.)"""
+        d = qs.finish()
+        m = results.metrics
+        m.device_seconds += d["device_seconds"]
+        if getattr(req, "explain", False):
+            m.query_stats_json = json.dumps(d, separators=(",", ":"),
+                                            sort_keys=True)
 
     def search(self, tenant: str, req,
                results: SearchResults | None = None) -> SearchResults:
@@ -488,16 +557,23 @@ class TempoDB:
         count as skipped)."""
         self._ensure_mesh()
         results = results or SearchResults.for_request(req)
-        epoch = self.blocklist.epoch()
-        jobs, fallback = self._jobs(tenant, epoch)
-        self.batcher.search(jobs, req, results,
-                            plan_key=(tenant, epoch, len(jobs)))
-        if fallback and not results.complete:
-            live = [m for m in fallback
-                    if self._include_block(m, "", "", req.start, req.end)]
-            results.metrics.skipped_blocks += len(fallback) - len(live)
-            if live:
-                self._fallback_search(live, req, results)
+        qs = self._begin(tenant, req)
+        with query_stats.activate(qs):
+            epoch = self.blocklist.epoch()
+            jobs, fallback = self._jobs(tenant, epoch)
+            self.batcher.search(jobs, req, results,
+                                plan_key=(tenant, epoch, len(jobs)))
+            if fallback and not results.complete:
+                live = [m for m in fallback
+                        if self._include_block(m, "", "", req.start,
+                                               req.end)]
+                results.metrics.skipped_blocks += len(fallback) - len(live)
+                if qs is not None and len(fallback) > len(live):
+                    qs.add_skip("time_range", len(fallback) - len(live))
+                if live:
+                    self._fallback_search(live, req, results)
+            if qs is not None:
+                self._finalize_query_stats(qs, req, results)
         return results
 
     def search_block(self, req) -> SearchResults:
@@ -517,19 +593,25 @@ class TempoDB:
         self._ensure_mesh()
         sr = req.search_req
         results = SearchResults.for_request(sr)
-        try:
-            job = self._scan_job(meta, req.start_page,
-                                 req.pages_to_search or None)
-        except DoesNotExist:
-            structural.structural_query(sr, self._structural)  # refuse first
-            if req.start_page == 0:
-                if self._include_block(meta, "", "", sr.start, sr.end):
-                    self._fallback_search([meta], sr, results)
-                else:
-                    results.metrics.skipped_blocks += 1
-            return results
-        if job.n_pages > 0:
-            self.batcher.search([job], sr, results)
+        qs = self._begin(req.tenant_id, sr)
+        with query_stats.activate(qs):
+            try:
+                job = self._scan_job(meta, req.start_page,
+                                     req.pages_to_search or None)
+            except DoesNotExist:
+                structural.structural_query(sr, self._structural)  # refuse
+                if req.start_page == 0:
+                    if self._include_block(meta, "", "", sr.start, sr.end):
+                        self._fallback_search([meta], sr, results)
+                    else:
+                        results.metrics.skipped_blocks += 1
+                        if qs is not None:
+                            qs.add_skip("time_range")
+                job = None
+            if job is not None and job.n_pages > 0:
+                self.batcher.search([job], sr, results)
+            if qs is not None:
+                self._finalize_query_stats(qs, sr, results)
         return results
 
     def search_blocks(self, breq) -> SearchResults:
@@ -544,6 +626,15 @@ class TempoDB:
         self._ensure_mesh()
         req = breq.search_req
         results = SearchResults.for_request(req)
+        qs = self._begin(breq.tenant_id, req)
+        with query_stats.activate(qs):
+            self._search_blocks_impl(breq, req, results, qs)
+            if qs is not None:
+                self._finalize_query_stats(qs, req, results)
+        return results
+
+    def _search_blocks_impl(self, breq, req, results: SearchResults,
+                            qs) -> None:
         sig = (breq.tenant_id,
                tuple((j.block_id, j.start_page, j.pages_to_search,
                       j.encoding, j.version, j.data_encoding)
@@ -604,9 +695,10 @@ class TempoDB:
                 break
             if not self._include_block(meta, "", "", req.start, req.end):
                 results.metrics.skipped_blocks += 1
+                if qs is not None:
+                    qs.add_skip("time_range")
                 continue
             self._fallback_search([meta], req, results)
-        return results
 
     def _remember_breq(self, sig: tuple, hit: tuple) -> None:
         with self._lock:

@@ -21,6 +21,9 @@ class SearchRequest:
     limit: int = 0
     start: int = 0   # unix seconds
     end: int = 0     # unix seconds
+    # ?explain=1: the response carries the query's execution breakdown
+    # (SearchMetrics.query_stats_json; search/query_stats.py)
+    explain: bool = False
 
 
 @dataclass
@@ -87,6 +90,12 @@ class SearchMetrics:
     # the ?agg= answer as canonical JSON (search/analytics.py), "" when
     # the request asked for none or its gate is off
     agg_json: str = ""
+    # device seconds attributed to this query (search/query_stats.py; 0
+    # with the database's query stats off), the bytes it inspected on the
+    # device, and under SearchRequest.explain its whole breakdown
+    device_seconds: float = 0.0
+    inspected_bytes_device: int = 0
+    query_stats_json: str = ""
 
 
 @dataclass

@@ -1,0 +1,101 @@
+"""Structured logging with per-tenant rate limiting.
+
+Role-equivalent to the reference's go-kit logger + rate-limited tenant
+logger (pkg/util/log/log.go:157).
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import threading
+import time
+
+
+def get_logger(name: str = "tempo_tpu_torch") -> logging.Logger:
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        h = logging.StreamHandler(sys.stderr)
+        h.setFormatter(logging.Formatter(
+            'ts=%(asctime)s level=%(levelname)s logger=%(name)s msg="%(message)s"',
+            datefmt="%Y-%m-%dT%H:%M:%S",
+        ))
+        logger.addHandler(h)
+        logger.setLevel(logging.INFO)
+    return logger
+
+
+class TenantTokenBucket:
+    """PER-TENANT token buckets (at most `rate` events/s, burst `burst`,
+    each) under a process-wide ceiling: a pathological tenant must not
+    turn a diagnostic channel into the incident, AND must not starve
+    every OTHER tenant's events — during tenant A's flood, tenant B's
+    occasional line is exactly the diagnostic the channel exists for.
+    Bucket state is bounded LRU. Shared by the slow-query log
+    (search/query_stats.py) and the slow-flush log
+    (observability/ingest_telemetry.py)."""
+
+    _MAX_TENANTS = 1024
+
+    def __init__(self, rate: float = 1.0, burst: int = 5,
+                 global_rate: float = 10.0, global_burst: int = 20):
+        from collections import OrderedDict
+
+        self.rate = rate
+        self.burst = burst
+        self.global_rate = global_rate
+        self.global_burst = global_burst
+        # true LRU (move-to-end on every allow): FIFO eviction would let
+        # a flooding tenant's depleted bucket be pushed out by newcomer
+        # tenants and re-created with a fresh burst — exceeding the
+        # advertised per-tenant rate under tenant churn
+        self._buckets: "OrderedDict[str, list]" = OrderedDict()
+        self._global = [float(global_burst), time.monotonic()]
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _take(bucket: list, rate: float, burst: float, now: float) -> bool:
+        bucket[0] = min(burst, bucket[0] + (now - bucket[1]) * rate)
+        bucket[1] = now
+        if bucket[0] >= 1.0:
+            bucket[0] -= 1.0
+            return True
+        return False
+
+    def allow(self, tenant: str) -> bool:
+        with self._lock:
+            now = time.monotonic()
+            b = self._buckets.get(tenant)
+            if b is None:
+                if len(self._buckets) >= self._MAX_TENANTS:
+                    self._buckets.popitem(last=False)
+                b = self._buckets[tenant] = [float(self.burst), now]
+            else:
+                self._buckets.move_to_end(tenant)
+            # tenant bucket first: a per-tenant refusal must not burn a
+            # global token another tenant could have used
+            return (self._take(b, self.rate, self.burst, now)
+                    and self._take(self._global, self.global_rate,
+                                   self.global_burst, now))
+
+
+class RateLimitedLogger:
+    """At most `rate` messages/sec per tenant; the rest are dropped with a
+    drop counter (prevents one noisy tenant from flooding logs)."""
+
+    def __init__(self, logger: logging.Logger, rate: float = 10.0):
+        self.logger = logger
+        self.rate = rate
+        self._state: dict[str, tuple[float, float]] = {}  # tenant -> (tokens, t)
+        self.dropped = 0
+
+    def log(self, tenant: str, msg: str, level: int = logging.WARNING) -> None:
+        now = time.monotonic()
+        tokens, t = self._state.get(tenant, (self.rate, now))
+        tokens = min(self.rate, tokens + (now - t) * self.rate)
+        if tokens >= 1:
+            self._state[tenant] = (tokens - 1, now)
+            self.logger.log(level, "tenant=%s %s", tenant, msg)
+        else:
+            self._state[tenant] = (tokens, now)
+            self.dropped += 1

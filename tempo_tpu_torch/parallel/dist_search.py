@@ -26,7 +26,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..search import dict_probe, packing, structural
+from ..observability import profile
+from ..search import dict_probe, packing, query_stats, structural
 from ..search.columnar import ColumnarPages
 from ..search.engine import (DEFAULT_TOP_K, ScanEngine, StagedPages,
                              fetch_scan_out, pad_page_axis, resolve_top_k)
@@ -58,16 +59,20 @@ class DistributedScanEngine:
 
     def __init__(self, exchange, device: torch.device,
                  top_k: int = DEFAULT_TOP_K, probe_min_vals: int | None = 0,
-                 structural_cfg: structural.StructuralConfig = structural.OFF):
+                 structural_cfg: structural.StructuralConfig = structural.OFF,
+                 profiling: profile.Gate = profile.OFF):
         """`probe_min_vals`: the device-probe staging threshold (None =
         dict_probe.DEVICE_PROBE_MIN_VALS; <= 0, the default, stages no
-        dictionary). `structural_cfg`: as for ScanEngine's stage."""
+        dictionary). `structural_cfg`: as for ScanEngine's stage.
+        `profiling`: the gate of the chain's ``mesh`` record."""
         self.exchange = exchange
         self.device = torch.device(device)
         self.top_k = top_k
         self.probe_min_vals = probe_min_vals
         self.structural_cfg = structural_cfg
-        # the local step, and the compile cache of the blocks served
+        self.profiling = profiling
+        # the local step (unprofiled: the chain is one record), and the
+        # compile cache of the blocks served
         self.local = ScanEngine(self.device, top_k)
 
     # ---- staging
@@ -103,10 +108,12 @@ class DistributedScanEngine:
                         for k, v in cols.items()},
                 pages=pages, span_device=span_dev, span_max_run=max_run,
                 staged_dict=None if pd is None else
-                dict_probe.place_device_dict(pd.shard(r), self.device)))
+                dict_probe.place_device_dict(pd.shard(r), self.device,
+                                             self.profiling)))
         staged = None if pd is None else dict_probe.ShardedDeviceDict(
             packed=pd, exchange=ex,
-            shards=tuple(s.staged_dict for s in shards))
+            shards=tuple(s.staged_dict for s in shards),
+            profiling=self.profiling)
         return ShardedPages(shards=shards, ranks=tuple(ex.ranks), exchange=ex,
                             n_pages=pages.n_pages, pages=pages,
                             local_flat=B // S * E, staged_dict=staged,
@@ -129,24 +136,35 @@ class DistributedScanEngine:
                 dict_fingerprint(pages, pages.key_dict, pages.val_dict):
                 sp.staged_dict}
             cq.structural = structural.compile_structural(
-                expr, [pages], staged_dicts=staged)
+                expr, [pages], staged_dicts=staged,
+                entry_kv_slots=pages.geometry.kv_per_entry)
         return cq
 
     def scan_staged_async(self, sp: ShardedPages, cq: CompiledQuery):
         """The B10 chain: K6?, K1s and K2 over each local shard, the
         exchange, K9; device tensors (counts [2] = (match count,
-        inspected), top-k scores, top-k flat indices), no sync."""
+        inspected), top-k scores, top-k flat indices), no sync. The chain
+        is one ``mesh`` record, which the fetch finishes."""
         k = resolve_top_k(self.top_k, cq.limit)
-        outs, counts, top_s, top_i = dist_k.exchange_merge(
-            sp.exchange, sp.shards, sp.ranks,
-            lambda s, r: self.local.scan_staged_async(s, cq),
-            lambda o: o[:1], lambda o: torch.stack(o[1:3])[:, None],
-            sp.local_flat, k, dist_k.SINGLE_LAUNCHES)
-        return counts.to(outs[0][0].dtype), top_s[0], top_i[0]
+        rec = self.profiling.dispatch("mesh", self.device)
+        rec.compile_check(("scan", "topk", "dist")
+                          + (("structural",) if cq.structural is not None
+                             else ()))
+        with rec.launch():
+            outs, counts, top_s, top_i = dist_k.exchange_merge(
+                sp.exchange, sp.shards, sp.ranks,
+                lambda s, r: self.local.scan_staged_async(s, cq),
+                lambda o: o[:1], lambda o: torch.stack(o[1:3])[:, None],
+                sp.local_flat, k, dist_k.SINGLE_LAUNCHES)
+        rec.set(n_pages=sp.n_pages, shards=sp.exchange.world)
+        return rec.attach((counts.to(outs[0][0].dtype), top_s[0], top_i[0]))
 
     def scan_staged(self, sp: ShardedPages, cq: CompiledQuery) -> tuple:
-        """(count, inspected, scores, idx) on the host."""
-        return fetch_scan_out(self.scan_staged_async(sp, cq))
+        """(count, inspected, scores, idx) on the host. The dispatch is
+        attributed to the active query stats here (a caller's own
+        attribution around it then bills nothing twice)."""
+        with query_stats.attributed_dispatch(device=self.device):
+            return fetch_scan_out(self.scan_staged_async(sp, cq))
 
     def scan(self, pages: ColumnarPages, cq: CompiledQuery) -> tuple:
         return self.scan_staged(self.stage(pages), cq)

@@ -139,11 +139,14 @@ def worker_main(process_id: int, num_processes: int, port: int,
                  TempoDBConfig(**spec["cfg"]), device="cpu")
     try:
         db.poll()
-        responses = [digest(db.search(TENANT, SearchRequest(
-            tags=dict(tags), **kw))) for tags, kw in spec["requests"]]
+        answers = [db.search(TENANT, SearchRequest(tags=dict(tags), **kw))
+                   for tags, kw in spec["requests"]]
+        # the query stats of a request with explain: each rank's own
+        stats = [json.loads(a.metrics.query_stats_json)
+                 if a.metrics.query_stats_json else None for a in answers]
         out = {"process_id": process_id,
                "world": 1 if db.mesh is None else db.mesh.size(),
-               "responses": responses}
+               "responses": [digest(a) for a in answers], "stats": stats}
     finally:
         db.close()
     with open(os.path.join(root, f"digest-{process_id}.json"), "w") as f:
@@ -164,8 +167,9 @@ def run(n_processes: int = 2, cfg: dict | None = None,
     the rank processes, wait at most `timeout_s` for all of them (then
     kill them all and raise), and check that every rank answered alike
     and that every request whose limit covers its matches returned
-    exactly the oracle's traces. Returns {"world", "responses"}: the
-    common answer, one digest per request."""
+    exactly the oracle's traces. Returns {"world", "responses",
+    "stats"}: the common answer, one digest per request, and each rank's
+    query stats per request (those of a request with ``explain``)."""
     cfg = dict(cfg or {})
     requests = requests or default_requests()
     with tempfile.TemporaryDirectory() as tmp:
@@ -219,7 +223,8 @@ def run(n_processes: int = 2, cfg: dict | None = None,
             if ids != want:
                 raise AssertionError(
                     f"{tags} {kw}: {len(ids)} traces, oracle {len(want)}")
-    return {"world": n_processes, "responses": base}
+    return {"world": n_processes, "responses": base,
+            "stats": [d["stats"] for d in digests]}
 
 
 if __name__ == "__main__":

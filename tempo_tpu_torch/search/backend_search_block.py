@@ -24,9 +24,10 @@ from ..backend.raw import RawBackend
 from ..backend.types import NAME_SEARCH, NAME_SEARCH_HEADER, BlockMeta
 from ..device import resolve_device
 from ..encoding.compression import compress, decompress
+from ..observability import profile
 from .columnar import ColumnarPages, PageGeometry
 from .data import SearchData
-from . import structural
+from . import query_stats, structural
 from .engine import ScanEngine, StagedPages, stage
 from .pipeline import block_header_skip_reason, compile_query, \
     dict_fingerprint
@@ -81,7 +82,8 @@ class BackendSearchBlock:
                  header: dict | None = None,
                  probe_min_vals: int | None = None, device=None,
                  packed: bool = False,
-                 structural_cfg: structural.StructuralConfig = structural.OFF):
+                 structural_cfg: structural.StructuralConfig = structural.OFF,
+                 profiling: profile.Gate = profile.OFF):
         """`header`: an already-fetched rollup (saves one backend read).
         `probe_min_vals`: the device-probe staging threshold
         (TempoDBConfig.search_device_probe_min_vals; None = 50k, <= 0 =
@@ -91,12 +93,14 @@ class BackendSearchBlock:
         search_packed_residency; packing.py). `structural_cfg`: the
         database's structural gate (TempoDBConfig.search_structural_*);
         on, the block stages its span segment and structural requests are
-        served."""
+        served. `profiling`: the database's profiling gate (the search's
+        ``single`` record, the staging's h2d observation)."""
         self.backend = backend
         self.meta = meta
         self.probe_min_vals = probe_min_vals
         self.packed = packed
         self.structural_cfg = structural_cfg
+        self.profiling = profiling
         self.device = resolve_device(device)
         self._header = header
         self._pages: ColumnarPages | None = None
@@ -128,7 +132,8 @@ class BackendSearchBlock:
                 return self._staged
         sp = stage(self.pages(), self.device,
                    probe_min_vals=self.probe_min_vals, packed=self.packed,
-                   spans=self.structural_cfg.enabled)
+                   spans=self.structural_cfg.enabled,
+                   profiling=self.profiling)
         with self._lock:
             if self._staged is None:
                 self._staged = sp
@@ -138,7 +143,8 @@ class BackendSearchBlock:
         """The block's own single-block engine (and compile cache)."""
         with self._lock:
             if self._engine is None:
-                self._engine = ScanEngine(self.device, packed=self.packed)
+                self._engine = ScanEngine(self.device, packed=self.packed,
+                                          profiling=self.profiling)
             return self._engine
 
     def search(self, req,
@@ -146,33 +152,51 @@ class BackendSearchBlock:
         """Answer `req` from this block alone, adding to `results`. The
         block counts as inspected; a header or dictionary prune counts it
         as skipped too, as the reference does. A structural request is
-        refused (ValueError) when the gate is off."""
+        refused (ValueError) when the gate is off. The active query stats
+        book the skip and its reason, the compile's probe and the scan's
+        dispatch, and the block's bytes."""
         expr = structural.structural_query(req, self.structural_cfg)
         engine = self.engine()
         results = results or SearchResults.for_request(req)
+        qs = query_stats.current()
         m = results.metrics
         m.inspected_blocks += 1
-        if block_header_skip_reason(self.header(), req) is not None:
+        reason = block_header_skip_reason(self.header(), req)
+        if reason is not None:
             m.skipped_blocks += 1
+            if qs is not None:
+                qs.add_skip(reason)
             return results
         sp = self.staged()
-        cq = compile_query(sp.pages.key_dict, sp.pages.val_dict, req,
-                           cache_on=sp.pages, cache=engine.compile_cache,
-                           staged_dict=sp.staged_dict, packed=engine.packed)
+        with query_stats.attributed_dispatch(qs):
+            cq = compile_query(sp.pages.key_dict, sp.pages.val_dict, req,
+                               cache_on=sp.pages, cache=engine.compile_cache,
+                               staged_dict=sp.staged_dict,
+                               packed=engine.packed)
+            if cq is not None and expr is not None:
+                pages = sp.pages
+                staged = None if sp.staged_dict is None else {
+                    dict_fingerprint(pages, pages.key_dict, pages.val_dict):
+                    sp.staged_dict}
+                cq.structural = structural.compile_structural(
+                    expr, [pages], staged_dicts=staged, packed=engine.packed,
+                    entry_kv_slots=pages.geometry.kv_per_entry)
+                if qs is not None:
+                    qs.add_structural(cq.structural)
         if cq is None:
             m.skipped_blocks += 1
+            if qs is not None:
+                qs.add_skip("dict")
             return results
-        if expr is not None:
-            pages = sp.pages
-            staged = None if sp.staged_dict is None else {
-                dict_fingerprint(pages, pages.key_dict, pages.val_dict):
-                sp.staged_dict}
-            cq.structural = structural.compile_structural(
-                expr, [pages], staged_dicts=staged, packed=engine.packed)
-        _count, inspected, scores, idx = engine.scan_staged(sp, cq)
+        with query_stats.attributed_dispatch(qs, self.device):
+            _count, inspected, scores, idx = engine.scan_staged(sp, cq)
         hdr = self.header()
+        nbytes = int(hdr.get("compressed_size", 0))
         m.inspected_traces += inspected
-        m.inspected_bytes += int(hdr.get("compressed_size", 0))
+        m.inspected_bytes += nbytes
+        m.inspected_bytes_device += nbytes
+        if qs is not None:
+            qs.add_inspected(blocks=1, nbytes=nbytes, placement="device")
         m.truncated_entries += int(hdr.get("truncated_entries", 0) or 0)
         for meta in engine.results(sp, cq, scores, idx):
             results.add(meta)

@@ -54,11 +54,17 @@ the two kernels. What the grouping keeps from the reference:
   a background thread could order them differently on two ranks; at
   world size 1 the coalescer fuses through the dist coalesced chain.
 
+- **attributed**: a search books into its active ``QueryStats``
+  (``query_stats.py``) its skip reasons, the staged cache as it saw it,
+  the bytes it inspected and staged, its structural plan, its host
+  stages, and the device stages of every dispatch it ran; the coalescer
+  splits a fused dispatch's stages over its members by their table
+  weights (``QueryCoalescer._attribute``), when the dispatch's record
+  finishes at the first member's fetch.
+
 Left out of this slice on purpose, each listed in ROADMAP.md: the
 breaker's host route and ``host_scan``, the dispatch watchdog, HBM
-ownership and hedging, per-query stats and profiling (and the
-coalescer's attribution of a fused dispatch's cost), and the host-RAM
-tier of the staged cache.
+ownership and hedging, and the host-RAM tier of the staged cache.
 Nothing here falls back to the CPU: a batch is staged on the engine's
 device and scanned there, and a fused dispatch that raises fails every
 member.
@@ -76,7 +82,8 @@ import contextlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
-from . import structural
+from ..observability import profile
+from . import query_stats, structural
 from .analytics import agg_requested, stage_for_batch
 from .engine import (DEFAULT_TOP_K, fetch_coalesced_out, fetch_scan_out,
                      resolve_top_k)
@@ -132,6 +139,41 @@ def _predicate_sig(req) -> tuple:
             req.tags.get(structural.STRUCTURAL_QUERY_TAG, ""))
 
 
+def _skip_reason_counts(skip: list, reasons: list) -> dict:
+    """reason -> count over the skipped jobs: the header prune's reason
+    (time_range, duration), or dict for a job skipped beyond it (no value
+    of its dictionary satisfies a term)."""
+    out: dict = {}
+    for s, r in zip(skip, reasons):
+        if s:
+            key = r or "dict"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _table_weight(mq) -> int:
+    """A member's weight in a fused dispatch's split: its tag-table
+    elements, plus its own structural plan's table elements."""
+    w = max(1, int(mq.term_keys.size))
+    if mq.structural is not None:
+        w += mq.structural.weight()
+    return w
+
+
+def _abandon_out(out) -> None:
+    """A dispatch's outputs that its search drops without fetching: its
+    record finishes without them (``profile.Dispatch.detach``)."""
+    if isinstance(out, _FusedSlice):
+        out.abandon()
+    else:
+        profile.record_of(out).detach()
+
+
+def _abandon_done(fut: concurrent.futures.Future) -> None:
+    if not fut.cancelled() and fut.exception() is None:
+        _abandon_out(fut.result())
+
+
 class _PendingCoalesce:
     """Queries waiting on one staged batch for the window to close."""
 
@@ -140,23 +182,39 @@ class _PendingCoalesce:
     def __init__(self, batch, gen: int):
         self.batch = batch
         self.gen = gen
-        self.items: list = []     # [(mq, top_k, Future)]
+        self.items: list = []     # [(mq, top_k, Future, QueryStats|None)]
 
 
 class _FusedOut:
     """One fused dispatch's device outputs, fetched lazily: the first
     member to drain claims the one device-to-host copy and makes it
     outside any lock; later members wait on the event. A failed fetch is
-    raised to every member."""
+    raised to every member. The fetch finishes the dispatch's record, so
+    its stages split over the members then. If every member abandons its
+    slice unfetched, the last one detaches the record."""
 
-    __slots__ = ("_out", "_host", "_exc", "_claimed", "_done")
+    __slots__ = ("_out", "_host", "_exc", "_claimed", "_done", "_n",
+                 "_abandons", "_lock")
 
-    def __init__(self, out):
+    def __init__(self, out, n_members: int = 1):
         self._out = out
         self._host = None
         self._exc = None
         self._claimed = threading.Lock()
         self._done = threading.Event()
+        self._n = n_members
+        self._abandons = 0
+        self._lock = threading.Lock()
+
+    def abandon(self) -> None:
+        with self._lock:
+            self._abandons += 1
+            last = self._abandons >= self._n
+        if last and self._claimed.acquire(blocking=False):
+            out, self._out = self._out, None
+            self._exc = RuntimeError("every member abandoned the dispatch")
+            self._done.set()
+            profile.record_of(out).detach()
 
     def host(self) -> tuple:
         if not self._done.is_set() and self._claimed.acquire(blocking=False):
@@ -191,6 +249,9 @@ class _FusedSlice:
         qi = self._qi
         return iter((int(counts[qi]), inspected, scores[qi], idx[qi])
                     + tuple(a[qi] for a in agg))
+
+    def abandon(self) -> None:
+        self._shared.abandon()
 
 
 class _Lookahead:
@@ -242,7 +303,11 @@ class QueryCoalescer:
     dispatches alone at once; with it on it waits with same-plan peers
     (same-bucket peers with bucketing), apart from plain queries. A query
     asking for an aggregate waits only with others that do: a fused
-    group runs K7 for every member or for none."""
+    group runs K7 for every member or for none.
+
+    Each item carries its submitter's active ``QueryStats`` (the
+    contextvar does not reach the flush threads); a dispatch's stages
+    split over its members when its record finishes (``_attribute``)."""
 
     def __init__(self, engine: MultiBlockEngine, window_s: float = 0.003,
                  max_queries: int = 8, active_fn=None):
@@ -268,6 +333,9 @@ class QueryCoalescer:
         self.structural_queries = 0   # structural queries served
         self.structural_stacked = 0   # ...that shared a fused dispatch
         self.structural_bucketed = 0  # ...whose fused group mixed plans
+        # bucket descriptor -> {queries, dispatches, active_nodes,
+        # slot_nodes}: mixed-plan fusion's padding, per bucket
+        self._bucket_stats: dict[str, dict] = {}
 
     def submit(self, batch, mq, top_k: int,
                peers: int | None = None) -> concurrent.futures.Future:
@@ -275,6 +343,7 @@ class QueryCoalescer:
         to the device outputs of a solo dispatch (as ``scan_async``
         returns them) or to a _FusedSlice of a fused one."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
+        qs = query_stats.current()
         key = (id(batch), None)
         if mq.structural is not None:
             skey = self.engine.structural_cfg.stack_group_key(batch,
@@ -282,7 +351,7 @@ class QueryCoalescer:
             if skey is None:
                 # stacking off: dispatch alone, now
                 grp = _PendingCoalesce(batch, -1)
-                grp.items.append((mq, top_k, fut))
+                grp.items.append((mq, top_k, fut, qs))
                 self._run(grp)
                 return fut
             key = skey
@@ -296,7 +365,7 @@ class QueryCoalescer:
             if grp is None:
                 self._gen += 1
                 grp = self._pending[key] = _PendingCoalesce(batch, self._gen)
-            grp.items.append((mq, top_k, fut))
+            grp.items.append((mq, top_k, fut, qs))
             if len(grp.items) >= self.max_queries:
                 del self._pending[key]
                 flush_now = grp
@@ -375,7 +444,7 @@ class QueryCoalescer:
         dispatch runs in a frame of its own that empties the group first,
         so once a member sees its outputs this thread holds nothing of
         the batch or the members' queries."""
-        futs = [fut for _mq, _k, fut in grp.items]
+        futs = [item[2] for item in grp.items]
         try:
             outs = self._dispatch(grp)
         except BaseException as e:  # noqa: BLE001 -- set on every member
@@ -387,10 +456,14 @@ class QueryCoalescer:
             fut.set_result(out)
 
     def _dispatch(self, grp: _PendingCoalesce) -> list:
-        """The group's dispatch, solo or fused: each member's outputs."""
+        """The group's dispatch, solo or fused: each member's outputs.
+        Its record's stages split over the members' stats when it
+        finishes. With profiling off, on the CPU the launch's wall time
+        books as execute at once; on a CUDA device nothing does (see
+        ``query_stats.wall_is_device_time``)."""
         batch, items = grp.batch, grp.items
         grp.batch, grp.items = None, []
-        sts = [mq.structural for mq, _k, _f in items]
+        sts = [item[0].structural for item in items]
         with self._lock:
             self.dispatches += 1
             self.queries += len(items)
@@ -402,17 +475,72 @@ class QueryCoalescer:
                     self.structural_stacked += len(items)
                     if any(st.plan != sts[0].plan for st in sts[1:]):
                         self.structural_bucketed += len(items)
-        if len(items) == 1:
-            return [self.engine.scan_async(batch, items[0][0])]
-        cq = stack_queries([mq for mq, _k, _f in items],
-                           self.engine.structural_cfg.bucket_max_nodes)
-        k = max(k for _mq, k, _f in items)
-        shared = _FusedOut(self.engine.coalesced_scan_async(batch, cq, k))
-        return [_FusedSlice(shared, qi) for qi in range(len(items))]
+        stats = [item[3] for item in items]
+        on_record = None
+        if any(qs is not None for qs in stats):
+            weights = [_table_weight(item[0]) for item in items]
+
+            def on_record(rec, stats=stats, weights=weights):
+                self._attribute(stats, weights, dict(rec.stages),
+                                rec.h2d_bytes)
+            wall_ok = query_stats.wall_is_device_time(self.engine.device)
+            t0 = time.perf_counter()
+        with profile.collect_records(on_record) as recs:
+            if len(items) == 1:
+                outs = [self.engine.scan_async(batch, items[0][0])]
+            else:
+                cq = stack_queries([item[0] for item in items],
+                                   self.engine.structural_cfg
+                                   .bucket_max_nodes)
+                self._book_bucket(cq.structural)
+                k = max(item[1] for item in items)
+                shared = _FusedOut(
+                    self.engine.coalesced_scan_async(batch, cq, k),
+                    len(items))
+                outs = [_FusedSlice(shared, qi) for qi in range(len(items))]
+        if on_record is not None:
+            if not recs.opened and wall_ok:
+                self._attribute(stats, weights,
+                                {"execute": time.perf_counter() - t0}, 0)
+            for rec in recs.opened:
+                if not rec.finished:
+                    for qs in stats:
+                        if qs is not None:
+                            qs.track(rec)
+        return outs
+
+    @staticmethod
+    def _attribute(stats: list, weights: list, totals: dict,
+                   h2d: float) -> None:
+        """Split one (possibly fused) dispatch's stage seconds and h2d
+        bytes over the members' stats by their table weights
+        (``_table_weight``): per stage the shares sum exactly to the
+        dispatch's total (``query_stats.apportion``)."""
+        shares = query_stats.apportion(totals, weights)
+        byte_shares = query_stats.apportion({"b": float(h2d)}, weights)
+        for qs, share, bs in zip(stats, shares, byte_shares):
+            if qs is not None:
+                qs.add_device_stages(share, h2d_bytes=bs["b"],
+                                     fused_q=len(stats))
+
+    def _book_bucket(self, st) -> None:
+        """A mixed-plan fused dispatch's bucket occupancy: its members'
+        real nodes against the bucket's slots."""
+        if st is None or not getattr(st, "slot_nodes", 0):
+            return
+        with self._lock:
+            row = self._bucket_stats.setdefault(
+                str(st.plan), {"queries": 0, "dispatches": 0,
+                               "active_nodes": 0, "slot_nodes": 0})
+            row["queries"] += st.n_queries
+            row["dispatches"] += 1
+            row["active_nodes"] += st.active_nodes
+            row["slot_nodes"] += st.slot_nodes
 
     def stats(self) -> dict:
         with self._lock:
             pending = sum(len(g.items) for g in self._pending.values())
+            rows = {bk: dict(row) for bk, row in self._bucket_stats.items()}
             return {"dispatches": self.dispatches,
                     "fused_dispatches": self.fused,
                     "queries": self.queries,
@@ -422,7 +550,20 @@ class QueryCoalescer:
                     "window_ms": self.window_s * 1e3,
                     "structural_queries": self.structural_queries,
                     "structural_stacked": self.structural_stacked,
-                    "structural_bucketed": self.structural_bucketed}
+                    "structural_stack_ratio": round(
+                        self.structural_stacked
+                        / max(1, self.structural_queries), 3),
+                    "structural_bucketed": self.structural_bucketed,
+                    "buckets": {
+                        bk: {"queries": row["queries"],
+                             "dispatches": row["dispatches"],
+                             "stack_ratio": round(
+                                 row["queries"]
+                                 / max(1, row["dispatches"]), 3),
+                             "occupancy": round(
+                                 row["active_nodes"]
+                                 / max(1, row["slot_nodes"]), 3)}
+                        for bk, row in rows.items()}}
 
     def close(self) -> None:
         """Stop the scheduler thread and the flush pool. Queries still
@@ -458,17 +599,19 @@ class BlockBatcher:
                  coalesce_max_queries: int = 8,
                  packed: bool = False,
                  structural_cfg: structural.StructuralConfig = structural.OFF,
-                 analytics_enabled: bool = False):
+                 analytics_enabled: bool = False,
+                 profiling: profile.Gate = profile.OFF):
         """`coalesce_max_queries` <= 1 disables coalescing: every
         dispatch runs at once, on the caller's thread. `packed` stages
         batches in the packed layout (packing.py). `structural_cfg`: the
         database's structural gate and stacking knobs.
         `analytics_enabled`: the database's ?agg= gate (analytics.py);
-        off, the tag is ignored. ``set_exchange`` shards it over a
-        mesh."""
+        off, the tag is ignored. `profiling`: the database's profiling
+        gate. ``set_exchange`` shards it over a mesh."""
         self.engine = MultiBlockEngine(
             device, top_k=top_k, device_probe_min_vals=device_probe_min_vals,
-            packed=packed, structural_cfg=structural_cfg)
+            packed=packed, structural_cfg=structural_cfg,
+            profiling=profiling)
         self.max_batch_pages = max_batch_pages
         self.cache_bytes = cache_bytes
         self.pipeline_depth = max(1, pipeline_depth)
@@ -677,11 +820,17 @@ class BlockBatcher:
 
     def _abandon(self, inflight: deque) -> None:
         """Drop a search's undrained dispatches: a query still parked in
-        the coalescer is withdrawn from its pending group."""
-        if self.coalescer is not None:
-            for _cached, _mq, _pre, out in inflight:
-                if isinstance(out, concurrent.futures.Future):
-                    self.coalescer.withdraw(out)
+        the coalescer is withdrawn from its pending group; a dispatch that
+        ran (or will, its flush having taken the query) finishes its
+        record without a fetch, so its cost still reaches its members."""
+        for _cached, _mq, _pre, out in inflight:
+            if isinstance(out, concurrent.futures.Future):
+                if self.coalescer is not None \
+                        and self.coalescer.withdraw(out):
+                    continue
+                out.add_done_callback(_abandon_done)
+            else:
+                _abandon_out(out)
         inflight.clear()
 
     def _release_locked(self, gkey) -> None:
@@ -711,6 +860,13 @@ class BlockBatcher:
         results = results or SearchResults.for_request(req)
         exhaustive = is_exhaustive(req)
         want_agg = self.analytics_enabled and agg_requested(req)
+        # the active query stats (None with the database's stats off):
+        # every booking below sits behind this one read, and so does
+        # every clock read of the host stages
+        qs = query_stats.current()
+        stages = (None if qs is None else
+                  {"header_prune": 0.0, "staging": 0.0, "prepare": 0.0,
+                   "dispatch": 0.0, "drain": 0.0})
         if groups is None:
             groups = self._plan_for(jobs, plan_key)
         # the plan is final: declare the groups this search will scan, so
@@ -728,6 +884,7 @@ class BlockBatcher:
         dispatches = 0
 
         def drain_one():
+            t0 = time.perf_counter() if qs is not None else 0.0
             cached, mq, pre, out = inflight.popleft()
             if isinstance(out, concurrent.futures.Future):
                 out = out.result()
@@ -747,29 +904,44 @@ class BlockBatcher:
             m = results.metrics
             m.inspected_blocks += pre["inspected_blocks"]
             m.inspected_bytes += pre["inspected_bytes"]
+            m.inspected_bytes_device += pre["inspected_bytes"]
             m.truncated_entries += pre["truncated"]
             m.inspected_traces += max(0, inspected)
             for meta in self.engine.results(cached.batch, mq, scores, idx):
                 results.add(meta)
             if agg:
                 results.add_agg(mq.agg_stage.decode(agg[0]))
+            if qs is not None:
+                qs.add_inspected(blocks=pre["inspected_blocks"],
+                                 nbytes=pre["inspected_bytes"],
+                                 placement="device")
+                # the staged bytes this group's scan read, physical and
+                # logical (equal when not packed)
+                b = cached.batch
+                qs.add_staged(b.device_nbytes,
+                              int(b.logical_device_nbytes
+                                  or b.device_nbytes))
+                stages["drain"] += time.perf_counter() - t0
 
-        def prepare(group, batch, skip) -> dict:
+        def prepare(group, batch, skip, reasons) -> dict:
             """Predicate work over one group, memoized per (batch,
             predicate): per-block compile (the structural predicate's
-            too) and metric sums."""
+            too), metric sums and the skip reasons."""
             mq = compile_multi(list(batch.blocks), req, skip=skip,
                                memo=batch.memo,
                                cache=self.engine.compile_cache,
                                staged_dicts=batch.staged_dicts,
                                packed=self.engine.packed)
             if mq is None:
-                return {"all_skip": True, "skipped": len(group)}
+                return {"all_skip": True, "skipped": len(group),
+                        "skip_reasons": _skip_reason_counts(
+                            [True] * len(group), reasons)}
             if expr is not None:
+                blocks = list(batch.blocks)
                 mq.structural = structural.compile_structural(
-                    expr, list(batch.blocks),
-                    staged_dicts=batch.staged_dicts,
-                    packed=self.engine.packed, memo=batch.memo)
+                    expr, blocks, staged_dicts=batch.staged_dicts,
+                    packed=self.engine.packed, memo=batch.memo,
+                    entry_kv_slots=blocks[0].geometry.kv_per_entry)
             if not exhaustive and mq.n_terms:
                 dict_pruned = (mq.term_keys == -1).all(axis=1)
                 skip = [s or bool(dict_pruned[i]) for i, s in enumerate(skip)]
@@ -777,6 +949,7 @@ class BlockBatcher:
                 "all_skip": False,
                 "mq": mq,
                 "skipped": sum(skip),
+                "skip_reasons": _skip_reason_counts(skip, reasons),
                 "entries_skipped": sum(
                     j.n_entries for j, s in zip(group, skip) if s),
                 "inspected_blocks": sum(1 for s in skip if not s),
@@ -790,7 +963,9 @@ class BlockBatcher:
 
         def hdr_reasons_for(group):
             """Header-only prune before staging: a group the headers rule
-            out costs no IO and no device memory. Memoized."""
+            out costs no IO and no device memory. The reason of each job
+            (None: scan it). Memoized."""
+            t0 = time.perf_counter() if qs is not None else 0.0
             gkey = tuple(j.key for j in group)
             with self._lock:
                 reasons = self._prune_cache.get((gkey, sig))
@@ -803,9 +978,14 @@ class BlockBatcher:
                     self._prune_cache[(gkey, sig)] = reasons
                     while len(self._prune_cache) > _PRUNE_CACHE_MAX:
                         self._prune_cache.popitem(last=False)
+            if qs is not None:
+                stages["header_prune"] += time.perf_counter() - t0
             return reasons
 
-        prefetched: dict = {}   # group key -> (_Lookahead, its future)
+        # group key -> (_Lookahead, its future, the cache event this query
+        # saw: judged when the lookahead started, since by the time the
+        # search takes the batch its own lookahead has cached it)
+        prefetched: dict = {}
 
         def submit_prefetch(from_idx):
             """Stage the next live group in the background while this
@@ -823,7 +1003,7 @@ class BlockBatcher:
                 if not resident and k not in prefetched:
                     ahead = _Lookahead()
                     prefetched[k] = (ahead, self._prefetcher.submit(
-                        ahead.run, self._staged, g))
+                        ahead.run, self._staged, g), "hbm_miss_cold")
                 return
 
         # resident groups dispatch first: a cold group's staging then
@@ -842,10 +1022,29 @@ class BlockBatcher:
                 hdr_reasons = hdr_reasons_for(group)
                 if all(hdr_reasons):
                     results.metrics.skipped_blocks += len(group)
+                    if qs is not None:
+                        for r in hdr_reasons:
+                            qs.add_skip(r)
                     continue
+                t0 = time.perf_counter() if qs is not None else 0.0
                 ahead = prefetched.pop(gkey, None)
+                if qs is not None:
+                    # the staged cache as this query saw it (the port has
+                    # no host-RAM tier: a miss is always cold)
+                    if ahead is not None:
+                        event = ahead[2]
+                    else:
+                        with self._lock:
+                            event = ("hbm_hit" if gkey in self._cache
+                                     else "hbm_miss_cold")
                 cached = (ahead[0].take() if ahead is not None
                           else self._staged(group))
+                if qs is not None:
+                    stages["staging"] += time.perf_counter() - t0
+                    qs.add_cache(event)
+                    if event != "hbm_hit" and cached.batch.staged_dicts:
+                        qs.add_cache("probe_dict_staged",
+                                     len(cached.batch.staged_dicts))
                 with self._lock:
                     cached.pins += 1
                 pinned.append(cached)
@@ -855,16 +1054,30 @@ class BlockBatcher:
                     if pre is not None:
                         cached.query_cache.move_to_end(sig)
                 if pre is None:
-                    pre = prepare(group, cached.batch,
-                                  [r is not None for r in hdr_reasons])
+                    t0 = time.perf_counter() if qs is not None else 0.0
+                    # compilation may launch the device probe: its record
+                    # is this query's (no wall fallback: compilation is
+                    # mostly host work)
+                    with query_stats.attributed_dispatch(qs):
+                        pre = prepare(group, cached.batch,
+                                      [r is not None for r in hdr_reasons],
+                                      hdr_reasons)
+                    if qs is not None:
+                        stages["prepare"] += time.perf_counter() - t0
                     with self._lock:
                         cached.query_cache[sig] = pre
                         while len(cached.query_cache) > _QUERY_CACHE_MAX:
                             cached.query_cache.popitem(last=False)
+                if qs is not None:
+                    for r, n in pre["skip_reasons"].items():
+                        qs.add_skip(r, n)
                 results.metrics.skipped_blocks += pre["skipped"]
                 if pre["all_skip"]:
                     continue
                 base = pre["mq"]
+                if qs is not None and base.structural is not None:
+                    # the plan's node weights: the explain tree's split
+                    qs.add_structural(base.structural)
                 # the limit and the aggregate are per request; the tables (and
                 # their device copies, made at the first dispatch) are shared
                 # through `pre`
@@ -873,6 +1086,7 @@ class BlockBatcher:
                     device_tables=pre.get("device_tables"),
                     agg_stage=(stage_for_batch(cached.batch) if want_agg
                                else None))
+                t0 = time.perf_counter() if qs is not None else 0.0
                 if self.coalescer is not None:
                     with self._lock:
                         peers = self._interest.get(gkey, 1) + self._unplanned
@@ -880,7 +1094,11 @@ class BlockBatcher:
                         cached.batch, mq,
                         resolve_top_k(self.engine.top_k, mq.limit), peers=peers)
                 else:
-                    out = self.engine.scan_async(cached.batch, mq)
+                    with query_stats.attributed_dispatch(
+                            qs, self.engine.device):
+                        out = self.engine.scan_async(cached.batch, mq)
+                if qs is not None:
+                    stages["dispatch"] += time.perf_counter() - t0
                 dispatches += 1
                 inflight.append((cached, mq, pre, out))
                 # this search does not come back to this group: later peers
@@ -902,7 +1120,9 @@ class BlockBatcher:
             raise
         # an early quit leaves a lookahead pending: cancel it if it has
         # not started (a running one completes into the cache)
-        for _ahead, f in prefetched.values():
+        for _ahead, f, _event in prefetched.values():
             f.cancel()
+        if qs is not None:
+            qs.add_stages(stages)
         self.last_dispatches = dispatches
         return results

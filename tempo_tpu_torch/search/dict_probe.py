@@ -35,12 +35,14 @@ values no column holds.
 
 from __future__ import annotations
 
+import time
 from array import array
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..observability import profile
 from . import packing
 from .kernels import dist as dist_k
 from .kernels import probe as probe_k
@@ -95,6 +97,8 @@ class DeviceDict:
     packed: PackedDeviceDict
     buf: torch.Tensor      # uint8 [N]
     off: torch.Tensor      # int32 [V+1]
+    # the profiling gate of the database that staged it: its probe's
+    profiling: profile.Gate = field(default=profile.OFF, repr=False)
 
     @property
     def n_vals(self) -> int:
@@ -119,6 +123,7 @@ class ShardedDeviceDict:
     packed: PackedDeviceDict      # the whole dictionary, n_shards set
     shards: tuple
     exchange: object
+    profiling: profile.Gate = field(default=profile.OFF, repr=False)
 
     @property
     def n_vals(self) -> int:
@@ -150,13 +155,20 @@ def pack_device_dict(val_dict: list, n_shards: int = 1) -> PackedDeviceDict:
                             off=off.astype(np.int32), n_shards=n_shards)
 
 
-def place_device_dict(packed: PackedDeviceDict,
-                      device: torch.device) -> DeviceDict:
-    """Host-to-device copy of a packed dictionary."""
+def place_device_dict(packed: PackedDeviceDict, device: torch.device,
+                      profiling: profile.Gate = profile.OFF) -> DeviceDict:
+    """Host-to-device copy of a packed dictionary (observed as an h2d
+    stage of mode dict_probe); the dictionary keeps `profiling` for its
+    probe's records."""
+    t0 = time.perf_counter() if profiling.enabled else 0.0
     # frombuffer arrays are read-only; torch wants a writable buffer
     buf = torch.from_numpy(np.array(packed.buf, copy=True)).to(device)
     off = torch.from_numpy(packed.off).to(device)
-    return DeviceDict(packed=packed, buf=buf, off=off)
+    if profiling.enabled:
+        profiling.observe_stage("h2d", "dict_probe",
+                                time.perf_counter() - t0,
+                                nbytes=packed.nbytes)
+    return DeviceDict(packed=packed, buf=buf, off=off, profiling=profiling)
 
 
 def packed_for(pages) -> PackedDeviceDict:
@@ -171,12 +183,13 @@ def packed_for(pages) -> PackedDeviceDict:
 
 
 def stage_val_dict(val_dict: list, device: torch.device,
-                   cache_on=None) -> DeviceDict:
+                   cache_on=None,
+                   profiling: profile.Gate = profile.OFF) -> DeviceDict:
     """pack + place; with `cache_on` (the ColumnarPages holding
     `val_dict`) the packing is memoized on it."""
     packed = (pack_device_dict(val_dict) if cache_on is None
               else packed_for(cache_on))
-    return place_device_dict(packed, device)
+    return place_device_dict(packed, device, profiling)
 
 
 def probe_value_hits(ddev, needles: list, words: bool = False):
@@ -192,21 +205,37 @@ def probe_value_hits(ddev, needles: list, words: bool = False):
 
     Raises ValueError for an empty list or a needle longer than
     MAX_NEEDLE_BYTES: callers route such queries to the host path before
-    they get here."""
-    arr, lens = needle_tensors(needles)
+    they get here.
+
+    The launches form one ``dict_probe`` record (the dictionary's gate).
+    Its outputs feed a scan's kernels or a prune read, not a fetch, so
+    the record is detached: it finishes once its end event has completed
+    (``profile.Dispatch.detach``)."""
+    rec = ddev.profiling.dispatch("dict_probe", ddev.device)
+    with rec.stage("build"):
+        arr, lens = needle_tensors(needles)
     args = (arr, lens, True) if words else (arr, lens)
-    if not isinstance(ddev, ShardedDeviceDict):
-        return probe_k.dict_probe(ddev.buf, ddev.off, *args)
+    rec.add_bytes(h2d=arr.numel() + lens.numel() * 4)
+    sharded = isinstance(ddev, ShardedDeviceDict)
+    rec.compile_check(("probe", "dist") if sharded else ("probe",))
+    if not sharded:
+        with rec.launch():
+            out = probe_k.dict_probe(ddev.buf, ddev.off, *args)
+        rec.detach()
+        return out
     ex = ddev.exchange
-    with ex.locked():
-        gathered = ex.all_gather(
-            [probe_k.dict_probe(d.buf, d.off, *args)[0]
-             for d in ddev.shards])                     # [S, T, vs(/32)]
-    S, T, w = gathered.shape
-    hits = gathered.permute(1, 0, 2).reshape(T, S * w)
+    with rec.launch():
+        with ex.locked():
+            gathered = ex.all_gather(
+                [probe_k.dict_probe(d.buf, d.off, *args)[0]
+                 for d in ddev.shards])                 # [S, T, vs(/32)]
+        S, T, w = gathered.shape
+        hits = gathered.permute(1, 0, 2).reshape(T, S * w)
+        any_hits = (hits != 0).any(dim=1) if words else hits.any(dim=1)
+    rec.detach()
     if hits.device.type == "cuda":
         dist_k.PROBE_LAUNCHES.bump()
-    return hits, ((hits != 0).any(dim=1) if words else hits.any(dim=1))
+    return hits, any_hits
 
 
 def needle_tensors(needles: list):

@@ -14,17 +14,23 @@ query with a structural predicate runs K6 first (``kernels.structural``),
 its verdicts into K1s.
 ``DEFAULT_TOP_K``, ``resolve_top_k`` and ``fetch_scan_out`` are shared
 with the batched path (``multiblock.py``); ``fetch_coalesced_out`` is
-the fused (query-axis) path's fetch.
+the fused (query-axis) path's fetch. An engine given its database's
+profiling gate (``observability.profile.Gate``) opens a ``single``
+record a dispatch; the fetch finishes it (its d2h stage, then the
+execute stage read from the record's CUDA events).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import time
+
 import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
+from ..observability import profile
 from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .kernels.scan import scan_single
@@ -54,7 +60,7 @@ def fetch_scan_out(out) -> tuple:
     the ?agg= counts (K7's, when the query asked for them) ride along."""
     counts, scores, idx, *agg = out
     k = int(scores.numel())
-    host = torch.cat([counts, scores, idx, *agg]).cpu().numpy()
+    host = profile.record_of(out).fetch([counts, scores, idx, *agg]).numpy()
     res = (int(host[0]), int(host[1]), np.ascontiguousarray(host[2:2 + k]),
            np.ascontiguousarray(host[2 + k:2 + 2 * k]))
     if agg:
@@ -71,9 +77,9 @@ def fetch_coalesced_out(out) -> tuple:
     arrays."""
     counts, inspected, scores, idx, *agg = out
     q, k = scores.shape
-    host = torch.cat([counts, inspected.reshape(1), scores.reshape(-1),
-                      idx.reshape(-1), *(a.reshape(-1) for a in agg)]
-                     ).cpu().numpy()
+    host = profile.record_of(out).fetch(
+        [counts, inspected.reshape(1), scores.reshape(-1), idx.reshape(-1),
+         *(a.reshape(-1) for a in agg)]).numpy()
     body = host[q + 1:]
     res = (np.ascontiguousarray(host[:q]), int(host[q]),
            np.ascontiguousarray(body[:q * k].reshape(q, k)),
@@ -124,27 +130,31 @@ def pad_page_axis(pages: ColumnarPages, target: int) -> dict:
 
 
 def stage_block_dict(pages: ColumnarPages, device: torch.device,
-                     probe_min_vals: int | None):
+                     probe_min_vals: int | None,
+                     profiling: profile.Gate = profile.OFF):
     """The block's value dictionary on the device when it has at least
     `probe_min_vals` values (None = dict_probe.DEVICE_PROBE_MIN_VALS;
-    <= 0 never), else None."""
+    <= 0 never), else None. It carries `profiling`, its probe's gate."""
     mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
           else probe_min_vals)
     if mv <= 0 or len(pages.val_dict) < mv:
         return None
-    return dict_probe.stage_val_dict(pages.val_dict, device, cache_on=pages)
+    return dict_probe.stage_val_dict(pages.val_dict, device, cache_on=pages,
+                                     profiling=profiling)
 
 
 def stage(pages: ColumnarPages, device: torch.device,
           probe_min_vals: int | None = None,
-          packed: bool = False, spans: bool = False) -> StagedPages:
+          packed: bool = False, spans: bool = False,
+          profiling: profile.Gate = profile.OFF) -> StagedPages:
     """Copy a block's columns to the device, the page axis padded to a
     power of two (the reference's bucket; the port keeps it so both scan
     the same padded block), and its dictionary when it clears the probe
     threshold — applied here, at staging time. With `packed`, the
     columns pack at the widths a one-block batch would get
     (``packing.pack_columns``); with `spans` (the structural gate on),
-    the block's span segment stages too."""
+    the block's span segment stages too. `profiling` observes the copy
+    as an h2d stage (mode single)."""
     from .multiblock import place_spans
 
     B = _bucket(pages.n_pages)
@@ -154,17 +164,24 @@ def stage(pages: ColumnarPages, device: torch.device,
         widths = packing.plan_widths(len(pages.key_dict),
                                      len(pages.val_dict), pages.max_dur_ms())
         host = packing.pack_columns(host, widths)
+    span_host = structural.stage_single(pages, B) if spans else None
+    t0 = time.perf_counter() if profiling.enabled else 0.0
     dev = {}
     for k, v in host.items():
         v = packing.device_view(v)      # unsigned bits in signed tensors
         if not (v.flags.writeable and v.flags.c_contiguous):
             v = np.array(v, order="C")   # container bytes are read-only
         dev[k] = torch.from_numpy(v).to(device)
-    span_dev, max_run = place_spans(
-        structural.stage_single(pages, B) if spans else None, device)
+    span_dev, max_run = place_spans(span_host, device)
+    if profiling.enabled:
+        profiling.observe_stage(
+            "h2d", "single", time.perf_counter() - t0,
+            nbytes=sum(int(v.nbytes) for v in host.values())
+            + sum(int(v.nbytes) for v in (span_host or {}).values()))
     return StagedPages(device=dev, pages=pages,
                        staged_dict=stage_block_dict(pages, device,
-                                                    probe_min_vals),
+                                                    probe_min_vals,
+                                                    profiling),
                        widths=widths, span_device=span_dev,
                        span_max_run=max_run)
 
@@ -172,14 +189,17 @@ def stage(pages: ColumnarPages, device: torch.device,
 class ScanEngine:
     """Single-block dispatch on one device: K1s then K2, one sync, and
     result rendering. Owns the compile cache of the blocks it serves;
-    `packed` engines stage packed blocks and compile word hit masks."""
+    `packed` engines stage packed blocks and compile word hit masks.
+    `profiling`: the database's gate (off: no record)."""
 
     def __init__(self, device: torch.device, top_k: int = DEFAULT_TOP_K,
-                 packed: bool = False):
+                 packed: bool = False,
+                 profiling: profile.Gate = profile.OFF):
         self.device = device
         self.top_k = top_k
         self.packed = packed
-        self.compile_cache = CompileCache()
+        self.profiling = profiling
+        self.compile_cache = CompileCache(profiling)
 
     def _tables(self, cq: CompiledQuery):
         """The query's term tables on the device, widened to one row when
@@ -205,23 +225,30 @@ class ScanEngine:
         """K1s then K2 on the current stream (K6 first for a structural
         query, its verdicts into K1s), without a device-to-host sync.
         Returns device tensors (counts [2] = (match count, inspected),
-        top-k scores, top-k flat indices)."""
-        tk, vr = self._tables(cq)
+        top-k scores, top-k flat indices) carrying the dispatch's
+        ``single`` record, which ``fetch_scan_out`` finishes."""
+        rec = self.profiling.dispatch("single", self.device)
+        with rec.stage("build"):
+            tk, vr = self._tables(cq)
         d = sp.device
-        verdicts = None
-        if cq.structural is not None:
-            verdicts = self.structural_verdicts(sp,
-                                                cq.structural.lanes())[0]
-        scores, counts = scan_single(
-            d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
-            d["entry_dur"], d["entry_valid"], tk, vr, cq.n_terms, cq.dur_lo,
-            min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
-            min(cq.win_end, 0xFFFFFFFF),
-            cq.val_hits if cq.n_terms else None, sp.widths,
-            d.get("entry_dur_res"), verdicts)
-        top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
-                                                         cq.limit))
-        return counts, top_scores, top_idx
+        rec.compile_check(("scan", "topk") if cq.structural is None
+                          else ("scan", "topk", "structural"))
+        with rec.launch():
+            verdicts = None
+            if cq.structural is not None:
+                verdicts = self.structural_verdicts(
+                    sp, cq.structural.lanes())[0]
+            scores, counts = scan_single(
+                d["kv_key"], d["kv_val"], d["entry_start"], d["entry_end"],
+                d["entry_dur"], d["entry_valid"], tk, vr, cq.n_terms,
+                cq.dur_lo, min(cq.dur_hi, 0xFFFFFFFF), cq.win_start,
+                min(cq.win_end, 0xFFFFFFFF),
+                cq.val_hits if cq.n_terms else None, sp.widths,
+                d.get("entry_dur_res"), verdicts)
+            top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
+                                                             cq.limit))
+        rec.set(n_pages=sp.pages.n_pages)
+        return rec.attach((counts, top_scores, top_idx))
 
     def scan_staged(self, sp: StagedPages, cq: CompiledQuery) -> tuple:
         """(count, inspected, scores, idx) on the host."""

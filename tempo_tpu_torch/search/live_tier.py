@@ -160,7 +160,8 @@ def scan_search_data(entries: list[SearchData], req, results,
     if cq is None:      # the dictionaries prune: no entry can match
         return True
     if expr is not None:
-        cq.structural = structural.compile_structural(expr, [pages])
+        cq.structural = structural.compile_structural(
+            expr, [pages], entry_kv_slots=pages.geometry.kv_per_entry)
     _count, inspected, scores, idx = fetch_scan_out(
         hot_scan(engine, rec.staged, pages.n_pages, cq))
     results.metrics.inspected_traces += inspected

@@ -44,12 +44,14 @@ gives the single-device answer exactly.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..model.types import TraceSearchMetadata
+from ..observability import profile
 from . import dict_probe, packing, structural
 from .columnar import ColumnarPages
 from .engine import DEFAULT_TOP_K, fetch_scan_out, resolve_top_k
@@ -153,6 +155,14 @@ class BlockBatch:
         padded to a power of two)."""
         return int(sum(t.numel() * t.element_size()
                        for t in (self.span_device or {}).values()))
+
+    @property
+    def device_nbytes(self) -> int:
+        """Device bytes of the stacked arrays and the span segment, which
+        a scan reads (the staged bytes a query's stats book; packed bytes
+        when packed)."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.device.values())) + self.span_nbytes
 
     @property
     def nbytes(self) -> int:
@@ -314,11 +324,20 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def place_batch(host: HostBatch, device: torch.device) -> BlockBatch:
+def place_batch(host: HostBatch, device: torch.device,
+                profiling: profile.Gate = profile.OFF,
+                mode: str = "batched") -> BlockBatch:
     """Host-to-device copy of a stacked batch, its span segment and its
-    probe dictionaries."""
+    probe dictionaries. `profiling` observes the stacked arrays' copy as
+    an h2d stage of `mode` (the dictionaries' as mode dict_probe), and
+    the dictionaries keep it for their probe's records."""
+    t0 = time.perf_counter() if profiling.enabled else 0.0
     dev = {k: _to_device(v, device) for k, v in host.cat.items()}
-    staged = {fp: dict_probe.place_device_dict(pd, device)
+    if profiling.enabled:
+        profiling.observe_stage(
+            "h2d", mode, time.perf_counter() - t0,
+            nbytes=sum(int(v.nbytes) for v in host.cat.values()))
+    staged = {fp: dict_probe.place_device_dict(pd, device, profiling)
               for fp, pd in host.packed_dicts.items()}
     span_dev, max_run = place_spans(host.span_cat, device)
     return BlockBatch(device=dev, page_block=host.page_block,
@@ -393,6 +412,7 @@ class ShardedBatch:
     span_sharded: bool = False
     memo: dict = field(default_factory=dict)
     agg_stage: object = None
+    logical_device_nbytes: int = 0  # the whole HostBatch.cat_logical_nbytes
 
     @property
     def n_pages(self) -> int:
@@ -402,17 +422,25 @@ class ShardedBatch:
     def world(self) -> int:
         return self.exchange.world
 
+    @property
+    def device_nbytes(self) -> int:
+        """BlockBatch.device_nbytes of the whole batch, equal on every
+        rank."""
+        return self.nbytes - self.dict_nbytes
 
-def place_sharded(host: HostBatch, exchange, device: torch.device) \
-        -> ShardedBatch:
+
+def place_sharded(host: HostBatch, exchange, device: torch.device,
+                  profiling: profile.Gate = profile.OFF) -> ShardedBatch:
     """Host-to-device copy of the local ranks' shares of a batch stacked
-    for ``exchange.world`` shards."""
+    for ``exchange.world`` shards (h2d observed as mode mesh)."""
     world = exchange.world
-    shards = [place_batch(shard_host(host, r, world), device)
+    shards = [place_batch(shard_host(host, r, world), device, profiling,
+                          "mesh")
               for r in exchange.ranks]
     staged = {fp: dict_probe.ShardedDeviceDict(
                   packed=pd, exchange=exchange,
-                  shards=tuple(b.staged_dicts[fp] for b in shards))
+                  shards=tuple(b.staged_dicts[fp] for b in shards),
+                  profiling=profiling)
               for fp, pd in host.packed_dicts.items()}
     E = host.blocks[0].geometry.entries_per_page
     return ShardedBatch(
@@ -422,7 +450,8 @@ def place_sharded(host: HostBatch, exchange, device: torch.device) \
         local_flat=int(host.page_block.shape[0]) // world * E,
         staged_dicts=staged, widths=host.widths, nbytes=host.nbytes,
         logical_nbytes=host.logical_nbytes, dict_nbytes=host.dict_nbytes,
-        span_sharded=host.span_sharded)
+        span_sharded=host.span_sharded,
+        logical_device_nbytes=host.cat_logical_nbytes)
 
 
 @dataclass
@@ -675,7 +704,7 @@ class MultiBlockEngine:
                  device_probe_min_vals: int | None = None,
                  packed: bool = False,
                  structural_cfg: structural.StructuralConfig = structural.OFF,
-                 exchange=None):
+                 exchange=None, profiling: profile.Gate = profile.OFF):
         """`device_probe_min_vals`: value-dictionary size at which a
         batch stages the dictionary for the device probe (None =
         dict_probe.DEVICE_PROBE_MIN_VALS; <= 0 keeps every probe on the
@@ -683,14 +712,18 @@ class MultiBlockEngine:
         products as word masks (packing.py). `structural_cfg`: the
         database's structural gate; on, batches stage span segments.
         `exchange` (``parallel.mesh.ShardExchange`` or ``LocalExchange``):
-        batches shard over its ranks and dispatches run the B10 chains."""
+        batches shard over its ranks and dispatches run the B10 chains.
+        `profiling`: the database's gate; on, each dispatch opens a record
+        (``batched``, ``coalesced``, or ``mesh`` over an exchange) that
+        the fetch of its outputs finishes."""
         self.device = device
         self.top_k = top_k
         self.device_probe_min_vals = device_probe_min_vals
         self.packed = packed
         self.structural_cfg = structural_cfg
         self.exchange = exchange
-        self.compile_cache = CompileCache()
+        self.profiling = profiling
+        self.compile_cache = CompileCache(profiling)
 
     def stage_host(self, blocks: list[ColumnarPages]) -> HostBatch:
         """Stack a batch on the host with its page count padded to a power
@@ -729,8 +762,9 @@ class MultiBlockEngine:
         """A BlockBatch, or on a mesh the ShardedBatch of the local
         ranks."""
         if self.exchange is None:
-            return place_batch(host, self.device)
-        return place_sharded(host, self.exchange, self.device)
+            return place_batch(host, self.device, self.profiling)
+        return place_sharded(host, self.exchange, self.device,
+                             self.profiling)
 
     def structural_verdicts(self, batch: BlockBatch,
                             lanes: structural.Lanes):
@@ -747,12 +781,39 @@ class MultiBlockEngine:
         structural query, its verdicts into K1; K7 over K1's scores before
         K2 for an agg query), without a device-to-host sync. Returns
         device tensors (counts [2] = (match count, inspected), top-k
-        scores, top-k flat indices[, agg counts [K]]). A ShardedBatch
-        runs ``dist_scan_async``."""
-        if isinstance(batch, ShardedBatch):
-            return self.dist_scan_async(batch, mq)
-        return self._local_scan(batch, mq,
-                                resolve_top_k(self.top_k, mq.limit))
+        scores, top-k flat indices[, agg counts [K]]) carrying the
+        dispatch's record (``batched``; ``mesh`` for a ShardedBatch, which
+        runs ``dist_scan_async``)."""
+        sharded = isinstance(batch, ShardedBatch)
+        rec = self.profiling.dispatch("mesh" if sharded else "batched",
+                                      self.device)
+        with rec.stage("build"):
+            self._upload_tables(mq)
+        rec.compile_check(self._libs(mq.structural, mq.agg_stage, sharded))
+        with rec.launch():
+            out = (self.dist_scan_async(batch, mq) if sharded else
+                   self._local_scan(batch, mq,
+                                    resolve_top_k(self.top_k, mq.limit)))
+        rec.set(kernel="multi", blocks=len(batch.blocks))
+        return rec.attach(out)
+
+    @staticmethod
+    def _libs(st, agg, sharded: bool) -> tuple:
+        """The kernel libraries a dispatch launches from."""
+        return (("scan", "topk") + (("structural",) if st is not None
+                                    else ())
+                + (("agg",) if agg is not None else ())
+                + (("dist",) if sharded else ()))
+
+    def _upload_tables(self, mq: MultiQuery) -> None:
+        """The query's block-indexed tables on the device, once a query
+        (a memoized query shares them through the batcher)."""
+        if mq.device_tables is None:
+            mq.device_tables = (
+                torch.from_numpy(mq.term_keys).to(self.device),
+                torch.from_numpy(mq.val_ranges).to(self.device),
+                None if mq.block_group is None else
+                torch.from_numpy(mq.block_group).to(self.device))
 
     def dist_scan_async(self, batch: ShardedBatch, mq: MultiQuery):
         """The reference's ``dist_multi_scan_kernel`` as a chain: the
@@ -775,12 +836,7 @@ class MultiBlockEngine:
         """scan_async's chain over one BlockBatch with top-k `k`; `part`
         (rank, world) names a page shard, for its slice of the agg
         keys."""
-        if mq.device_tables is None:
-            mq.device_tables = (
-                torch.from_numpy(mq.term_keys).to(self.device),
-                torch.from_numpy(mq.val_ranges).to(self.device),
-                None if mq.block_group is None else
-                torch.from_numpy(mq.block_group).to(self.device))
+        self._upload_tables(mq)
         tk, vr, bg = mq.device_tables
         d = batch.device
         verdicts = None
@@ -831,21 +887,36 @@ class MultiBlockEngine:
         the group's k, the largest of its members'. With an agg stage, K7
         counts the real members' rows before K2r. Returns device tensors
         (counts [Q], inspected, top-k scores [Q, k], top-k flat indices
-        [Q, k][, agg counts [Qn, K]]). A ShardedBatch runs
-        ``dist_coalesced_scan_async``."""
-        if isinstance(batch, ShardedBatch):
-            return self.dist_coalesced_scan_async(batch, cq, top_k)
-        return self._local_coalesced(batch, cq, self.coalesced_tables(cq),
-                                     top_k)
+        [Q, k][, agg counts [Qn, K]]) carrying the dispatch's record
+        (``coalesced``; ``mesh`` for a ShardedBatch, which runs
+        ``dist_coalesced_scan_async``)."""
+        sharded = isinstance(batch, ShardedBatch)
+        rec = self.profiling.dispatch("mesh" if sharded else "coalesced",
+                                      self.device)
+        with rec.stage("build"):
+            tables = self.coalesced_tables(cq)
+        if rec.enabled:
+            rec.add_bytes(h2d=sum(int(t.numel() * t.element_size())
+                                  for t in tables[:7]))
+        rec.compile_check(self._libs(cq.structural, cq.agg_stage, sharded))
+        with rec.launch():
+            out = (self.dist_coalesced_scan_async(batch, cq, top_k, tables)
+                   if sharded else
+                   self._local_coalesced(batch, cq, tables, top_k))
+        rec.set(kernel="coalesced", queries=cq.n_queries)
+        return rec.attach(out)
 
     def dist_coalesced_scan_async(self, batch: ShardedBatch,
-                                  cq: CoalescedQuery, top_k: int):
+                                  cq: CoalescedQuery, top_k: int,
+                                  tables: tuple | None = None):
         """The reference's ``dist_coalesced_scan_kernel`` as a chain: the
         fused local dispatch over each local shard, one all_reduce of the
         counts, inspected and aggregates, one all_gather of the candidates
         [S, 2, Q, k'], then K9 over the query rows. The same outputs as
-        ``coalesced_scan_async`` on one device."""
-        tables = self.coalesced_tables(cq)
+        ``coalesced_scan_async`` on one device. `tables`: the uploaded
+        ``coalesced_tables`` (made here when None)."""
+        if tables is None:
+            tables = self.coalesced_tables(cq)
         outs, red, top_s, top_i = dist_k.exchange_merge(
             batch.exchange, batch.shards, batch.ranks,
             lambda b, r: self._local_coalesced(b, cq, tables, top_k,

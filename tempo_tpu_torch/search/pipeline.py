@@ -23,11 +23,13 @@ from __future__ import annotations
 import bisect
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..observability import profile
 from ..ops import native
 from . import dict_probe, packing
 from .analytics import AGG_QUERY_TAG
@@ -189,9 +191,11 @@ class CompileCache:
     other mask format than the caller's is a miss. One instance per
     engine."""
 
-    def __init__(self):
+    def __init__(self, profiling=None):
         self._lock = threading.Lock()
         self._by_dict: OrderedDict = OrderedDict()
+        # the engine's profiling gate: the host probe's observations
+        self.profiling = profiling
 
     def get(self, fp: bytes, sig: tuple):
         with self._lock:
@@ -277,7 +281,8 @@ def compile_query(key_dict: list, val_dict: list, req,
             hit = None
         if hit is not None:
             return None if isinstance(hit, str) else _from_probe(hit, req)
-    out = _probe_tags(key_dict, val_dict, req, staged_dict, packed)
+    out = _probe_tags(key_dict, val_dict, req, staged_dict, packed,
+                      None if cache is None else cache.profiling)
     if sig is not None:
         cache.put(fp, sig, _PRUNED if out is None else out)
     return None if out is None else _from_probe(out, req)
@@ -295,7 +300,7 @@ def _from_probe(probe, req) -> CompiledQuery:
 
 
 def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
-                packed: bool = False):
+                packed: bool = False, profiling=None):
     """The tags-only part of compilation: the device probe when the
     dictionary is staged and every needle fits the kernel, else the host
     walk. Returns (term_keys, val_ranges, val_hits) or None (pruned)."""
@@ -306,7 +311,41 @@ def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
             <= dict_probe.MAX_NEEDLE_BYTES:
         return _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
                                   packed)
-    return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
+    if not terms:
+        return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
+    # the host walk is host work this query paid for: booked as the
+    # query's host probe and host bytes (the reference's estimate of the
+    # dictionary's bytes), and observed as stage build, mode host_probe
+    from . import query_stats
+
+    qs = query_stats.current()
+    timed = qs is not None or (profiling is not None and profiling.enabled)
+    t0 = time.perf_counter() if timed else 0.0
+    try:
+        return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
+    finally:
+        if timed:
+            dt = time.perf_counter() - t0
+            nb = len(terms) * dict_bytes_est(val_dict)
+            if profiling is not None:
+                profiling.observe_stage("build", "host_probe", dt, nbytes=nb)
+            if qs is not None:
+                qs.add_host_probe(dt, nb)
+                qs.add_inspected(nbytes=nb, placement="host")
+
+
+def dict_bytes_est(val_dict: list) -> int:
+    """Estimated UTF-8 bytes of a value dictionary, from an evenly spaced
+    sample of 256 values (the reference planner's estimate)."""
+    n = len(val_dict)
+    if n == 0:
+        return 0
+    if n <= 256:
+        return sum(len(v.encode("utf-8")) for v in val_dict)
+    step = n // 256
+    sample = val_dict[::step][:256]
+    return int(sum(len(v.encode("utf-8")) for v in sample)
+               / len(sample) * n)
 
 
 def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
@@ -333,6 +372,8 @@ def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
                                                  packed)
     if not exhaustive:
         any_host = any_hits.cpu().numpy()
+        # the read waited on the probe: its record can finish now
+        profile.PROFILER.sweep()
         if any(ki >= 0 and not any_host[t]
                for t, ki in enumerate(term_key_ids)):
             return None

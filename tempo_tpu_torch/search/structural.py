@@ -403,12 +403,23 @@ class CompiledStructural:
     kind_params: np.ndarray | None = None   # int32 [K]
     agg_params: np.ndarray | None = None    # uint32 [A, 3]
     node_info: list = field(default_factory=list)  # (nid, op, detail)
+    # node id (preorder) -> estimated bytes it touches on the device
+    # (plan_node_bytes): the weights that the query's measured execute
+    # time splits over in its ?explain=1 plan tree
+    node_bytes: dict = field(default_factory=dict)
     _lanes: Lanes | None = field(default=None, repr=False)
 
     def tables(self) -> tuple:
         return (self.term_keys, self.val_ranges, self.val_hits,
                 self.block_group, self.dur_params, self.kind_params,
                 self.agg_params)
+
+    def weight(self) -> int:
+        """The elements of this predicate's tables: added to a member's
+        tag-table rows when a fused dispatch's measured stage times split
+        over its members (query_stats.apportion)."""
+        return int(sum(t.numel() if hasattr(t, "numel") else int(t.size)
+                       for t in self.tables() if t is not None))
 
     def lanes(self) -> Lanes:
         """This query as K6's single lane (memoized)."""
@@ -442,13 +453,16 @@ class BucketedStructural:
 def compile_structural(expr: "ir.TraceExpr", blocks: list,
                        staged_dicts: dict | None = None,
                        packed: bool = False,
-                       memo: dict | None = None) -> CompiledStructural:
+                       memo: dict | None = None,
+                       entry_kv_slots: int = 1) -> CompiledStructural:
     """Lower an IR tree against a batch's blocks: collect leaves, probe
     every distinct dictionary once per leaf set (the device probe for a
     dictionary in `staged_dicts`, else the host walk; exhaustive: a leaf
     never prunes, an unmatched leaf is False for that block) and assemble
     block-indexed tables as compile_multi does for the tag terms. With
-    `packed` the probe's hit masks are words."""
+    `packed` the probe's hit masks are words. `entry_kv_slots`: the
+    blocks' kv slots an entry (``geometry.kv_per_entry``), the weight of
+    a trace-tag node in ``node_bytes``."""
     leaves = _LeafCollector()
     plan = leaves.lower_trace(expr)
     term_keys = val_ranges = val_hits = block_group = None
@@ -465,7 +479,77 @@ def compile_structural(expr: "ir.TraceExpr", blocks: list,
                      if leaves.kinds else None),
         agg_params=(np.asarray(leaves.aggs, dtype=np.uint32)
                     if leaves.aggs else None),
-        node_info=leaves.node_info)
+        node_info=leaves.node_info,
+        node_bytes=plan_node_bytes(
+            plan, n_spans=sum(getattr(b, "n_spans", 0) for b in blocks),
+            n_entries=sum(
+                getattr(b, "n_pages", 1)
+                * getattr(getattr(b, "geometry", None), "entries_per_page",
+                          1024)
+                for b in blocks),
+            span_kv_slots=max(
+                [b.span_kv_key.shape[1] for b in blocks
+                 if getattr(b, "has_spans", False)] or [1]),
+            entry_kv_slots=entry_kv_slots))
+
+
+def plan_node_bytes(plan: tuple, n_spans: int, n_entries: int,
+                    span_kv_slots: int = 1,
+                    entry_kv_slots: int = 1) -> dict:
+    """Per-node device-byte estimates of a plan (the reference's cost
+    model): the bytes each op touches, with the log factor of the
+    descendant join. They are the weights the measured execute time of
+    one fused kernel splits over in the explain tree."""
+    S = max(1, n_spans)
+    PE = max(1, n_entries)
+    out: dict[int, int] = {}
+
+    def w_span(p) -> None:
+        op, nid = p[0], p[1]
+        if op == "tag":
+            out[nid] = S * span_kv_slots * 8
+        elif op == "dur":
+            out[nid] = S * 4
+        elif op == "kind":
+            out[nid] = S
+        elif op in ("and", "or"):
+            out[nid] = S * len(p[2])
+            for sub in p[2]:
+                w_span(sub)
+        elif op == "not":
+            out[nid] = S
+            w_span(p[2])
+        elif op == "child":
+            out[nid] = S * 12
+            w_span(p[2])
+            w_span(p[3])
+        elif op == "desc":
+            out[nid] = S * 12 * max(1, (S - 1).bit_length())
+            w_span(p[2])
+            w_span(p[3])
+
+    def w_trace(p) -> None:
+        op, nid = p[0], p[1]
+        if op == "ttag":
+            out[nid] = PE * entry_kv_slots * 8
+        elif op == "tdur":
+            out[nid] = PE * 4
+        elif op == "exists":
+            out[nid] = S * 4 + PE * 8
+            w_span(p[2])
+        elif op in ("count", "q"):
+            out[nid] = (S * 4 + PE * 8) * (2 if op == "q" else 1)
+            w_span(p[4])
+        elif op in ("and", "or"):
+            out[nid] = PE * len(p[2])
+            for sub in p[2]:
+                w_trace(sub)
+        elif op == "not":
+            out[nid] = PE
+            w_trace(p[2])
+
+    w_trace(plan)
+    return out
 
 
 class _LeafCollector:

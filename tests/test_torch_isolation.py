@@ -24,8 +24,13 @@ PKG = os.path.join(ROOT, "tempo_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "tempo_tpu", "xxhash")
 
 
+# the port's measurement scripts (the rest of scripts/ is the reference's)
+PORT_SCRIPTS = ("attribution_cost.py", "paired_p50.py")
+
+
 def _port_sources() -> list[str]:
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f) for f in PORT_SCRIPTS]
     for dirpath, _dirs, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -772,17 +772,45 @@ def test_search_and_write_modules_import_no_protobuf():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_fallback_scan_books_no_query_stats():
-    """The port's SearchMetrics are the reference's counters without the
-    per-query stats (device seconds and bytes, the explain JSON), which
-    come with attribution; the fallback scan books into them alone."""
-    ref = set(ref_tempopb.SearchMetrics.DESCRIPTOR.fields_by_name)
-    port = {f.name for f in dataclasses.fields(SearchMetrics)}
+def test_fallback_scan_books_the_reference_query_stats(mixed):
+    """The port's SearchMetrics carry the reference's fields, and its
+    fallback scan books what the reference's does: each bare block's data
+    bytes as the query's host bytes, the block as inspected, one
+    ``tempo_search_fallback_scans_total`` a block and the
+    ``fallback_scan`` host stage."""
+    import json
+
+    from tempo_tpu.observability import metrics as ref_obs
+
+    from tempo_tpu_torch.observability import metrics as obs
+
+    ref_fields = set(ref_tempopb.SearchMetrics.DESCRIPTOR.fields_by_name)
+    port_fields = {f.name for f in dataclasses.fields(SearchMetrics)}
     assert {"inspected_traces", "inspected_bytes", "inspected_blocks",
-            "skipped_blocks"} <= ref & port
-    assert not {"device_seconds", "inspected_bytes_device",
-                "query_stats_json"} & port
-    assert {"device_seconds", "query_stats_json"} <= ref
+            "skipped_blocks", "device_seconds", "inspected_bytes_device",
+            "query_stats_json"} <= ref_fields & port_fields
+    ref_structural.STRUCTURAL.enabled = True
+    ref, port = mixed
+    tags, kw = _search_requests()["exhaustive"]
+    before = (ref_obs.fallback_scans.value(tenant=TENANT),
+              obs.fallback_scans.value(tenant=TENANT))
+    rr = _ref_req(tags, kw)
+    rr.explain = True
+    want = ref.search(TENANT, rr).response()
+    got = port.search(TENANT, SearchRequest(tags=dict(tags), explain=True,
+                                            **kw)).response()
+    after = (ref_obs.fallback_scans.value(tenant=TENANT),
+             obs.fallback_scans.value(tenant=TENANT))
+    assert after[1] - before[1] == after[0] - before[0] == len(BARE)
+    dw = json.loads(want.metrics.query_stats_json)
+    dg = json.loads(got.metrics.query_stats_json)
+    assert dg["bytes_inspected"] == dw["bytes_inspected"]
+    assert dg["bytes_inspected"]["host"] > 0
+    assert dg["blocks_inspected"] == dw["blocks_inspected"] == N_BLOCKS
+    assert "fallback_scan" in dg["stages_ms"]
+    assert got.metrics.inspected_bytes_device == \
+        want.metrics.inspected_bytes_device
+    assert got.metrics.inspected_bytes == want.metrics.inspected_bytes
 
 
 def test_distributor_module_holds_the_walk_and_no_service():
