@@ -181,8 +181,11 @@ error:
    (``search_structural_shard_spans`` and ``_remainder_pages`` on: the
    five plans, exhaustive) and the RED corpus (red_all), every response
    equal to an ungrouped database's, with K9 and the collectives launched
-   on each; ``DistributedScanEngine`` over one tag block; then the S = 3
-   and S = 4 arithmetic on the card through a ``LocalExchange`` (a
+   on each; one more grouped hc request, with ``explain`` and a new
+   needle, whose query stats carry the collective lock's wait
+   (``lock_wait``) and h2d bytes, beside the profiler's h2d of the
+   sharded staging; ``DistributedScanEngine`` over one tag block; then
+   the S = 3 and S = 4 arithmetic on the card through a ``LocalExchange`` (a
    4,096-page tag group, solo and fused; the hc group with its
    dictionaries split over S value shards; the structural group with
    whole and with sharded spans, the remainder layout at S = 3; the RED
@@ -263,7 +266,28 @@ error:
    three databases: both gates on, the profiler alone (query stats off),
    both off; the three p50s, the responses equal. It prints one
    ``attribution:`` line;
-13. prints the run's time, the kernels line, the card's name and power
+13. the host-tier and planner cell (``search/batcher.py``'s host-RAM
+   tier and prewarm, ``TempoDB``'s header snapshot, ``search/
+   planner.py``; no kernel of its own): a TempoDB over the tag corpus
+   whose device budget holds a third of the staged bytes the tag cell's
+   database reports and whose host tier holds them all answers the six
+   requests, each exhaustive, in two rounds, each response equal to the
+   all-resident database's, round 2 re-staging only from the host tier
+   (``hbm_miss_host_hit``); the cache events of each round, and one
+   group's re-stage ms cold (both tiers dropped) and from the host tier;
+   a TempoDB with ``search_prewarm_on_poll`` (poll and prewarm s, then
+   the bench request's first latency) and one restarted on the same
+   ``host_state_dir`` (no header read from the backend; its first bench
+   request without prewarm); the planner's seed in a fresh process (its
+   compile a kernel library's load), then TempoDBs with the planner on
+   over the hc corpus (the four requests, each response equal to the hc
+   cell's, planner off) and over the tag corpus with
+   ``search_device_probe_min_vals=1`` (the six requests, equal to the
+   tag cell's database's): the seeded rates on the card, the verdicts by
+   site and target, the median predicted-vs-actual error, and K3's
+   launches a request, at least one where a compile-site verdict was the
+   device and none where every one was the host;
+14. prints the run's time, the kernels line, the card's name and power
    limit, and as the last line {"ok": true, "device": {...}}.
 
 Responses are compared through ``canon``: the attributed device seconds
@@ -355,7 +379,8 @@ CONCURRENT_TAGS = [{"service.name": f"svc-00{i}", "http.status_code": "500"}
 HC_SESSIONS = ("77", "123", "404", "5555", "0012", "99", "31", "808")
 EXHAUSTIVE = {"x-dbg-exhaustive": ""}
 # databases the earlier cells leave staged for the attribution cell, by
-# corpus: {"gpu", "cpu", "reqs", "tenant", ...}; closed at the run's end
+# corpus: {"gpu", "cpu", "reqs", "tenant", ...}, closed at the run's end;
+# and the hc corpus's root and planner-off answers for the planner cell
 STAGED: dict = {}
 
 
@@ -2437,6 +2462,10 @@ def hc_cell(args, work: str, report: dict, dbs: list, launches: dict
                                          res["hc_point"], args.reps,
                                          launches)
     report["hc_host_route"] = hc_host_route(gpu, bsbs["gpu"])
+    # the corpus and the planner-off answers, for the planner cell
+    STAGED["hc"] = {"root": root, "max_batch_pages":
+                    cfg.search_max_batch_pages,
+                    "resp": {n: res[n]["resp"] for n in hc_requests()}}
     for db in (gpu, serial):
         db.close()
         dbs.remove(db)
@@ -4785,6 +4814,33 @@ def grouped_phase(label: str, root: str, tenant: str, cfg, reqs: dict,
     return grp, res, path
 
 
+def mesh_attribution(db, launches: dict) -> dict:
+    """A grouped request with ``explain`` whose needle is new, so the
+    probe runs through the mesh: its query stats carry the collective
+    lock's wait (``lock_wait``) and its h2d bytes, and the profiler's
+    aggregates the sharded staging's h2d (mode mesh)."""
+    from tempo_tpu_torch.model.types import SearchRequest
+    from tempo_tpu_torch.observability import profile
+
+    reset_counts()
+    d = json.loads(db.search("hc", SearchRequest(
+        tags={SESSION_KEY: "session-0007"}, explain=True, limit=20))
+        .response().metrics.query_stats_json)
+    add_counts(launches, read_counts())
+    h2d = profile.snapshot(0)["aggregates"].get("mesh", {}).get("h2d", {})
+    out = {"device_stages_ms": d["device_stages_ms"],
+           "h2d_bytes": d["h2d_bytes"], "staging_h2d": h2d}
+    if "lock_wait" not in d["device_stages_ms"] or not d["h2d_bytes"] \
+            or not h2d.get("bytes"):
+        raise AssertionError(f"the mesh attribution lacks lock_wait or "
+                             f"h2d: {out}")
+    print(f"mesh attribution: lock_wait "
+          f"{d['device_stages_ms']['lock_wait']:.4f} ms, h2d "
+          f"{d['h2d_bytes']} B in the query stats; the sharded staging's "
+          f"h2d {h2d['count']} puts, {h2d['bytes']} B", flush=True)
+    return out
+
+
 def emulated_batches(blocks: list, S: int, cfg, probe_min_vals=None):
     """(engine, ShardedBatch) over a LocalExchange of S ranks on the card,
     and (engine, BlockBatch) of the same stacked layout on one device."""
@@ -5184,6 +5240,7 @@ def mesh_cell(args, work: str, report: dict, dbs: list,
         if not out["hc_launches"]["dist_probe"]:
             raise AssertionError("the grouped hc requests probed through no "
                                  "dist_probe chain")
+        out["attribution"] = mesh_attribution(hc_db, launches)
         st_cfg = TempoDBConfig(search_max_batch_pages=4096,
                                search_structural_enabled=True,
                                search_structural_shard_spans=True,
@@ -6180,8 +6237,12 @@ def ingest_cell(args, work: str, report: dict, dbs: list,
                                                    m.block_id))
             for m in metas) != blocks:
         raise AssertionError("ingest: blocks or containers missing")
-    if os.listdir(wal_dir):
-        raise AssertionError(f"ingest: WAL left {os.listdir(wal_dir)}")
+    # the WAL's files (its host-state subdirectory holds the search
+    # headers' snapshot, not WAL records)
+    left = [n for n in os.listdir(wal_dir)
+            if os.path.isfile(os.path.join(wal_dir, n))]
+    if left:
+        raise AssertionError(f"ingest: WAL left {left}")
     w = out["first_head_walks"]
     print(f"ingest: {n_pushes} of {n_pushes} pushes through the native "
           f"walker; the first head's {w['pushes']} pushes through both "
@@ -6656,6 +6717,318 @@ def attribution_cell(args, report: dict, launches: dict) -> None:
           f"{json.dumps(path)}; {out['s']:.1f} s", flush=True)
 
 
+def host_tier_requests(reqs: dict) -> dict:
+    """The tag cell's six requests, each exhaustive."""
+    return {n: (dict(t, **EXHAUSTIVE), kw) for n, (t, kw) in reqs.items()}
+
+
+def staged_ms(db, group, cold: bool, reps: int = 3) -> float:
+    """Median ms of one group's re-stage after its device batch is
+    dropped: from the host tier, or (`cold`) with its host batch dropped
+    too (IO, decompression and stacking again)."""
+    import torch
+
+    b = db.batcher
+    key = tuple(j.key for j in group)
+    ids = {j.key[0] for j in group}
+    live = {m.block_id for m in db.blocklist.metas("smoke")}
+    ms = []
+    for _ in range(reps):
+        if cold:
+            b.invalidate(live - ids)
+        else:
+            with b._lock:
+                if key in b._cache:
+                    b._drop_locked(key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b._staged(group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return pct(ms, 0.5)
+
+
+def decisions_since(planner, seq0: int) -> list:
+    return [d for d in planner.snapshot(256)["recent"] if d["seq"] > seq0]
+
+
+def planner_requests(db, tenant: str, reqs: dict, want: dict,
+                     launches: dict) -> dict:
+    """`reqs` with ``explain`` through a database whose planner is on,
+    each response equal to the planner-off one (`want`); per request the
+    verdicts by site and target and K3's launches: at least one where a
+    compile-site verdict was the device, none where every one was the
+    host."""
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    out = {}
+    for name, (tags, kw) in reqs.items():
+        seq0 = db.planner._seq
+        reset_counts()
+        r = db.search(tenant, SearchRequest(tags=dict(tags), explain=True,
+                                            **kw)).response()
+        path = read_counts()
+        add_counts(launches, path)
+        if untimed(r) != want[name]:
+            raise AssertionError(f"planner {name}: the response differs "
+                                 "from the planner-off one")
+        ds = decisions_since(db.planner, seq0)
+        verdicts = {}
+        for d in ds:
+            k = f"{d['site']}/{d['target']}"
+            verdicts[k] = verdicts.get(k, 0) + 1
+        compile_targets = {d["target"] for d in ds if d["site"] == "compile"}
+        k3 = path["dict_probe"]
+        if "device" in compile_targets and not k3:
+            raise AssertionError(f"planner {name}: a device verdict and no "
+                                 f"K3 launch: {verdicts}")
+        if compile_targets == {"host"} and k3:
+            raise AssertionError(f"planner {name}: every verdict host and "
+                                 f"{k3} K3 launches")
+        out[name] = {"verdicts": verdicts, "k3_launches": k3,
+                     "planner": json.loads(r.metrics.query_stats_json)
+                     .get("planner")}
+    return out
+
+
+SEED_CHILD = """
+import json, sys, time
+sys.path.insert(0, {here!r})
+import torch
+from tempo_tpu_torch.search.planner import OffloadPlanner
+p = OffloadPlanner(enabled=True, device=torch.device("cuda"))
+p.decide_probe(n_vals=1, dict_bytes=1, site="offline")
+print(json.dumps(p.snapshot(0)))
+"""
+
+
+def seeded_rates(snap: dict) -> dict:
+    cm = snap["cost_model"]
+    out = {k: cm["rates"][k]["seconds_per_byte"]
+           for k in ("host_probe", "device_probe", "pack", "h2d")}
+    out.update({k: cm["fixed"][k]["seconds"]
+                for k in ("dispatch", "compile")})
+    return out
+
+
+def host_tier_cell(args, work: str, report: dict, launches: dict) -> None:
+    """The host-tier and planner cell (step 13 of the module docstring),
+    over the tag and high-cardinality corpora."""
+    import statistics
+
+    import torch
+
+    from tempo_tpu_torch.backend.local import LocalBackend
+    from tempo_tpu_torch.backend.types import NAME_SEARCH_HEADER
+    from tempo_tpu_torch.db import TempoDB, TempoDBConfig
+    from tempo_tpu_torch.model.types import SearchRequest
+
+    t_cell = time.perf_counter()
+    tag = STAGED["tag"]
+    root = tag["root"]
+    out: dict = {}
+    report["host_tier"] = out
+    full = tag["gpu"].batcher.debug_stats()["cache"]["bytes"]
+    mbp = tag["gpu"].cfg.search_max_batch_pages       # the tag cell's
+    reqs = host_tier_requests(tag["reqs"])
+    want = {n: canon(tag["gpu"].search("smoke", SearchRequest(
+        tags=dict(t), **kw)).response()) for n, (t, kw) in reqs.items()}
+
+    # 1. the host tier: a third of the staged bytes on the device, all of
+    # them in host RAM, two exhaustive rounds of the six requests
+    db = TempoDB(LocalBackend(root), TempoDBConfig(
+        search_max_batch_pages=mbp, search_batch_cache_bytes=full // 3,
+        search_host_cache_bytes=32 << 30), device="cuda")
+    try:
+        db.poll()
+        rounds = []
+        for rnd in (1, 2):
+            events: dict = {}
+            reset_counts()
+            for name, (t, kw) in reqs.items():
+                r = db.search("smoke", SearchRequest(tags=dict(t),
+                                                     explain=True, **kw))
+                r = r.response()
+                if untimed(r) != want[name]:
+                    raise AssertionError(f"host tier round {rnd} {name}: "
+                                         "the response differs from the "
+                                         "all-resident database's")
+                for k, v in json.loads(r.metrics.query_stats_json)[
+                        "cache"].items():
+                    events[k] = events.get(k, 0) + v
+            add_counts(launches, read_counts())
+            rounds.append(events)
+        stats = db.batcher.debug_stats()
+        groups = db.batcher.plan(db._jobs("smoke", db.blocklist.epoch())[0])
+        # with more than one group a third of the bytes evicts: round 2
+        # re-stages, each time from the host tier
+        if rounds[1].get("hbm_miss_cold") or (
+                len(groups) > 1 and not rounds[1].get("hbm_miss_host_hit")):
+            raise AssertionError(f"round 2 re-staged otherwise than from "
+                                 f"the host tier: {rounds[1]}")
+        g = max(groups, key=lambda gr: sum(j.n_pages for j in gr))
+        out["host_tier"] = {
+            "staged_bytes_all": full, "device_budget": full // 3,
+            "rounds": rounds, "groups": len(groups),
+            "device_cache": stats["cache"], "host_cache": stats["host_cache"],
+            "restage_ms_host_hit": staged_ms(db, g, cold=False),
+            "restage_ms_cold": staged_ms(db, g, cold=True),
+            "group_pages": sum(j.n_pages for j in g)}
+    finally:
+        db.close()
+        del db
+        gc.collect()
+    h = out["host_tier"]
+    print(f"host tier: {h['groups']} groups, {full} B staged in all, a "
+          f"device budget of {full // 3} B; cache events round 1 "
+          f"{json.dumps(rounds[0])}, round 2 {json.dumps(rounds[1])}; "
+          f"every response equal to the all-resident database's; re-stage "
+          f"a {h['group_pages']}-page group: hbm_miss_cold "
+          f"{h['restage_ms_cold']:.1f} ms, hbm_miss_host_hit "
+          f"{h['restage_ms_host_hit']:.1f} ms", flush=True)
+
+    # 2. prewarm, and a restart on the same host state
+    state = os.path.join(work, "host-state")
+    bench = SearchRequest(tags=dict(BENCH), limit=20)
+    bench_want = canon(tag["gpu"].search("smoke", bench).response())
+    first = {}
+    pw = TempoDB(LocalBackend(root), TempoDBConfig(
+        search_max_batch_pages=mbp, search_prewarm_on_poll=True,
+        host_state_dir=state), device="cuda")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        pw.poll()
+        pw._prewarm_thread.join()
+        out["prewarm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = canon(pw.search("smoke", bench).response())
+        torch.cuda.synchronize()
+        first["prewarm"] = (time.perf_counter() - t0) * 1e3
+        add_counts(launches, read_counts())
+        if r != bench_want:
+            raise AssertionError("the prewarmed database answered "
+                                 "differently")
+    finally:
+        pw.close()
+        del pw
+        gc.collect()
+    rs = TempoDB(LocalBackend(root), TempoDBConfig(
+        search_max_batch_pages=mbp, host_state_dir=state), device="cuda")
+    header_reads = []
+    real_read = rs.backend.read
+
+    def counting(tenant, block, name):
+        if name == NAME_SEARCH_HEADER:
+            header_reads.append(block)
+        return real_read(tenant, block, name)
+
+    rs.backend.read = counting
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rs.poll()
+        out["restart_poll_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        r = canon(rs.search("smoke", bench).response())
+        torch.cuda.synchronize()
+        first["cold"] = (time.perf_counter() - t0) * 1e3
+        add_counts(launches, read_counts())
+        if r != bench_want:
+            raise AssertionError("the restarted database answered "
+                                 "differently")
+    finally:
+        rs.close()
+        del rs
+        gc.collect()
+    if header_reads:
+        raise AssertionError(f"the restarted database read "
+                             f"{len(header_reads)} headers")
+    out["first_query_ms"] = first
+    out["restart_header_reads"] = len(header_reads)
+    print(f"prewarm: poll and prewarm {out['prewarm_s']:.2f} s, then the "
+          f"first bench_and {first['prewarm']:.2f} ms; a restart on the "
+          f"same host state: 0 header reads, poll "
+          f"{out['restart_poll_ms']:.1f} ms, first bench_and without "
+          f"prewarm {first['cold']:.2f} ms", flush=True)
+
+    # 3. the planner: its seed in a fresh process (compile is a kernel
+    # library's load), then the hc corpus and the tag corpus with it on
+    child = subprocess.run(
+        [sys.executable, "-c", SEED_CHILD.format(here=HERE)],
+        capture_output=True, text=True, timeout=300, check=True)
+    cold_seed = json.loads(child.stdout.strip().splitlines()[-1])
+    out["seed_fresh_process"] = {"rates": seeded_rates(cold_seed),
+                                 "seed_ms": cold_seed["seed_ms"]}
+    from tempo_tpu_torch.parallel.multihost_dryrun import force_planner
+
+    hc = STAGED["hc"]
+    tag_want = {n: untimed(tag["gpu"].search("smoke", SearchRequest(
+        tags=dict(t), **kw)).response()) for n, (t, kw) in tag["reqs"].items()}
+    tag_kw = {"search_device_probe_min_vals": 1,
+              "search_max_batch_pages": mbp}
+    rows = {}
+    # the planner's own verdicts over both corpora, then the tag corpus
+    # with every verdict forced to each side (K3 where the device, none
+    # where the host)
+    for label, r_root, tenant, cfg_kw, reqs_p, want_p, force in (
+            ("hc", hc["root"], "hc",
+             {"search_max_batch_pages": hc["max_batch_pages"]},
+             hc_requests(), hc["resp"], None),
+            ("tag", root, "smoke", tag_kw, tag["reqs"], tag_want, None),
+            ("tag forced device", root, "smoke", tag_kw, tag["reqs"],
+             tag_want, "device"),
+            ("tag forced host", root, "smoke", tag_kw, tag["reqs"],
+             tag_want, "host")):
+        pdb = TempoDB(LocalBackend(r_root), TempoDBConfig(
+            search_offload_planner_enabled=True, **cfg_kw), device="cuda")
+        try:
+            pdb.poll()
+            if force is None:
+                pdb.planner._ensure_seeded()
+            else:
+                force_planner(pdb.planner, force)       # and no seed
+            seed = seeded_rates(pdb.planner.snapshot(0))
+            per = planner_requests(pdb, tenant, reqs_p, want_p, launches)
+            snap = pdb.planner.snapshot(256)
+        finally:
+            pdb.close()
+            del pdb
+            gc.collect()
+        errs = [d["abs_rel_error"] for d in snap["recent"]
+                if "abs_rel_error" in d]
+        by = {}
+        for d in snap["recent"]:
+            k = f"{d['site']}/{d['target']}"
+            by[k] = by.get(k, 0) + 1
+        k3 = sum(p["k3_launches"] for p in per.values())
+        if force == "device" and not k3 or force == "host" and k3:
+            raise AssertionError(f"planner {label}: {k3} K3 launches")
+        rows[label] = {"seed": seed, "requests": per, "decisions": by,
+                       "median_abs_rel_error": (statistics.median(errs)
+                                                if errs else None),
+                       "resolved": len(errs), "forced": force}
+        print(f"planner {label}: "
+              + ("seeded on the card " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in seed.items() if v is not None)
+                 if force is None else "every verdict forced")
+              + f"; decisions {json.dumps(by)}; median |predicted - "
+              f"actual| / actual "
+              + ("n/a" if not errs else f"{statistics.median(errs):.3f}")
+              + f" over {len(errs)}; K3 launches by request "
+              + json.dumps({n: p['k3_launches'] for n, p in per.items()})
+              + "; every response equal to the planner-off one",
+              flush=True)
+    out["planner"] = rows
+    fs = out["seed_fresh_process"]
+    print("planner seed in a fresh process: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in fs["rates"].items()
+                      if v is not None)
+          + f" ({fs['seed_ms']} ms)", flush=True)
+    out["s"] = time.perf_counter() - t_cell
+    print(f"host-tier and planner cell: {out['s']:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=256)
@@ -6751,6 +7124,7 @@ def main(argv=None) -> int:
         rows += trace_by_id_cell(args, work, report, dbs, launches)
         rows += ingest_cell(args, work, report, dbs, launches)
         attribution_cell(args, report, launches)
+        host_tier_cell(args, work, report, launches)
     finally:
         for db in dbs:
             db.close()

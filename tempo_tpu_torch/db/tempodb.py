@@ -21,6 +21,15 @@ A block without a search container is searched on the host from its
 trace objects (``_fallback_search``: decode, ``model.matches``), after
 the batched pass and only while the result is not complete.
 
+``prewarm`` stages tenants' groups ahead of queries (after every poll
+with ``search_prewarm_on_poll``); the search headers persist as a
+snapshot under ``host_state_dir`` (by default ``<wal_dir>/host-state``),
+so a restarted database plans its first query without reading them from
+the backend. Each database owns an offload planner
+(``search/planner.py``, ``search_offload_planner_enabled``), carried on
+its profiling gate, which places each large dictionary's probe on the
+host or on the device.
+
 With ``search_query_stats_enabled`` (the default) each of the three
 searches books a query's ``QueryStats`` (``search/query_stats.py``) and
 returns its device seconds in the response's metrics; under
@@ -39,9 +48,13 @@ unsharded.
 
 from __future__ import annotations
 
+import atexit
+import gzip
 import json
+import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -55,7 +68,9 @@ from ..encoding.v2.backend_block import BackendBlock
 from ..encoding.v2.streaming_block import StreamingBlock
 from ..observability import metrics as obs
 from ..observability import profile
+from ..observability.log import get_logger
 from ..search import query_stats, structural
+from ..search.planner import OffloadPlanner
 from ..search.backend_search_block import (BackendSearchBlock,
                                            write_search_block)
 from ..search.batcher import BlockBatcher, ScanJob
@@ -67,6 +82,8 @@ from ..utils.ids import pad_trace_id
 from .blocklist import Blocklist
 from .poller import Poller
 from .pool import run_jobs
+
+log = get_logger("tempo_tpu_torch.db")
 
 
 @dataclass
@@ -87,6 +104,11 @@ class TempoDBConfig:
     search_cache_blocks: int = 64         # open search-block objects kept
     search_max_batch_pages: int = 4096    # pages stacked per dispatch
     search_batch_cache_bytes: int = 4 << 30   # staged-batch device budget
+    # the host-RAM tier under the device budget: stacked host batches, so
+    # a batch the device budget evicted re-stages with one host-to-device
+    # copy. None = min(32 GiB, half the physical RAM): the tier holds
+    # what it keeps, so a fixed default could exhaust a small host
+    search_host_cache_bytes: int | None = None
     search_pipeline_depth: int = 2        # dispatches in flight
     # value dictionaries with at least this many distinct values stage on
     # the device and answer substring terms with the probe kernel (K3);
@@ -97,6 +119,18 @@ class TempoDBConfig:
     # them; max_queries <= 1 turns coalescing off
     search_coalesce_window_s: float = 0.003
     search_coalesce_max_queries: int = 8
+    # the offload planner (search/planner.py): above the
+    # search_device_probe_min_vals floor, a cost model over this
+    # database's profiler records chooses host or device for each
+    # dictionary's substring probe, at staging and at query compile
+    # (seeded by a one-shot microbenchmark on the database's device at
+    # its first decision). Off (the default), the static threshold alone
+    # decides. Both placements are exact. EWMA smoothing of the observed
+    # rates, and the decision ring's length. Per database here; the
+    # reference's planner is process-wide.
+    search_offload_planner_enabled: bool = False
+    search_offload_planner_ewma: float = 0.25
+    search_offload_planner_ring: int = 256
     # packed residency (search/packing.py): staged kv columns at the width
     # the dictionaries need, durations as u16 (buckets plus residual when
     # longer than 65,535 ms), probe hit masks as 32-bit words; the
@@ -134,6 +168,21 @@ class TempoDBConfig:
     search_live_tier_enabled: bool = False
     search_live_tier_max_entries: int = 4096
     search_live_tail_max_subscriptions: int = 16
+    # stage every tenant's groups (host tier and device, up to budget) in
+    # a background thread after each poll, with one throwaway dispatch a
+    # batch layout, so the first query pays neither staging nor a kernel
+    # library load; off by default (a write-only process stages nothing)
+    search_prewarm_on_poll: bool = False
+    # restartable host state: the search-header snapshot
+    # (search-headers.json.gz), saved after every poll and prewarm and
+    # loaded at start, so a restarted database plans its first query
+    # without reading a header from the backend. None = <wal_dir>/
+    # host-state (none without a wal_dir); "" = off; a path = there. The
+    # reference also keeps JAX's compile cache there (xla-cache) and has
+    # search_compile_cache_dir; the port's kernel libraries persist,
+    # content-hashed, in tempo_tpu_torch/csrc/build, so neither has a
+    # counterpart.
+    host_state_dir: str | None = None
     # concurrent meta reads per poll, and blocks a trace-by-id lookup
     # reads at once
     pool_workers: int = 50
@@ -198,14 +247,36 @@ class TempoDB:
 
             self.wal = WAL(wal_dir, encoding=self.cfg.wal_encoding)
         self._structural = self.cfg.structural()
+        # the database's offload planner rides its profiling gate: the
+        # gate's records and observations feed it alone, and its engines
+        # consult it (never the process planner)
+        self.planner = OffloadPlanner(
+            enabled=self.cfg.search_offload_planner_enabled,
+            alpha=self.cfg.search_offload_planner_ewma,
+            ring_size=self.cfg.search_offload_planner_ring,
+            device=self.device)
         self.profiling = profile.Gate(self.cfg.search_profiling_enabled,
-                                      self.cfg.search_profiling_fence)
+                                      self.cfg.search_profiling_fence,
+                                      planner=self.planner)
+        if (self.cfg.search_offload_planner_enabled
+                and not self.cfg.search_profiling_enabled):
+            # the planner's device-side feed (the probe's rate, the
+            # compile and collective costs, the h2d rate) comes only
+            # through the profiler's records: without them it decides
+            # from its seed alone. Answers are the same either way.
+            log.warning(
+                "search_offload_planner_enabled without "
+                "search_profiling_enabled: the planner cannot "
+                "self-calibrate (no dispatch-profiler feed) and will "
+                "decide from its microbenchmark seed only; enable "
+                "search_profiling_enabled for cost-model calibration")
         self.blocklist = Blocklist()
         self.poller = Poller(backend, concurrency=self.cfg.pool_workers)
         self.batcher = BlockBatcher(
             self.device,
             max_batch_pages=self.cfg.search_max_batch_pages,
             cache_bytes=self.cfg.search_batch_cache_bytes,
+            host_cache_bytes=self.cfg.search_host_cache_bytes,
             pipeline_depth=self.cfg.search_pipeline_depth,
             device_probe_min_vals=self.cfg.search_device_probe_min_vals,
             coalesce_window_s=self.cfg.search_coalesce_window_s,
@@ -232,9 +303,24 @@ class TempoDB:
         # (epoch, jobs, fallback, missing, groups) per search_blocks job list
         self._breq_jobs_cache: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
+        self._prewarm_stop = None     # the running prewarm's stop event
+        self._prewarm_thread = None
+        self._prewarm_atexit = False
+        # restartable host state: under the WAL directory, in a
+        # subdirectory (WAL replay removes unknown files in its root)
+        sd = self.cfg.host_state_dir
+        if sd is None:
+            self._state_dir = (os.path.join(wal_dir, "host-state")
+                               if wal_dir is not None else None)
+        else:
+            self._state_dir = sd or None
+        if self._state_dir:
+            self._load_host_state()
 
     def close(self) -> None:
-        """Stop the batcher's staging and coalescing threads."""
+        """Stop a running prewarm, then the batcher's staging and
+        coalescing threads."""
+        self.stop_prewarm()
         self.batcher.close()
 
     def _use_mesh(self, mesh) -> None:
@@ -332,8 +418,11 @@ class TempoDB:
     # blocklist
 
     def poll(self) -> None:
-        """Replace the blocklist with the backend's current block metas and
-        drop cached state of blocks that are gone."""
+        """Replace the blocklist with the backend's current block metas,
+        drop cached state of blocks that are gone, and save the host
+        state. A running prewarm is cancelled before the staged caches
+        are invalidated (it could put back a dead block's batch); with
+        ``search_prewarm_on_poll`` a new one starts."""
         metas = self.poller.poll()
         self.blocklist.apply_poll_results(metas)
         if self.live_tier.enabled:
@@ -344,7 +433,125 @@ class TempoDB:
                 del self._search_blocks[bid]
             for bid in [b for b in self._headers if b not in live]:
                 del self._headers[bid]
-        self.batcher.invalidate(live)
+        if self._prewarm_stop is not None:
+            self._prewarm_stop.set()
+        if self.cfg.search_prewarm_on_poll:
+            # the new prewarm joins the old one, then invalidates again
+            self.batcher.invalidate(live)
+            self.prewarm(tenants=list(metas), reinvalidate=live)
+        else:
+            self.stop_prewarm()
+            self.batcher.invalidate(live)
+        self.save_host_state()
+
+    def prewarm(self, tenants: list[str], background: bool = True,
+                reinvalidate: set | None = None):
+        """Stage every tenant's groups (host tier and device, up to the
+        device budget) and make one throwaway dispatch a batch layout
+        (``BlockBatcher.prewarm``), so the first query after a poll pays
+        neither staging nor a kernel library load. In a background thread
+        by default (returned; a newer prewarm cancels it), else inline
+        (the groups staged are returned). `reinvalidate`: the live block
+        ids, applied again once the previous prewarm has stopped (its
+        staging in flight may have put back a dead block's batch)."""
+        self._ensure_mesh()
+        if self._prewarm_stop is not None:
+            self._prewarm_stop.set()
+        prev = self._prewarm_thread
+        stop = self._prewarm_stop = threading.Event()
+        if not self._prewarm_atexit:
+            # stop and join before the interpreter tears down, through a
+            # weakref so the registry does not keep the database alive
+            ref = weakref.ref(self)
+            atexit.register(lambda: getattr(ref(), "stop_prewarm",
+                                            lambda: None)())
+            self._prewarm_atexit = True
+
+        def run() -> int:
+            if prev is not None and prev.is_alive():
+                prev.join()
+            if reinvalidate is not None:
+                self.batcher.invalidate(reinvalidate)
+            staged = 0
+            for tenant in tenants:
+                if stop.is_set():
+                    break
+                jobs = []
+                for m in self.blocklist.metas(tenant):
+                    try:
+                        jobs.append(self._scan_job(m))
+                    except DoesNotExist:
+                        continue
+                staged += self.batcher.prewarm(self.batcher.plan(jobs),
+                                               stop=stop)
+            # planning read every live block's header: keep them
+            if not stop.is_set():
+                self.save_host_state()
+            return staged
+
+        if not background:
+            return run()
+        t = threading.Thread(target=run, name="search-prewarm", daemon=True)
+        t.start()
+        self._prewarm_thread = t
+        return t
+
+    def stop_prewarm(self, timeout_s: float = 120.0) -> None:
+        """Cancel a running background prewarm and wait for it to reach
+        the end of the group it is staging."""
+        if self._prewarm_stop is not None:
+            self._prewarm_stop.set()
+        t = self._prewarm_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=timeout_s)
+
+    # ------------------------------------------------------------------
+    # restartable host state
+
+    def _snapshot_path(self) -> str | None:
+        return (os.path.join(self._state_dir, "search-headers.json.gz")
+                if self._state_dir else None)
+
+    def _load_host_state(self) -> None:
+        """Load the search-header snapshot a previous process saved, so
+        the first query's job planning reads no header from the backend.
+        A torn or corrupt snapshot is ignored (the headers load lazily);
+        entries of deleted blocks go at the next poll."""
+        path = self._snapshot_path()
+        if not path:
+            return
+        try:
+            with open(path, "rb") as f:
+                doc = json.loads(gzip.decompress(f.read()))
+            headers = doc["headers"] if doc.get("v") == 1 else {}
+        except (OSError, EOFError, ValueError, KeyError, TypeError,
+                AttributeError):
+            return
+        with self._lock:
+            for bid, hdr in headers.items():
+                if isinstance(bid, str) and isinstance(hdr, dict):
+                    self._headers[bid] = hdr
+            while len(self._headers) > self._headers_max:
+                self._headers.popitem(last=False)
+
+    def save_host_state(self) -> None:
+        """Write the header cache as a gzip JSON snapshot, renamed into
+        place (a reader never sees half a file). Called after every poll
+        and prewarm. A failed write is ignored: the snapshot is a cache."""
+        path = self._snapshot_path()
+        if not path:
+            return
+        with self._lock:
+            doc = {"v": 1, "headers": dict(self._headers)}
+        try:
+            os.makedirs(self._state_dir, exist_ok=True)
+            blob = gzip.compress(json.dumps(doc).encode(), compresslevel=1)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, path)
+        except OSError:
+            pass
 
     # ------------------------------------------------------------------
     # trace by id

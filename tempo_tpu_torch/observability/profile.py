@@ -53,6 +53,12 @@ The gates are per database (``Gate``, built from
 the aggregates (``PROFILER``) are process-wide, as in the reference. A
 gate that is off hands out a shared noop record: no allocation, no
 clock read, no event, no lock.
+
+A gate may carry its database's offload planner (``search/planner.py``):
+every record it opens and every stage it observes then feeds that planner
+alone, so two databases in one process never share rates. Records and
+observations outside a database's gate feed the process planner
+(``planner.PLANNER``) once that module is loaded.
 """
 
 from __future__ import annotations
@@ -74,6 +80,19 @@ _JIT_EVENTS = {r: obs.jit_cache_events.labels(result=r)
 # when it was opened. Thread-local rather than a contextvar: the
 # coalescer's flush threads must not inherit a submitter's collector.
 _collect_local = threading.local()
+
+# the planner of records opened outside a database's gate (set by
+# search/planner.py when it loads): the process planner
+_default_planner = None
+
+
+def set_default_planner(planner) -> None:
+    global _default_planner
+    _default_planner = planner
+
+
+def _planner_for(planner):
+    return planner if planner is not None else _default_planner
 
 
 class Collector(list):
@@ -278,10 +297,11 @@ class Dispatch:
     __slots__ = ("mode", "stages", "h2d_bytes", "d2h_bytes", "jit",
                  "attrs", "t0", "_prof", "_fence", "_stream", "_ev",
                  "_sink", "_claim", "_finished", "_detached", "_dropped",
-                 "__weakref__")
+                 "_planner", "__weakref__")
     enabled = True
 
-    def __init__(self, prof, mode: str, device=None, fence: bool = False):
+    def __init__(self, prof, mode: str, device=None, fence: bool = False,
+                 planner=None):
         self.mode = mode
         self.stages: dict[str, float] = {}
         self.h2d_bytes = 0
@@ -301,6 +321,7 @@ class Dispatch:
         self._finished = False
         self._detached = False
         self._dropped = False
+        self._planner = planner     # the gate's planner, fed at finish
         stack = getattr(_collect_local, "stack", None)
         self._sink = stack[-1] if stack else None
         if self._sink is not None:
@@ -472,9 +493,10 @@ class DispatchProfiler:
 
     # ---- call-site API ----
 
-    def dispatch(self, mode: str, device=None, fence: bool = False):
+    def dispatch(self, mode: str, device=None, fence: bool = False,
+                 planner=None):
         self.last_dispatch_t = time.time()
-        return Dispatch(self, mode, device, fence)
+        return Dispatch(self, mode, device, fence, planner)
 
     def add_listener(self, fn) -> None:
         """Subscribe to finished records (called with the dict form)."""
@@ -488,10 +510,14 @@ class DispatchProfiler:
                 self._listeners.remove(fn)
 
     def observe_stage(self, stage: str, mode: str, seconds: float,
-                      nbytes: int = 0) -> None:
+                      nbytes: int = 0, planner=None) -> None:
         """One stage observation outside a record (staging that serves
         many later dispatches, the host dictionary scan). `nbytes` feeds
-        the transfer counters only for h2d/d2h."""
+        the transfer counters only for h2d/d2h. The observation also
+        feeds `planner` (the process planner when None)."""
+        p = _planner_for(planner)
+        if p is not None and p.enabled:
+            p.ingest_stage(stage, mode, seconds, nbytes)
         if mode != "host_probe":
             self.last_dispatch_t = time.time()
         self._stage_hist(stage, mode).observe(seconds)
@@ -615,6 +641,9 @@ class DispatchProfiler:
             sink.append(rd)
             if sink.on_record is not None:
                 sink.on_record(rec)
+        p = _planner_for(rec._planner)
+        if p is not None and p.enabled:
+            listeners.append(p.ingest_record)
         for fn in listeners:
             try:
                 fn(rd)
@@ -661,13 +690,18 @@ PROFILER = DispatchProfiler()
 class Gate:
     """One database's profiling gate (``search_profiling_enabled``,
     ``search_profiling_fence``): dispatch sites open their records
-    through it."""
+    through it. `planner`: the database's offload planner
+    (``search/planner.py``), which the gate's records and observations
+    feed and whose verdicts its engines take; None for a gate outside a
+    database (the process planner then)."""
 
-    __slots__ = ("enabled", "fence")
+    __slots__ = ("enabled", "fence", "planner")
 
-    def __init__(self, enabled: bool = True, fence: bool = False):
+    def __init__(self, enabled: bool = True, fence: bool = False,
+                 planner=None):
         self.enabled = bool(enabled)
         self.fence = bool(fence)
+        self.planner = planner
 
     def dispatch(self, mode: str, device=None):
         """A recording ``Dispatch`` on `device` (its current stream), or
@@ -675,12 +709,13 @@ class Gate:
         PROFILER.last_dispatch_t = time.time()
         if not self.enabled:
             return NOOP_DISPATCH
-        return Dispatch(PROFILER, mode, device, self.fence)
+        return Dispatch(PROFILER, mode, device, self.fence, self.planner)
 
     def observe_stage(self, stage: str, mode: str, seconds: float,
                       nbytes: int = 0) -> None:
         if self.enabled:
-            PROFILER.observe_stage(stage, mode, seconds, nbytes=nbytes)
+            PROFILER.observe_stage(stage, mode, seconds, nbytes=nbytes,
+                                   planner=self.planner)
 
 
 OFF = Gate(enabled=False)

@@ -22,18 +22,19 @@ dictionary stages), the reference's default for this engine.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 
 import torch
 
 from ..observability import profile
-from ..search import dict_probe, packing, query_stats, structural
+from ..search import dict_probe, packing, planner, query_stats, structural
 from ..search.columnar import ColumnarPages
 from ..search.engine import (DEFAULT_TOP_K, ScanEngine, StagedPages,
                              fetch_scan_out, pad_page_axis, resolve_top_k)
 from ..search.kernels import dist as dist_k
 from ..search.multiblock import _to_device, place_spans, rank_share
-from ..search.pipeline import CompiledQuery, compile_query, \
+from ..search.pipeline import CompileCache, CompiledQuery, compile_query, \
     dict_fingerprint
 
 
@@ -71,9 +72,11 @@ class DistributedScanEngine:
         self.probe_min_vals = probe_min_vals
         self.structural_cfg = structural_cfg
         self.profiling = profiling
-        # the local step (unprofiled: the chain is one record), and the
-        # compile cache of the blocks served
+        # the local step (unprofiled: the chain is one record)
         self.local = ScanEngine(self.device, top_k)
+        # the compile cache of the blocks served, with the gate (its host
+        # probe's observations and its planner)
+        self.compile_cache = CompileCache(profiling)
 
     # ---- staging
 
@@ -97,19 +100,33 @@ class DistributedScanEngine:
               else self.probe_min_vals)
         pd = None
         if 0 < mv <= len(pages.val_dict):
-            pd = dataclasses.replace(dict_probe.packed_for(pages),
-                                     n_shards=S)
+            pl = planner.planner_of(self.profiling)
+            fp = dict_fingerprint(pages, pages.key_dict, pages.val_dict)
+            if not planner.stage_veto(pages, fp, n_shards=S, planner=pl):
+                pd = dataclasses.replace(dict_probe.packed_for(pages, pl),
+                                         n_shards=S)
         shards = []
+        t0 = time.perf_counter() if self.profiling.enabled else 0.0
+        nbytes = 0
         for r in ex.ranks:
             cols, rspans = rank_share(host, spans, sharded, E, r, S)
             span_dev, max_run = place_spans(rspans, self.device)
+            nbytes += sum(int(v.nbytes) for v in cols.values()) + sum(
+                int(v.nbytes) for v in (rspans or {}).values())
             shards.append(StagedPages(
                 device={k: _to_device(v, self.device)
                         for k, v in cols.items()},
-                pages=pages, span_device=span_dev, span_max_run=max_run,
-                staged_dict=None if pd is None else
-                dict_probe.place_device_dict(pd.shard(r), self.device,
-                                             self.profiling)))
+                pages=pages, span_device=span_dev, span_max_run=max_run))
+        if self.profiling.enabled:
+            # the sharded put of the local ranks' columns and spans (the
+            # dictionary's copy is observed as mode dict_probe)
+            self.profiling.observe_stage("h2d", "mesh",
+                                         time.perf_counter() - t0,
+                                         nbytes=nbytes)
+        if pd is not None:
+            for r, s in zip(ex.ranks, shards):
+                s.staged_dict = dict_probe.place_device_dict(
+                    pd.shard(r), self.device, self.profiling)
         staged = None if pd is None else dict_probe.ShardedDeviceDict(
             packed=pd, exchange=ex,
             shards=tuple(s.staged_dict for s in shards),
@@ -129,7 +146,7 @@ class DistributedScanEngine:
         expr = structural.structural_query(req, self.structural_cfg)
         pages = sp.pages
         cq = compile_query(pages.key_dict, pages.val_dict, req,
-                           cache_on=pages, cache=self.local.compile_cache,
+                           cache_on=pages, cache=self.compile_cache,
                            staged_dict=sp.staged_dict)
         if cq is not None and expr is not None:
             staged = None if sp.staged_dict is None else {
@@ -150,13 +167,17 @@ class DistributedScanEngine:
         rec.compile_check(("scan", "topk", "dist")
                           + (("structural",) if cq.structural is not None
                              else ()))
-        with rec.launch():
+        with sp.exchange.locked(rec), rec.launch():
             outs, counts, top_s, top_i = dist_k.exchange_merge(
                 sp.exchange, sp.shards, sp.ranks,
                 lambda s, r: self.local.scan_staged_async(s, cq),
                 lambda o: o[:1], lambda o: torch.stack(o[1:3])[:, None],
                 sp.local_flat, k, dist_k.SINGLE_LAUNCHES)
-        rec.set(n_pages=sp.n_pages, shards=sp.exchange.world)
+        if rec.enabled:
+            rec.set(n_pages=sp.n_pages, shards=sp.exchange.world,
+                    scan_bytes=sum(int(t.numel() * t.element_size())
+                                   for s in sp.shards
+                                   for t in s.device.values()))
         return rec.attach((counts.to(outs[0][0].dtype), top_s[0], top_i[0]))
 
     def scan_staged(self, sp: ShardedPages, cq: CompiledQuery) -> tuple:

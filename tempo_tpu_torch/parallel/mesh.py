@@ -23,16 +23,20 @@ The exchange is an object the engines are given:
 Collectives must be issued in one order on every rank, so every
 collective dispatch of a process runs under one lock (``dispatch_lock``)
 whose wait is bounded: a timeout raises ``DispatchLockTimeout``. The port
-has no host route, so unlike the reference it books no breaker fault.
+has no host route, so unlike the reference it books no breaker fault. A
+dispatch takes the lock before its launch window opens, and books the
+wait as its record's ``lock_wait`` stage.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 
+from ..observability import metrics as obs
 from ..search.kernels import LaunchCount
 
 SCAN_AXIS = "shards"
@@ -52,22 +56,45 @@ class DispatchLockTimeout(RuntimeError):
     dispatch is wedged while holding it."""
 
 
+# the depth at which this thread holds dispatch_lock: a dispatch that
+# takes the lock around its launch window holds it through the exchange
+# step inside (kernels.dist.exchange_merge), which re-enters without a wait
+_held = threading.local()
+
+
 @contextlib.contextmanager
-def locked_collective(timeout_s: float = 60.0):
+def locked_collective(timeout_s: float = 60.0, rec=None):
     """Hold ``dispatch_lock``, waiting at most `timeout_s` seconds for it
     (``TempoDBConfig.search_dispatch_lock_timeout_s``; <= 0 waits
-    forever). Raises DispatchLockTimeout when the wait runs out."""
+    forever). Raises DispatchLockTimeout when the wait runs out. The wait
+    is booked as the `lock_wait` stage of `rec` (a profiler record), host
+    wall time, as the reference books it. A thread that already holds the
+    lock through an enclosing ``locked_collective`` re-enters at once."""
+    depth = getattr(_held, "depth", 0)
+    if depth:
+        _held.depth = depth + 1
+        try:
+            yield
+        finally:
+            _held.depth = depth
+        return
+    t0 = time.perf_counter()
     if timeout_s and timeout_s > 0:
         ok = dispatch_lock.acquire(timeout=timeout_s)
     else:
         ok = dispatch_lock.acquire()
     if not ok:
+        obs.dispatch_lock_timeouts.inc()
         raise DispatchLockTimeout(
             f"collective dispatch lock not acquired within {timeout_s:.1f}s"
             " -- another dispatch is wedged while holding it")
+    _held.depth = 1
     try:
+        if rec is not None:
+            rec.add_stage("lock_wait", time.perf_counter() - t0)
         yield
     finally:
+        _held.depth = 0
         dispatch_lock.release()
 
 
@@ -111,8 +138,10 @@ class ShardExchange:
         self.ranks = (self.rank,)
         self.lock_timeout_s = lock_timeout_s
 
-    def locked(self):
-        return locked_collective(self.lock_timeout_s)
+    def locked(self, rec=None):
+        """The collective dispatch lock, its wait booked as `rec`'s
+        lock_wait."""
+        return locked_collective(self.lock_timeout_s, rec)
 
     def all_reduce(self, parts: list) -> torch.Tensor:
         """The sum over ranks of this rank's one part (in place)."""
@@ -148,7 +177,7 @@ class LocalExchange:
         self.world = int(world)
         self.ranks = tuple(range(self.world))
 
-    def locked(self):
+    def locked(self, rec=None):
         return contextlib.nullcontext()
 
     def all_reduce(self, parts: list) -> torch.Tensor:

@@ -14,7 +14,8 @@ port's ``write_search_block``.
   python -m tempo_tpu_torch.parallel.multihost_dryrun        # 2 ranks
 
 ``run`` takes the ranks, a TempoDBConfig's fields and the requests, so a
-test can drive probe, structural, aggregate and eviction paths; it joins
+test can drive probe, structural, aggregate and eviction paths, and may
+force every offload-planner verdict to one side (``planner_force``); it joins
 every worker with a timeout and kills them all when one runs out, so a
 hung collective fails the run instead of waiting.
 """
@@ -116,6 +117,23 @@ def digest(results) -> dict:
             "agg_json": m.agg_json}
 
 
+def force_planner(planner, target: str) -> None:
+    """Feed `planner` observations under which `target` ("host" or
+    "device") wins every probe decision, with no seed: every rank then
+    takes one verdict whatever its own timings."""
+    planner.enabled = True
+    planner.seed_on_first_use = False
+    slow, fast = 10.0, 1e-7
+    planner.observe("host_probe", slow if target == "device" else fast,
+                    nbytes=1024)
+    planner.observe("device_probe", fast if target == "device" else slow,
+                    nbytes=1024)
+    planner.observe("h2d", fast, nbytes=1024)
+    planner.observe("pack", fast, nbytes=1024)
+    for k in ("dispatch", "compile", "collective"):
+        planner._update(k, fast, 0)
+
+
 def worker_main(process_id: int, num_processes: int, port: int,
                 root: str) -> None:
     """One rank: join the group, answer the spec's requests through
@@ -137,6 +155,8 @@ def worker_main(process_id: int, num_processes: int, port: int,
         spec = json.load(f)
     db = TempoDB(LocalBackend(os.path.join(root, "blocks")),
                  TempoDBConfig(**spec["cfg"]), device="cpu")
+    if spec.get("planner_force"):
+        force_planner(db.planner, spec["planner_force"])
     try:
         db.poll()
         answers = [db.search(TENANT, SearchRequest(tags=dict(tags), **kw))
@@ -146,7 +166,8 @@ def worker_main(process_id: int, num_processes: int, port: int,
                  if a.metrics.query_stats_json else None for a in answers]
         out = {"process_id": process_id,
                "world": 1 if db.mesh is None else db.mesh.size(),
-               "responses": [digest(a) for a in answers], "stats": stats}
+               "responses": [digest(a) for a in answers], "stats": stats,
+               "decisions": db.planner.snapshot(0)["decisions"]}
     finally:
         db.close()
     with open(os.path.join(root, f"digest-{process_id}.json"), "w") as f:
@@ -162,21 +183,25 @@ def _free_port() -> int:
 
 def run(n_processes: int = 2, cfg: dict | None = None,
         requests: list | None = None, timeout_s: float = 120.0,
-        root: str | None = None) -> dict:
+        root: str | None = None, planner_force: str | None = None) -> dict:
     """Build the corpus (under `root`, or a temporary directory), spawn
     the rank processes, wait at most `timeout_s` for all of them (then
     kill them all and raise), and check that every rank answered alike
     and that every request whose limit covers its matches returned
     exactly the oracle's traces. Returns {"world", "responses",
     "stats"}: the common answer, one digest per request, and each rank's
-    query stats per request (those of a request with ``explain``)."""
+    query stats per request (those of a request with ``explain``), and
+    each rank's planner decisions by target. `planner_force` ("host" or
+    "device"): every rank's planner on, forced to that verdict
+    (``force_planner``)."""
     cfg = dict(cfg or {})
     requests = requests or default_requests()
     with tempfile.TemporaryDirectory() as tmp:
         root = root or tmp
         build_corpus(root)
         with open(os.path.join(root, "spec.json"), "w") as f:
-            json.dump({"cfg": cfg, "requests": requests}, f)
+            json.dump({"cfg": cfg, "requests": requests,
+                       "planner_force": planner_force}, f)
         port = _free_port()
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
@@ -224,7 +249,8 @@ def run(n_processes: int = 2, cfg: dict | None = None,
                 raise AssertionError(
                     f"{tags} {kw}: {len(ids)} traces, oracle {len(want)}")
     return {"world": n_processes, "responses": base,
-            "stats": [d["stats"] for d in digests]}
+            "stats": [d["stats"] for d in digests],
+            "decisions": [d["decisions"] for d in digests]}
 
 
 if __name__ == "__main__":

@@ -39,6 +39,15 @@ the two kernels. What the grouping keeps from the reference:
   accepted entries, the counts come back on the dispatch's one copy and
   fold into the results group by group. In the coalescer agg queries
   group apart from plain ones;
+- **two tiers**: under the device budget (``cache_bytes``) a host-RAM
+  tier (``host_cache_bytes``) keeps the stacked host batches
+  (``multiblock.HostBatch``), so a batch the device budget evicted
+  re-stages with one host-to-device copy, not IO, decompression and
+  stacking again (the query sees ``hbm_miss_host_hit``). Both budgets
+  charge physical bytes, LRU, each keeping at least one entry;
+- **prewarm**: ``prewarm`` stages groups ahead of queries, in plan order
+  up to the device budget, and makes one throwaway dispatch per batch
+  layout, so the first query loads no kernel library;
 - **deterministic release**: a staging lookahead hands its batch to the
   search and keeps nothing of it, and a flush thread drops the batch and
   its members' queries before it publishes their outputs, so a batch the
@@ -63,8 +72,9 @@ the two kernels. What the grouping keeps from the reference:
   finishes at the first member's fetch.
 
 Left out of this slice on purpose, each listed in ROADMAP.md: the
-breaker's host route and ``host_scan``, the dispatch watchdog, HBM
-ownership and hedging, and the host-RAM tier of the staged cache.
+breaker's host route and ``host_scan`` (with its memo of CPU copies in
+the host tier), the dispatch watchdog, HBM ownership (and with it the
+ownership checks of ``prewarm``) and hedging.
 Nothing here falls back to the CPU: a batch is staged on the engine's
 device and scanned there, and a fused dispatch that raises fails every
 member.
@@ -73,22 +83,28 @@ member.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import heapq
+import os
 import threading
 import time
 import zlib
-import contextlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
+import numpy as np
+
+from ..observability import metrics as obs
 from ..observability import profile
 from . import query_stats, structural
 from .analytics import agg_requested, stage_for_batch
 from .engine import (DEFAULT_TOP_K, fetch_coalesced_out, fetch_scan_out,
                      resolve_top_k)
+from .kernels import build
 from .kernels.scan import MAX_QUERIES
-from .multiblock import MultiBlockEngine, compile_multi, stack_queries
+from .multiblock import (MultiBlockEngine, MultiQuery, ShardedBatch,
+                         compile_multi, stack_queries)
 from .pipeline import block_header_skip_reason, is_exhaustive, tags_sig
 from .results import SearchResults
 
@@ -592,6 +608,7 @@ class BlockBatcher:
     def __init__(self, device, top_k: int = DEFAULT_TOP_K,
                  max_batch_pages: int = 4096,
                  cache_bytes: int = 4 << 30,
+                 host_cache_bytes: int | None = None,
                  pipeline_depth: int = 2,
                  io_workers: int = 8,
                  device_probe_min_vals: int | None = None,
@@ -601,7 +618,10 @@ class BlockBatcher:
                  structural_cfg: structural.StructuralConfig = structural.OFF,
                  analytics_enabled: bool = False,
                  profiling: profile.Gate = profile.OFF):
-        """`coalesce_max_queries` <= 1 disables coalescing: every
+        """`cache_bytes`: the device budget of staged batches;
+        `host_cache_bytes`: the host-RAM tier's (None: min(32 GiB, half
+        the physical RAM), since the tier holds what it keeps).
+        `coalesce_max_queries` <= 1 disables coalescing: every
         dispatch runs at once, on the caller's thread. `packed` stages
         batches in the packed layout (packing.py). `structural_cfg`: the
         database's structural gate and stacking knobs.
@@ -614,6 +634,13 @@ class BlockBatcher:
             profiling=profiling)
         self.max_batch_pages = max_batch_pages
         self.cache_bytes = cache_bytes
+        if host_cache_bytes is None:
+            try:
+                phys = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+            except (ValueError, OSError, AttributeError):
+                phys = 16 << 30
+            host_cache_bytes = min(32 << 30, phys // 2)
+        self.host_cache_bytes = host_cache_bytes
         self.pipeline_depth = max(1, pipeline_depth)
         self.io_workers = io_workers
         self._cache: OrderedDict[tuple, _CachedBatch] = OrderedDict()
@@ -622,6 +649,13 @@ class BlockBatcher:
         self._probe_dict_total = 0
         # _cache_total in the unpacked layout's bytes
         self._cache_logical = 0
+        # the host-RAM tier: group key -> multiblock.HostBatch, LRU, its
+        # physical and logical bytes
+        self._host_cache: OrderedDict[tuple, object] = OrderedDict()
+        self._host_total = 0
+        self._host_logical = 0
+        # batch layouts _warm_compile has dispatched once
+        self._warmed: set = set()
         self._staging: dict[tuple, threading.Event] = {}
         self._prune_cache: OrderedDict = OrderedDict()
         self._plan_cache: OrderedDict = OrderedDict()
@@ -666,24 +700,31 @@ class BlockBatcher:
             self.coalescer.close()
 
     def debug_stats(self) -> dict:
-        """The coalescer's counters, the peer counters and the staged
+        """The coalescer's counters, the peer counters, the staged
         cache's bytes: physical (charged to the budget) and logical (the
         unpacked layout's equivalent; equal when not packed), and the
         ?agg= keys staged on the cached batches (not charged: a batch
-        stages them at its first agg request)."""
+        stages them at its first agg request); and the host tier's
+        batches and bytes against its budget."""
         with self._lock:
             peers = {"interest": dict(self._interest),
                      "unplanned": self._unplanned}
-            cache = {"bytes": self._cache_total,
+            cache = {"batches": len(self._cache),
+                     "bytes": self._cache_total,
                      "logical_bytes": self._cache_logical,
+                     "budget_bytes": self.cache_bytes,
                      "dict_bytes": self._probe_dict_total,
                      "agg_bytes": sum(
                          c.batch.agg_stage.device_nbytes
                          for c in self._cache.values()
                          if c.batch.agg_stage is not None)}
+            host = {"batches": len(self._host_cache),
+                    "bytes": self._host_total,
+                    "logical_bytes": self._host_logical,
+                    "budget_bytes": self.host_cache_bytes}
         return {"coalesce": (self.coalescer.stats()
                              if self.coalescer is not None else None),
-                "peers": peers, "cache": cache}
+                "peers": peers, "cache": cache, "host_cache": host}
 
     # ------------------------------------------------------------------
     # planning
@@ -717,15 +758,38 @@ class BlockBatcher:
     # ------------------------------------------------------------------
     # staged cache
 
-    def _evict_locked(self) -> None:
-        """LRU-evict unpinned batches until the byte budget holds (caller
+    def _publish_gauges_locked(self) -> None:
+        """The occupancy gauges: device and host tier bytes, physical and
+        logical, and the device share of the probe dictionaries (caller
         holds self._lock)."""
+        obs.hbm_cache_bytes.set(self._cache_total)
+        obs.host_cache_bytes.set(self._host_total)
+        obs.probe_dict_bytes.set(self._probe_dict_total)
+        obs.hbm_logical_bytes.set(self._cache_logical)
+        obs.host_logical_bytes.set(self._host_logical)
+
+    def _evict_locked(self) -> None:
+        """LRU-evict unpinned batches until the device budget holds
+        (caller holds self._lock). The host tier keeps their host
+        batches."""
         while self._cache_total > self.cache_bytes and len(self._cache) > 1:
             victim = next((k for k, v in self._cache.items() if v.pins <= 0),
                           None)
             if victim is None:
                 break  # everything pinned: over budget until a drain
             self._drop_locked(victim)
+            obs.batch_cache_events.inc(result="evict")
+        self._publish_gauges_locked()
+
+    def _evict_host_locked(self) -> None:
+        """LRU-evict host batches until the host budget holds, keeping at
+        least one (caller holds self._lock)."""
+        while (self._host_total > self.host_cache_bytes
+               and len(self._host_cache) > 1):
+            _k, old = self._host_cache.popitem(last=False)
+            self._host_total -= old.nbytes
+            self._host_logical -= old.logical_nbytes
+            obs.batch_cache_events.inc(result="host_evict")
 
     def _drop_locked(self, key) -> None:
         """Forget a staged batch (caller holds self._lock). Its arrays and
@@ -737,15 +801,17 @@ class BlockBatcher:
         self._probe_dict_total -= entry.batch.dict_nbytes
 
     def _staged(self, group: list[ScanJob]) -> _CachedBatch:
-        """The group's staged batch: a cache hit, or IO + decompress +
-        stack + one host-to-device copy. Concurrent stagers of one group
-        wait for the first."""
+        """The group's staged batch: a device hit, or its host batch
+        (``_load_host``: a host-tier hit, or IO + decompress + stack) and
+        one host-to-device copy. Concurrent stagers of one group (a
+        search, its lookahead, a prewarm) wait for the first."""
         key = tuple(j.key for j in group)
         while True:
             with self._lock:
                 hit = self._cache.get(key)
                 if hit is not None:
                     self._cache.move_to_end(key)
+                    obs.batch_cache_events.inc(result="hit")
                     return hit
                 ev = self._staging.get(key)
                 if ev is None:
@@ -753,16 +819,11 @@ class BlockBatcher:
                     break
             ev.wait()
         try:
-            if len(group) > 1:
-                with concurrent.futures.ThreadPoolExecutor(
-                        max_workers=min(self.io_workers, len(group))) as ex:
-                    pages = list(ex.map(lambda j: j.pages_fn(), group))
-            else:
-                pages = [group[0].pages_fn()]
-            batch = self.engine.place(self.engine.stage_host(pages))
+            batch = self.engine.place(self._load_host(key, group))
             entry = _CachedBatch(batch=batch, nbytes=batch.nbytes,
                                  logical=batch.logical_nbytes)
             with self._lock:
+                obs.batch_cache_events.inc(result="miss")
                 if key in self._cache:
                     self._drop_locked(key)
                 self._cache[key] = entry
@@ -776,12 +837,123 @@ class BlockBatcher:
                 self._staging.pop(key, None)
             ev.set()
 
+    def _load_host(self, key: tuple, group: list[ScanJob]):
+        """The group's host batch (``multiblock.HostBatch``): a host-tier
+        hit, or IO + decompress + stack outside the lock, then kept in the
+        tier. No device copy."""
+        with self._lock:
+            host = self._host_cache.get(key)
+            if host is not None:
+                self._host_cache.move_to_end(key)
+        if host is not None:
+            obs.batch_cache_events.inc(result="host_hit")
+            return host
+        if len(group) > 1:
+            with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=min(self.io_workers, len(group))) as ex:
+                pages = list(ex.map(lambda j: j.pages_fn(), group))
+        else:
+            pages = [group[0].pages_fn()]
+        host = self.engine.stage_host(pages)
+        with self._lock:
+            old = self._host_cache.pop(key, None)
+            if old is not None:
+                self._host_total -= old.nbytes
+                self._host_logical -= old.logical_nbytes
+            self._host_cache[key] = host
+            self._host_total += host.nbytes
+            self._host_logical += host.logical_nbytes
+            self._evict_host_locked()
+            self._publish_gauges_locked()
+        obs.batch_cache_events.inc(result="host_miss")
+        return host
+
     def invalidate(self, live_block_ids: set[str]) -> None:
-        """Drop staged batches holding blocks no longer in the blocklist."""
+        """Drop staged batches and host batches holding blocks no longer
+        in the blocklist."""
         with self._lock:
             for k in [k for k in self._cache
                       if any(jk[0] not in live_block_ids for jk in k)]:
                 self._drop_locked(k)
+            for k in [k for k in self._host_cache
+                      if any(jk[0] not in live_block_ids for jk in k)]:
+                old = self._host_cache.pop(k)
+                self._host_total -= old.nbytes
+                self._host_logical -= old.logical_nbytes
+            self._publish_gauges_locked()
+
+    def prewarm(self, groups: list[list[ScanJob]], warm_compile: bool = True,
+                stop: threading.Event | None = None) -> int:
+        """Stage `groups` ahead of queries (a poll's background work): in
+        plan order, through the same ``_staged`` as searches, until the
+        device budget is spent on new staging; with `warm_compile`, one
+        throwaway dispatch a batch layout (``_warm_compile``). `stop` ends
+        it between groups. With more than one rank it fills the host tier
+        only: the device cache must change in one order on every rank.
+        Returns the groups staged."""
+        staged = 0
+        budget = self.cache_bytes
+        for group in groups:
+            if stop is not None and stop.is_set():
+                break
+            if budget <= 0:
+                break
+            key = tuple(j.key for j in group)
+            if self._serial:
+                with self._lock:
+                    resident = key in self._host_cache
+                if not resident:
+                    budget -= self._load_host(key, group).nbytes
+                    staged += 1
+                continue
+            with self._lock:
+                resident = key in self._cache
+            cached = self._staged(group)
+            # only new staging spends the budget: resident hits would
+            # spend it on the warm prefix at every poll
+            if not resident:
+                budget -= cached.nbytes
+                staged += 1
+            if stop is not None and stop.is_set():
+                break
+            if warm_compile:
+                self._warm_compile(cached)
+        return staged
+
+    def _warm_compile(self, cached: _CachedBatch) -> None:
+        """Throwaway dispatches over a staged batch, once a layout (packed
+        widths, kv dtypes, a span segment, a mesh), at the reference's
+        term counts 0 and 2, matching nothing: they load every kernel
+        library the batch's routes launch (the profiler's ``compile``
+        stage) before the first query, and with the database's ?agg= gate
+        on, agg's. No response and no query stats see them."""
+        batch = cached.batch
+        sharded = isinstance(batch, ShardedBatch)
+        dev = (batch.shards[0] if sharded else batch).device
+        spans = (batch.shards[0] if sharded else batch).span_device
+        sig = (batch.widths, str(dev["kv_key"].dtype),
+               str(dev["kv_val"].dtype), spans is not None, sharded,
+               self.analytics_enabled)
+        with self._lock:
+            if sig in self._warmed:
+                return
+            self._warmed.add(sig)
+        B = len(batch.blocks)
+        for n_terms in (0, 2):
+            T = max(1, n_terms)
+            mq = MultiQuery(
+                term_keys=np.full((B, T), -1, dtype=np.int32),
+                val_ranges=np.tile(np.array([1, 0], dtype=np.int32),
+                                   (B, T, 1, 1)),
+                dur_lo=1, dur_hi=0,     # an empty range: no match
+                win_start=1, win_end=0, limit=20, n_terms=n_terms)
+            # no query's collector is open here: no stats book it
+            fetch_scan_out(self.engine.scan_async(batch, mq))
+        libs = (("structural",) if spans is not None else ()) + \
+            (("agg",) if self.analytics_enabled else ())
+        if libs and self.engine.device.type == "cuda":
+            for name in libs:
+                build.load(name)
 
     # ------------------------------------------------------------------
     # search
@@ -1000,10 +1172,12 @@ class BlockBatcher:
                 k = tuple(j.key for j in g)
                 with self._lock:
                     resident = k in self._cache
+                    host_res = k in self._host_cache
                 if not resident and k not in prefetched:
                     ahead = _Lookahead()
                     prefetched[k] = (ahead, self._prefetcher.submit(
-                        ahead.run, self._staged, g), "hbm_miss_cold")
+                        ahead.run, self._staged, g),
+                        "hbm_miss_host_hit" if host_res else "hbm_miss_cold")
                 return
 
         # resident groups dispatch first: a cold group's staging then
@@ -1029,13 +1203,16 @@ class BlockBatcher:
                 t0 = time.perf_counter() if qs is not None else 0.0
                 ahead = prefetched.pop(gkey, None)
                 if qs is not None:
-                    # the staged cache as this query saw it (the port has
-                    # no host-RAM tier: a miss is always cold)
+                    # the staged cache as this query saw it; a lookahead's
+                    # event was judged when it started, since by now it
+                    # has cached the batch
                     if ahead is not None:
                         event = ahead[2]
                     else:
                         with self._lock:
                             event = ("hbm_hit" if gkey in self._cache
+                                     else "hbm_miss_host_hit"
+                                     if gkey in self._host_cache
                                      else "hbm_miss_cold")
                 cached = (ahead[0].take() if ahead is not None
                           else self._staged(group))

@@ -66,6 +66,9 @@ class PackedDeviceDict:
     off: np.ndarray        # int32 [V+1]
     # value-axis shards on a mesh (1: one device holds every value)
     n_shards: int = 1
+    # the block's dictionary digest (pipeline.dict_fingerprint), when
+    # packed for a block: the planner's key for its probe observations
+    fingerprint: bytes | None = None
 
     @property
     def nbytes(self) -> int:
@@ -139,11 +142,14 @@ class ShardedDeviceDict:
         return self.packed.nbytes
 
 
-def pack_device_dict(val_dict: list, n_shards: int = 1) -> PackedDeviceDict:
+def pack_device_dict(val_dict: list, n_shards: int = 1, planner=None,
+                     fingerprint: bytes | None = None) -> PackedDeviceDict:
     """Concatenate a sorted value dictionary's UTF-8 bytes and record each
     value's offset; `n_shards` > 1 splits it over a mesh's value axis
     (``PackedDeviceDict.shard``). Raises ValueError past int32 byte
-    addressing."""
+    addressing. The packing's time feeds `planner`'s pack rate (an
+    offload planner; a no-op while it is off)."""
+    t0 = time.perf_counter()
     blobs = [v.encode("utf-8") for v in val_dict]
     off = np.zeros(len(blobs) + 1, dtype=np.int64)
     np.cumsum(np.fromiter(map(len, blobs), dtype=np.int64,
@@ -151,8 +157,13 @@ def pack_device_dict(val_dict: list, n_shards: int = 1) -> PackedDeviceDict:
     if off[-1] >= 2**31:
         raise ValueError("dictionary exceeds int32 byte addressing")
     buf = np.frombuffer(b"".join(blobs), dtype=np.uint8)
-    return PackedDeviceDict(n_vals=len(blobs), buf=buf,
-                            off=off.astype(np.int32), n_shards=n_shards)
+    out = PackedDeviceDict(n_vals=len(blobs), buf=buf,
+                           off=off.astype(np.int32), n_shards=n_shards,
+                           fingerprint=fingerprint)
+    if planner is not None:
+        planner.observe("pack", time.perf_counter() - t0,
+                        nbytes=int(buf.nbytes))
+    return out
 
 
 def place_device_dict(packed: PackedDeviceDict, device: torch.device,
@@ -171,14 +182,19 @@ def place_device_dict(packed: PackedDeviceDict, device: torch.device,
     return DeviceDict(packed=packed, buf=buf, off=off, profiling=profiling)
 
 
-def packed_for(pages) -> PackedDeviceDict:
+def packed_for(pages, planner=None) -> PackedDeviceDict:
     """The packed value dictionary of a block container, memoized on it
     (containers are immutable), so an evicted batch re-stages with one
-    copy and no re-pack."""
+    copy and no re-pack. It carries the block's dictionary digest. A
+    packing made here feeds `planner`'s pack rate."""
     packed = getattr(pages, "_device_dict_packed", None)
     if packed is None:
+        from .pipeline import dict_fingerprint
+
         packed = pages._device_dict_packed = pack_device_dict(
-            pages.val_dict)
+            pages.val_dict, planner=planner,
+            fingerprint=dict_fingerprint(pages, pages.key_dict,
+                                         pages.val_dict))
     return packed
 
 
@@ -186,9 +202,13 @@ def stage_val_dict(val_dict: list, device: torch.device,
                    cache_on=None,
                    profiling: profile.Gate = profile.OFF) -> DeviceDict:
     """pack + place; with `cache_on` (the ColumnarPages holding
-    `val_dict`) the packing is memoized on it."""
-    packed = (pack_device_dict(val_dict) if cache_on is None
-              else packed_for(cache_on))
+    `val_dict`) the packing is memoized on it. The packing feeds the
+    gate's planner."""
+    from .planner import planner_of
+
+    pl = planner_of(profiling)
+    packed = (pack_device_dict(val_dict, planner=pl) if cache_on is None
+              else packed_for(cache_on, pl))
     return place_device_dict(packed, device, profiling)
 
 
@@ -218,17 +238,25 @@ def probe_value_hits(ddev, needles: list, words: bool = False):
     rec.add_bytes(h2d=arr.numel() + lens.numel() * 4)
     sharded = isinstance(ddev, ShardedDeviceDict)
     rec.compile_check(("probe", "dist") if sharded else ("probe",))
+    if rec.enabled:
+        # the planner's device-rate feed: the work (terms x staged bytes)
+        # and the dictionary, to resolve its decision's error
+        fp = ddev.packed.fingerprint
+        rec.set(n_vals=ddev.n_vals, n_terms=len(needles),
+                probe_bytes=len(needles) * ddev.nbytes,
+                fp=None if fp is None else fp.hex()[:16])
     if not sharded:
         with rec.launch():
             out = probe_k.dict_probe(ddev.buf, ddev.off, *args)
         rec.detach()
         return out
     ex = ddev.exchange
-    with rec.launch():
-        with ex.locked():
-            gathered = ex.all_gather(
-                [probe_k.dict_probe(d.buf, d.off, *args)[0]
-                 for d in ddev.shards])                 # [S, T, vs(/32)]
+    # the collective lock before the launch window: its wait is the
+    # record's lock_wait
+    with ex.locked(rec), rec.launch():
+        gathered = ex.all_gather(
+            [probe_k.dict_probe(d.buf, d.off, *args)[0]
+             for d in ddev.shards])                     # [S, T, vs(/32)]
         S, T, w = gathered.shape
         hits = gathered.permute(1, 0, 2).reshape(T, S * w)
         any_hits = (hits != 0).any(dim=1) if words else hits.any(dim=1)

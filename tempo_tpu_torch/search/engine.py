@@ -134,10 +134,19 @@ def stage_block_dict(pages: ColumnarPages, device: torch.device,
                      profiling: profile.Gate = profile.OFF):
     """The block's value dictionary on the device when it has at least
     `probe_min_vals` values (None = dict_probe.DEVICE_PROBE_MIN_VALS;
-    <= 0 never), else None. It carries `profiling`, its probe's gate."""
+    <= 0 never) and the gate's offload planner, when on, does not keep
+    its probe on the host (``planner.stage_veto``), else None. It carries
+    `profiling`, its probe's gate."""
+    from .pipeline import dict_fingerprint
+    from .planner import planner_of, stage_veto
+
     mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
           else probe_min_vals)
     if mv <= 0 or len(pages.val_dict) < mv:
+        return None
+    if stage_veto(pages,
+                  dict_fingerprint(pages, pages.key_dict, pages.val_dict),
+                  planner=planner_of(profiling)):
         return None
     return dict_probe.stage_val_dict(pages.val_dict, device, cache_on=pages,
                                      profiling=profiling)
@@ -247,7 +256,10 @@ class ScanEngine:
                 d.get("entry_dur_res"), verdicts)
             top_scores, top_idx = topk(scores, resolve_top_k(self.top_k,
                                                              cq.limit))
-        rec.set(n_pages=sp.pages.n_pages)
+        if rec.enabled:
+            rec.set(n_pages=sp.pages.n_pages,
+                    scan_bytes=sum(int(t.numel() * t.element_size())
+                                   for t in d.values()))
         return rec.attach((counts, top_scores, top_idx))
 
     def scan_staged(self, sp: StagedPages, cq: CompiledQuery) -> tuple:

@@ -43,6 +43,7 @@ gives the single-device answer exactly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
@@ -196,24 +197,35 @@ def _narrow(n: int):
 
 
 def pack_batch_dicts(blocks: list[ColumnarPages],
-                     probe_min_vals: int | None, n_shards: int = 1) -> dict:
+                     probe_min_vals: int | None, n_shards: int = 1,
+                     planner=None) -> dict:
     """fp -> PackedDeviceDict for every distinct value dictionary with at
     least `probe_min_vals` values (None = dict_probe's default; <= 0
     disables), split over `n_shards` value shards. The packing memoizes
     on the immutable block container, so an evicted batch re-stacked from
-    the same blocks packs nothing."""
+    the same blocks packs nothing. With an offload `planner` that is on,
+    each distinct dictionary gets one stage-site decision
+    (``planner.stage_veto``), and a host verdict leaves it unpacked and
+    unstaged: the batch keeps that verdict until it is stacked again."""
+    from .planner import stage_veto
+
     mv = (dict_probe.DEVICE_PROBE_MIN_VALS if probe_min_vals is None
           else probe_min_vals)
     out: dict = {}
     if mv <= 0:
         return out
+    vetoed: set = set()   # host verdicts: one decision a dictionary too
     for b in blocks:
         if len(b.val_dict) < mv:
             continue
         fp = dict_fingerprint(b, b.key_dict, b.val_dict)
-        if fp not in out:
-            out[fp] = dataclasses.replace(dict_probe.packed_for(b),
-                                          n_shards=n_shards)
+        if fp in out or fp in vetoed:
+            continue
+        if stage_veto(b, fp, n_shards=n_shards, planner=planner):
+            vetoed.add(fp)
+            continue
+        out[fp] = dataclasses.replace(dict_probe.packed_for(b, planner),
+                                      n_shards=n_shards)
     return out
 
 
@@ -221,7 +233,7 @@ def stack_host(blocks: list[ColumnarPages],
                pad_to: int | None = None,
                probe_min_vals: int | None = 0,
                packed: bool = False, spans: bool = False,
-               n_shards: int = 1) -> HostBatch:
+               n_shards: int = 1, planner=None) -> HostBatch:
     """Concatenate blocks of one entries-per-page along the page axis.
 
     The kv columns narrow to the smallest dtype the group's largest
@@ -241,7 +253,8 @@ def stack_host(blocks: list[ColumnarPages],
     (``packing.device_view``). With `spans` (the structural gate on), the
     blocks' span segments stack too (``structural.stack_spans``).
     `n_shards` splits the probe dictionaries over a mesh's value axis
-    (``dict_probe.PackedDeviceDict.shard``)."""
+    (``dict_probe.PackedDeviceDict.shard``); `planner` (an offload planner)
+    may keep a dictionary's probe on the host (``pack_batch_dicts``)."""
     E = blocks[0].geometry.entries_per_page
     C = C0 = max(b.geometry.kv_per_entry for b in blocks)
     n_keys = max(len(b.key_dict) for b in blocks)
@@ -311,7 +324,7 @@ def stack_host(blocks: list[ColumnarPages],
     return HostBatch(cat=cat, page_block=page_block, blocks=blocks,
                      page_offset=page_offset,
                      packed_dicts=pack_batch_dicts(blocks, probe_min_vals,
-                                                   n_shards),
+                                                   n_shards, planner),
                      widths=widths, cat_logical_nbytes=logical,
                      span_cat=span_cat)
 
@@ -734,12 +747,15 @@ class MultiBlockEngine:
         least multiple of S), the probe dictionaries split over S value
         shards, and with ``shard_spans`` the span segment takes
         ``structural.shard_span_segment``'s layout."""
+        from .planner import planner_of
+
         total = sum(b.n_pages for b in blocks)
+        pl = planner_of(self.profiling)
         if self.exchange is None:
             return stack_host(blocks, pad_to=_pow2(total),
                               probe_min_vals=self.device_probe_min_vals,
                               packed=self.packed,
-                              spans=self.structural_cfg.enabled)
+                              spans=self.structural_cfg.enabled, planner=pl)
         S = self.exchange.world
         pad_to = structural.remainder_pad(self.structural_cfg, total, S)
         if pad_to is None:
@@ -749,7 +765,8 @@ class MultiBlockEngine:
         host = stack_host(blocks, pad_to=pad_to,
                           probe_min_vals=self.device_probe_min_vals,
                           packed=self.packed,
-                          spans=self.structural_cfg.enabled, n_shards=S)
+                          spans=self.structural_cfg.enabled, n_shards=S,
+                          planner=pl)
         if host.span_cat is not None:
             sh = structural.shard_span_segment(
                 self.structural_cfg, host.span_cat, S, pad_to,
@@ -790,11 +807,17 @@ class MultiBlockEngine:
         with rec.stage("build"):
             self._upload_tables(mq)
         rec.compile_check(self._libs(mq.structural, mq.agg_stage, sharded))
-        with rec.launch():
+        # on a mesh the collective lock is taken before the launch window
+        # opens: its wait is the record's lock_wait, not its execute
+        with (batch.exchange.locked(rec) if sharded
+              else contextlib.nullcontext()), rec.launch():
             out = (self.dist_scan_async(batch, mq) if sharded else
                    self._local_scan(batch, mq,
                                     resolve_top_k(self.top_k, mq.limit)))
-        rec.set(kernel="multi", blocks=len(batch.blocks))
+        if rec.enabled:
+            # scan_bytes: the planner's scan-rate feed (physical bytes)
+            rec.set(kernel="multi", blocks=len(batch.blocks),
+                    scan_bytes=batch.device_nbytes)
         return rec.attach(out)
 
     @staticmethod
@@ -899,11 +922,14 @@ class MultiBlockEngine:
             rec.add_bytes(h2d=sum(int(t.numel() * t.element_size())
                                   for t in tables[:7]))
         rec.compile_check(self._libs(cq.structural, cq.agg_stage, sharded))
-        with rec.launch():
+        with (batch.exchange.locked(rec) if sharded
+              else contextlib.nullcontext()), rec.launch():
             out = (self.dist_coalesced_scan_async(batch, cq, top_k, tables)
                    if sharded else
                    self._local_coalesced(batch, cq, tables, top_k))
-        rec.set(kernel="coalesced", queries=cq.n_queries)
+        if rec.enabled:
+            rec.set(kernel="coalesced", queries=cq.n_queries,
+                    scan_bytes=batch.device_nbytes)
         return rec.attach(out)
 
     def dist_coalesced_scan_async(self, batch: ShardedBatch,

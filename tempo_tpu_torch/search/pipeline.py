@@ -15,7 +15,9 @@ the block's sorted value dictionary, on one of two routes:
   before anything is launched.
 
 A term whose key or value set is empty prunes the block before any scan.
-The reference's native memmem host walk is a later slice of the port.
+With the engine's offload planner on (``planner.py``), a staged
+dictionary's terms go to K3 only where the planner's cost model places
+them; its host verdict takes the host walk, with the same answer.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..observability import profile
 from ..ops import native
 from . import dict_probe, packing
 from .analytics import AGG_QUERY_TAG
+from .planner import dict_bytes_est, planner_of
 from .structural import STRUCTURAL_QUERY_TAG
 
 UINT32_MAX = 0xFFFFFFFF
@@ -282,7 +285,7 @@ def compile_query(key_dict: list, val_dict: list, req,
         if hit is not None:
             return None if isinstance(hit, str) else _from_probe(hit, req)
     out = _probe_tags(key_dict, val_dict, req, staged_dict, packed,
-                      None if cache is None else cache.profiling)
+                      None if cache is None else cache.profiling, fp)
     if sig is not None:
         cache.put(fp, sig, _PRUNED if out is None else out)
     return None if out is None else _from_probe(out, req)
@@ -300,26 +303,35 @@ def _from_probe(probe, req) -> CompiledQuery:
 
 
 def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
-                packed: bool = False, profiling=None):
+                packed: bool = False, profiling=None, fp=None):
     """The tags-only part of compilation: the device probe when the
-    dictionary is staged and every needle fits the kernel, else the host
-    walk. Returns (term_keys, val_ranges, val_hits) or None (pruned)."""
+    dictionary is staged, every needle fits the kernel and (with the
+    offload planner on) the planner places the probe on the device; else
+    the host walk. Returns (term_keys, val_ranges, val_hits) or None
+    (pruned). `profiling`: the engine's gate (its observations and its
+    planner); `fp`: the dictionary's digest, when known."""
     exhaustive = is_exhaustive(req)
     terms = request_terms(req)
+    if profiling is None and staged_dict is not None:
+        profiling = staged_dict.profiling
+    pl = planner_of(profiling)
     if staged_dict is not None and terms and max(
             len(v.encode("utf-8")) for _, v in terms) \
-            <= dict_probe.MAX_NEEDLE_BYTES:
+            <= dict_probe.MAX_NEEDLE_BYTES \
+            and _use_device_probe(staged_dict, terms, fp, pl):
         return _device_probe_tags(terms, key_dict, staged_dict, exhaustive,
                                   packed)
     if not terms:
         return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
     # the host walk is host work this query paid for: booked as the
     # query's host probe and host bytes (the reference's estimate of the
-    # dictionary's bytes), and observed as stage build, mode host_probe
+    # dictionary's bytes), observed as stage build, mode host_probe, and
+    # fed to the planner's host rate with the dictionary's digest
     from . import query_stats
 
     qs = query_stats.current()
-    timed = qs is not None or (profiling is not None and profiling.enabled)
+    timed = qs is not None or pl.enabled or (
+        profiling is not None and profiling.enabled)
     t0 = time.perf_counter() if timed else 0.0
     try:
         return _host_probe_tags(terms, key_dict, val_dict, exhaustive)
@@ -329,23 +341,28 @@ def _probe_tags(key_dict: list, val_dict: list, req, staged_dict=None,
             nb = len(terms) * dict_bytes_est(val_dict)
             if profiling is not None:
                 profiling.observe_stage("build", "host_probe", dt, nbytes=nb)
+            pl.observe("host_probe", dt, nbytes=nb, fp=fp)
             if qs is not None:
                 qs.add_host_probe(dt, nb)
                 qs.add_inspected(nbytes=nb, placement="host")
 
 
-def dict_bytes_est(val_dict: list) -> int:
-    """Estimated UTF-8 bytes of a value dictionary, from an evenly spaced
-    sample of 256 values (the reference planner's estimate)."""
-    n = len(val_dict)
-    if n == 0:
-        return 0
-    if n <= 256:
-        return sum(len(v.encode("utf-8")) for v in val_dict)
-    step = n // 256
-    sample = val_dict[::step][:256]
-    return int(sum(len(v.encode("utf-8")) for v in sample)
-               / len(sample) * n)
+def _use_device_probe(staged_dict, terms, fp, planner) -> bool:
+    """Placement of a staged dictionary's substring probe. With the
+    planner off, staged means device (the static path). On, the cost
+    model chooses, and its host verdict takes the exact host walk though
+    the dictionary is staged. The verdict memoizes through the compile
+    cache: one per (dictionary, tag-set), shared by every block of the
+    group and every member of a fused dispatch."""
+    if not planner.enabled:
+        return True
+    pk = staged_dict.packed
+    # the dictionary's real bytes are the packed buffer's
+    d = planner.decide_probe(
+        n_vals=pk.n_vals, dict_bytes=int(pk.buf.nbytes), n_terms=len(terms),
+        resident=True, packed=True, staged_bytes=staged_dict.nbytes,
+        n_shards=pk.n_shards, fp=pk.fingerprint or fp, site="compile")
+    return d.target == "device"
 
 
 def _device_probe_tags(terms, key_dict, staged_dict, exhaustive,

@@ -9,9 +9,10 @@ so every search accumulates:
   - blocks scanned and skipped, with the skip reason (time_range,
     duration, dict);
   - bytes inspected on the host and on the device;
-  - the staged cache as this query saw it (hbm_hit, hbm_miss_cold,
-    probe_dict_staged; the port has no host-RAM tier, so never
-    hbm_miss_host_hit);
+  - the staged cache as this query saw it (hbm_hit, hbm_miss_host_hit,
+    hbm_miss_cold, probe_dict_staged);
+  - the offload planner's verdicts taken for it (target and predicted
+    ms);
   - staged bytes read, physical and logical (packed residency);
   - host stages, and per-stage device seconds attributed from its
     dispatches' profiler records (``observability/profile.py``). A fused

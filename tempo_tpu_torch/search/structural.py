@@ -1,7 +1,8 @@
 """Structural query engine, host half: gate, compile, stacking, staging.
 
-Counterpart of the reference's ``search/structural.py`` without its
-explain tree. A structural request carries an IR tree
+Counterpart of the reference's ``search/structural.py``, with its
+explain tree (``CompiledStructural.explain``, priced by the offload
+planner's scan rate). A structural request carries an IR tree
 (``search/ir.py``) in the reserved tag ``x-structural-q``. Per staged
 batch the tree compiles (``compile_structural``) into
 
@@ -420,6 +421,33 @@ class CompiledStructural:
         over its members (query_stats.apportion)."""
         return int(sum(t.numel() if hasattr(t, "numel") else int(t.size)
                        for t in self.tables() if t is not None))
+
+    def explain(self, measured_device_s: float | None = None,
+                rate_s_per_byte: float | None = None,
+                planner=None) -> dict:
+        """The compiled plan tree: per node its op, parameters, estimated
+        bytes and ms (the bytes through `rate_s_per_byte`, else through
+        the planner's live scan rate: `planner`, or the process planner),
+        and, given a measured kernel total, its share of it by bytes (one
+        fused kernel has no per-node timer)."""
+        from .planner import PLANNER
+
+        p = PLANNER if planner is None else planner
+        total_bytes = max(1, sum(self.node_bytes.values()))
+        out: dict = {"nodes": []}
+        for nid, op, detail in self.node_info:
+            nb = self.node_bytes.get(nid, 0)
+            rate = (rate_s_per_byte if rate_s_per_byte is not None
+                    else p.rate("scan", nb))
+            node = {"id": nid, "op": op, "est_bytes": int(nb),
+                    "est_ms": round(nb * rate * 1e3, 6)}
+            if detail:
+                node["detail"] = detail
+            if measured_device_s is not None:
+                node["device_ms"] = round(
+                    measured_device_s * (nb / total_bytes) * 1e3, 6)
+            out["nodes"].append(node)
+        return out
 
     def lanes(self) -> Lanes:
         """This query as K6's single lane (memoized)."""

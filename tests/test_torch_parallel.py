@@ -513,6 +513,34 @@ def _local_db(corpus, S, fields, **kw):
     return db
 
 
+def _settle(batcher) -> None:
+    """Wait out every staging lookahead the batcher's searches left
+    running: a task a worker of its prefetch pool, all held at one
+    barrier, can only meet there once every earlier task has ended."""
+    n = batcher._prefetcher._max_workers
+    barrier = threading.Barrier(n + 1)
+    futs = [batcher._prefetcher.submit(barrier.wait, 60) for _ in range(n)]
+    barrier.wait(60)
+    for f in futs:
+        f.result()
+
+
+def _hold_only(db, keys: set) -> None:
+    """Make `keys` the database's staged groups, exactly: settle its
+    lookaheads, drop every other group, stage the missing ones."""
+    b = db.batcher
+    _settle(b)
+    with b._lock:
+        for k in [k for k in b._cache if k not in keys]:
+            b._drop_locked(k)
+    epoch = db.blocklist.epoch()
+    jobs, _fallback = db._jobs(TENANT, epoch)
+    for g in b.plan(jobs):
+        if tuple(j.key for j in g) in keys:
+            b._staged(g)
+    assert set(b._cache) == keys
+
+
 @pytest.mark.parametrize("layout", ["replicated", "shard_spans",
                                     "remainder"])
 @pytest.mark.parametrize("S", WORLDS)
@@ -522,16 +550,29 @@ def test_tempodb_over_local_exchange_equals_one_device(corpus, S, layout):
                   TempoDBConfig(**fields), device="cpu")
     one.poll()
     db = _local_db(corpus, S, fields)
+    twin = _local_db(corpus, S, fields)
+    small = None
     try:
         assert _answers(db) == _answers(one)
-        # a staged-cache budget small enough to evict, twice over
+        # a staged-cache budget small enough to evict, twice over. Which
+        # groups an early-quitting request scans depends on which are
+        # staged (resident groups dispatch first, as in the reference), so
+        # each request goes to `small` and to a database of the default
+        # budget holding the same staged group, both settled first
         small = _local_db(corpus, S, fields, search_batch_cache_bytes=1)
-        assert _answers(small) == _answers(one)
+        for t, kw in REQS:
+            _settle(small.batcher)
+            _hold_only(twin, set(small.batcher._cache))
+            req = SearchRequest(tags=dict(t), **kw)
+            assert md.digest(small.search(TENANT, req)) == \
+                md.digest(twin.search(TENANT, req)), (t, kw)
         assert len(small.batcher._cache) == 1
-        small.close()
     finally:
+        if small is not None:
+            small.close()
         one.close()
         db.close()
+        twin.close()
 
 
 @pytest.mark.parametrize("S,layout", [(2, "replicated"), (4, "shard_spans"),

@@ -492,6 +492,44 @@ def test_k6_plain_matches_trace_mask(packed, probe_min):
     assert (hits > 0) == bool(probe_min)
 
 
+def test_explain_tree_matches_the_reference():
+    """``CompiledStructural.explain``: each node's op, detail, estimated
+    bytes and ms and its share of a measured total equal the
+    reference's, at a given rate and at the planners' cold scan rate."""
+    from tempo_tpu.search.planner import OffloadPlanner as RefPlanner
+
+    from tempo_tpu_torch.search.planner import OffloadPlanner
+
+    def ref_tree(tree):
+        # the port's desc walks where the reference doubles (a deliberate
+        # difference), and its node says so
+        for nd in tree["nodes"]:
+            if nd.get("detail") == "pointer-doubling ancestor join":
+                nd["detail"] = "ancestor join"
+        return tree
+
+    port, ref = _blocks(22)
+    eng, batch, _rhost = _stage_both(port, ref, False, 0)
+    rbatch = RefEngine(top_k=512, device_probe_min_vals=0).stage(ref)
+    n = 0
+    for expr in fixed_and_fuzz(23, 12):
+        st = structural.compile_structural(expr, port, memo=batch.memo)
+        rst = ref_structural.compile_structural(ref_expr(expr), ref,
+                                                cache_on=rbatch)
+        for kw in ({"rate_s_per_byte": 2.5e-10},
+                   {"rate_s_per_byte": 1e-9, "measured_device_s": 0.0125}):
+            assert st.explain(**kw) == ref_tree(rst.explain(**kw)), \
+                ir.to_json(expr)
+        # no rate given: the planner's scan rate (a cold one's prior)
+        cold, rcold = OffloadPlanner(), RefPlanner()
+        assert st.explain(planner=cold) == {"nodes": [
+            dict(nd, est_ms=round(nd["est_bytes"] * rcold.rate(
+                "scan", nd["est_bytes"]) * 1e3, 6))
+            for nd in ref_tree(rst.explain(rate_s_per_byte=0.0))["nodes"]]}
+        n += len(st.explain()["nodes"])
+    assert n
+
+
 def _bucket_groups(seed: int, n: int, max_nodes: int = 16) -> list:
     """Random plans grouped by canonical bucket, groups of 2-8 members
     with at least two distinct plans."""
